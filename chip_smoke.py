@@ -1,0 +1,352 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch port's main path on one CUDA card and hold every CUDA
+kernel against its plain PyTorch version.
+
+Run from the root of a checkout, with no arguments:
+
+    python3 chip_smoke.py
+
+Phases, each of which fails the run on any error:
+
+1. the toolchain and the card: torch, CUDA, nvcc, the card's name and
+   power limit; no card means exit 1 before anything else;
+2. the build of every CUDA kernel from the checkout's sources;
+3. kernels: each kernel against its plain version on the card, at the
+   main path's shapes (batch 64 of GSPN-2-T at 224²: G = 128 planes,
+   G_w = 64, H = W = 56/28/14/7), the 1024² stage-1 shape (G = 32,
+   H = W = 256), a ragged shape (H = 19, W = 37, cpw 1 and 4) and a
+   chunked one, in float32 (tolerance 1e-5 of the largest magnitude) and
+   bfloat16 streams (1e-2); at the main-path and 1024² shapes, the device
+   time per launch of the kernel and of the plain version (CUDA-graph
+   replays timed by CUDA events, median of 20) and of one eager call;
+4. model: GSPN-2-T classification forward at 224², batch 64, weights from
+   a seeded generator, images from ``synth_images``; the kernel path
+   against the plain path on the card (TF32 off for convolutions and
+   matrix products, 1e-4 of the largest logit), one counted forward that
+   must launch the pair kernel 52 times and never call a plain scan, the
+   forward's images/s over 10 timed runs, a profile of one forward
+   (device time by kernel, idle share, the forward as one CUDA graph);
+   and the reduced model on the card against the plain path on the CPU.
+
+It prints a ``{"kernels": [...]}`` line and, last, the ``{"ok": true, ...}``
+line.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import pathlib
+import statistics
+import subprocess
+import sys
+import time
+
+import torch
+
+ROOT = pathlib.Path(__file__).resolve().parent
+
+# H100 SXM peaks (NVIDIA data sheet): HBM bandwidth and f32 outside the
+# tensor cores, at the 700 W power limit.
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_F32_OPS_PER_S = 67e12
+# The scan does 4 multiplies and 3 adds per output element.
+OPS_PER_ELEMENT = 7
+MAIN_WIDTHS = (56, 28, 14, 7)
+BATCH = 64
+REPLACES = {
+    "gspn_pair_fwd": "src/repro/kernels/gspn_multidir.py:165",
+    "gspn_scan_fwd": "src/repro/kernels/gspn_scan.py:224",
+}
+SOURCE = "src/repro_torch/kernels/csrc/gspn_scan.cu"
+
+
+def _run(cmd) -> str:
+    return subprocess.run(cmd, check=True, capture_output=True,
+                          text=True).stdout.strip()
+
+
+def _median_ms(fn, n: int = 20, warmup: int = 3) -> float:
+    """Median over ``n`` calls of CUDA-event time around one call of
+    ``fn``: device time plus whatever host time the call leaves the card
+    idle for."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(n):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def _graph_ms(fn, per_graph: int, n: int = 20) -> float:
+    """Device time of one call of ``fn``: ``per_graph`` calls captured in a
+    CUDA graph, the median of ``n`` timed replays divided by
+    ``per_graph``.  Replays leave out the host's launch overhead."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(per_graph):
+            fn()
+    ms = _median_ms(graph.replay, n=n) / per_graph
+    del graph
+    return ms
+
+
+def _scan_inputs(gen, g, h, w, cpw, dtype, pair):
+    lead = (2,) if pair else ()
+    dev = "cuda"
+    x = torch.randn((g, h, w), generator=gen, device=dev)
+    taps = torch.softmax(torch.randn(lead + (g // cpw, h, w, 3),
+                                     generator=gen, device=dev), dim=-1)
+    lam = torch.rand(lead + (g, h, w), generator=gen, device=dev)
+    return tuple(t.to(dtype).contiguous()
+                 for t in (x, taps[..., 0], taps[..., 1], taps[..., 2], lam))
+
+
+def kernel_phase(gen):
+    from repro_torch.kernels import gspn_multidir, gspn_scan
+
+    kernels = {
+        "gspn_scan_fwd": (gspn_scan.gspn_scan_fwd,
+                          gspn_scan.gspn_scan_fwd_torch, False),
+        "gspn_pair_fwd": (gspn_multidir.gspn_scan_bidir,
+                          gspn_multidir.gspn_scan_bidir_torch, True),
+    }
+    cases = []
+    for dtype in (torch.float32, torch.bfloat16):
+        cases += [(2 * BATCH, w, w, 2, None, dtype, True) for w in MAIN_WIDTHS]
+        cases += [(32, 256, 256, 2, None, dtype, True),
+                  (8, 19, 37, 1, None, dtype, False),
+                  (8, 19, 37, 4, None, dtype, False),
+                  (8, 38, 37, 4, 19, dtype, False)]
+    tol = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
+    results = []
+    for name, (kernel, plain, pair) in kernels.items():
+        for g, h, w, cpw, chunk, dtype, timed in cases:
+            args = _scan_inputs(gen, g, h, w, cpw, dtype, pair)
+            got = kernel(*args, chunk=chunk)
+            want = plain(*args, chunk=chunk)
+            torch.cuda.synchronize()
+            err = (got.float() - want.float()).abs().max().item()
+            scale = want.float().abs().max().item()
+            dname = str(dtype).removeprefix("torch.")
+            row = dict(kernel=name, g=g, h=h, w=w, cpw=cpw, chunk=chunk,
+                       dtype=dname, max_abs_err=err, max_abs=scale,
+                       tol=tol[dtype] * scale)
+            if timed:
+                nbytes = sum(t.numel() * t.element_size() for t in args) \
+                    + got.numel() * got.element_size()
+                ops = OPS_PER_ELEMENT * got.numel()
+                t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+                t_ops = ops / PEAK_F32_OPS_PER_S * 1e3
+                row.update(
+                    ms=_graph_ms(lambda: kernel(*args, chunk=chunk), 10),
+                    plain_ms=_graph_ms(lambda: plain(*args, chunk=chunk), 2),
+                    call_ms=_median_ms(lambda: kernel(*args, chunk=chunk)),
+                    plain_call_ms=_median_ms(
+                        lambda: plain(*args, chunk=chunk)),
+                    bytes=nbytes, bound_ms=max(t_bytes, t_ops),
+                    bound_by="bytes" if t_bytes >= t_ops else "operations")
+            print("kernel " + " ".join(f"{k}={v}" for k, v in row.items()),
+                  flush=True)
+            if not err <= row["tol"]:
+                raise AssertionError(f"{name} disagrees with its plain "
+                                     f"version: {row}")
+            results.append(row)
+    return results
+
+
+def _profile_forward(model, images, wall_s):
+    """Where one kernel-path forward spends device time: the profiler's
+    device time by op, the scan's share, the device's idle share of the
+    eager forward (``wall_s``), and the forward replayed as one CUDA graph,
+    which removes the host's launch overhead."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.models.vision import apply_vision
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        apply_vision(model, images)
+        torch.cuda.synchronize()
+    # Kernel records only: the operator records carry the same device time.
+    ops = [e for e in prof.key_averages()
+           if e.device_type == torch.autograd.DeviceType.CUDA
+           and e.self_device_time_total > 0]
+    ops.sort(key=lambda e: -e.self_device_time_total)
+    device_us = sum(e.self_device_time_total for e in ops)
+    scan_us = sum(e.self_device_time_total for e in ops
+                  if "gspn_scan_kernel" in e.key)
+    if device_us == 0:
+        print("profile: the profiler recorded no device time; device "
+              "breakdown not measured", flush=True)
+    else:
+        print(f"profile: device time {device_us / 1e3:.3f} ms per forward, "
+              f"eager forward {wall_s * 1e3:.3f} ms, device idle share "
+              f"{1 - device_us / 1e6 / wall_s:.3f}, scan kernels "
+              f"{scan_us / 1e3:.3f} ms ({scan_us / device_us:.4f} of device "
+              f"time)", flush=True)
+        for e in ops[:15]:
+            print(f"profile op: {e.self_device_time_total / 1e3:9.3f} ms "
+                  f"x{e.count:<5d} {e.key[:90]}", flush=True)
+
+    def forward():
+        with torch.inference_mode():
+            model(images)
+
+    graph_ms = _graph_ms(forward, 1, n=10)
+    print(f"forward as one CUDA graph: {graph_ms:.3f} ms "
+          f"({BATCH / graph_ms * 1e3:.1f} images/s, median of 10 replays)",
+          flush=True)
+
+
+def model_phase(gen):
+    from repro_torch.configs.gspn2_vision import GSPN2_T, reduced_vision
+    from repro_torch.data.pipeline import DataConfig, synth_images
+    from repro_torch.kernels import cuda_lib
+    from repro_torch.models.vision import GSPNVision, apply_vision
+
+    cfg = GSPN2_T
+    t0 = time.perf_counter()
+    model = GSPNVision(cfg, device="cuda", generator=gen).eval()
+    plain = GSPNVision(dataclasses.replace(cfg, impl="torch"),
+                       device="meta").eval()
+    plain.load_state_dict(model.state_dict(), assign=True)
+    batch = synth_images(DataConfig(1, 1, BATCH, seed=0), 0, cfg.img_size,
+                         cfg.n_classes)
+    images = torch.from_numpy(batch["images"]).cuda()
+    torch.cuda.synchronize()
+    print(f"model {cfg.name}: {sum(p.numel() for p in model.parameters())} "
+          f"parameters, set-up {time.perf_counter() - t0:.3f} s", flush=True)
+
+    apply_vision(model, images)                       # warm-up, not counted
+    torch.cuda.synchronize()
+    cuda_lib.clear_counts()
+    logits = apply_vision(model, images)
+    torch.cuda.synchronize()
+    launches = dict(cuda_lib.launch_counts)
+    shapes = dict(cuda_lib.launch_shapes)
+    plain_calls = sum(cuda_lib.plain_calls.values())
+    print(f"main path: launches {launches}, by shape "
+          f"{ {'/'.join(map(str, k)): v for k, v in shapes.items()} }, "
+          f"plain scan calls {plain_calls}", flush=True)
+    n_blocks = sum(cfg.depths)
+    if launches != {"gspn_pair_fwd": 2 * n_blocks} or plain_calls:
+        raise AssertionError(
+            f"expected {2 * n_blocks} pair launches and no plain scan in one "
+            f"forward, got {launches} and {plain_calls} plain calls")
+
+    ref = apply_vision(plain, images)
+    torch.cuda.synchronize()
+    if logits.shape != (BATCH, cfg.n_classes) or \
+            not torch.isfinite(logits).all():
+        raise AssertionError(f"bad logits: {logits.shape}")
+    err = (logits - ref).abs().max().item()
+    scale = ref.abs().max().item()
+    print(f"logits kernel vs plain path: max_abs_err={err} "
+          f"max_abs={scale} tol={1e-4 * scale}", flush=True)
+    if not err <= 1e-4 * scale:
+        raise AssertionError("kernel path logits disagree with the plain path")
+
+    n = 10
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        apply_vision(model, images)
+    torch.cuda.synchronize()
+    dt = (time.perf_counter() - t0) / n
+    t0 = time.perf_counter()
+    for _ in range(3):
+        apply_vision(plain, images)
+    torch.cuda.synchronize()
+    dt_plain = (time.perf_counter() - t0) / 3
+    print(f"forward batch {BATCH} at {cfg.img_size}^2: kernel path "
+          f"{dt * 1e3:.3f} ms ({BATCH / dt:.1f} images/s, {n} runs), plain "
+          f"path {dt_plain * 1e3:.3f} ms ({BATCH / dt_plain:.1f} images/s, "
+          f"3 runs), peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
+    _profile_forward(model, images, dt)
+
+    # The reduced model on the card against the plain path on the CPU.
+    small = reduced_vision()
+    cpu = GSPNVision(small, device="cpu",
+                     generator=torch.Generator().manual_seed(1)).eval()
+    card = GSPNVision(small, device="meta").eval()
+    card.load_state_dict({k: v.cuda() for k, v in cpu.state_dict().items()},
+                         assign=True)
+    b = synth_images(DataConfig(1, 1, 4, seed=1), 0, small.img_size,
+                     small.n_classes)
+    x = torch.from_numpy(b["images"])
+    want = apply_vision(cpu, x)
+    got = apply_vision(card, x.cuda()).cpu()
+    err = (got - want).abs().max().item()
+    print(f"reduced model card vs CPU: max_abs_err={err}", flush=True)
+    if not err <= 1e-4 * want.abs().max().item():
+        raise AssertionError("reduced model on the card disagrees with CPU")
+    return shapes
+
+
+def main() -> int:
+    print(f"torch {torch.__version__} cuda {torch.version.cuda} python "
+          f"{sys.version.split()[0]}", flush=True)
+    if not torch.cuda.is_available():
+        print("FAIL: no CUDA device is available", file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.kernels import cuda_lib
+
+    print(" / ".join(_run([cuda_lib.nvcc_path(), "--version"])
+                     .splitlines()[-2:]))
+    smi = _run(["nvidia-smi", "--query-gpu=name,power.limit",
+                "--format=csv,noheader"])
+    print(smi, flush=True)
+    # Full f32 in convolutions and matrix products for every comparison.
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+
+    t0 = time.perf_counter()
+    cuda_lib.build()
+    print(f"build {time.perf_counter() - t0:.3f} s", flush=True)
+    for name, log in cuda_lib.build_logs.items():
+        print(f"nvcc {name}:\n{log.strip()}", flush=True)
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    rows = kernel_phase(gen)
+    shapes = model_phase(torch.Generator().manual_seed(0))
+
+    entries = []
+    for row in rows:
+        if row["dtype"] != "float32" or row["h"] not in MAIN_WIDTHS:
+            continue
+        key = (row["kernel"], row["g"], row["h"], row["w"], row["dtype"])
+        entries.append({
+            "name": f"{row['kernel']}@G{row['g']}xH{row['h']}xW{row['w']}"
+                    f"/{row['dtype']}",
+            "route": "cuda", "source": SOURCE,
+            "replaces": REPLACES[row["kernel"]],
+            "launches": shapes.get(key, 0),
+            "max_abs_err": row["max_abs_err"], "ms": row["ms"],
+            "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+            "bound_by": row["bound_by"], "library_ms": None})
+    print(json.dumps({"kernels": entries}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,17 @@
+"""Device resolution shared by the entry points."""
+
+from __future__ import annotations
+
+import torch
+
+
+def resolve_device(device=None) -> torch.device:
+    """``None`` means the card.  Without a card, ``None`` and any CUDA
+    device raise: an entry point never falls back to the CPU quietly, the
+    caller asks for it with ``device="cpu"`` (or ``"meta"`` for shapes)."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device is available; pass device='cpu' to run the "
+            "plain PyTorch path on the CPU")
+    return dev

@@ -1,0 +1,4 @@
+"""Scan kernels: plain oracles, the launch spec, the CUDA wrappers and the
+forward dispatch."""
+
+from repro_torch.kernels.spec import ScanSpec  # noqa: F401

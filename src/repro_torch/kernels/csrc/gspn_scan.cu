@@ -1,0 +1,140 @@
+// GSPN line scan for Hopper (sm_90a): one template over the direction
+// count D and the stream type T.
+//
+//   D = 1: the single top-to-bottom scan, replacing the Pallas
+//          gspn_scan_fwd_pallas (src/repro/kernels/gspn_scan.py), with the
+//          GSPN-local carry reset every `chunk` rows.
+//   D = 2: the fused opposite pair, replacing gspn_scan_bidir_pallas
+//          (src/repro/kernels/gspn_multidir.py): direction 0 walks rows
+//          0..H-1, direction 1 walks H-1..0 by index arithmetic over the
+//          same unflipped operands; x is shared by both directions.
+//
+// Recurrence (f32 arithmetic and carry, stored in T):
+//   h[i,j] = wl[i,j]*h[p,j-1] + wc[i,j]*h[p,j] + wr[i,j]*h[p,j+1] + lam[i,j]*x[i,j]
+// with p the previously walked row, h = 0 before the first row of a chunk,
+// and out-of-range neighbours 0.  Plane g reads weight plane g / cpw.
+//
+// Layout (all contiguous): x (G,H,W); wl/wc/wr (D,G/cpw,H,W);
+// lam and out (D,G,H,W).
+//
+// Design: one CTA per (plane, direction), blockDim = roundup(W, 32), thread
+// j owns column j and keeps its own h in a register.  The previous row is
+// staged in shared memory (two buffers of W+2 floats with zero pads at both
+// ends, so the +-1 neighbours need no edge test) and one __syncthreads()
+// per row separates the write of row r from the reads of row r.  The five
+// input values of the next row are loaded into registers while the current
+// row computes, so one row's load latency hides behind the previous row.
+//
+// Bound: each input is read once and each output written once, 32 bytes per
+// (g,h,w) element for the f32 pair at cpw = 2 (18 for the single scan), but
+// every row is a dependent step (a barrier plus the latency of the row's
+// loads), so at the vision shapes the kernel is bound by the chain of H row
+// latencies, not by bytes.  The wrappers' docstrings give the numbers.
+
+#include <cuda_runtime.h>
+#include <cuda_bf16.h>
+
+namespace {
+
+__device__ __forceinline__ float to_f32(float v) { return v; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
+
+template <typename T> __device__ __forceinline__ T from_f32(float v);
+template <> __device__ __forceinline__ float from_f32<float>(float v) { return v; }
+template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
+  return __float2bfloat16_rn(v);
+}
+
+template <int D, typename T>
+__global__ void gspn_scan_kernel(const T* __restrict__ x, const T* __restrict__ wl,
+                                 const T* __restrict__ wc, const T* __restrict__ wr,
+                                 const T* __restrict__ lam, T* __restrict__ out,
+                                 int G, int H, int W, int cpw, int chunk) {
+  extern __shared__ float s_prev[];  // 2 x (W + 2)
+  const int g = blockIdx.x;
+  const int d = (D == 2) ? static_cast<int>(blockIdx.y) : 0;
+  const int j = threadIdx.x;
+  const bool active = j < W;
+  const bool reverse = (D == 2) && d == 1;
+  const int Gw = G / cpw;
+  const size_t plane = static_cast<size_t>(H) * W;
+
+  const T* xg = x + static_cast<size_t>(g) * plane;
+  const size_t w_off = (static_cast<size_t>(d) * Gw + g / cpw) * plane;
+  const T* wlg = wl + w_off;
+  const T* wcg = wc + w_off;
+  const T* wrg = wr + w_off;
+  const size_t o_off = (static_cast<size_t>(d) * G + g) * plane;
+  const T* lamg = lam + o_off;
+  T* outg = out + o_off;
+
+  const int ws = W + 2;
+  // Zero pads; blockDim >= 32, so thread 1 exists even when W == 1.  The
+  // first row's barrier orders these writes before any read.
+  if (j == 0) { s_prev[0] = 0.f; s_prev[ws] = 0.f; }
+  if (j == 1) { s_prev[W + 1] = 0.f; s_prev[ws + W + 1] = 0.f; }
+
+  float nx = 0.f, nlam = 0.f, nwl = 0.f, nwc = 0.f, nwr = 0.f;
+  if (active && H > 0) {
+    const size_t k = static_cast<size_t>(reverse ? H - 1 : 0) * W + j;
+    nx = to_f32(xg[k]); nlam = to_f32(lamg[k]);
+    nwl = to_f32(wlg[k]); nwc = to_f32(wcg[k]); nwr = to_f32(wrg[k]);
+  }
+
+  float hp = 0.f;
+  for (int r = 0; r < H; ++r) {
+    const int i = reverse ? H - 1 - r : r;
+    const float cx = nx, clam = nlam, cwl = nwl, cwc = nwc, cwr = nwr;
+    if (active && r + 1 < H) {
+      const size_t k = static_cast<size_t>(reverse ? i - 1 : i + 1) * W + j;
+      nx = to_f32(xg[k]); nlam = to_f32(lamg[k]);
+      nwl = to_f32(wlg[k]); nwc = to_f32(wcg[k]); nwr = to_f32(wrg[k]);
+    }
+    if (chunk > 0 && r % chunk == 0) hp = 0.f;
+    float* buf = s_prev + (r & 1) * ws;
+    if (active) buf[j + 1] = hp;
+    __syncthreads();
+    if (active) {
+      const float h = cwl * buf[j] + cwc * hp + cwr * buf[j + 2] + clam * cx;
+      outg[static_cast<size_t>(i) * W + j] = from_f32<T>(h);
+      hp = h;
+    }
+  }
+}
+
+template <int D, typename T>
+cudaError_t launch(const void* x, const void* wl, const void* wc, const void* wr,
+                   const void* lam, void* out, int G, int H, int W, int cpw, int chunk,
+                   cudaStream_t stream) {
+  const dim3 grid(static_cast<unsigned>(G), D);
+  const unsigned threads = static_cast<unsigned>((W + 31) / 32 * 32);
+  const size_t smem = 2 * static_cast<size_t>(W + 2) * sizeof(float);
+  gspn_scan_kernel<D, T><<<grid, threads, smem, stream>>>(
+      static_cast<const T*>(x), static_cast<const T*>(wl), static_cast<const T*>(wc),
+      static_cast<const T*>(wr), static_cast<const T*>(lam), static_cast<T*>(out),
+      G, H, W, cpw, chunk);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+// ndir: 1 or 2.  dtype: 0 = float32, 1 = bfloat16.  chunk <= 0: no reset.
+// Returns the cudaError_t of the launch (0 on success).
+extern "C" int gspn_scan_launch(int ndir, int dtype, const void* x, const void* wl,
+                                const void* wc, const void* wr, const void* lam, void* out,
+                                int G, int H, int W, int cpw, int chunk, void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (ndir == 1 && dtype == 0)
+    return launch<1, float>(x, wl, wc, wr, lam, out, G, H, W, cpw, chunk, s);
+  if (ndir == 1 && dtype == 1)
+    return launch<1, __nv_bfloat16>(x, wl, wc, wr, lam, out, G, H, W, cpw, chunk, s);
+  if (ndir == 2 && dtype == 0)
+    return launch<2, float>(x, wl, wc, wr, lam, out, G, H, W, cpw, chunk, s);
+  if (ndir == 2 && dtype == 1)
+    return launch<2, __nv_bfloat16>(x, wl, wc, wr, lam, out, G, H, W, cpw, chunk, s);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+extern "C" const char* gspn_error_string(int err) {
+  return cudaGetErrorString(static_cast<cudaError_t>(err));
+}

@@ -1,0 +1,117 @@
+"""Plain PyTorch oracle for the GSPN line scan.
+
+Canonical semantics (top-to-bottom scan over axis -2, vectorised over the
+last axis W):
+
+    h[i, j] = wl[i,j] * h[i-1, j-1]
+            + wc[i,j] * h[i-1, j]
+            + wr[i,j] * h[i-1, j+1]
+            + lam[i,j] * x[i,j]
+
+with h[-1] = 0 and out-of-range neighbours contributing 0.  All arrays are
+laid out ``(G, H, W)``; channel-shared weights carry
+``G_w = G // channels_per_weight`` leading entries and plane ``g`` reads
+weight plane ``g // channels_per_weight``.  Arithmetic runs in the dtype of
+the operands.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+
+def _shift_right(v: torch.Tensor) -> torch.Tensor:
+    """v[..., j] -> v[..., j-1]; position 0 becomes 0."""
+    return F.pad(v, (1, 0))[..., :-1]
+
+
+def _shift_left(v: torch.Tensor) -> torch.Tensor:
+    """v[..., j] -> v[..., j+1]; last position becomes 0."""
+    return F.pad(v, (0, 1))[..., 1:]
+
+
+def _broadcast_w(w: torch.Tensor, g: int) -> torch.Tensor:
+    """Broadcast channel-shared weights (G_w, H, W) to (G, H, W)."""
+    gw = w.shape[0]
+    if gw == g:
+        return w
+    if g % gw:
+        raise ValueError(f"G={g} not a multiple of G_w={gw}")
+    return w.repeat_interleave(g // gw, dim=0)
+
+
+def step_row(h_prev, x_row, wl_row, wc_row, wr_row, lam_row):
+    """One scan step: all inputs (..., W) for the current row."""
+    return (wl_row * _shift_right(h_prev)
+            + wc_row * h_prev
+            + wr_row * _shift_left(h_prev)
+            + lam_row * x_row)
+
+
+def gspn_scan_ref(x, wl, wc, wr, lam, h0=None, reverse: bool = False):
+    """Fused-scan oracle.  x, lam: (G, H, W); wl/wc/wr: (G_w, H, W).
+
+    Returns h: (G, H, W).  ``reverse=True`` scans bottom-to-top, in the
+    unflipped layout (equivalent to flipping H before and after).
+    """
+    g, h = x.shape[0], x.shape[1]
+    wl, wc, wr = (_broadcast_w(a, g) for a in (wl, wc, wr))
+    h_prev = torch.zeros_like(x[:, 0]) if h0 is None else h0
+    rows = [None] * h
+    order = range(h - 1, -1, -1) if reverse else range(h)
+    for i in order:
+        h_prev = step_row(h_prev, x[:, i], wl[:, i], wc[:, i], wr[:, i],
+                          lam[:, i])
+        rows[i] = h_prev
+    return torch.stack(rows, dim=1)
+
+
+def gspn_scan_chunked_ref(x, wl, wc, wr, lam, chunk: int,
+                          reverse: bool = False):
+    """GSPN-local: propagation confined to segments of ``chunk`` rows.
+
+    Equivalent to resetting the carry every ``chunk`` rows.  Shared weights
+    are broadcast to full G before the fold, which interleaves the chunk
+    index into the leading dim.
+    """
+    g, h, w = x.shape
+    if h % chunk:
+        raise ValueError(f"H={h} not divisible by chunk={chunk}")
+    n = h // chunk
+
+    def fold(a):
+        return _broadcast_w(a, g).reshape(g * n, chunk, w)
+
+    out = gspn_scan_ref(fold(x), fold(wl), fold(wc), fold(wr), fold(lam),
+                        reverse=reverse)
+    return out.reshape(g, h, w)
+
+
+# ---------------------------------------------------------------------------
+# Dense affinity-matrix oracle (Eq. 4 of the paper): O(H^2 W^2), tiny shapes
+# only.  Validates that the scan equals y = G @ x with the block
+# lower-triangular G built from tridiagonal w products.
+# ---------------------------------------------------------------------------
+
+def _tridiag(wl_row, wc_row, wr_row):
+    """Materialise the (W, W) tridiagonal matrix for one row."""
+    return (torch.diag(wc_row)
+            + torch.diag(wl_row[1:], -1)    # h_new[k] += wl[k] * h_prev[k-1]
+            + torch.diag(wr_row[:-1], 1))   # h_new[k] += wr[k] * h_prev[k+1]
+
+
+def gspn_dense_oracle(x, wl, wc, wr, lam):
+    """Materialised Eq.-4 oracle for a single (H, W) slice per G entry."""
+    g_dim, h_dim, _ = x.shape
+    wl, wc, wr = (_broadcast_w(a, g_dim) for a in (wl, wc, wr))
+    outs = []
+    for g in range(g_dim):
+        hs = []
+        h_prev = torch.zeros_like(x[g, 0])
+        for i in range(h_dim):
+            m = _tridiag(wl[g, i], wc[g, i], wr[g, i])
+            h_prev = m @ h_prev + lam[g, i] * x[g, i]
+            hs.append(h_prev)
+        outs.append(torch.stack(hs))
+    return torch.stack(outs)

@@ -1,0 +1,124 @@
+"""Common layers of the vision backbone, channels-last (NHWC) like the
+reference package.
+
+Parameters keep the reference's names and, for dense weights, its
+``(d_in, d_out)`` layout, so converted parameters map 1:1; convolution
+weights are OIHW.  Initial values are drawn on the CPU from an explicit
+``torch.Generator`` and then moved, so a seed gives the same weights on
+every device; on the ``meta`` device nothing is drawn.  Layernorm,
+convolutions and the biases run in f32 and cast back to the input dtype.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+
+def new_param(shape, init, generator, device, dtype) -> nn.Parameter:
+    """A parameter of ``shape`` filled by ``init(shape, generator)`` (a CPU
+    f32 tensor), or left empty on the meta device."""
+    if torch.device(device).type == "meta":
+        return nn.Parameter(torch.empty(shape, device="meta", dtype=dtype))
+    return nn.Parameter(init(shape, generator).to(device=device, dtype=dtype))
+
+
+def trunc_normal(scale: float):
+    """Standard normal truncated to [-2, 2], times ``scale``."""
+    def init(shape, generator):
+        t = torch.empty(shape)
+        nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0, generator=generator)
+        return t * scale
+    return init
+
+
+def zeros(shape, generator):
+    return torch.zeros(shape)
+
+
+def ones(shape, generator):
+    return torch.ones(shape)
+
+
+def dense_init(d_in: int, d_out: int, generator, device, dtype,
+               scale: float | None = None) -> nn.Parameter:
+    """Dense weight (d_in, d_out), truncated normal times 1/sqrt(d_in)."""
+    s = scale if scale is not None else 1.0 / math.sqrt(d_in)
+    return new_param((d_in, d_out), trunc_normal(s), generator, device, dtype)
+
+
+class LayerNorm(nn.Module):
+    """Layernorm over the last axis in f32 (biased variance, eps 1e-5)."""
+
+    def __init__(self, dim: int, *, device, dtype=torch.float32,
+                 eps: float = 1e-5):
+        super().__init__()
+        self.eps = eps
+        self.scale = new_param((dim,), ones, None, device, dtype)
+        self.bias = new_param((dim,), zeros, None, device, dtype)
+
+    def forward(self, x):
+        y = F.layer_norm(x.float(), (x.shape[-1],), self.scale.float(),
+                         self.bias.float(), self.eps)
+        return y.to(x.dtype)
+
+
+class GeluMLP(nn.Module):
+    """fc1 -> GELU (tanh approximation, the reference's default) -> fc2."""
+
+    def __init__(self, dim: int, hidden: int, *, generator, device,
+                 dtype=torch.float32):
+        super().__init__()
+        self.fc1 = dense_init(dim, hidden, generator, device, dtype)
+        self.fc2 = dense_init(hidden, dim, generator, device, dtype)
+        self.b1 = new_param((hidden,), zeros, None, device, dtype)
+        self.b2 = new_param((dim,), zeros, None, device, dtype)
+
+    def forward(self, x):
+        h = F.gelu(x @ self.fc1 + self.b1, approximate="tanh")
+        return (h @ self.fc2 + self.b2).to(x.dtype)
+
+
+def same_padding(n: int, k: int, s: int) -> tuple[int, int]:
+    """(low, high) padding of one spatial axis under JAX's ``"SAME"``: the
+    output has ceil(n / s) positions and an odd total puts the extra
+    element at the high end."""
+    out = -(-n // s)
+    total = max((out - 1) * s + k - n, 0)
+    return total // 2, total - total // 2
+
+
+def conv2d_same(x, w, b, stride: int, groups: int = 1):
+    """NHWC convolution with an OIHW weight and ``"SAME"`` padding, in f32,
+    cast back to x.dtype."""
+    k_h, k_w = w.shape[-2:]
+    (lo_h, hi_h) = same_padding(x.shape[1], k_h, stride)
+    (lo_w, hi_w) = same_padding(x.shape[2], k_w, stride)
+    xc = x.float().permute(0, 3, 1, 2)           # NCHW view, channels last
+    if lo_h == hi_h and lo_w == hi_w:
+        pad = (lo_h, lo_w)
+    else:
+        xc, pad = F.pad(xc, (lo_w, hi_w, lo_h, hi_h)), 0
+    y = F.conv2d(xc, w.float(), b.float(), stride=stride, padding=pad,
+                 groups=groups)
+    return y.permute(0, 2, 3, 1).to(x.dtype)
+
+
+class DWConv2d(nn.Module):
+    """Depthwise k x k "SAME" convolution (the LPU of the GSPN blocks)."""
+
+    def __init__(self, dim: int, k: int = 3, *, generator, device,
+                 dtype=torch.float32):
+        super().__init__()
+
+        def init(shape, gen):
+            return torch.randn(shape, generator=gen) * (1.0 / k)
+
+        self.w = new_param((dim, 1, k, k), init, generator, device, dtype)
+        self.b = new_param((dim,), zeros, None, device, dtype)
+
+    def forward(self, x):
+        return conv2d_same(x, self.w, self.b, 1, groups=x.shape[-1])

@@ -48,6 +48,10 @@ def pytest_configure(config):
         "markers",
         "obs: tracing/metrics subsystem + instrumentation contracts, "
         "including the disabled-overhead pin (pytest -m obs)")
+    config.addinivalue_line(
+        "markers",
+        "cuda: PyTorch port kernel tests that need a CUDA card and nvcc; "
+        "they skip without one (pytest -m cuda tests/test_torch_cuda.py)")
 
 
 @pytest.fixture(scope="session", autouse=True)
