@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's main path on one CUDA card and hold every CUDA
-kernel against its plain PyTorch version.
+"""Drive the PyTorch port's main paths (serving and training) on one CUDA
+card and hold every CUDA kernel against its plain PyTorch version.
 
 Run from the root of a checkout, with no arguments:
 
@@ -11,22 +11,34 @@ Phases, each of which fails the run on any error:
 1. the toolchain and the card: torch, CUDA, nvcc, the card's name and
    power limit; no card means exit 1 before anything else;
 2. the build of every CUDA kernel from the checkout's sources;
-3. kernels: each kernel against its plain version on the card, at the
-   main path's shapes (batch 64 of GSPN-2-T at 224²: G = 128 planes,
-   G_w = 64, H = W = 56/28/14/7), the 1024² stage-1 shape (G = 32,
-   H = W = 256), a ragged shape (H = 19, W = 37, cpw 1 and 4) and a
-   chunked one, in float32 (tolerance 1e-5 of the largest magnitude) and
-   bfloat16 streams (1e-2); at the main-path and 1024² shapes, the device
-   time per launch of the kernel and of the plain version (CUDA-graph
-   replays timed by CUDA events, median of 20) and of one eager call;
-4. model: GSPN-2-T classification forward at 224², batch 64, weights from
+3. kernels: each kernel (the forward scans #1 and #3 and their adjoints
+   #2 and #4) against its plain version on the card, at the main path's
+   shapes (batch 64 of GSPN-2-T at 224²: G = 128 planes, G_w = 64,
+   H = W = 56/28/14/7), the 1024² stage-1 shape (G = 32, H = W = 256), a
+   ragged shape (H = 19, W = 37, cpw 1 and 4) and a chunked one, in
+   float32 and bfloat16 streams (tolerance 1e-5 of the largest magnitude,
+   1e-2 for the forward's bfloat16 output); at the main-path and 1024²
+   shapes, the device time per launch of the kernel and of the plain
+   version (CUDA-graph replays timed by CUDA events, median of 20) and of
+   one eager call; then the gradient of a single-direction
+   ``directional_scan`` ("rl"), kernels #1 and #2 against the plain path;
+4. model (serving): GSPN-2-T classification forward at 224², batch 64, weights from
    a seeded generator, images from ``synth_images``; the kernel path
    against the plain path on the card (TF32 off for convolutions and
    matrix products, 1e-4 of the largest logit), one counted forward that
    must launch the pair kernel 52 times and never call a plain scan, the
    forward's images/s over 10 timed runs, a profile of one forward
    (device time by kernel, idle share, the forward as one CUDA graph);
-   and the reduced model on the card against the plain path on the CPU.
+   and the reduced model on the card against the plain path on the CPU;
+5. training: one GSPN-2-T training step at 224², batch 64, f32: a counted
+   ``vision_loss`` + ``backward()`` that must launch the pair kernel and
+   its adjoint 52 times each and never call a plain scan, its gradients
+   against the plain path on the card (loss 1e-5 relative, each
+   parameter's gradient 1e-4 of its largest magnitude), 5 timed runs of
+   the loss and gradients alone, 5 timed AdamW steps (step ms, images/s,
+   peak memory) and a profile of one step;
+6. the trainer twin ``examples/train_vision_torch.py``, 60 steps on the
+   reduced model, whose held-out accuracy must end above 2/n_classes.
 
 It prints a ``{"kernels": [...]}`` line and, last, the ``{"ok": true, ...}``
 line.
@@ -35,7 +47,9 @@ line.
 from __future__ import annotations
 
 import dataclasses
+import importlib.util
 import json
+import math
 import pathlib
 import statistics
 import subprocess
@@ -50,13 +64,16 @@ ROOT = pathlib.Path(__file__).resolve().parent
 # tensor cores, at the 700 W power limit.
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_OPS_PER_S = 67e12
-# The scan does 4 multiplies and 3 adds per output element.
-OPS_PER_ELEMENT = 7
+# Operations per output element: the scan does 4 multiplies and 3 adds,
+# the adjoint 6 multiplies and 3 adds.
+OPS_PER_ELEMENT = {"fwd": 7, "bwd": 9}
 MAIN_WIDTHS = (56, 28, 14, 7)
 BATCH = 64
 REPLACES = {
     "gspn_pair_fwd": "src/repro/kernels/gspn_multidir.py:165",
     "gspn_scan_fwd": "src/repro/kernels/gspn_scan.py:224",
+    "gspn_pair_bwd": "src/repro/kernels/gspn_multidir.py:336",
+    "gspn_scan_bwd": "src/repro/kernels/gspn_scan.py:384",
 }
 SOURCE = "src/repro_torch/kernels/csrc/gspn_scan.cu"
 
@@ -104,13 +121,19 @@ def _graph_ms(fn, per_graph: int, n: int = 20) -> float:
     return ms
 
 
-def _scan_inputs(gen, g, h, w, cpw, dtype, pair):
+def _scan_inputs(gen, g, h, w, cpw, dtype, pair, kind="fwd"):
+    """(x, wl, wc, wr, lam) for a forward scan, (dy, wl, wc, wr) for an
+    adjoint."""
     lead = (2,) if pair else ()
     dev = "cuda"
     x = torch.randn((g, h, w), generator=gen, device=dev)
     taps = torch.softmax(torch.randn(lead + (g // cpw, h, w, 3),
                                      generator=gen, device=dev), dim=-1)
     lam = torch.rand(lead + (g, h, w), generator=gen, device=dev)
+    if kind == "bwd":
+        dy = torch.randn(lead + (g, h, w), generator=gen, device=dev)
+        return tuple(t.to(dtype).contiguous()
+                     for t in (dy, taps[..., 0], taps[..., 1], taps[..., 2]))
     return tuple(t.to(dtype).contiguous()
                  for t in (x, taps[..., 0], taps[..., 1], taps[..., 2], lam))
 
@@ -120,9 +143,14 @@ def kernel_phase(gen):
 
     kernels = {
         "gspn_scan_fwd": (gspn_scan.gspn_scan_fwd,
-                          gspn_scan.gspn_scan_fwd_torch, False),
+                          gspn_scan.gspn_scan_fwd_torch, False, "fwd"),
         "gspn_pair_fwd": (gspn_multidir.gspn_scan_bidir,
-                          gspn_multidir.gspn_scan_bidir_torch, True),
+                          gspn_multidir.gspn_scan_bidir_torch, True, "fwd"),
+        "gspn_scan_bwd": (gspn_scan.gspn_scan_bwd,
+                          gspn_scan.gspn_scan_bwd_torch, False, "bwd"),
+        "gspn_pair_bwd": (gspn_multidir.gspn_scan_bidir_bwd,
+                          gspn_multidir.gspn_scan_bidir_bwd_torch, True,
+                          "bwd"),
     }
     cases = []
     for dtype in (torch.float32, torch.bfloat16):
@@ -131,11 +159,14 @@ def kernel_phase(gen):
                   (8, 19, 37, 1, None, dtype, False),
                   (8, 19, 37, 4, None, dtype, False),
                   (8, 38, 37, 4, 19, dtype, False)]
-    tol = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
+    # The adjoints write f32 computed in f32 from the same inputs as their
+    # plain versions, in either stream dtype.
+    tol = {("fwd", torch.float32): 1e-5, ("fwd", torch.bfloat16): 1e-2,
+           ("bwd", torch.float32): 1e-5, ("bwd", torch.bfloat16): 1e-5}
     results = []
-    for name, (kernel, plain, pair) in kernels.items():
+    for name, (kernel, plain, pair, kind) in kernels.items():
         for g, h, w, cpw, chunk, dtype, timed in cases:
-            args = _scan_inputs(gen, g, h, w, cpw, dtype, pair)
+            args = _scan_inputs(gen, g, h, w, cpw, dtype, pair, kind)
             got = kernel(*args, chunk=chunk)
             want = plain(*args, chunk=chunk)
             torch.cuda.synchronize()
@@ -144,11 +175,11 @@ def kernel_phase(gen):
             dname = str(dtype).removeprefix("torch.")
             row = dict(kernel=name, g=g, h=h, w=w, cpw=cpw, chunk=chunk,
                        dtype=dname, max_abs_err=err, max_abs=scale,
-                       tol=tol[dtype] * scale)
+                       tol=tol[kind, dtype] * scale)
             if timed:
                 nbytes = sum(t.numel() * t.element_size() for t in args) \
                     + got.numel() * got.element_size()
-                ops = OPS_PER_ELEMENT * got.numel()
+                ops = OPS_PER_ELEMENT[kind] * got.numel()
                 t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
                 t_ops = ops / PEAK_F32_OPS_PER_S * 1e3
                 row.update(
@@ -165,21 +196,49 @@ def kernel_phase(gen):
                 raise AssertionError(f"{name} disagrees with its plain "
                                      f"version: {row}")
             results.append(row)
+    _single_direction_grad_check(gen)
     return results
 
 
-def _profile_forward(model, images, wall_s):
-    """Where one kernel-path forward spends device time: the profiler's
-    device time by op, the scan's share, the device's idle share of the
-    eager forward (``wall_s``), and the forward replayed as one CUDA graph,
-    which removes the host's launch overhead."""
-    from torch.profiler import ProfilerActivity, profile
+def _single_direction_grad_check(gen):
+    """Gradients of one "rl" ``directional_scan`` (kernels #1 and #2 under
+    autograd) against the plain path, 1e-5 of the largest magnitude."""
+    from repro_torch.core.gspn import directional_scan
+    from repro_torch.kernels import cuda_lib
 
-    from repro_torch.models.vision import apply_vision
+    args = _scan_inputs(gen, 2 * BATCH, 28, 28, 2, torch.float32, False)
+    r = torch.randn(args[0].shape, generator=gen, device="cuda")
+
+    def grads(impl):
+        leaves = [a.clone().requires_grad_(True) for a in args]
+        out = directional_scan(*leaves, "rl", impl=impl)
+        return torch.autograd.grad((out * r).sum(), leaves)
+
+    cuda_lib.clear_counts()
+    got = grads("auto")
+    launches = dict(cuda_lib.launch_counts)
+    want = grads("torch")
+    torch.cuda.synchronize()
+    worst = max(((a - b).abs().max() / b.abs().max()).item()
+                for a, b in zip(got, want))
+    print(f"directional_scan 'rl' gradients, kernels vs plain: launches "
+          f"{launches}, worst error / largest magnitude {worst:.3e}",
+          flush=True)
+    if launches != {"gspn_scan_fwd": 1, "gspn_scan_bwd": 1} \
+            or not worst <= 1e-5:
+        raise AssertionError("single-direction gradients disagree or "
+                             "missed the kernels")
+
+
+def _profile(fn, wall_s, what):
+    """Where one call of ``fn`` spends device time: the profiler's device
+    time by kernel, the scan kernels' share (forward and adjoint), and the
+    device's idle share of an eager call that took ``wall_s``."""
+    from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        apply_vision(model, images)
+        fn()
         torch.cuda.synchronize()
     # Kernel records only: the operator records carry the same device time.
     ops = [e for e in prof.key_averages()
@@ -187,20 +246,32 @@ def _profile_forward(model, images, wall_s):
            and e.self_device_time_total > 0]
     ops.sort(key=lambda e: -e.self_device_time_total)
     device_us = sum(e.self_device_time_total for e in ops)
-    scan_us = sum(e.self_device_time_total for e in ops
-                  if "gspn_scan_kernel" in e.key)
+    scan_us = {k: sum(e.self_device_time_total for e in ops
+                      if f"{k}<" in e.key)
+               for k in ("gspn_scan_kernel", "gspn_scan_bwd_kernel")}
     if device_us == 0:
-        print("profile: the profiler recorded no device time; device "
-              "breakdown not measured", flush=True)
-    else:
-        print(f"profile: device time {device_us / 1e3:.3f} ms per forward, "
-              f"eager forward {wall_s * 1e3:.3f} ms, device idle share "
-              f"{1 - device_us / 1e6 / wall_s:.3f}, scan kernels "
-              f"{scan_us / 1e3:.3f} ms ({scan_us / device_us:.4f} of device "
-              f"time)", flush=True)
-        for e in ops[:15]:
-            print(f"profile op: {e.self_device_time_total / 1e3:9.3f} ms "
-                  f"x{e.count:<5d} {e.key[:90]}", flush=True)
+        print(f"profile {what}: the profiler recorded no device time; "
+              f"device breakdown not measured", flush=True)
+        return
+    scans = ", ".join(f"{k} {v / 1e3:.3f} ms ({v / device_us:.4f})"
+                      for k, v in scan_us.items())
+    print(f"profile {what}: device time {device_us / 1e3:.3f} ms, eager "
+          f"{wall_s * 1e3:.3f} ms, device idle share "
+          f"{1 - device_us / 1e6 / wall_s:.3f}, scan kernels "
+          f"{sum(scan_us.values()) / 1e3:.3f} ms "
+          f"({sum(scan_us.values()) / device_us:.4f} of device time: "
+          f"{scans})", flush=True)
+    for e in ops[:15]:
+        print(f"profile {what} op: {e.self_device_time_total / 1e3:9.3f} ms "
+              f"x{e.count:<5d} {e.key[:90]}", flush=True)
+
+
+def _profile_forward(model, images, wall_s):
+    """The profile of one kernel-path forward, and the forward replayed as
+    one CUDA graph, which removes the host's launch overhead."""
+    from repro_torch.models.vision import apply_vision
+
+    _profile(lambda: apply_vision(model, images), wall_s, "forward")
 
     def forward():
         with torch.inference_mode():
@@ -298,6 +369,112 @@ def model_phase(gen):
     return shapes
 
 
+def _twin():
+    """The trainer twin, ``examples/train_vision_torch.py``, as a module."""
+    path = ROOT / "examples" / "train_vision_torch.py"
+    spec = importlib.util.spec_from_file_location("train_vision_torch", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def train_phase(gen):
+    """One GSPN-2-T training step at full width: counted, held against the
+    plain path, timed and profiled.  Returns the counted step's launches
+    by shape."""
+    from repro_torch.configs.gspn2_vision import GSPN2_T
+    from repro_torch.data.pipeline import DataConfig, synth_images
+    from repro_torch.kernels import cuda_lib
+    from repro_torch.models.vision import GSPNVision, vision_loss
+    from repro_torch.optim.adamw import AdamWConfig
+
+    cfg = GSPN2_T
+    model = GSPNVision(cfg, device="cuda", generator=gen)
+    plain = GSPNVision(dataclasses.replace(cfg, impl="torch"), device="meta")
+    plain.load_state_dict(model.state_dict(), assign=True)
+    batch = {k: torch.from_numpy(v).cuda() for k, v in synth_images(
+        DataConfig(1, 1, BATCH, seed=0), 0, cfg.img_size,
+        cfg.n_classes).items()}
+    params = dict(model.named_parameters())
+
+    def loss_and_grads(m):
+        loss, _ = vision_loss(m, batch)
+        return loss, torch.autograd.grad(loss, list(m.parameters()))
+
+    loss_and_grads(model)                            # warm-up, not counted
+    torch.cuda.synchronize()
+    cuda_lib.clear_counts()
+    loss, grads = loss_and_grads(model)
+    torch.cuda.synchronize()
+    launches = dict(cuda_lib.launch_counts)
+    shapes = dict(cuda_lib.launch_shapes)
+    plain_calls = sum(cuda_lib.plain_calls.values())
+    print(f"train step: launches {launches}, by shape "
+          f"{ {'/'.join(map(str, k)): v for k, v in shapes.items()} }, "
+          f"plain scan calls {plain_calls}", flush=True)
+    n = 2 * sum(cfg.depths)
+    if launches != {"gspn_pair_fwd": n, "gspn_pair_bwd": n} or plain_calls:
+        raise AssertionError(
+            f"expected {n} pair launches and {n} pair adjoint launches and "
+            f"no plain scan in one step, got {launches} and {plain_calls} "
+            f"plain calls")
+
+    want_loss, want = loss_and_grads(plain)
+    torch.cuda.synchronize()
+    rel = abs(loss.item() - want_loss.item()) / abs(want_loss.item())
+    errs = {name: ((g - w).abs().max() / w.abs().max()).item()
+            for name, g, w in zip(params, grads, want)}
+    worst = max(errs, key=errs.get)
+    print(f"train step kernel vs plain path: loss {loss.item()} vs "
+          f"{want_loss.item()} (relative {rel:.3e}, tol 1e-5); gradients of "
+          f"{len(errs)} parameters, worst {worst} at {errs[worst]:.3e} of "
+          f"its largest magnitude (tol 1e-4), median "
+          f"{statistics.median(errs.values()):.3e}", flush=True)
+    if not all(torch.isfinite(g).all() for g in grads):
+        raise AssertionError("non-finite gradients")
+    if not rel <= 1e-5 or not errs[worst] <= 1e-4:
+        raise AssertionError("kernel path gradients disagree with the "
+                             "plain path")
+    del plain, grads, want
+
+    n_steps = 5
+    t0 = time.perf_counter()
+    for _ in range(n_steps):
+        loss_and_grads(model)
+    torch.cuda.synchronize()
+    dt_grads = (time.perf_counter() - t0) / n_steps
+    print(f"loss and gradients only (forward + backward): "
+          f"{dt_grads * 1e3:.3f} ms ({n_steps} runs)", flush=True)
+
+    step, _ = _twin().make_step(
+        model, AdamWConfig(lr=1e-3, warmup_steps=5, total_steps=60,
+                           weight_decay=0.01))
+    step(batch)                                      # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    losses = [step(batch) for _ in range(n_steps)]
+    torch.cuda.synchronize()
+    dt = (time.perf_counter() - t0) / n_steps
+    losses = [v.item() for v in losses]
+    print(f"train step batch {BATCH} at {cfg.img_size}^2, f32, AdamW: "
+          f"{dt * 1e3:.3f} ms ({BATCH / dt:.1f} images/s, {n_steps} steps), "
+          f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, "
+          f"losses {losses}", flush=True)
+    if not all(map(math.isfinite, losses)):
+        raise AssertionError("non-finite training loss")
+    _profile(lambda: step(batch), dt, "train step")
+    return shapes
+
+
+def twin_phase():
+    """The trainer twin on the card: 60 steps, must learn."""
+    t0 = time.perf_counter()
+    acc = _twin().main(["--steps", "60"])
+    print(f"trainer twin: held-out accuracy {acc:.2f} after 60 steps, "
+          f"{time.perf_counter() - t0:.3f} s", flush=True)
+
+
 def main() -> int:
     print(f"torch {torch.__version__} cuda {torch.version.cuda} python "
           f"{sys.version.split()[0]}", flush=True)
@@ -326,6 +503,11 @@ def main() -> int:
     gen = torch.Generator(device="cuda").manual_seed(0)
     rows = kernel_phase(gen)
     shapes = model_phase(torch.Generator().manual_seed(0))
+    # The adjoints' launches are those of the counted training step.
+    shapes.update({k: v for k, v in
+                   train_phase(torch.Generator().manual_seed(0)).items()
+                   if k[0].endswith("_bwd")})
+    twin_phase()
 
     entries = []
     for row in rows:

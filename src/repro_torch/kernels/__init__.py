@@ -1,4 +1,4 @@
 """Scan kernels: plain oracles, the launch spec, the CUDA wrappers and the
-forward dispatch."""
+differentiable dispatch."""
 
 from repro_torch.kernels.spec import ScanSpec  # noqa: F401

@@ -38,6 +38,9 @@ _SIGNATURES = {
         # ndir, dtype, x, wl, wc, wr, lam, out, G, H, W, cpw, chunk, stream
         "gspn_scan_launch": (_I, [_I, _I, _P, _P, _P, _P, _P, _P,
                                   _I, _I, _I, _I, _I, _P]),
+        # ndir, dtype, dy, wl, wc, wr, g, G, H, W, cpw, chunk, stream
+        "gspn_scan_bwd_launch": (_I, [_I, _I, _P, _P, _P, _P, _P,
+                                      _I, _I, _I, _I, _I, _P]),
         "gspn_error_string": (ctypes.c_char_p, [_I]),
     },
 }

@@ -1,4 +1,5 @@
-"""Fused opposite-direction pair scan on the card (CUDA, ``sm_90a``).
+"""Fused opposite-direction pair scan and its adjoint on the card (CUDA,
+``sm_90a``).
 
 :func:`gspn_scan_bidir` replaces the Pallas kernel
 ``src/repro/kernels/gspn_multidir.py:gspn_scan_bidir_pallas``, the scan of
@@ -22,6 +23,17 @@ latency, so at these shapes latency, not bytes, sets its time.
 Design.  One CTA per (plane, direction), 2·G CTAs per launch, so both
 directions of a pair run concurrently; a thread per column, the previous
 row in shared memory, the next row prefetched into registers.
+
+:func:`gspn_scan_bidir_bwd` replaces ``gspn_scan_bidir_bwd_pallas`` (same
+file), the adjoint of the pair on the training path: direction 0 walks
+rows H-1..0 and direction 1 rows 0..H-1 (the forward's walks with the
+roles swapped), three f32 product rows per column, g written in f32.  It
+is the D = 2 instance of the adjoint template in ``csrc/gspn_scan.cu``;
+:func:`gspn_scan_bidir_bwd_torch` is its plain version.  Per (d,g,h,w)
+element it moves dy, the taps at ``1 / cpw`` and an f32 g: 14 bytes in f32
+at cpw = 2, 11.2 / 2.8 / 0.70 / 0.18 MB per launch at batch 64 and
+W = 56 / 28 / 14 / 7, about 3.4 / 0.84 / 0.21 / 0.05 us at 3.35 TB/s; as
+for the forward, the row chain sets its time.
 """
 
 from __future__ import annotations
@@ -29,9 +41,11 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import cuda_lib, ref
-from repro_torch.kernels.gspn_scan import chunk_arg, launch
+from repro_torch.kernels.gspn_scan import (chunk_arg, compute_dtype, launch,
+                                           launch_bwd)
 
 KERNEL = "gspn_pair_fwd"
+KERNEL_BWD = "gspn_pair_bwd"
 
 
 def gspn_scan_bidir(x, wl2, wc2, wr2, lam2, *, chunk: int | None = None):
@@ -51,16 +65,44 @@ def gspn_scan_bidir(x, wl2, wc2, wr2, lam2, *, chunk: int | None = None):
 def gspn_scan_bidir_torch(x, wl2, wc2, wr2, lam2, *,
                           chunk: int | None = None):
     """Plain PyTorch version of :func:`gspn_scan_bidir`, on any device:
-    f32 arithmetic and carry, output in x.dtype."""
+    f32 arithmetic and carry (f64 for f64 operands), output in x.dtype."""
     cuda_lib.plain_calls[KERNEL] += 1
-    xf = x.float()
+    cd = compute_dtype(x.dtype)
+    xf = x.to(cd)
     chunked = chunk_arg(x.shape[1], chunk)
     outs = []
     for d in (0, 1):
-        args = (xf,) + tuple(a[d].float() for a in (wl2, wc2, wr2, lam2))
+        args = (xf,) + tuple(a[d].to(cd) for a in (wl2, wc2, wr2, lam2))
         if chunked:
             outs.append(ref.gspn_scan_chunked_ref(*args, chunk,
                                                   reverse=d == 1))
         else:
             outs.append(ref.gspn_scan_ref(*args, reverse=d == 1))
     return torch.stack(outs).to(x.dtype)
+
+
+def gspn_scan_bidir_bwd(dy2, wl2, wc2, wr2, *, chunk: int | None = None):
+    """Fused adjoint of :func:`gspn_scan_bidir`: g2 = dL/dh from dy2
+    (2, G, H, W) and the forward's taps (2, G_w, H, W), all unflipped.
+    Entry 0 walks rows H-1..0, entry 1 rows 0..H-1, each with its carry
+    reset every ``chunk`` rows of its walk.  Returns (2, G, H, W) in
+    float32.
+
+    CUDA tensors launch the kernel (or raise); CPU tensors take
+    :func:`gspn_scan_bidir_bwd_torch`."""
+    if not dy2.is_cuda:
+        return gspn_scan_bidir_bwd_torch(dy2, wl2, wc2, wr2, chunk=chunk)
+    return launch_bwd(2, KERNEL_BWD, dy2, wl2, wc2, wr2, chunk)
+
+
+def gspn_scan_bidir_bwd_torch(dy2, wl2, wc2, wr2, *,
+                              chunk: int | None = None):
+    """Plain PyTorch version of :func:`gspn_scan_bidir_bwd`, on any device:
+    f32 arithmetic, carry and output (f64 for f64 operands)."""
+    cuda_lib.plain_calls[KERNEL_BWD] += 1
+    cd = compute_dtype(dy2.dtype)
+    chunked = chunk_arg(dy2.shape[2], chunk)
+    return torch.stack([
+        ref.gspn_scan_adjoint_ref(*(a[d].to(cd) for a in (dy2, wl2, wc2, wr2)),
+                                  reverse=d == 0, chunk=chunked)
+        for d in (0, 1)])

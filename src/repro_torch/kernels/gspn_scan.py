@@ -1,24 +1,33 @@
-"""Single-direction forward line scan on the card (CUDA, ``sm_90a``).
+"""Single-direction line scan and its adjoint on the card (CUDA,
+``sm_90a``).
 
 :func:`gspn_scan_fwd` replaces the Pallas kernel
 ``src/repro/kernels/gspn_scan.py:gspn_scan_fwd_pallas``: the top-to-bottom
 scan over (G, H, W) with compact weights indexed ``g // cpw``, the
 GSPN-local carry reset every ``chunk`` rows, an f32 carry and the output
-in the stream dtype.  It is the D = 1 instance of the template in
+in the stream dtype.  It is the D = 1 instance of the forward template in
 ``csrc/gspn_scan.cu``; :func:`gspn_scan_fwd_torch` is its plain version.
 
-Bound.  Each input is read once and the output written once: per (g,h,w)
-element x, lam and out take one stream item each and the three taps
-``3 / cpw`` items, 18 bytes in f32 at cpw = 2.  The operations (4
-multiplies and 3 adds per element) are far below the card's rate, so bytes
-set the floor; but every row depends on the previous one, so the kernel
-really runs a chain of H row steps, each one barrier plus the latency of
-that row's loads.
+:func:`gspn_scan_bwd` replaces ``gspn_scan_bwd_pallas`` (same file): the
+adjoint walk from the last row to the first with three f32 product rows,
+the same chunk reset, an f32 output, and no flipped copies of its
+operands.  It is the D = 1 instance of the adjoint template;
+:func:`gspn_scan_bwd_torch` is its plain version.
 
-Design.  One CTA per plane, a thread per column, the previous row staged
-in shared memory and the next row's five inputs loaded into registers
-while the current row computes (see the source).  Several planes per CTA,
-a deeper prefetch ring and warp shuffles for the neighbours are later work.
+Bound.  Each input is read once and the output written once: per (g,h,w)
+element the forward moves x, lam and out (one stream item each) and the
+three taps (``3 / cpw`` items), 18 bytes in f32 at cpw = 2; the adjoint
+moves dy, the taps and an f32 g, 14 bytes.  The operations (7 per element
+forward, 9 adjoint) are far below the card's rate, so bytes set the floor;
+but every row depends on the previous one, so each kernel really runs a
+chain of H row steps, each one barrier plus the latency of that row's
+loads.
+
+Design.  One CTA per plane, a thread per column, the previous row (the
+adjoint: its two shifted product rows) staged in shared memory and the
+next row's inputs loaded into registers while the current row computes
+(see the source).  Several planes per CTA, a deeper prefetch ring and warp
+shuffles for the neighbours are later work.
 """
 
 from __future__ import annotations
@@ -28,6 +37,7 @@ import torch
 from repro_torch.kernels import cuda_lib, ref
 
 KERNEL = "gspn_scan_fwd"
+KERNEL_BWD = "gspn_scan_bwd"
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_W = 1024  # one thread per column, at most 1024 threads per CTA
 
@@ -42,50 +52,68 @@ def chunk_arg(h: int, chunk: int | None) -> int:
     return chunk
 
 
-def _check_forward_only(*tensors) -> None:
-    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
-        raise NotImplementedError(
-            "the CUDA scan kernels are forward only; their backward kernels "
-            "and autograd come with the vision training slice (slice 2 of "
-            "the port). Run under torch.no_grad() or use impl='torch'.")
+def compute_dtype(dtype: torch.dtype) -> torch.dtype:
+    """Arithmetic dtype of the plain versions: float32, or float64 for
+    float64 operands (``torch.autograd.gradcheck``)."""
+    return torch.float64 if dtype == torch.float64 else torch.float32
 
 
-def launch(ndir: int, name: str, x, wl, wc, wr, lam, chunk) -> torch.Tensor:
-    """Check the operands of one ``ndir``-direction scan and launch the
-    kernel on the current stream.  Shapes: x (G,H,W); taps (G_w,H,W), or
-    (2,G_w,H,W) for the pair; lam (G,H,W), or (2,G,H,W)."""
-    tensors = (x, wl, wc, wr, lam)
-    if x.dim() != 3:
-        raise ValueError(f"x must be (G, H, W), got {tuple(x.shape)}")
-    g, h, w = x.shape
+def _check(ndir: int, planes, taps, chunk) -> tuple[int, int]:
+    """Check one ``ndir``-direction launch's operands and return (cpw, the
+    kernel's chunk argument).  ``planes``: (name, tensor, leading axes)
+    triples of tensors shaped leading axes + (G, H, W), G, H and W read
+    from the first; ``taps``: wl, wc, wr, each (G_w, H, W), or
+    (2, G_w, H, W) for the pair."""
     lead = () if ndir == 1 else (2,)
+    name0, first, lead0 = planes[0]
+    if first.dim() != len(lead0) + 3:
+        raise ValueError(f"{name0} must be {lead0 + ('G', 'H', 'W')}, got "
+                         f"{tuple(first.shape)}")
+    g, h, w = first.shape[len(lead0):]
+    wl = taps[0]
     if wl.dim() != len(lead) + 3:
         raise ValueError(f"taps must be {lead + ('G_w', 'H', 'W')}, got "
                          f"{tuple(wl.shape)}")
     gw = wl.shape[len(lead)]
-    for nm, t, shape in (("wl", wl, lead + (gw, h, w)),
-                         ("wc", wc, lead + (gw, h, w)),
-                         ("wr", wr, lead + (gw, h, w)),
-                         ("lam", lam, lead + (g, h, w))):
+    named = [(nm, t, pl + (g, h, w)) for nm, t, pl in planes]
+    named += [(nm, t, lead + (gw, h, w)) for nm, t in zip(("wl", "wc", "wr"),
+                                                          taps)]
+    for nm, t, shape in named:
         if tuple(t.shape) != shape:
             raise ValueError(f"{nm} must have shape {shape}, got "
                              f"{tuple(t.shape)}")
     if gw < 1 or g % gw:
         raise ValueError(f"G={g} is not a multiple of G_w={gw}")
-    if x.dtype not in _DTYPE_CODES:
+    if first.dtype not in _DTYPE_CODES:
         raise ValueError(f"the CUDA scan streams float32 or bfloat16, not "
-                         f"{x.dtype}")
-    for t in tensors:
-        if t.device != x.device:
-            raise ValueError(f"operands on {t.device} and {x.device}")
-        if t.dtype != x.dtype:
-            raise ValueError(f"operands of dtype {t.dtype} and {x.dtype}")
+                         f"{first.dtype}")
+    for _, t, _ in named:
+        if t.device != first.device:
+            raise ValueError(f"operands on {t.device} and {first.device}")
+        if t.dtype != first.dtype:
+            raise ValueError(f"operands of dtype {t.dtype} and "
+                             f"{first.dtype}")
         if not t.is_contiguous():
             raise ValueError("the CUDA scan needs contiguous operands")
     if w > _MAX_W:
         raise ValueError(f"W={w} exceeds {_MAX_W} columns per CTA")
-    chunk = chunk_arg(h, chunk)
-    _check_forward_only(*tensors)
+    return g // gw, chunk_arg(h, chunk)
+
+
+def _count(name: str, g: int, h: int, w: int, dtype: torch.dtype) -> None:
+    cuda_lib.launch_counts[name] += 1
+    cuda_lib.launch_shapes[(name, g, h, w,
+                            str(dtype).removeprefix("torch."))] += 1
+
+
+def launch(ndir: int, name: str, x, wl, wc, wr, lam, chunk) -> torch.Tensor:
+    """Check the operands of one ``ndir``-direction forward scan and launch
+    the kernel on the current stream.  Shapes: x (G,H,W); taps (G_w,H,W),
+    or (2,G_w,H,W) for the pair; lam (G,H,W), or (2,G,H,W)."""
+    lead = () if ndir == 1 else (2,)
+    cpw, chunk = _check(ndir, [("x", x, ()), ("lam", lam, lead)],
+                        (wl, wc, wr), chunk)
+    g, h, w = x.shape
     out = torch.empty(lead + (g, h, w), dtype=x.dtype, device=x.device)
     if out.numel() == 0:
         return out
@@ -94,11 +122,31 @@ def launch(ndir: int, name: str, x, wl, wc, wr, lam, chunk) -> torch.Tensor:
         err = lib.gspn_scan_launch(
             ndir, _DTYPE_CODES[x.dtype], x.data_ptr(), wl.data_ptr(),
             wc.data_ptr(), wr.data_ptr(), lam.data_ptr(), out.data_ptr(),
-            g, h, w, g // gw, chunk, torch.cuda.current_stream().cuda_stream)
+            g, h, w, cpw, chunk, torch.cuda.current_stream().cuda_stream)
     cuda_lib.check(lib, err, name)
-    cuda_lib.launch_counts[name] += 1
-    cuda_lib.launch_shapes[(name, g, h, w, str(x.dtype).removeprefix(
-        "torch."))] += 1
+    _count(name, g, h, w, x.dtype)
+    return out
+
+
+def launch_bwd(ndir: int, name: str, dy, wl, wc, wr, chunk) -> torch.Tensor:
+    """Check the operands of one ``ndir``-direction adjoint walk and launch
+    the kernel on the current stream.  Shapes: dy (G,H,W), or (2,G,H,W)
+    for the pair; taps (G_w,H,W), or (2,G_w,H,W).  Returns g in float32,
+    dy's shape."""
+    lead = () if ndir == 1 else (2,)
+    cpw, chunk = _check(ndir, [("dy", dy, lead)], (wl, wc, wr), chunk)
+    g, h, w = dy.shape[len(lead):]
+    out = torch.empty(dy.shape, dtype=torch.float32, device=dy.device)
+    if out.numel() == 0:
+        return out
+    lib = cuda_lib.library("gspn_scan")
+    with torch.cuda.device(dy.device):
+        err = lib.gspn_scan_bwd_launch(
+            ndir, _DTYPE_CODES[dy.dtype], dy.data_ptr(), wl.data_ptr(),
+            wc.data_ptr(), wr.data_ptr(), out.data_ptr(), g, h, w, cpw,
+            chunk, torch.cuda.current_stream().cuda_stream)
+    cuda_lib.check(lib, err, name)
+    _count(name, g, h, w, dy.dtype)
     return out
 
 
@@ -115,11 +163,34 @@ def gspn_scan_fwd(x, wl, wc, wr, lam, *, chunk: int | None = None):
 
 def gspn_scan_fwd_torch(x, wl, wc, wr, lam, *, chunk: int | None = None):
     """Plain PyTorch version of :func:`gspn_scan_fwd`, on any device: f32
-    arithmetic and carry, output in x.dtype."""
+    arithmetic and carry (f64 for f64 operands), output in x.dtype."""
     cuda_lib.plain_calls[KERNEL] += 1
-    args = tuple(a.float() for a in (x, wl, wc, wr, lam))
+    cd = compute_dtype(x.dtype)
+    args = tuple(a.to(cd) for a in (x, wl, wc, wr, lam))
     if chunk_arg(x.shape[1], chunk):
         out = ref.gspn_scan_chunked_ref(*args, chunk)
     else:
         out = ref.gspn_scan_ref(*args)
     return out.to(x.dtype)
+
+
+def gspn_scan_bwd(dy, wl, wc, wr, *, chunk: int | None = None):
+    """Adjoint of :func:`gspn_scan_fwd`: g = dL/dh from dy (G, H, W) and
+    the forward's taps (G_w, H, W), walking rows H-1..0 with the carry
+    reset every ``chunk`` rows.  Returns g: (G, H, W) in float32.
+
+    CUDA tensors launch the kernel (or raise); CPU tensors take
+    :func:`gspn_scan_bwd_torch`."""
+    if not dy.is_cuda:
+        return gspn_scan_bwd_torch(dy, wl, wc, wr, chunk=chunk)
+    return launch_bwd(1, KERNEL_BWD, dy, wl, wc, wr, chunk)
+
+
+def gspn_scan_bwd_torch(dy, wl, wc, wr, *, chunk: int | None = None):
+    """Plain PyTorch version of :func:`gspn_scan_bwd`, on any device: f32
+    arithmetic, carry and output (f64 for f64 operands)."""
+    cuda_lib.plain_calls[KERNEL_BWD] += 1
+    cd = compute_dtype(dy.dtype)
+    return ref.gspn_scan_adjoint_ref(
+        *(a.to(cd) for a in (dy, wl, wc, wr)), reverse=True,
+        chunk=chunk_arg(dy.shape[1], chunk))

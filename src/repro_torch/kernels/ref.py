@@ -13,6 +13,15 @@ laid out ``(G, H, W)``; channel-shared weights carry
 ``G_w = G // channels_per_weight`` leading entries and plane ``g`` reads
 weight plane ``g // channels_per_weight``.  Arithmetic runs in the dtype of
 the operands.
+
+The adjoint (g = dL/dh) runs the transposed recurrence the other way:
+
+    g[i] = dy[i] + shift_left(wl[p]*g[p]) + wc[p]*g[p] + shift_right(wr[p]*g[p])
+
+with p the row walked just before i (i+1 for the adjoint of the
+top-to-bottom scan), so a walk carries the three products of the last
+row.  :func:`gspn_scan_adjoint_ref` is that walk; :func:`gspn_scan_ref_vjp`
+is the hand-derived backward pass of the whole scan built on it.
 """
 
 from __future__ import annotations
@@ -86,6 +95,55 @@ def gspn_scan_chunked_ref(x, wl, wc, wr, lam, chunk: int,
     out = gspn_scan_ref(fold(x), fold(wl), fold(wc), fold(wr), fold(lam),
                         reverse=reverse)
     return out.reshape(g, h, w)
+
+
+def gspn_scan_adjoint_ref(dy, wl, wc, wr, reverse: bool = True,
+                         chunk: int | None = None):
+    """Adjoint walk.  dy: (G, H, W); wl/wc/wr: (G_w, H, W).  Returns
+    g: (G, H, W).
+
+    ``reverse=True`` is the adjoint of the top-to-bottom scan (walks rows
+    last to first), ``reverse=False`` that of the bottom-to-top scan.  The
+    three product rows reset to 0 every ``chunk`` rows of the walk, which
+    is the adjoint of a forward scan whose carry resets every ``chunk``
+    rows (H divisible by ``chunk``).
+    """
+    g_dim, h = dy.shape[0], dy.shape[1]
+    wl, wc, wr = (_broadcast_w(a, g_dim) for a in (wl, wc, wr))
+    zeros = torch.zeros_like(dy[:, 0])
+    p_l = p_c = p_r = zeros
+    rows = [None] * h
+    order = range(h - 1, -1, -1) if reverse else range(h)
+    for r, i in enumerate(order):
+        if chunk and r % chunk == 0:
+            p_l = p_c = p_r = zeros
+        g_i = dy[:, i] + _shift_left(p_l) + p_c + _shift_right(p_r)
+        p_l, p_c, p_r = wl[:, i] * g_i, wc[:, i] * g_i, wr[:, i] * g_i
+        rows[i] = g_i
+    return torch.stack(rows, dim=1)
+
+
+def gspn_scan_ref_vjp(x, wl, wc, wr, lam, dy, reverse: bool = False):
+    """Hand-derived backward pass of :func:`gspn_scan_ref`.  Returns
+    (dx, dwl, dwc, dwr, dlam) with the operands' shapes.
+
+    The forward's previous row is h[i-1] (h[i+1] when ``reverse``), so the
+    tap gradients are g times that row at j-1, j and j+1, summed over each
+    weight group of ``G // G_w`` planes.
+    """
+    g_dim, gw_dim = x.shape[0], wl.shape[0]
+    h = gspn_scan_ref(x, wl, wc, wr, lam, reverse=reverse)
+    g = gspn_scan_adjoint_ref(dy, wl, wc, wr, reverse=not reverse)
+    zero = torch.zeros_like(h[:, :1])
+    if reverse:
+        h_prev = torch.cat([h[:, 1:], zero], dim=1)
+    else:
+        h_prev = torch.cat([zero, h[:, :-1]], dim=1)
+    dws = (g * _shift_right(h_prev), g * h_prev, g * _shift_left(h_prev))
+    if gw_dim != g_dim:
+        dws = tuple(d.reshape((gw_dim, g_dim // gw_dim) + d.shape[1:]).sum(1)
+                    for d in dws)
+    return (lam * g, *dws, x * g)
 
 
 # ---------------------------------------------------------------------------

@@ -1,10 +1,11 @@
 """Declarative scan configuration: the ``ScanSpec`` (DESIGN.md §14).
 
-One frozen, hashable value describes a forward scan launch: the fused
-entry (``direction``), the implementation, the compact channel mode and
-the dtype legs.  The attention module builds one from its configuration;
-the dispatch layer (:mod:`repro_torch.kernels.ops`) resolves its
-implementation per call.
+One frozen, hashable value describes a scan launch: the fused entry
+(``direction``), the implementation, the compact channel mode and the
+dtype legs.  The attention module builds one from its configuration; the
+dispatch layer (:mod:`repro_torch.kernels.ops`) resolves its
+implementation per call, and :meth:`ScanSpec.adjoint` names the launch of
+its backward pass.
 
 Implementations:
 
@@ -25,8 +26,9 @@ import dataclasses
 
 import torch
 
-# Forward entries of this slice: the single scan and the fused pair.
-DIRECTIONS = ("fwd", "pair_fwd")
+# Fused entries: the single scan and the fused pair, each with its adjoint.
+DIRECTIONS = ("fwd", "bwd", "pair_fwd", "pair_bwd")
+_ADJOINT = {"fwd": "bwd", "pair_fwd": "pair_bwd"}
 # How a scan segment relates to state outside itself: the whole sequence
 # in one launch from a zero carry.
 BOUNDARIES = ("one_shot",)
@@ -58,7 +60,7 @@ def resolve_impl(impl: str, tensor: torch.Tensor) -> str:
 
 @dataclasses.dataclass(frozen=True)
 class ScanSpec:
-    """Everything one fused forward scan launch needs to know about itself.
+    """Everything one fused scan launch needs to know about itself.
     The kernels take ``channels_per_weight`` and the stream dtype from the
     operands; the fields name them for the launch's identity
     (:meth:`canonical`)."""
@@ -115,3 +117,13 @@ class ScanSpec:
     def with_(self, **changes) -> "ScanSpec":
         """``dataclasses.replace`` with re-validation (frozen update)."""
         return dataclasses.replace(self, **changes)
+
+    def adjoint(self) -> "ScanSpec":
+        """The spec of this launch's backward pass: the adjoint direction
+        with the always-f32 adjoint carry (DESIGN.md §10).  Only forward
+        directions have a fused adjoint kernel."""
+        if self.direction not in _ADJOINT:
+            raise ValueError(f"no fused adjoint for direction "
+                             f"{self.direction!r}")
+        return self.with_(direction=_ADJOINT[self.direction],
+                          carry_dtype="float32")

@@ -9,7 +9,8 @@ four directional scans run as two fused pair launches per block
 (``auto``/``cuda``/``torch``, see :mod:`repro_torch.kernels.ops`).
 
 Images are NHWC, as in the reference package.  :func:`apply_vision` is the
-inference entry point.
+serving entry point (no autograd); :func:`vision_loss` is the training
+loss, differentiable through the scan's hand-derived adjoint.
 """
 
 from __future__ import annotations
@@ -145,16 +146,17 @@ class GSPNVision(nn.Module):
 
 
 def apply_vision(model: GSPNVision, x) -> torch.Tensor:
-    """Inference: x (B, H, W, 3) -> logits (B, n_classes), without
-    autograd (the CUDA scan kernels are forward only)."""
+    """Serving: x (B, H, W, 3) -> logits (B, n_classes), under
+    ``torch.inference_mode()``, so no autograd graph is built."""
     with torch.inference_mode():
         return model(x)
 
 
 def vision_loss(model: GSPNVision, batch: dict):
-    """Mean cross-entropy of ``batch`` ({"images", "labels"} tensors), the
-    forward value only.  Returns (nll, {"ce": nll})."""
-    logits = apply_vision(model, batch["images"])
+    """Mean cross-entropy of ``batch`` ({"images", "labels"} tensors) under
+    the caller's grad mode, so ``backward()`` reaches every parameter.
+    Returns (nll, {"ce": nll})."""
+    logits = model(batch["images"])
     nll = F.cross_entropy(logits, batch["labels"].long())
     return nll, {"ce": nll}
 

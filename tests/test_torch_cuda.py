@@ -7,8 +7,10 @@ GPU host that has only PyTorch and the CUDA toolkit:
     PYTHONPATH=src python -m pytest -q --noconftest -m cuda tests/test_torch_cuda.py
 
 Every test skips without a card.  Tolerances: 1e-5 of the largest
-magnitude in float32 and 1e-2 in bfloat16 (DESIGN.md §10); the model's
-logits 1e-4 of the largest logit with TF32 off.
+magnitude in float32 and 1e-2 in bfloat16 (DESIGN.md §10); the adjoint
+kernels 1e-5 in both, since they compute in f32 and write f32 from the
+same inputs as their plain versions; the model's logits and gradients
+1e-4 of the largest magnitude with TF32 off.
 """
 
 import dataclasses
@@ -18,7 +20,8 @@ import torch
 
 from repro_torch.configs.gspn2_vision import reduced_vision
 from repro_torch.kernels import cuda_lib, gspn_multidir, gspn_scan, ops
-from repro_torch.models.vision import GSPNVision, apply_vision
+from repro_torch.models.vision import GSPNVision, apply_vision, vision_loss
+from repro_torch.optim.adamw import AdamWConfig, adamw_init, adamw_update
 
 pytestmark = pytest.mark.cuda
 
@@ -50,13 +53,13 @@ def _err_ok(got, want, tol):
     return err <= tol * want.float().abs().max().item()
 
 
+SHAPES = [((8, 19, 37), 1, None), ((8, 19, 37), 4, 19), ((8, 18, 37), 4, 6),
+          ((4, 5, 1), 2, None), ((128, 56, 56), 2, None),
+          ((2, 3, 1024), 1, None)]
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("shape,cpw,chunk", [((8, 19, 37), 1, None),
-                                             ((8, 19, 37), 4, 19),
-                                             ((8, 18, 37), 4, 6),
-                                             ((4, 5, 1), 2, None),
-                                             ((128, 56, 56), 2, None),
-                                             ((2, 3, 1024), 1, None)])
+@pytest.mark.parametrize("shape,cpw,chunk", SHAPES)
 def test_kernels_match_plain(card, dtype, shape, cpw, chunk):
     tol = 1e-5 if dtype == torch.float32 else 1e-2
     a = _inputs(1, *shape, cpw, dtype)
@@ -79,13 +82,93 @@ def test_ops_route_cuda_tensors_to_the_kernels(card):
     assert cuda_lib.plain_calls["gspn_pair_fwd"] == 1   # the reference above
 
 
-def test_kernels_refuse_grad(card):
-    a = list(_inputs(4, 4, 6, 5, 2, torch.float32))
-    a[0].requires_grad_(True)
-    with pytest.raises(NotImplementedError, match="training slice"):
-        gspn_scan.gspn_scan_fwd(*a)
-    with torch.no_grad():
-        gspn_scan.gspn_scan_fwd(*a)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,cpw,chunk", SHAPES)
+def test_adjoint_kernels_match_plain(card, dtype, shape, cpw, chunk):
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    _, wl, wc, wr, lam = _inputs(3, *shape, cpw, dtype)
+    _, wl2, wc2, wr2, lam2 = _inputs(4, *shape, cpw, dtype, pair=True)
+    dy, dy2 = (torch.randn(t.shape, generator=gen, device="cuda").to(dtype)
+               for t in (lam, lam2))
+    got = gspn_scan.gspn_scan_bwd(dy, wl, wc, wr, chunk=chunk)
+    assert got.dtype == torch.float32
+    assert _err_ok(got, gspn_scan.gspn_scan_bwd_torch(dy, wl, wc, wr,
+                                                      chunk=chunk), 1e-5)
+    got2 = gspn_multidir.gspn_scan_bidir_bwd(dy2, wl2, wc2, wr2, chunk=chunk)
+    assert got2.dtype == torch.float32
+    assert _err_ok(got2, gspn_multidir.gspn_scan_bidir_bwd_torch(
+        dy2, wl2, wc2, wr2, chunk=chunk), 1e-5)
+
+
+@pytest.mark.parametrize("pair", [False, True])
+@pytest.mark.parametrize("shape,cpw,chunk", [((8, 19, 37), 2, None),
+                                             ((8, 18, 13), 4, 6)])
+def test_op_gradients_on_card_match_cpu(card, pair, shape, cpw, chunk):
+    """The autograd Functions: kernels forward and backward on the card,
+    plain versions on the CPU, from the same inputs; the gradient reaches
+    the Function transposed (non-contiguous)."""
+    args = _inputs(5, *shape, cpw, torch.float32, pair=pair)
+    r = torch.randn(((2,) if pair else ()) + shape[:1] + shape[:0:-1],
+                    generator=torch.Generator(device="cuda").manual_seed(8),
+                    device="cuda")
+    op, kernel = (ops.gspn_scan_pair, "gspn_pair_bwd") if pair else \
+        (ops.gspn_scan, "gspn_scan_bwd")
+
+    def grads(tensors):
+        leaves = [t.clone().requires_grad_(True) for t in tensors]
+        out = op(*leaves, chunk=chunk)
+        loss = (out.transpose(-1, -2) * r.to(out.device)).sum()
+        return torch.autograd.grad(loss, leaves)
+
+    cuda_lib.clear_counts()
+    got = grads(args)
+    assert cuda_lib.launch_counts[kernel] == 1
+    assert sum(cuda_lib.plain_calls.values()) == 0
+    want = grads([t.cpu() for t in args])
+    for a, b in zip(got, want):
+        assert a.shape == b.shape
+        assert _err_ok(a.cpu(), b, 1e-5)
+
+
+def _train_two_steps(model, batches):
+    params = dict(model.named_parameters())
+    ocfg = AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=2,
+                       weight_decay=0.01)
+    opt = adamw_init(ocfg, params)
+    losses, first_grads = [], None
+    for batch in batches:
+        loss, _ = vision_loss(model, batch)
+        grads = torch.autograd.grad(loss, list(params.values()))
+        first_grads = first_grads or dict(zip(params, grads))
+        adamw_update(ocfg, dict(zip(params, grads)), opt, params)
+        losses.append(loss.item())
+    return losses, first_grads
+
+
+def test_reduced_train_step_on_card_matches_cpu(card):
+    """Two AdamW steps of the reduced model: the card's kernel path
+    against the CPU's plain path from the same weights and images."""
+    cfg = reduced_vision()
+    cpu = GSPNVision(cfg, device="cpu",
+                     generator=torch.Generator().manual_seed(9))
+    gpu = GSPNVision(cfg, device="meta")
+    gpu.load_state_dict({k: v.cuda() for k, v in cpu.state_dict().items()},
+                        assign=True)
+    gen = torch.Generator().manual_seed(10)
+    batches = [{"images": torch.randn((4, cfg.img_size, cfg.img_size, 3),
+                                      generator=gen),
+                "labels": torch.randint(0, cfg.n_classes, (4,),
+                                        generator=gen)} for _ in range(2)]
+    want_losses, want_grads = _train_two_steps(cpu, batches)
+    cuda_lib.clear_counts()
+    got_losses, got_grads = _train_two_steps(
+        gpu, [{k: v.cuda() for k, v in b.items()} for b in batches])
+    n = 2 * 2 * sum(cfg.depths)
+    assert cuda_lib.launch_counts == {"gspn_pair_fwd": n, "gspn_pair_bwd": n}
+    assert sum(cuda_lib.plain_calls.values()) == 0
+    assert got_losses == pytest.approx(want_losses, rel=1e-4)
+    for name, want in want_grads.items():
+        assert _err_ok(got_grads[name].cpu(), want, 1e-4), name
 
 
 def test_reduced_model_on_card_matches_cpu(card):

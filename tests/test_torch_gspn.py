@@ -1,6 +1,6 @@
 """The port's tap normalisation, directional dispatch and GSPN-2 attention
-module against the JAX reference package, from the same numpy inputs and
-converted parameters (f32, 1e-5: DESIGN.md §3)."""
+module against the JAX reference package, forward and gradients, from the
+same numpy inputs and converted parameters (f32, 1e-5: DESIGN.md §3)."""
 
 import dataclasses
 
@@ -107,6 +107,35 @@ def test_attention_matches_reference(channel_shared, chunk):
     assert sum(p.numel() for p in mod.parameters()) == \
         gspn.gspn_attention_param_count(cfg) == \
         jgspn.gspn_attention_param_count(jcfg)
+
+
+@pytest.mark.parametrize("channel_shared,chunk", [(True, 3), (False, None)])
+def test_attention_gradients_match_reference(channel_shared, chunk):
+    """Gradients of a random projection of the module's output, for every
+    parameter and the input, against ``jax.grad`` of the reference's
+    ``apply_gspn_attention`` (four directions: both fused pairs)."""
+    jcfg = jgspn.GSPNAttentionConfig(dim=12, proxy_dim=2,
+                                     channel_shared=channel_shared,
+                                     chunk=chunk, impl="xla")
+    params = jgspn.init_gspn_attention(jax.random.PRNGKey(1), jcfg)
+    mod = gspn.GSPNAttention(gspn.GSPNAttentionConfig(
+        dim=12, proxy_dim=2, channel_shared=channel_shared, chunk=chunk),
+        device="cpu")
+    mod.load_state_dict({k: torch.from_numpy(np.array(v))
+                         for k, v in params.items()}, strict=True)
+    rng = np.random.default_rng(6)
+    x = rng.standard_normal((2, 6, 9, 12)).astype(np.float32)
+    r = rng.standard_normal((2, 6, 9, 12)).astype(np.float32)
+
+    def jloss(p, xj):
+        return jnp.sum(jgspn.apply_gspn_attention(p, xj, jcfg) * r)
+
+    want_p, want_x = jax.grad(jloss, argnums=(0, 1))(params, jnp.asarray(x))
+    xt = torch.from_numpy(x).requires_grad_(True)
+    (mod(xt) * torch.from_numpy(r)).sum().backward()
+    _close(xt.grad, want_x)
+    for name, p in mod.named_parameters():
+        _close(p.grad, want_p[name])
 
 
 def test_attention_parameter_names_match_reference():

@@ -1,11 +1,13 @@
 """The port's scan oracle, kernel plain versions, dispatch and spec against
-the JAX reference package.
+the JAX reference package, forward and backward.
 
 Inputs come from numpy with a seed and go to both packages; f32 results
-agree to 1e-5 (DESIGN.md §3).  The CUDA kernels themselves run only on a
-card: ``test_torch_cuda.py`` holds them against their plain versions there.
+and gradients agree to 1e-5 (DESIGN.md §3).  The CUDA kernels themselves
+run only on a card: ``test_torch_cuda.py`` holds them against their plain
+versions there.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -168,11 +170,25 @@ def test_spec_validation_and_canonical():
 
 def test_spec_canonical_matches_reference_format():
     from repro.kernels.spec import ScanSpec as JSpec
-    mine = ScanSpec(direction="pair_fwd", impl="torch", channels_per_weight=2,
-                    stream_dtype="bfloat16")
-    theirs = JSpec(direction="pair_fwd", impl="xla", channels_per_weight=2,
-                   stream_dtype="bfloat16")
-    assert mine.canonical() == theirs.canonical().replace("|xla|", "|torch|")
+    for direction in ("fwd", "pair_fwd"):
+        mine = ScanSpec(direction=direction, impl="torch",
+                        channels_per_weight=2, stream_dtype="bfloat16")
+        theirs = JSpec(direction=direction, impl="xla",
+                       channels_per_weight=2, stream_dtype="bfloat16")
+        for m, t in ((mine, theirs), (mine.adjoint(), theirs.adjoint())):
+            assert m.canonical() == t.canonical().replace("|xla|", "|torch|")
+
+
+def test_spec_adjoint():
+    s = ScanSpec(direction="pair_fwd", channels_per_weight=2,
+                 stream_dtype="bfloat16", carry_dtype="bfloat16")
+    adj = s.adjoint()
+    assert (adj.direction, adj.carry_dtype, adj.stream_dtype,
+            adj.channels_per_weight) == ("pair_bwd", "float32", "bfloat16", 2)
+    assert ScanSpec().adjoint().direction == "bwd"
+    for direction in ("bwd", "pair_bwd"):
+        with pytest.raises(ValueError, match="no fused adjoint"):
+            ScanSpec(direction=direction).adjoint()
 
 
 def test_spec_cuda_refuses_narrow_carry_and_cpu_tensors():
@@ -231,3 +247,147 @@ def test_launch_checks_operands(case):
     with pytest.raises(ValueError):
         gspn_scan.launch(ndir, "test", x, wl, wc, wr, lam, chunk)
 
+
+
+# ---------------------------------------------------------------------------
+# Backward: the adjoint oracle, the plain adjoint walks and the gradients of
+# the autograd Functions.
+# ---------------------------------------------------------------------------
+
+def _dy(seed, shape):
+    return np.random.default_rng(seed).standard_normal(shape).astype(
+        np.float32)
+
+
+@pytest.mark.parametrize("cpw", CPWS)
+def test_ref_vjp_matches_jax(cpw):
+    shape = SHAPES[0]
+    a = _inputs(20, *shape, cpw)
+    dy = _dy(21, shape)
+    got = ref.gspn_scan_ref_vjp(*_t(a), torch.from_numpy(dy))
+    want = jref.gspn_scan_ref_vjp(*_j(a), jnp.asarray(dy))
+    for g, w in zip(got, want):
+        _close(g, w)
+
+
+@pytest.mark.parametrize("reverse", [False, True])
+def test_ref_vjp_matches_autograd(reverse):
+    a = _inputs(22, 4, 9, 11, 2)
+    dy = torch.from_numpy(_dy(23, (4, 9, 11)))
+    leaves = [t.requires_grad_(True) for t in _t(a)]
+    want = torch.autograd.grad(ref.gspn_scan_ref(*leaves, reverse=reverse),
+                               leaves, dy)
+    got = ref.gspn_scan_ref_vjp(*_t(a), dy, reverse=reverse)
+    for g, w in zip(got, want):
+        _close(g, w.numpy())
+
+
+def _xla_adjoint(dy, wl, wc, wr, reverse, chunk):
+    """The reference's adjoint walk on the fold the reference uses for
+    ``chunk``: (G, H, W) -> (G·H/chunk, chunk, W), weights broadcast."""
+    g, h, w = dy.shape
+    fold = h // (chunk or h)
+
+    def f(a):
+        return jref._broadcast_w(jnp.asarray(a), g).reshape(g * fold, -1, w)
+
+    out = jops._bwd_adjoint_xla(f(dy), f(wl), f(wc), f(wr), reverse=reverse)
+    return np.asarray(out).reshape(g, h, w)
+
+
+@pytest.mark.parametrize("cpw,chunk", [(1, None), (2, 6), (4, 4)])
+def test_plain_adjoints_match_jax(cpw, chunk):
+    _, wl, wc, wr, _ = _inputs(24, 4, 12, 13, cpw)
+    dy = _dy(25, (4, 12, 13))
+    got = gspn_scan.gspn_scan_bwd_torch(*_t((dy, wl, wc, wr)), chunk=chunk)
+    assert got.dtype == torch.float32
+    _close(got, _xla_adjoint(dy, wl, wc, wr, True, chunk))
+    _, wl2, wc2, wr2, _ = _inputs(26, 4, 12, 13, cpw, pair=True)
+    dy2 = _dy(27, (2, 4, 12, 13))
+    got2 = gspn_multidir.gspn_scan_bidir_bwd_torch(
+        *_t((dy2, wl2, wc2, wr2)), chunk=chunk)
+    for d in (0, 1):
+        _close(got2[d], _xla_adjoint(dy2[d], wl2[d], wc2[d], wr2[d], d == 0,
+                                     chunk))
+
+
+def _grads(op, arrays, dy, **kw):
+    leaves = [t.requires_grad_(True) for t in _t(arrays)]
+    return torch.autograd.grad(op(*leaves, **kw), leaves, torch.from_numpy(dy))
+
+
+def _jax_grads(op, arrays, dy, **kw):
+    _, vjp = jax.vjp(lambda *t: op(*t, **kw), *_j(arrays))
+    return vjp(jnp.asarray(dy))
+
+
+@pytest.mark.parametrize("cpw,chunk", [(1, None), (2, None), (2, 6), (4, 4)])
+@pytest.mark.parametrize("pair", [False, True])
+def test_op_gradients_match_xla(pair, cpw, chunk):
+    """``torch.autograd.grad`` through the port's Functions against
+    ``jax.vjp`` of the reference's custom_vjp ops (the xla adjoint and the
+    same epilogue), ragged W, chunk None, H/2 and H/3."""
+    a = _inputs(28, 4, 12, 13, cpw, pair=pair)
+    dy = _dy(29, ((2,) if pair else ()) + (4, 12, 13))
+    mine, theirs = (ops.gspn_scan_pair, jops.gspn_scan_pair) if pair else \
+        (ops.gspn_scan, jops.gspn_scan)
+    for g, w in zip(_grads(mine, a, dy, chunk=chunk),
+                    _jax_grads(theirs, a, dy, impl="xla", chunk=chunk)):
+        assert g.shape == w.shape
+        _close(g, w)
+
+
+def test_op_gradients_match_pallas_interpret():
+    """One small case through the reference's Pallas adjoint kernels (#2,
+    #4) in interpret mode, as the reference suite runs them."""
+    a = _inputs(30, 4, 8, 8, 2)
+    dy = _dy(31, (4, 8, 8))
+    for g, w in zip(_grads(ops.gspn_scan, a, dy),
+                    _jax_grads(jops.gspn_scan, a, dy, impl="pallas")):
+        _close(g, w)
+    p = _inputs(32, 4, 8, 8, 2, pair=True)
+    dy2 = _dy(33, (2, 4, 8, 8))
+    for g, w in zip(_grads(ops.gspn_scan_pair, p, dy2),
+                    _jax_grads(jops.gspn_scan_pair, p, dy2, impl="multidir")):
+        _close(g, w)
+
+
+@pytest.mark.parametrize("chunk", [None, 3])
+@pytest.mark.parametrize("pair", [False, True])
+def test_functions_gradcheck_float64(pair, chunk):
+    a = tuple(torch.from_numpy(v).double().requires_grad_(True)
+              for v in _inputs(34, 4, 6, 5, 2, pair=pair))
+    op = ops.gspn_scan_pair if pair else ops.gspn_scan
+    assert torch.autograd.gradcheck(lambda *t: op(*t, chunk=chunk), a)
+
+
+def test_adjoint_wrappers_take_plain_version_on_cpu():
+    cuda_lib.clear_counts()
+    _, wl, wc, wr, lam = _t(_inputs(35, 4, 6, 5, 2))
+    _, wl2, wc2, wr2, lam2 = _t(_inputs(35, 4, 6, 5, 2, pair=True))
+    _close(gspn_scan.gspn_scan_bwd(lam, wl, wc, wr),
+           gspn_scan.gspn_scan_bwd_torch(lam, wl, wc, wr))
+    _close(gspn_multidir.gspn_scan_bidir_bwd(lam2, wl2, wc2, wr2),
+           gspn_multidir.gspn_scan_bidir_bwd_torch(lam2, wl2, wc2, wr2))
+    assert sum(cuda_lib.launch_counts.values()) == 0
+    assert cuda_lib.plain_calls == {"gspn_scan_bwd": 2, "gspn_pair_bwd": 2}
+
+
+@pytest.mark.parametrize("case", ["taps", "dy", "dtype", "contig", "chunk"])
+def test_launch_bwd_checks_operands(case):
+    """The adjoint wrapper's operand checks run before any build or
+    launch."""
+    _, wl, wc, wr, dy = _t(_inputs(36, 4, 6, 5, 2, pair=True))
+    chunk = None
+    if case == "taps":
+        wl = wl[0]
+    elif case == "dy":
+        dy = dy[0]
+    elif case == "dtype":
+        dy, wl, wc, wr = (t.double() for t in (dy, wl, wc, wr))
+    elif case == "contig":
+        dy = dy.transpose(-1, -2).contiguous().transpose(-1, -2)
+    elif case == "chunk":
+        chunk = 4
+    with pytest.raises(ValueError):
+        gspn_scan.launch_bwd(2, "test", dy, wl, wc, wr, chunk)

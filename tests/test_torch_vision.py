@@ -85,6 +85,7 @@ def test_vision_loss_matches_reference(reduced):
     want, _ = jvision.vision_loss(params, jcfg,
                                   {k: jnp.asarray(v) for k, v in b.items()})
     assert aux["ce"] is nll
+    assert nll.requires_grad       # differentiable (the training loss)
     np.testing.assert_allclose(nll.item(), float(want), rtol=1e-4, atol=1e-4)
 
 
@@ -225,13 +226,13 @@ def test_configs_match_reference():
 
 
 # ---------------------------------------------------------------------------
-# Import hygiene: the port and chip_smoke.py never import JAX or the
-# reference package.
+# Import hygiene: the port, its trainer twin and chip_smoke.py never import
+# JAX or the reference package.
 # ---------------------------------------------------------------------------
 
 def _port_sources():
     return sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + \
-        [ROOT / "chip_smoke.py"]
+        [ROOT / "chip_smoke.py", ROOT / "examples" / "train_vision_torch.py"]
 
 
 def test_port_imports_no_jax_or_reference():
@@ -252,7 +253,8 @@ def test_port_imports_no_jax_or_reference():
 
 
 def test_importing_the_port_loads_no_jax():
-    code = ("import sys, repro_torch.models.vision, repro_torch.models.convert;"
+    code = ("import sys, repro_torch.models.vision, repro_torch.models.convert,"
+            " repro_torch.optim.adamw;"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'repro')]; assert not bad, bad")
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
