@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's main paths (serving and training) on one CUDA
-card and hold every CUDA kernel against its plain PyTorch version.
+"""Drive the PyTorch port's main paths (serving, training and the
+four-direction launch ladder) on one CUDA card and hold every CUDA kernel
+against its plain PyTorch version.
 
 Run from the root of a checkout, with no arguments:
 
@@ -22,6 +23,11 @@ Phases, each of which fails the run on any error:
    version (CUDA-graph replays timed by CUDA events, median of 20) and of
    one eager call; then the gradient of a single-direction
    ``directional_scan`` ("rl"), kernels #1 and #2 against the plain path;
+   then the single-launch quad kernel (#5) against its plain version at the
+   main-path shapes (N = 56/28/14/7), at 1024² (G = 32, N = 256) and on a
+   ragged square (N = 19, cpw 1 and 4), float32 and bfloat16, timed
+   through its wrapper (the stacking copy included, as the bound counts x
+   once) and alone on x already stacked with its transpose;
 4. model (serving): GSPN-2-T classification forward at 224², batch 64, weights from
    a seeded generator, images from ``synth_images``; the kernel path
    against the plain path on the card (TF32 off for convolutions and
@@ -38,7 +44,16 @@ Phases, each of which fails the run on any error:
    the loss and gradients alone, 5 timed AdamW steps (step ms, images/s,
    peak memory) and a profile of one step;
 6. the trainer twin ``examples/train_vision_torch.py``, 60 steps on the
-   reduced model, whose held-out accuracy must end above 2/n_classes.
+   reduced model, whose held-out accuracy must end above 2/n_classes;
+7. the four-direction launch ladder (the paper's §4.3 design point) at
+   GSPN-2-T's stage shapes, batch 64 (G = 128, cpw 2, N = 56/28/14/7,
+   float32): the GSPN-1 per-step emulation, one scan per direction (#1
+   four times), the pair dispatch (#3 twice) and the quad (#5 once), each
+   through the port's public functions and held equal to the pair rung
+   (1e-5 of the largest magnitude); its launches asserted from the
+   counters and again from the ``kernel.launch`` spans; its device time as
+   a CUDA graph and as an eager call (per_step eager only); a Chrome trace
+   of one traced pass of every rung written to ``build/ladder_trace.json``.
 
 It prints a ``{"kernels": [...]}`` line and, last, the ``{"ok": true, ...}``
 line.
@@ -70,6 +85,7 @@ OPS_PER_ELEMENT = {"fwd": 7, "bwd": 9}
 MAIN_WIDTHS = (56, 28, 14, 7)
 BATCH = 64
 REPLACES = {
+    "gspn_quad_fwd": "src/repro/kernels/gspn_multidir.py:422",
     "gspn_pair_fwd": "src/repro/kernels/gspn_multidir.py:165",
     "gspn_scan_fwd": "src/repro/kernels/gspn_scan.py:224",
     "gspn_pair_bwd": "src/repro/kernels/gspn_multidir.py:336",
@@ -121,10 +137,10 @@ def _graph_ms(fn, per_graph: int, n: int = 20) -> float:
     return ms
 
 
-def _scan_inputs(gen, g, h, w, cpw, dtype, pair, kind="fwd"):
+def _scan_inputs(gen, g, h, w, cpw, dtype, pair, kind="fwd", ndir=None):
     """(x, wl, wc, wr, lam) for a forward scan, (dy, wl, wc, wr) for an
-    adjoint."""
-    lead = (2,) if pair else ()
+    adjoint; ``ndir`` 4 gives the quad's operands."""
+    lead = (ndir,) if ndir else (2,) if pair else ()
     dev = "cuda"
     x = torch.randn((g, h, w), generator=gen, device=dev)
     taps = torch.softmax(torch.randn(lead + (g // cpw, h, w, 3),
@@ -179,17 +195,13 @@ def kernel_phase(gen):
             if timed:
                 nbytes = sum(t.numel() * t.element_size() for t in args) \
                     + got.numel() * got.element_size()
-                ops = OPS_PER_ELEMENT[kind] * got.numel()
-                t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-                t_ops = ops / PEAK_F32_OPS_PER_S * 1e3
                 row.update(
                     ms=_graph_ms(lambda: kernel(*args, chunk=chunk), 10),
                     plain_ms=_graph_ms(lambda: plain(*args, chunk=chunk), 2),
                     call_ms=_median_ms(lambda: kernel(*args, chunk=chunk)),
                     plain_call_ms=_median_ms(
                         lambda: plain(*args, chunk=chunk)),
-                    bytes=nbytes, bound_ms=max(t_bytes, t_ops),
-                    bound_by="bytes" if t_bytes >= t_ops else "operations")
+                    **_bound(nbytes, got.numel(), kind))
             print("kernel " + " ".join(f"{k}={v}" for k, v in row.items()),
                   flush=True)
             if not err <= row["tol"]:
@@ -197,7 +209,60 @@ def kernel_phase(gen):
                                      f"version: {row}")
             results.append(row)
     _single_direction_grad_check(gen)
-    return results
+    return results + _quad_rows(gen)
+
+
+def _bound(nbytes, out_elements, kind):
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = OPS_PER_ELEMENT[kind] * out_elements / PEAK_F32_OPS_PER_S * 1e3
+    return dict(bytes=nbytes, bound_ms=max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations")
+
+
+def _quad_rows(gen):
+    """Kernel #5 against its plain version.  ``ms`` is the public wrapper,
+    its stacking copy included, against the bound of the function it
+    computes (x read once, taps and lam read, out written);
+    ``kernel_ms`` is the kernel alone on x already stacked with its
+    transpose."""
+    from repro_torch.kernels import gspn_multidir as mk
+
+    cases = []
+    for dtype in (torch.float32, torch.bfloat16):
+        cases += [(2 * BATCH, n, 2, dtype, True) for n in MAIN_WIDTHS]
+        cases += [(32, 256, 2, dtype, True), (8, 19, 1, dtype, False),
+                  (8, 19, 4, dtype, False)]
+    rows = []
+    for g, n, cpw, dtype, timed in cases:
+        args = _scan_inputs(gen, g, n, n, cpw, dtype, False, ndir=4)
+        xx = torch.stack([args[0], args[0].transpose(-1, -2)])
+        got = mk.gspn_scan_quad(*args)
+        want = mk.gspn_scan_quad_torch(*args)
+        torch.cuda.synchronize()
+        err = (got.float() - want.float()).abs().max().item()
+        scale = want.float().abs().max().item()
+        tol = 1e-5 if dtype == torch.float32 else 1e-2
+        row = dict(kernel=mk.KERNEL_QUAD, g=g, h=n, w=n, cpw=cpw, chunk=None,
+                   dtype=str(dtype).removeprefix("torch."), max_abs_err=err,
+                   max_abs=scale, tol=tol * scale)
+        if timed:
+            nbytes = sum(t.numel() * t.element_size() for t in args) \
+                + got.numel() * got.element_size()
+            row.update(
+                ms=_graph_ms(lambda: mk.gspn_scan_quad(*args), 10),
+                kernel_ms=_graph_ms(lambda: mk.launch_quad(xx, *args[1:]), 10),
+                plain_ms=_graph_ms(lambda: mk.gspn_scan_quad_torch(*args), 2),
+                call_ms=_median_ms(lambda: mk.gspn_scan_quad(*args)),
+                plain_call_ms=_median_ms(
+                    lambda: mk.gspn_scan_quad_torch(*args)),
+                **_bound(nbytes, got.numel(), "fwd"))
+        print("kernel " + " ".join(f"{k}={v}" for k, v in row.items()),
+              flush=True)
+        if not err <= row["tol"]:
+            raise AssertionError(f"{mk.KERNEL_QUAD} disagrees with its plain "
+                                 f"version: {row}")
+        rows.append(row)
+    return rows
 
 
 def _single_direction_grad_check(gen):
@@ -475,6 +540,109 @@ def twin_phase():
           f"{time.perf_counter() - t0:.3f} s", flush=True)
 
 
+def _ladder_rungs(x, wl, wc, wr, lam):
+    """The four rungs of one four-direction pass, each from the same
+    operands in the original orientation (taps and lam stacked per
+    direction, (4, ...)) to the (4, G, N, N) result in that orientation:
+    name -> (function, its kernel launches)."""
+    from repro_torch.core.gspn import DIRECTIONS, directional_scan
+    from repro_torch.kernels.gspn_multidir import gspn_scan_quad
+
+    def per_direction():
+        return torch.stack([directional_scan(x, wl[i], wc[i], wr[i], lam[i], d)
+                            for i, d in enumerate(DIRECTIONS)])
+
+    def quad():
+        # Entries 2 and 3 (lr, rl) go in and come out in transposed
+        # geometry.
+        def t4(a):
+            return torch.stack([a[0], a[1], a[2].transpose(-1, -2),
+                                a[3].transpose(-1, -2)])
+        return t4(gspn_scan_quad(x, t4(wl), t4(wc), t4(wr), t4(lam)))
+
+    return {
+        "per_step": (lambda: directional_scan(x, wl, wc, wr, lam, DIRECTIONS,
+                                              impl="per_step"), {}),
+        "per_direction": (per_direction, {"gspn_scan_fwd": 4}),
+        "pair": (lambda: directional_scan(x, wl, wc, wr, lam, DIRECTIONS),
+                 {"gspn_pair_fwd": 2}),
+        "quad": (quad, {"gspn_quad_fwd": 1}),
+    }
+
+
+def ladder_phase(gen):
+    """The four-direction launch ladder at GSPN-2-T's stage shapes, batch
+    64, f32.  Timing runs with tracing off; then one counted pass of every
+    rung with tracing on, whose launches are asserted from the counters
+    and from the spans and written as a Chrome trace.  Returns that pass's
+    launches by shape for the single scan and the quad."""
+    from repro_torch import obs
+    from repro_torch.core.gspn import DIRECTIONS, _normalize_taps_oriented
+    from repro_torch.kernels import cuda_lib
+    from repro_torch.obs import report
+
+    g, gw = 2 * BATCH, BATCH
+    operands = {}
+    for n in MAIN_WIDTHS:
+        x = torch.randn((g, n, n), generator=gen, device="cuda")
+        lam = torch.sigmoid(torch.randn((4, g, n, n), generator=gen,
+                                        device="cuda"))
+        logits = torch.randn((4, gw, n, n, 3), generator=gen, device="cuda")
+        taps = [_normalize_taps_oriented(logits[i], d, "softmax")
+                for i, d in enumerate(DIRECTIONS)]
+        wl, wc, wr = (torch.stack([t[k] for t in taps]) for k in range(3))
+        operands[n] = (x, wl, wc, wr, lam)
+        for name, (fn, _) in _ladder_rungs(*operands[n]).items():
+            graph = "n/a (synchronises every row)" if name == "per_step" \
+                else f"{_graph_ms(fn, 5):.6f}"
+            eager = _median_ms(fn, n=5 if name == "per_step" else 20)
+            print(f"ladder time n={n} g={g} cpw=2 float32 rung={name}: "
+                  f"graph_ms={graph} eager_ms={eager:.6f}", flush=True)
+
+    shapes = {}
+    obs.enable()
+    try:
+        for n in MAIN_WIDTHS:
+            rungs = _ladder_rungs(*operands[n])
+            want = rungs["pair"][0]()
+            scale = want.abs().max().item()
+            for name, (fn, expected) in rungs.items():
+                first = len(obs.spans("kernel.launch"))
+                cuda_lib.clear_counts()
+                with obs.trace("ladder.rung", rung=name, n=n):
+                    out = fn()
+                torch.cuda.synchronize()
+                launches = dict(cuda_lib.launch_counts)
+                rows = cuda_lib.plain_calls["per_step_row"]
+                shapes.update({k: v for k, v in cuda_lib.launch_shapes.items()
+                               if k[0] in ("gspn_scan_fwd", "gspn_quad_fwd")})
+                spans = {}
+                for r in obs.spans("kernel.launch")[first:]:
+                    spans[r.args["kernel"]] = spans.get(r.args["kernel"], 0) + 1
+                err = (out - want).abs().max().item()
+                print(f"ladder pass n={n} rung={name}: launches {launches}, "
+                      f"kernel.launch spans {spans}, per-step row steps "
+                      f"{rows}, max_abs_err vs pair {err} (tol "
+                      f"{1e-5 * scale})", flush=True)
+                if launches != expected or spans != expected:
+                    raise AssertionError(f"ladder rung {name} at n={n}: "
+                                         f"expected launches {expected}")
+                if name == "per_step" and rows != 4 * n:
+                    raise AssertionError(f"per_step ran {rows} row steps, "
+                                         f"expected {4 * n}")
+                if out.shape != want.shape or not err <= 1e-5 * scale:
+                    raise AssertionError(f"ladder rung {name} at n={n} "
+                                         f"disagrees with the pair rung")
+    finally:
+        obs.disable()
+    path = ROOT / "build" / "ladder_trace.json"
+    path.parent.mkdir(exist_ok=True)
+    obs.save_chrome_trace(path)
+    print(f"ladder chrome trace: {path}", flush=True)
+    report.summarize_trace(obs.chrome_trace())
+    return shapes
+
+
 def main() -> int:
     print(f"torch {torch.__version__} cuda {torch.version.cuda} python "
           f"{sys.version.split()[0]}", flush=True)
@@ -508,6 +676,7 @@ def main() -> int:
                    train_phase(torch.Generator().manual_seed(0)).items()
                    if k[0].endswith("_bwd")})
     twin_phase()
+    shapes.update(ladder_phase(torch.Generator(device="cuda").manual_seed(1)))
 
     entries = []
     for row in rows:

@@ -112,7 +112,8 @@ def directional_scan(x, wl, wc, wr, lam, direction, **scan_kwargs):
     (D, G_w, H, W) and lam: (D, G, H, W) stacked per direction, in the
     original orientation; ``x`` is shared by every direction.  Returns
     (D, G, H, W).  Opposite pairs in the sequence are fused into one
-    ``gspn_scan_pair`` launch each; unpaired directions run single scans.
+    ``gspn_scan_pair`` launch each (except under ``impl="per_step"``);
+    unpaired directions run single scans.
 
     Tap logits must already be produced for the oriented geometry (see
     :func:`_normalize_taps_oriented`).  ``scan_kwargs`` (``spec``,
@@ -130,10 +131,15 @@ def _multi_directional_scan(x, wl, wc, wr, lam, directions, **scan_kwargs):
     idx = {d: i for i, d in enumerate(directions)}
     if len(idx) != len(directions):
         raise ValueError(f"duplicate directions {directions}")
+    # per_step is the GSPN-1 emulation, by construction one dispatch per
+    # row per direction, so pair fusion is skipped for it.  The impl leg
+    # lives in the ScanSpec when one is passed.
+    spec = scan_kwargs.get("spec")
+    impl = spec.impl if spec is not None else scan_kwargs.get("impl", "auto")
     out = [None] * len(directions)
     fused = set()
     for fwd_d, rev_d in OPPOSITE_PAIRS:
-        if fwd_d not in idx or rev_d not in idx:
+        if impl == "per_step" or fwd_d not in idx or rev_d not in idx:
             continue
         i, j = idx[fwd_d], idx[rev_d]
         if fwd_d == "lr":      # horizontal: one transpose at dispatch

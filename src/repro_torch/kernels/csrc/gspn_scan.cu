@@ -10,14 +10,20 @@
 //          (src/repro/kernels/gspn_multidir.py): direction 0 walks rows
 //          0..H-1, direction 1 walks H-1..0 by index arithmetic over the
 //          same unflipped operands; x is shared by both directions.
+//   D = 4: all four directions in one launch on a square N x N grid,
+//          replacing gspn_scan_quad_pallas (same file): x arrives stacked
+//          with its transpose, xx (2,G,N,N); direction d reads orientation
+//          d >> 1 of xx and walks rows in reverse when d & 1, so directions
+//          (tb, bt, lr, rl) are (0, 1, 2, 3), the last two in transposed
+//          geometry.  No chunk: the quad is one-shot.
 //
 // Recurrence (f32 arithmetic and carry, stored in T):
 //   h[i,j] = wl[i,j]*h[p,j-1] + wc[i,j]*h[p,j] + wr[i,j]*h[p,j+1] + lam[i,j]*x[i,j]
 // with p the previously walked row, h = 0 before the first row of a chunk,
 // and out-of-range neighbours 0.  Plane g reads weight plane g / cpw.
 //
-// Layout (all contiguous): x (G,H,W); wl/wc/wr (D,G/cpw,H,W);
-// lam and out (D,G,H,W).
+// Layout (all contiguous): x (G,H,W), or xx (2,G,H,W) for D = 4;
+// wl/wc/wr (D,G/cpw,H,W); lam and out (D,G,H,W).
 //
 // Design: one CTA per (plane, direction), blockDim = roundup(W, 32), thread
 // j owns column j and keeps its own h in a register.  The previous row is
@@ -32,6 +38,17 @@
 // every row is a dependent step (a barrier plus the latency of the row's
 // loads), so at the vision shapes the kernel is bound by the chain of H row
 // latencies, not by bytes.  The wrappers' docstrings give the numbers.
+//
+// Bound of the quad (D = 4), per (g,h,w) element of the function it computes
+// (gspn_scan_quad, stacking included): x read once, lam 4, out 4 and the
+// twelve tap planes 12/cpw: 60 bytes in f32 at cpw = 2.  At G = 128 and
+// N = 56 / 28 / 14 / 7 that is 24.1 / 6.02 / 1.51 / 0.38 MB per call,
+// 7.19 / 1.80 / 0.45 / 0.11 us at 3.35 TB/s; at G = 32, N = 256 it is
+// 126 MB, 37.6 us.  The kernel itself reads x twice, as xx (64 bytes per
+// element); the wrapper's stacking copy (x read, its transpose written)
+// builds xx outside it, as in the reference.  4·G CTAs of roundup(N, 32) threads
+// (512 CTAs of 64 threads at G = 128, N = 56) all fit on 132 SMs at once,
+// so each still runs its chain of N row latencies, as the pair does.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -54,14 +71,15 @@ __global__ void gspn_scan_kernel(const T* __restrict__ x, const T* __restrict__ 
                                  int G, int H, int W, int cpw, int chunk) {
   extern __shared__ float s_prev[];  // 2 x (W + 2)
   const int g = blockIdx.x;
-  const int d = (D == 2) ? static_cast<int>(blockIdx.y) : 0;
+  const int d = (D > 1) ? static_cast<int>(blockIdx.y) : 0;
   const int j = threadIdx.x;
   const bool active = j < W;
-  const bool reverse = (D == 2) && d == 1;
+  const bool reverse = (D > 1) && (d & 1);
+  const int ori = (D == 4) ? (d >> 1) : 0;  // orientation of xx (quad only)
   const int Gw = G / cpw;
   const size_t plane = static_cast<size_t>(H) * W;
 
-  const T* xg = x + static_cast<size_t>(g) * plane;
+  const T* xg = x + (static_cast<size_t>(ori) * G + g) * plane;
   const size_t w_off = (static_cast<size_t>(d) * Gw + g / cpw) * plane;
   const T* wlg = wl + w_off;
   const T* wcg = wc + w_off;
@@ -120,12 +138,14 @@ cudaError_t launch(const void* x, const void* wl, const void* wc, const void* wr
 
 }  // namespace
 
-// ndir: 1 or 2.  dtype: 0 = float32, 1 = bfloat16.  chunk <= 0: no reset.
-// Returns the cudaError_t of the launch (0 on success).
+// ndir: 1, 2 or 4 (x is then xx, H == W and chunk <= 0).  dtype: 0 =
+// float32, 1 = bfloat16.  chunk <= 0: no reset.  Returns the cudaError_t of
+// the launch (0 on success).
 extern "C" int gspn_scan_launch(int ndir, int dtype, const void* x, const void* wl,
                                 const void* wc, const void* wr, const void* lam, void* out,
                                 int G, int H, int W, int cpw, int chunk, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (ndir == 4 && (H != W || chunk > 0)) return static_cast<int>(cudaErrorInvalidValue);
   if (ndir == 1 && dtype == 0)
     return launch<1, float>(x, wl, wc, wr, lam, out, G, H, W, cpw, chunk, s);
   if (ndir == 1 && dtype == 1)
@@ -134,6 +154,10 @@ extern "C" int gspn_scan_launch(int ndir, int dtype, const void* x, const void* 
     return launch<2, float>(x, wl, wc, wr, lam, out, G, H, W, cpw, chunk, s);
   if (ndir == 2 && dtype == 1)
     return launch<2, __nv_bfloat16>(x, wl, wc, wr, lam, out, G, H, W, cpw, chunk, s);
+  if (ndir == 4 && dtype == 0)
+    return launch<4, float>(x, wl, wc, wr, lam, out, G, H, W, cpw, chunk, s);
+  if (ndir == 4 && dtype == 1)
+    return launch<4, __nv_bfloat16>(x, wl, wc, wr, lam, out, G, H, W, cpw, chunk, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

@@ -34,6 +34,20 @@ element it moves dy, the taps at ``1 / cpw`` and an f32 g: 14 bytes in f32
 at cpw = 2, 11.2 / 2.8 / 0.70 / 0.18 MB per launch at batch 64 and
 W = 56 / 28 / 14 / 7, about 3.4 / 0.84 / 0.21 / 0.05 us at 3.35 TB/s; as
 for the forward, the row chain sets its time.
+
+:func:`gspn_scan_quad` replaces ``gspn_scan_quad_pallas`` (same file), the
+paper's single-launch design point: all four directions of a square grid
+in one launch, forward only, on no model path (the four-direction launch
+ladder runs it).  It stacks x with its transpose once, then the D = 4
+instance of the forward template runs one CTA per (plane, direction),
+4·G CTAs: direction d reads orientation ``d >> 1`` and walks reversed
+when ``d & 1``.  :func:`gspn_scan_quad_torch` is its plain version.  Per
+(g,h,w) element the function needs x once, lam and out 4 each and the taps
+``12 / cpw``: 60 bytes in f32 at cpw = 2, 24.1 / 6.02 / 1.51 / 0.38 MB per
+call at batch 64 and N = 56 / 28 / 14 / 7, 7.19 / 1.80 / 0.45 / 0.11 us at
+3.35 TB/s (the kernel reads x twice, as the stacked xx the wrapper builds
+first, as the reference does); the row chain sets its time, as for the
+pair.
 """
 
 from __future__ import annotations
@@ -46,6 +60,7 @@ from repro_torch.kernels.gspn_scan import (chunk_arg, compute_dtype, launch,
 
 KERNEL = "gspn_pair_fwd"
 KERNEL_BWD = "gspn_pair_bwd"
+KERNEL_QUAD = "gspn_quad_fwd"
 
 
 def gspn_scan_bidir(x, wl2, wc2, wr2, lam2, *, chunk: int | None = None):
@@ -106,3 +121,42 @@ def gspn_scan_bidir_bwd_torch(dy2, wl2, wc2, wr2, *,
         ref.gspn_scan_adjoint_ref(*(a[d].to(cd) for a in (dy2, wl2, wc2, wr2)),
                                   reverse=d == 0, chunk=chunked)
         for d in (0, 1)])
+
+
+def gspn_scan_quad(x, wl4, wc4, wr4, lam4):
+    """All four directions in one launch, square grids only, forward only.
+    x: (G, N, N); wl4/wc4/wr4: (4, G_w, N, N); lam4: (4, G, N, N), in the
+    order (tb, bt, lr, rl), entries 2 and 3 already in transposed geometry
+    (rows of entry 2 are the original columns).  Returns (4, G, N, N) in
+    x.dtype, entries 2 and 3 transposed (the caller undoes it).
+
+    CUDA tensors launch the kernel (or raise); CPU tensors take
+    :func:`gspn_scan_quad_torch`.  Operands that require grad are refused:
+    training uses the pair dispatch (``ops.gspn_scan_pair``)."""
+    if x.dim() != 3 or x.shape[-1] != x.shape[-2]:
+        raise ValueError(f"the quad scan needs a square grid (G, N, N), got "
+                         f"{tuple(x.shape)}")
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (x, wl4, wc4, wr4, lam4)):
+        raise ValueError("the quad scan is forward-only; differentiate "
+                         "through ops.gspn_scan_pair")
+    if not x.is_cuda:
+        return gspn_scan_quad_torch(x, wl4, wc4, wr4, lam4)
+    return launch_quad(torch.stack([x, x.transpose(-1, -2)]), wl4, wc4, wr4,
+                       lam4)
+
+
+def launch_quad(xx, wl4, wc4, wr4, lam4):
+    """The quad kernel alone on x already stacked with its transpose,
+    xx: (2, G, N, N), contiguous; the other operands as
+    :func:`gspn_scan_quad` takes them."""
+    return launch(4, KERNEL_QUAD, xx, wl4, wc4, wr4, lam4, None)
+
+
+def gspn_scan_quad_torch(x, wl4, wc4, wr4, lam4):
+    """Plain PyTorch version of :func:`gspn_scan_quad`, on any device: f32
+    arithmetic and carry (f64 for f64 operands), output in x.dtype."""
+    cuda_lib.plain_calls[KERNEL_QUAD] += 1
+    cd = compute_dtype(x.dtype)
+    return ref.gspn_scan_quad_ref(
+        *(a.to(cd) for a in (x, wl4, wc4, wr4, lam4))).to(x.dtype)

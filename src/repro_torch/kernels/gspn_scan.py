@@ -28,12 +28,19 @@ adjoint: its two shifted product rows) staged in shared memory and the
 next row's inputs loaded into registers while the current row computes
 (see the source).  Several planes per CTA, a deeper prefetch ring and warp
 shuffles for the neighbours are later work.
+
+Every launch (:func:`launch`, :func:`launch_bwd`, shared by the pair and
+quad wrappers) enters the ``kernel.launch`` span of DESIGN.md §13 with the
+reference's attributes ``kernel``, ``dtype``, ``g``, ``h`` and ``w``; the
+reference's ``row_tile`` and ``pipeline_depth`` are left out, since these
+kernels have no launch plan.
 """
 
 from __future__ import annotations
 
 import torch
 
+from repro_torch import obs
 from repro_torch.kernels import cuda_lib, ref
 
 KERNEL = "gspn_scan_fwd"
@@ -58,13 +65,18 @@ def compute_dtype(dtype: torch.dtype) -> torch.dtype:
     return torch.float64 if dtype == torch.float64 else torch.float32
 
 
+def _lead(ndir: int) -> tuple[int, ...]:
+    """Leading direction axes of the per-direction operands."""
+    return () if ndir == 1 else (ndir,)
+
+
 def _check(ndir: int, planes, taps, chunk) -> tuple[int, int]:
     """Check one ``ndir``-direction launch's operands and return (cpw, the
     kernel's chunk argument).  ``planes``: (name, tensor, leading axes)
     triples of tensors shaped leading axes + (G, H, W), G, H and W read
     from the first; ``taps``: wl, wc, wr, each (G_w, H, W), or
-    (2, G_w, H, W) for the pair."""
-    lead = () if ndir == 1 else (2,)
+    (ndir, G_w, H, W) for the pair and the quad."""
+    lead = _lead(ndir)
     name0, first, lead0 = planes[0]
     if first.dim() != len(lead0) + 3:
         raise ValueError(f"{name0} must be {lead0 + ('G', 'H', 'W')}, got "
@@ -106,19 +118,32 @@ def _count(name: str, g: int, h: int, w: int, dtype: torch.dtype) -> None:
                             str(dtype).removeprefix("torch."))] += 1
 
 
+def _span(name: str, g: int, h: int, w: int, dtype: torch.dtype):
+    if not obs.enabled():  # no attributes to format on the eager path
+        return obs.NOOP_SPAN
+    return obs.trace("kernel.launch", kernel=name,
+                     dtype=str(dtype).removeprefix("torch."), g=g, h=h, w=w)
+
+
 def launch(ndir: int, name: str, x, wl, wc, wr, lam, chunk) -> torch.Tensor:
     """Check the operands of one ``ndir``-direction forward scan and launch
-    the kernel on the current stream.  Shapes: x (G,H,W); taps (G_w,H,W),
-    or (2,G_w,H,W) for the pair; lam (G,H,W), or (2,G,H,W)."""
-    lead = () if ndir == 1 else (2,)
-    cpw, chunk = _check(ndir, [("x", x, ()), ("lam", lam, lead)],
+    the kernel on the current stream.  Shapes: x (G,H,W), or for the quad
+    (ndir 4) x stacked with its transpose (2,G,N,N); taps (G_w,H,W), or
+    (ndir,G_w,H,W) for the pair and the quad; lam (G,H,W), or
+    (ndir,G,H,W)."""
+    lead = _lead(ndir)
+    x_lead = (2,) if ndir == 4 else ()
+    cpw, chunk = _check(ndir, [("x", x, x_lead), ("lam", lam, lead)],
                         (wl, wc, wr), chunk)
-    g, h, w = x.shape
+    g, h, w = x.shape[len(x_lead):]
+    if ndir == 4 and (h != w or chunk):
+        raise ValueError(f"the quad scan is one-shot on a square grid, got "
+                         f"H={h}, W={w}, chunk={chunk}")
     out = torch.empty(lead + (g, h, w), dtype=x.dtype, device=x.device)
     if out.numel() == 0:
         return out
     lib = cuda_lib.library("gspn_scan")
-    with torch.cuda.device(x.device):
+    with _span(name, g, h, w, x.dtype), torch.cuda.device(x.device):
         err = lib.gspn_scan_launch(
             ndir, _DTYPE_CODES[x.dtype], x.data_ptr(), wl.data_ptr(),
             wc.data_ptr(), wr.data_ptr(), lam.data_ptr(), out.data_ptr(),
@@ -133,14 +158,14 @@ def launch_bwd(ndir: int, name: str, dy, wl, wc, wr, chunk) -> torch.Tensor:
     the kernel on the current stream.  Shapes: dy (G,H,W), or (2,G,H,W)
     for the pair; taps (G_w,H,W), or (2,G_w,H,W).  Returns g in float32,
     dy's shape."""
-    lead = () if ndir == 1 else (2,)
+    lead = _lead(ndir)
     cpw, chunk = _check(ndir, [("dy", dy, lead)], (wl, wc, wr), chunk)
     g, h, w = dy.shape[len(lead):]
     out = torch.empty(dy.shape, dtype=torch.float32, device=dy.device)
     if out.numel() == 0:
         return out
     lib = cuda_lib.library("gspn_scan")
-    with torch.cuda.device(dy.device):
+    with _span(name, g, h, w, dy.dtype), torch.cuda.device(dy.device):
         err = lib.gspn_scan_bwd_launch(
             ndir, _DTYPE_CODES[dy.dtype], dy.data_ptr(), wl.data_ptr(),
             wc.data_ptr(), wr.data_ptr(), out.data_ptr(), g, h, w, cpw,

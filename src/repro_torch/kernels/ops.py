@@ -10,7 +10,12 @@ Two entry points, used by :mod:`repro_torch.core.gspn`:
 Each call takes one :class:`~repro_torch.kernels.spec.ScanSpec` (or builds
 one from ``impl``) and resolves its implementation: ``cuda`` (the hand
 kernels) for CUDA tensors under ``auto``, ``torch`` (the plain versions)
-for CPU tensors or on request.
+for CPU tensors or on request, and for ``gspn_scan`` only ``per_step``, the
+GSPN-1 emulation of one dispatch per row (``ref.gspn_scan_per_step``, on
+any device; its backward is the plain walk).  Every forward and backward
+dispatch enters the ``kernel.dispatch`` span of DESIGN.md §13 with the
+reference's ``op`` names and the resolved ``impl``, ``dtype`` and
+``shape``.
 
 Each entry is a ``torch.autograd.Function`` with the reference's
 hand-derived adjoint (DESIGN.md §2, ``src/repro/kernels/ops.py``
@@ -39,8 +44,11 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch import obs
+from repro_torch.kernels import cuda_lib
 from repro_torch.kernels import gspn_multidir as _mk
 from repro_torch.kernels import gspn_scan as _pk
+from repro_torch.kernels import ref as _ref
 from repro_torch.kernels.ref import _shift_left, _shift_right
 from repro_torch.kernels.spec import ScanSpec, resolve_impl
 
@@ -53,6 +61,27 @@ def _resolve(spec: ScanSpec | None, impl: str, x) -> str:
     if resolved == "cuda":
         spec.check_cuda()
     return resolved
+
+
+def _dispatch_span(op: str, impl: str, t: torch.Tensor):
+    if not obs.enabled():  # no attributes to format on the eager path
+        return obs.NOOP_SPAN
+    return obs.trace("kernel.dispatch", op=op, impl=impl,
+                     dtype=str(t.dtype).removeprefix("torch."),
+                     shape=str(tuple(t.shape)))
+
+
+def _per_step(x, wl, wc, wr, lam, chunk):
+    """The per-step emulation in the plain versions' arithmetic: f32 (f64
+    for f64 operands), output in x.dtype; one-shot only.  Counts the call
+    and its H row steps in ``plain_calls``."""
+    if chunk:
+        raise ValueError("impl='per_step' runs one-shot scans; chunk=None")
+    cuda_lib.plain_calls["per_step"] += 1
+    cuda_lib.plain_calls["per_step_row"] += x.shape[1]
+    cd = _pk.compute_dtype(x.dtype)
+    return _ref.gspn_scan_per_step(
+        *(a.to(cd) for a in (x, wl, wc, wr, lam))).to(x.dtype)
 
 
 def _h_prev(h, reverse: bool, chunk: int | None):
@@ -83,11 +112,15 @@ def _tap_grads(g, h_prev, taps):
 class _Scan(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, wl, wc, wr, lam, chunk, impl):
-        if impl == "cuda":
-            x, wl, wc, wr, lam = (a.contiguous() for a in (x, wl, wc, wr, lam))
-            h = _pk.gspn_scan_fwd(x, wl, wc, wr, lam, chunk=chunk)
-        else:
-            h = _pk.gspn_scan_fwd_torch(x, wl, wc, wr, lam, chunk=chunk)
+        with _dispatch_span("gspn_scan", impl, x):
+            if impl == "cuda":
+                x, wl, wc, wr, lam = (a.contiguous()
+                                      for a in (x, wl, wc, wr, lam))
+                h = _pk.gspn_scan_fwd(x, wl, wc, wr, lam, chunk=chunk)
+            elif impl == "per_step":
+                h = _per_step(x, wl, wc, wr, lam, chunk)
+            else:
+                h = _pk.gspn_scan_fwd_torch(x, wl, wc, wr, lam, chunk=chunk)
         ctx.save_for_backward(x, wl, wc, wr, lam, h)
         ctx.chunk, ctx.impl = chunk, impl
         return h
@@ -95,11 +128,12 @@ class _Scan(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dy):
         x, wl, wc, wr, lam, h = ctx.saved_tensors
-        if ctx.impl == "cuda":
-            g = _pk.gspn_scan_bwd(dy.contiguous(), wl, wc, wr,
-                                  chunk=ctx.chunk)
-        else:
-            g = _pk.gspn_scan_bwd_torch(dy, wl, wc, wr, chunk=ctx.chunk)
+        with _dispatch_span("gspn_scan_bwd", ctx.impl, dy):
+            if ctx.impl == "cuda":
+                g = _pk.gspn_scan_bwd(dy.contiguous(), wl, wc, wr,
+                                      chunk=ctx.chunk)
+            else:
+                g = _pk.gspn_scan_bwd_torch(dy, wl, wc, wr, chunk=ctx.chunk)
         h_prev = _h_prev(h.to(g.dtype), False, ctx.chunk)
         dx = (lam.to(g.dtype) * g).to(x.dtype)
         dlam = (x.to(g.dtype) * g).to(lam.dtype)
@@ -109,13 +143,14 @@ class _Scan(torch.autograd.Function):
 class _ScanPair(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, wl2, wc2, wr2, lam2, chunk, impl):
-        if impl == "cuda":
-            x, wl2, wc2, wr2, lam2 = (a.contiguous()
-                                      for a in (x, wl2, wc2, wr2, lam2))
-            h2 = _mk.gspn_scan_bidir(x, wl2, wc2, wr2, lam2, chunk=chunk)
-        else:
-            h2 = _mk.gspn_scan_bidir_torch(x, wl2, wc2, wr2, lam2,
-                                           chunk=chunk)
+        with _dispatch_span("gspn_scan_pair", impl, x):
+            if impl == "cuda":
+                x, wl2, wc2, wr2, lam2 = (a.contiguous()
+                                          for a in (x, wl2, wc2, wr2, lam2))
+                h2 = _mk.gspn_scan_bidir(x, wl2, wc2, wr2, lam2, chunk=chunk)
+            else:
+                h2 = _mk.gspn_scan_bidir_torch(x, wl2, wc2, wr2, lam2,
+                                               chunk=chunk)
         ctx.save_for_backward(x, wl2, wc2, wr2, lam2, h2)
         ctx.chunk, ctx.impl = chunk, impl
         return h2
@@ -125,12 +160,13 @@ class _ScanPair(torch.autograd.Function):
         x, wl2, wc2, wr2, lam2, h2 = ctx.saved_tensors
         # dy2 arrives as autograd builds it, e.g. strided after the L->R
         # transposes of core.gspn, or expanded from a sum.
-        if ctx.impl == "cuda":
-            g2 = _mk.gspn_scan_bidir_bwd(dy2.contiguous(), wl2, wc2, wr2,
-                                         chunk=ctx.chunk)
-        else:
-            g2 = _mk.gspn_scan_bidir_bwd_torch(dy2, wl2, wc2, wr2,
-                                               chunk=ctx.chunk)
+        with _dispatch_span("gspn_scan_pair_bwd", ctx.impl, dy2):
+            if ctx.impl == "cuda":
+                g2 = _mk.gspn_scan_bidir_bwd(dy2.contiguous(), wl2, wc2, wr2,
+                                             chunk=ctx.chunk)
+            else:
+                g2 = _mk.gspn_scan_bidir_bwd_torch(dy2, wl2, wc2, wr2,
+                                                   chunk=ctx.chunk)
         h32 = h2.to(g2.dtype)
         h_prev = torch.stack([_h_prev(h32[0], False, ctx.chunk),
                               _h_prev(h32[1], True, ctx.chunk)])
@@ -147,7 +183,8 @@ def gspn_scan(x, wl, wc, wr, lam, *, spec: ScanSpec | None = None,
 
     x, lam: (G, H, W); wl/wc/wr: (G_w, H, W), G_w divides G.  Returns
     h: (G, H, W) in x.dtype, differentiable in every tensor.  ``impl``
-    builds the spec when ``spec`` is not given and is ignored when it is.
+    builds the spec when ``spec`` is not given and is ignored when it is;
+    ``per_step`` takes no ``chunk``.
     """
     resolved = _resolve(spec, impl, x)
     chunk = _pk.chunk_arg(x.shape[1], chunk) or None
@@ -165,5 +202,8 @@ def gspn_scan_pair(x, wl2, wc2, wr2, lam2, *, spec: ScanSpec | None = None,
     differentiable in every tensor.
     """
     resolved = _resolve(spec, impl, x)
+    if resolved == "per_step":
+        raise ValueError("impl='per_step' is not supported for the fused "
+                         "pair scan")
     chunk = _pk.chunk_arg(x.shape[1], chunk) or None
     return _ScanPair.apply(x, wl2, wc2, wr2, lam2, chunk, resolved)

@@ -146,6 +146,47 @@ def gspn_scan_ref_vjp(x, wl, wc, wr, lam, dy, reverse: bool = False):
     return (lam * g, *dws, x * g)
 
 
+def gspn_scan_quad_ref(x, wl4, wc4, wr4, lam4):
+    """Quad-launch semantics on a square grid.  x: (G, N, N); wl4/wc4/wr4:
+    (4, G_w, N, N); lam4: (4, G, N, N), directions (tb, bt, lr, rl).
+    Entries 0 and 1 scan x, entries 2 and 3 its transpose with taps and lam
+    already in transposed geometry; odd entries scan reversed.  Returns
+    (4, G, N, N), entries 2 and 3 transposed."""
+    xt = x.transpose(-1, -2)
+    return torch.stack([
+        gspn_scan_ref(x if d < 2 else xt, wl4[d], wc4[d], wr4[d], lam4[d],
+                      reverse=d % 2 == 1)
+        for d in range(4)])
+
+
+# ---------------------------------------------------------------------------
+# GSPN-1 emulation: per-step dispatches.
+# ---------------------------------------------------------------------------
+
+def gspn_scan_per_step(x, wl, wc, wr, lam, block: bool = True):
+    """GSPN-1 structural emulation: one dispatch per row.
+
+    Each row step is its own round of eager launches whose result is
+    materialised before the next row is dispatched (with ``block`` on a
+    CUDA tensor, ``torch.cuda.synchronize()`` after each row, as the
+    reference's ``block_until_ready``), mirroring GSPN-1's per-step kernel
+    launches and round trips through device memory.  The same values as
+    :func:`gspn_scan_ref`.
+    """
+    g = x.shape[0]
+    wl, wc, wr = (_broadcast_w(a, g) for a in (wl, wc, wr))
+    sync = block and x.is_cuda
+    h_prev = torch.zeros_like(x[:, 0])
+    rows = []
+    for i in range(x.shape[1]):
+        h_prev = step_row(h_prev, x[:, i], wl[:, i], wc[:, i], wr[:, i],
+                          lam[:, i])
+        if sync:
+            torch.cuda.synchronize(x.device)
+        rows.append(h_prev)
+    return torch.stack(rows, dim=1)
+
+
 # ---------------------------------------------------------------------------
 # Dense affinity-matrix oracle (Eq. 4 of the paper): O(H^2 W^2), tiny shapes
 # only.  Validates that the scan equals y = G @ x with the block

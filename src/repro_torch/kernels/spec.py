@@ -10,12 +10,19 @@ its backward pass.
 Implementations:
 
 * ``auto``  resolves to ``cuda`` for CUDA tensors and ``torch`` for CPU
-  tensors (:func:`resolve_impl`);
+  tensors (:func:`resolve_impl`); never to ``per_step``;
 * ``cuda``  is the hand-written kernel; it refuses CPU tensors and any
   carry narrower than float32: the Pallas kernels round the carry only at
   row-tile boundaries, and a kernel without row tiles has no such boundary,
   so that narrowing is refused rather than imitated;
-* ``torch`` is the plain PyTorch version, on any device.
+* ``torch`` is the plain PyTorch version, on any device;
+* ``per_step`` is the GSPN-1 emulation, one dispatch per row
+  (``ref.gspn_scan_per_step``), for the single ``fwd`` direction only.
+
+The reference names the kernel legs ``pallas`` (single scan) and
+``multidir`` (pair and quad) and the plain leg ``xla``; here they are
+``cuda`` and ``torch``, so a canonical string reads the reference's with
+those names swapped (``quad|cuda|...`` for ``quad|multidir|...``).
 
 This module is a leaf: it imports nothing else of the package.
 """
@@ -23,16 +30,18 @@ This module is a leaf: it imports nothing else of the package.
 from __future__ import annotations
 
 import dataclasses
+import itertools
 
 import torch
 
-# Fused entries: the single scan and the fused pair, each with its adjoint.
-DIRECTIONS = ("fwd", "bwd", "pair_fwd", "pair_bwd")
+# Fused entries: the single scan and the fused pair, each with its adjoint,
+# and the forward-only single launch of all four directions.
+DIRECTIONS = ("fwd", "bwd", "pair_fwd", "pair_bwd", "quad")
 _ADJOINT = {"fwd": "bwd", "pair_fwd": "pair_bwd"}
 # How a scan segment relates to state outside itself: the whole sequence
 # in one launch from a zero carry.
 BOUNDARIES = ("one_shot",)
-IMPLS = ("auto", "cuda", "torch")
+IMPLS = ("auto", "cuda", "torch", "per_step")
 
 
 def dtype_name(dtype) -> str:
@@ -86,6 +95,9 @@ class ScanSpec:
                 or self.channels_per_weight < 1:
             raise ValueError(f"channels_per_weight must be a positive int, "
                              f"got {self.channels_per_weight!r}")
+        if self.impl == "per_step" and self.direction != "fwd":
+            raise ValueError(f"impl='per_step' runs the single 'fwd' scan "
+                             f"only, not {self.direction!r}")
         # Normalise dtype spellings so equality and hashing never split on
         # spelling.
         object.__setattr__(self, "stream_dtype",
@@ -121,9 +133,33 @@ class ScanSpec:
     def adjoint(self) -> "ScanSpec":
         """The spec of this launch's backward pass: the adjoint direction
         with the always-f32 adjoint carry (DESIGN.md §10).  Only forward
-        directions have a fused adjoint kernel."""
+        directions have a fused adjoint kernel; ``quad`` is forward-only
+        (training uses the pair dispatch)."""
         if self.direction not in _ADJOINT:
             raise ValueError(f"no fused adjoint for direction "
                              f"{self.direction!r}")
         return self.with_(direction=_ADJOINT[self.direction],
                           carry_dtype="float32")
+
+
+def enumerate_specs(*, cpws=(1, 3)) -> list[ScanSpec]:
+    """The admissible forward spec grid, the one the conformance sweep runs
+    (every spec forward, and except ``quad`` its gradient, through
+    ``ScanSpec.adjoint``).
+
+    The reference's grid (``repro.kernels.spec.enumerate_specs``) with its
+    kernel legs ``pallas``/``multidir`` named ``cuda`` and ``xla`` named
+    ``torch``: fwd and pair_fwd on both legs, quad on the kernel leg only;
+    stream float32 and bfloat16 with the carry in float32 (the narrow
+    carry the reference also enumerates is refused for ``cuda``, see
+    :meth:`ScanSpec.check_cuda`, and the plain leg has none); each
+    ``channels_per_weight`` of ``cpws``.  The reference's pipeline depths
+    are a TPU launch knob the port has no counterpart for.
+    """
+    impls_for = {"fwd": ("cuda", "torch"), "pair_fwd": ("cuda", "torch"),
+                 "quad": ("cuda",)}
+    return [ScanSpec(direction=direction, impl=impl, channels_per_weight=cpw,
+                     stream_dtype=stream)
+            for direction, cpw in itertools.product(impls_for, cpws)
+            for impl in impls_for[direction]
+            for stream in ("float32", "bfloat16")]

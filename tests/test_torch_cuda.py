@@ -18,7 +18,9 @@ import dataclasses
 import pytest
 import torch
 
+from repro_torch import obs
 from repro_torch.configs.gspn2_vision import reduced_vision
+from repro_torch.core.gspn import DIRECTIONS, directional_scan
 from repro_torch.kernels import cuda_lib, gspn_multidir, gspn_scan, ops
 from repro_torch.models.vision import GSPNVision, apply_vision, vision_loss
 from repro_torch.optim.adamw import AdamWConfig, adamw_init, adamw_update
@@ -36,9 +38,9 @@ def card():
     return torch.device("cuda")
 
 
-def _inputs(seed, g, h, w, cpw, dtype, pair=False):
+def _inputs(seed, g, h, w, cpw, dtype, pair=False, ndir=None):
     gen = torch.Generator(device="cuda").manual_seed(seed)
-    lead = (2,) if pair else ()
+    lead = (ndir,) if ndir else (2,) if pair else ()
     x = torch.randn((g, h, w), generator=gen, device="cuda")
     taps = torch.softmax(torch.randn(lead + (g // cpw, h, w, 3),
                                      generator=gen, device="cuda"), dim=-1)
@@ -68,6 +70,87 @@ def test_kernels_match_plain(card, dtype, shape, cpw, chunk):
                    gspn_scan.gspn_scan_fwd_torch(*a, chunk=chunk), tol)
     assert _err_ok(gspn_multidir.gspn_scan_bidir(*p, chunk=chunk),
                    gspn_multidir.gspn_scan_bidir_torch(*p, chunk=chunk), tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("g,n,cpw", [(8, 19, 1), (8, 19, 4), (6, 33, 3),
+                                     (128, 56, 2), (4, 1, 2)])
+def test_quad_kernel_matches_plain(card, dtype, g, n, cpw):
+    tol = 1e-5 if dtype == torch.float32 else 1e-2
+    q = _inputs(11, g, n, n, cpw, dtype, ndir=4)
+    cuda_lib.clear_counts()
+    got = gspn_multidir.gspn_scan_quad(*q)
+    assert cuda_lib.launch_counts == {"gspn_quad_fwd": 1}
+    assert got.dtype == dtype and got.shape == (4, g, n, n)
+    assert _err_ok(got, gspn_multidir.gspn_scan_quad_torch(*q), tol)
+
+
+def test_quad_kernel_refuses_what_it_cannot_run(card):
+    q = _inputs(12, 4, 6, 6, 2, torch.float32, ndir=4)
+    with pytest.raises(ValueError, match="square"):
+        gspn_multidir.gspn_scan_quad(q[0][:, :5], *q[1:])
+    with pytest.raises(ValueError, match="forward-only"):
+        gspn_multidir.gspn_scan_quad(q[0].requires_grad_(True), *q[1:])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("g,n,cpw", [(8, 19, 1), (128, 28, 2)])
+def test_template_instances_agree_bitwise(card, dtype, g, n, cpw):
+    """The single scan (D = 1), the pair (D = 2) and the quad (D = 4) are
+    instances of one template: on the same operands each direction gives
+    the same bits in every instance, so adding D = 4 left the arithmetic
+    of D = 1 and D = 2 as it was."""
+    x, wl4, wc4, wr4, lam4 = _inputs(13, g, n, n, cpw, dtype, ndir=4)
+    quad = gspn_multidir.gspn_scan_quad(x, wl4, wc4, wr4, lam4)
+    xt = x.transpose(-1, -2).contiguous()
+    for src, lo in ((x, 0), (xt, 2)):
+        pair = gspn_multidir.gspn_scan_bidir(
+            src, *(a[lo:lo + 2].contiguous() for a in (wl4, wc4, wr4, lam4)))
+        single = gspn_scan.gspn_scan_fwd(
+            src, *(a[lo].contiguous() for a in (wl4, wc4, wr4, lam4)))
+        assert torch.equal(quad[lo:lo + 2], pair)
+        assert torch.equal(pair[0], single)
+
+
+def test_ladder_launch_counts(card):
+    """The four-direction ladder at a small square shape: per direction
+    four single scans, the pair dispatch two pair launches, the quad one
+    launch, per_step none; the same counts from the kernel.launch spans;
+    every rung equal to the pair rung."""
+    x, wl, wc, wr, lam = _inputs(14, 8, 12, 12, 2, torch.float32, ndir=4)
+
+    def quad():
+        t = (lambda a: torch.stack([a[0], a[1], a[2].transpose(-1, -2),
+                                    a[3].transpose(-1, -2)]).contiguous())
+        out = gspn_multidir.gspn_scan_quad(x, t(wl), t(wc), t(wr), t(lam))
+        return t(out)
+
+    rungs = {
+        "per_step": (lambda: directional_scan(x, wl, wc, wr, lam, DIRECTIONS,
+                                              impl="per_step"), {}),
+        "per_direction": (lambda: torch.stack([
+            directional_scan(x, wl[i], wc[i], wr[i], lam[i], d)
+            for i, d in enumerate(DIRECTIONS)]), {"gspn_scan_fwd": 4}),
+        "pair": (lambda: directional_scan(x, wl, wc, wr, lam, DIRECTIONS),
+                 {"gspn_pair_fwd": 2}),
+        "quad": (quad, {"gspn_quad_fwd": 1}),
+    }
+    want = rungs["pair"][0]()
+    try:
+        for name, (fn, launches) in rungs.items():
+            cuda_lib.clear_counts()
+            obs.enable()
+            out = fn()
+            obs.disable()
+            spans = {}
+            for r in obs.spans("kernel.launch"):
+                spans[r.args["kernel"]] = spans.get(r.args["kernel"], 0) + 1
+            assert dict(cuda_lib.launch_counts) == launches == spans, name
+            if name == "per_step":
+                assert cuda_lib.plain_calls["per_step_row"] == 4 * 12
+            assert _err_ok(out, want, 1e-5), name
+    finally:
+        obs.disable()
 
 
 def test_ops_route_cuda_tensors_to_the_kernels(card):

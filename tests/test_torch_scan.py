@@ -160,11 +160,16 @@ def test_spec_validation_and_canonical():
     assert hash(s) == hash(ScanSpec(stream_dtype="torch.bfloat16"))
     assert s.with_(channels_per_weight=2).canonical() == \
         "fwd|auto|bfloat16|carry-float32|cs1|bnd-one_shot"
-    for bad in (dict(direction="quad"), dict(impl="pallas"),
+    for bad in (dict(impl="pallas"), dict(direction="quad", impl="per_step"),
                 dict(boundary="sp_block_local"), dict(channels_per_weight=0),
                 dict(stream_dtype="nope")):
         with pytest.raises(ValueError):
             ScanSpec(**bad)
+    # The quad is accepted and forward-only.
+    quad = ScanSpec(direction="quad", impl="cuda", channels_per_weight=2)
+    assert quad.canonical() == "quad|cuda|float32|carry-float32|cs1|bnd-one_shot"
+    with pytest.raises(ValueError, match="no fused adjoint"):
+        quad.adjoint()
     assert dtype_name(torch.float32) == "float32"
 
 
