@@ -21,7 +21,10 @@ Phases, each of which fails the run on any error:
    1e-2 for the forward's bfloat16 output); at the main-path and 1024²
    shapes, the device time per launch of the kernel and of the plain
    version (CUDA-graph replays timed by CUDA events, median of 20) and of
-   one eager call; then the gradient of a single-direction
+   one eager call, and for the pair kernels and #1 (the control, still the
+   first design) at the main-path shapes the kernel's time with the L2
+   flushed before each launch (``cold_ms``, as the main path finds its
+   operands in device memory); then the gradient of a single-direction
    ``directional_scan`` ("rl"), kernels #1 and #2 against the plain path;
    then the single-launch quad kernel (#5) against its plain version at the
    main-path shapes (N = 56/28/14/7), at 1024² (G = 32, N = 256) and on a
@@ -91,7 +94,16 @@ REPLACES = {
     "gspn_pair_bwd": "src/repro/kernels/gspn_multidir.py:336",
     "gspn_scan_bwd": "src/repro/kernels/gspn_scan.py:384",
 }
-SOURCE = "src/repro_torch/kernels/csrc/gspn_scan.cu"
+SOURCES = {name: f"src/repro_torch/kernels/csrc/{src}" for name, src in (
+    ("gspn_quad_fwd", "gspn_scan.cu"), ("gspn_scan_fwd", "gspn_scan.cu"),
+    ("gspn_scan_bwd", "gspn_scan.cu"), ("gspn_pair_fwd", "gspn_pair.cu"),
+    ("gspn_pair_bwd", "gspn_pair.cu"))}
+# Kernels timed with a cold L2 at the main-path shapes: the pair kernels of
+# the main path, and #1 as the control.
+COLD = ("gspn_pair_fwd", "gspn_pair_bwd", "gspn_scan_fwd")
+# Names of the scan kernels in the profiler's device records.
+SCAN_KERNELS = ("gspn_pair_fwd_kernel", "gspn_pair_bwd_kernel",
+                "gspn_scan_kernel", "gspn_scan_bwd_kernel")
 
 
 def _run(cmd) -> str:
@@ -118,10 +130,9 @@ def _median_ms(fn, n: int = 20, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
-def _graph_ms(fn, per_graph: int, n: int = 20) -> float:
-    """Device time of one call of ``fn``: ``per_graph`` calls captured in a
-    CUDA graph, the median of ``n`` timed replays divided by
-    ``per_graph``.  Replays leave out the host's launch overhead."""
+def _captured(fn, per_graph: int) -> torch.cuda.CUDAGraph:
+    """``per_graph`` calls of ``fn`` captured in a CUDA graph, after three
+    warm-up calls on a side stream."""
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
@@ -132,9 +143,40 @@ def _graph_ms(fn, per_graph: int, n: int = 20) -> float:
     with torch.cuda.graph(graph):
         for _ in range(per_graph):
             fn()
+    return graph
+
+
+def _graph_ms(fn, per_graph: int, n: int = 20) -> float:
+    """Device time of one call of ``fn``: ``per_graph`` calls captured in a
+    CUDA graph, the median of ``n`` timed replays divided by
+    ``per_graph``.  Replays leave out the host's launch overhead."""
+    graph = _captured(fn, per_graph)
     ms = _median_ms(graph.replay, n=n) / per_graph
     del graph
     return ms
+
+
+def _cold_ms(fn, n: int = 20) -> float:
+    """Device time of one call of ``fn`` with the L2 cache flushed first:
+    ``fn`` captured once in a CUDA graph; before each of ``n`` timed
+    replays a 256 MiB buffer is written (more than the 50 MB L2) and the
+    card spins for about half a millisecond, outside the timed window, so
+    the host has queued the replay before it starts.  Median of ``n``."""
+    graph = _captured(fn, 1)
+    flush = torch.empty(256 * 2**20, dtype=torch.uint8, device="cuda")
+    times = []
+    for _ in range(n):
+        flush.fill_(1)
+        torch.cuda._sleep(1_000_000)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    del graph, flush
+    return statistics.median(times)
 
 
 def _scan_inputs(gen, g, h, w, cpw, dtype, pair, kind="fwd", ndir=None):
@@ -192,6 +234,14 @@ def kernel_phase(gen):
             row = dict(kernel=name, g=g, h=h, w=w, cpw=cpw, chunk=chunk,
                        dtype=dname, max_abs_err=err, max_abs=scale,
                        tol=tol[kind, dtype] * scale)
+            if pair:
+                s = gspn_multidir.pair_launch_shape(g, h, w, cpw, dtype, kind)
+                row["launch_shape"] = (f"planes={s.planes},warps={s.warps},"
+                                       f"K={s.k},"
+                                       f"splits={s.splits},S={s.stages},"
+                                       f"batch={s.batch},"
+                                       f"grid={'x'.join(map(str, s.grid))},"
+                                       f"smem={s.smem_bytes}")
             if timed:
                 nbytes = sum(t.numel() * t.element_size() for t in args) \
                     + got.numel() * got.element_size()
@@ -202,6 +252,9 @@ def kernel_phase(gen):
                     plain_call_ms=_median_ms(
                         lambda: plain(*args, chunk=chunk)),
                     **_bound(nbytes, got.numel(), kind))
+                if name in COLD and h in MAIN_WIDTHS:
+                    row["cold_ms"] = _cold_ms(
+                        lambda: kernel(*args, chunk=chunk))
             print("kernel " + " ".join(f"{k}={v}" for k, v in row.items()),
                   flush=True)
             if not err <= row["tol"]:
@@ -313,7 +366,7 @@ def _profile(fn, wall_s, what):
     device_us = sum(e.self_device_time_total for e in ops)
     scan_us = {k: sum(e.self_device_time_total for e in ops
                       if f"{k}<" in e.key)
-               for k in ("gspn_scan_kernel", "gspn_scan_bwd_kernel")}
+               for k in SCAN_KERNELS}
     if device_us == 0:
         print(f"profile {what}: the profiler recorded no device time; "
               f"device breakdown not measured", flush=True)
@@ -686,10 +739,11 @@ def main() -> int:
         entries.append({
             "name": f"{row['kernel']}@G{row['g']}xH{row['h']}xW{row['w']}"
                     f"/{row['dtype']}",
-            "route": "cuda", "source": SOURCE,
+            "route": "cuda", "source": SOURCES[row["kernel"]],
             "replaces": REPLACES[row["kernel"]],
             "launches": shapes.get(key, 0),
             "max_abs_err": row["max_abs_err"], "ms": row["ms"],
+            "cold_ms": row.get("cold_ms"),
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": None})
     print(json.dumps({"kernels": entries}))

@@ -4,8 +4,8 @@ Each source under ``csrc/`` is compiled by ``nvcc`` for ``sm_90a`` into a
 shared library with a plain C interface and loaded with ``ctypes``.  The
 build happens at first use, never at import, into ``build/repro_torch/``
 at the root of the checkout, under a name keyed on a hash of the source
-and the flags, so a changed source is rebuilt and an unchanged one is
-reused.  ``build()`` starts one ``nvcc`` per missing library, all at once.
+and the flags (and of the headers under ``csrc/``), so a changed source is
+rebuilt and an unchanged one is reused.  ``build()`` starts one ``nvcc`` per missing library, all at once.
 
 ``launch_counts`` counts kernel launches by kernel name and
 ``launch_shapes`` by name and operand shape (each wrapper adds one where it
@@ -27,7 +27,8 @@ import subprocess
 
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-SOURCES = {"gspn_scan": CSRC / "gspn_scan.cu"}
+SOURCES = {"gspn_scan": CSRC / "gspn_scan.cu",
+           "gspn_pair": CSRC / "gspn_pair.cu"}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -38,9 +39,22 @@ _SIGNATURES = {
         # ndir, dtype, x, wl, wc, wr, lam, out, G, H, W, cpw, chunk, stream
         "gspn_scan_launch": (_I, [_I, _I, _P, _P, _P, _P, _P, _P,
                                   _I, _I, _I, _I, _I, _P]),
-        # ndir, dtype, dy, wl, wc, wr, g, G, H, W, cpw, chunk, stream
-        "gspn_scan_bwd_launch": (_I, [_I, _I, _P, _P, _P, _P, _P,
+        # dtype, dy, wl, wc, wr, g, G, H, W, cpw, chunk, stream
+        "gspn_scan_bwd_launch": (_I, [_I, _P, _P, _P, _P, _P,
                                       _I, _I, _I, _I, _I, _P]),
+        "gspn_error_string": (ctypes.c_char_p, [_I]),
+    },
+    "gspn_pair": {
+        # dtype, x, wl, wc, wr, lam, out, G, H, W, cpw, chunk, then the
+        # launch shape: planes, warps, k, splits, batch, nbuf, smem; stream
+        "gspn_pair_launch": (_I, [_I, _P, _P, _P, _P, _P, _P,
+                                  _I, _I, _I, _I, _I,
+                                  _I, _I, _I, _I, _I, _I, _I, _P]),
+        # dtype, dy, wl, wc, wr, g, G, H, W, cpw, chunk, the launch shape,
+        # stream
+        "gspn_pair_bwd_launch": (_I, [_I, _P, _P, _P, _P, _P,
+                                      _I, _I, _I, _I, _I,
+                                      _I, _I, _I, _I, _I, _I, _I, _P]),
         "gspn_error_string": (ctypes.c_char_p, [_I]),
     },
 }
@@ -71,8 +85,9 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> pathlib.Path:
-    digest = hashlib.sha256(SOURCES[name].read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    text = SOURCES[name].read_bytes() + b"".join(
+        h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
+    digest = hashlib.sha256(text + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"{name}-{digest[:16]}.so"
 
 

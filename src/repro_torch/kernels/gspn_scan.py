@@ -26,14 +26,19 @@ loads.
 Design.  One CTA per plane, a thread per column, the previous row (the
 adjoint: its two shifted product rows) staged in shared memory and the
 next row's inputs loaded into registers while the current row computes
-(see the source).  Several planes per CTA, a deeper prefetch ring and warp
-shuffles for the neighbours are later work.
+(see the source): the first design of the port, which these two kernels
+and the quad (:func:`launch`, D = 4) still use.  The pair kernels of the
+main path have moved to the redesign in ``csrc/gspn_pair.cu`` (a warp per
+plane, neighbours by shuffle, a shared-memory prefetch ring, taps loaded
+once per weight group; :mod:`repro_torch.kernels.gspn_multidir`); moving
+these three kernels onto it is the next step.
 
-Every launch (:func:`launch`, :func:`launch_bwd`, shared by the pair and
-quad wrappers) enters the ``kernel.launch`` span of DESIGN.md §13 with the
-reference's attributes ``kernel``, ``dtype``, ``g``, ``h`` and ``w``; the
-reference's ``row_tile`` and ``pipeline_depth`` are left out, since these
-kernels have no launch plan.
+Every launch (:func:`launch`, :func:`launch_bwd`, and the pair's launches
+in :mod:`~repro_torch.kernels.gspn_multidir`) enters the ``kernel.launch``
+span of DESIGN.md §13 with the reference's attributes ``kernel``,
+``dtype``, ``g``, ``h`` and ``w``; the reference's ``row_tile`` and
+``pipeline_depth`` are left out, since the port's launch shapes are not
+the Pallas launch plan.
 """
 
 from __future__ import annotations
@@ -46,7 +51,9 @@ from repro_torch.kernels import cuda_lib, ref
 KERNEL = "gspn_scan_fwd"
 KERNEL_BWD = "gspn_scan_bwd"
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-_MAX_W = 1024  # one thread per column, at most 1024 threads per CTA
+# Widest row the kernels take: one thread per column here, at most 1024
+# threads per CTA; the pair's lanes hold up to 32 columns each.
+_MAX_W = 1024
 
 
 def chunk_arg(h: int, chunk: int | None) -> int:
@@ -126,11 +133,14 @@ def _span(name: str, g: int, h: int, w: int, dtype: torch.dtype):
 
 
 def launch(ndir: int, name: str, x, wl, wc, wr, lam, chunk) -> torch.Tensor:
-    """Check the operands of one ``ndir``-direction forward scan and launch
-    the kernel on the current stream.  Shapes: x (G,H,W), or for the quad
-    (ndir 4) x stacked with its transpose (2,G,N,N); taps (G_w,H,W), or
-    (ndir,G_w,H,W) for the pair and the quad; lam (G,H,W), or
-    (ndir,G,H,W)."""
+    """Check the operands of one ``ndir``-direction forward scan, 1 or 4,
+    and launch the kernel on the current stream.  Shapes: x (G,H,W), or
+    for the quad x stacked with its transpose (2,G,N,N); taps (G_w,H,W),
+    or (4,G_w,N,N); lam (G,H,W), or (4,G,N,N)."""
+    if ndir not in (1, 4):
+        raise ValueError(f"ndir={ndir}: this template runs 1 or 4 "
+                         f"directions; the pair launches through "
+                         f"gspn_multidir")
     lead = _lead(ndir)
     x_lead = (2,) if ndir == 4 else ()
     cpw, chunk = _check(ndir, [("x", x, x_lead), ("lam", lam, lead)],
@@ -153,21 +163,19 @@ def launch(ndir: int, name: str, x, wl, wc, wr, lam, chunk) -> torch.Tensor:
     return out
 
 
-def launch_bwd(ndir: int, name: str, dy, wl, wc, wr, chunk) -> torch.Tensor:
-    """Check the operands of one ``ndir``-direction adjoint walk and launch
-    the kernel on the current stream.  Shapes: dy (G,H,W), or (2,G,H,W)
-    for the pair; taps (G_w,H,W), or (2,G_w,H,W).  Returns g in float32,
-    dy's shape."""
-    lead = _lead(ndir)
-    cpw, chunk = _check(ndir, [("dy", dy, lead)], (wl, wc, wr), chunk)
-    g, h, w = dy.shape[len(lead):]
+def launch_bwd(name: str, dy, wl, wc, wr, chunk) -> torch.Tensor:
+    """Check the operands of one single-direction adjoint walk and launch
+    the kernel on the current stream.  Shapes: dy (G,H,W); taps
+    (G_w,H,W).  Returns g in float32, dy's shape."""
+    cpw, chunk = _check(1, [("dy", dy, ())], (wl, wc, wr), chunk)
+    g, h, w = dy.shape
     out = torch.empty(dy.shape, dtype=torch.float32, device=dy.device)
     if out.numel() == 0:
         return out
     lib = cuda_lib.library("gspn_scan")
     with _span(name, g, h, w, dy.dtype), torch.cuda.device(dy.device):
         err = lib.gspn_scan_bwd_launch(
-            ndir, _DTYPE_CODES[dy.dtype], dy.data_ptr(), wl.data_ptr(),
+            _DTYPE_CODES[dy.dtype], dy.data_ptr(), wl.data_ptr(),
             wc.data_ptr(), wr.data_ptr(), out.data_ptr(), g, h, w, cpw,
             chunk, torch.cuda.current_stream().cuda_stream)
     cuda_lib.check(lib, err, name)
@@ -208,7 +216,7 @@ def gspn_scan_bwd(dy, wl, wc, wr, *, chunk: int | None = None):
     :func:`gspn_scan_bwd_torch`."""
     if not dy.is_cuda:
         return gspn_scan_bwd_torch(dy, wl, wc, wr, chunk=chunk)
-    return launch_bwd(1, KERNEL_BWD, dy, wl, wc, wr, chunk)
+    return launch_bwd(KERNEL_BWD, dy, wl, wc, wr, chunk)
 
 
 def gspn_scan_bwd_torch(dy, wl, wc, wr, *, chunk: int | None = None):

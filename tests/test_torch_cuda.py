@@ -183,6 +183,88 @@ def test_adjoint_kernels_match_plain(card, dtype, shape, cpw, chunk):
         dy2, wl2, wc2, wr2, chunk=chunk), 1e-5)
 
 
+RING_WIDTHS = [1, 7, 31, 32, 33, 56, 63, 64, 65, 255, 256, 1024]
+# Heights around the ring depth S the launch shape picks: one row, two,
+# one batch short of the ring, the ring, one past it, and three rings and
+# a part, so the walk refills the ring mid-plane.
+RING_HEIGHTS = {"1": lambda s: 1, "2": lambda s: 2, "S-1": lambda s: s - 1,
+                "S": lambda s: s, "S+1": lambda s: s + 1,
+                "3S+5": lambda s: 3 * s + 5}
+
+
+def _proper_divisor(h):
+    """A chunk length that divides H and is shorter than it (1 for a prime
+    H), or None for H = 1."""
+    return None if h == 1 else next(c for c in range(h // 2, 0, -1)
+                                    if h % c == 0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("height", list(RING_HEIGHTS))
+@pytest.mark.parametrize("w", RING_WIDTHS)
+def test_pair_kernels_over_ring_shapes(card, w, height, dtype):
+    """The pair forward and adjoint against their plain versions at widths
+    around the lane mapping (K = 1…32 columns per lane), heights around the
+    ring depth S of each launch shape, cpw 1, 2, 3, 4 and 33 (33 splits a
+    group over CTAs), without and with a chunk reset; two weight groups,
+    so with W·H odd the bfloat16 planes after the first start at a 2-byte
+    boundary."""
+    ftol = 1e-5 if dtype == torch.float32 else 1e-2
+    for cpw in (1, 2, 3, 4, 33):
+        g = 2 * cpw
+        for kind in ("fwd", "bwd"):
+            s = gspn_multidir.pair_launch_shape(g, 64, w, cpw, dtype, kind)
+            h = max(1, RING_HEIGHTS[height](s.stages))
+            for chunk in (None, _proper_divisor(h)):
+                x, wl, wc, wr, lam = _inputs(21, g, h, w, cpw, dtype,
+                                             pair=True)
+                where = (kind, cpw, h, chunk)
+                if kind == "fwd":
+                    got = gspn_multidir.gspn_scan_bidir(x, wl, wc, wr, lam,
+                                                        chunk=chunk)
+                    want = gspn_multidir.gspn_scan_bidir_torch(
+                        x, wl, wc, wr, lam, chunk=chunk)
+                    assert got.dtype == dtype, where
+                    assert _err_ok(got, want, ftol), where
+                else:
+                    dy = (lam - 0.5).contiguous()
+                    got = gspn_multidir.gspn_scan_bidir_bwd(dy, wl, wc, wr,
+                                                            chunk=chunk)
+                    want = gspn_multidir.gspn_scan_bidir_bwd_torch(
+                        dy, wl, wc, wr, chunk=chunk)
+                    assert got.dtype == torch.float32, where
+                    assert _err_ok(got, want, 1e-5), where
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,cpw,chunk", [((8, 19, 37), 4, None),
+                                             ((8, 18, 37), 4, 6),
+                                             ((128, 56, 56), 2, None),
+                                             ((6, 9, 1024), 3, 3)])
+def test_pair_adjoint_agrees_with_single_adjoint_bitwise(card, dtype, shape,
+                                                         cpw, chunk):
+    """Direction 0 of the pair adjoint walks H-1..0 as the single adjoint
+    (#2) does: on the same operands both give the same bits."""
+    _, wl2, wc2, wr2, lam2 = _inputs(22, *shape, cpw, dtype, pair=True)
+    dy2 = (lam2 - 0.5).contiguous()
+    pair = gspn_multidir.gspn_scan_bidir_bwd(dy2, wl2, wc2, wr2, chunk=chunk)
+    single = gspn_scan.gspn_scan_bwd(dy2[0], wl2[0], wc2[0], wr2[0],
+                                     chunk=chunk)
+    assert torch.equal(pair[0], single)
+
+
+def test_pair_wrappers_refuse_rows_wider_than_1024(card):
+    """On CUDA tensors the pair wrappers launch the kernel or raise: a row
+    of 1025 columns raises, and no plain version runs instead."""
+    x, wl, wc, wr, lam = _inputs(23, 2, 3, 1025, 1, torch.float32, pair=True)
+    cuda_lib.clear_counts()
+    with pytest.raises(ValueError, match="1024"):
+        gspn_multidir.gspn_scan_bidir(x, wl, wc, wr, lam)
+    with pytest.raises(ValueError, match="1024"):
+        gspn_multidir.gspn_scan_bidir_bwd(lam, wl, wc, wr)
+    assert not cuda_lib.launch_counts and not cuda_lib.plain_calls
+
+
 @pytest.mark.parametrize("pair", [False, True])
 @pytest.mark.parametrize("shape,cpw,chunk", [((8, 19, 37), 2, None),
                                              ((8, 18, 13), 4, 6)])

@@ -380,7 +380,7 @@ def test_adjoint_wrappers_take_plain_version_on_cpu():
 
 @pytest.mark.parametrize("case", ["taps", "dy", "dtype", "contig", "chunk"])
 def test_launch_bwd_checks_operands(case):
-    """The adjoint wrapper's operand checks run before any build or
+    """The pair adjoint's operand checks run before any build or
     launch."""
     _, wl, wc, wr, dy = _t(_inputs(36, 4, 6, 5, 2, pair=True))
     chunk = None
@@ -395,4 +395,4 @@ def test_launch_bwd_checks_operands(case):
     elif case == "chunk":
         chunk = 4
     with pytest.raises(ValueError):
-        gspn_scan.launch_bwd(2, "test", dy, wl, wc, wr, chunk)
+        gspn_multidir.launch_pair_bwd(dy, wl, wc, wr, chunk)
