@@ -21,16 +21,20 @@ Phases, each of which fails the run on any error:
    1e-2 for the forward's bfloat16 output); at the main-path and 1024²
    shapes, the device time per launch of the kernel and of the plain
    version (CUDA-graph replays timed by CUDA events, median of 20) and of
-   one eager call, and for the pair kernels and #1 (the control, still the
-   first design) at the main-path shapes the kernel's time with the L2
-   flushed before each launch (``cold_ms``, as the main path finds its
-   operands in device memory); then the gradient of a single-direction
-   ``directional_scan`` ("rl"), kernels #1 and #2 against the plain path;
-   then the single-launch quad kernel (#5) against its plain version at the
-   main-path shapes (N = 56/28/14/7), at 1024² (G = 32, N = 256) and on a
-   ragged square (N = 19, cpw 1 and 4), float32 and bfloat16, timed
-   through its wrapper (the stacking copy included, as the bound counts x
-   once) and alone on x already stacked with its transpose;
+   one eager call, and at the main-path shapes the kernel's time with the
+   L2 flushed before each launch (``cold_ms``, as the main path finds its
+   operands in device memory).  #1, #3 and #5 are the D = 1, 2 and 4
+   instances of one forward template (a warp per plane, neighbours by
+   shuffle, a ``cp.async`` ring in shared memory, taps staged once per
+   weight group), #4 its pair adjoint, #2 the first design's single
+   adjoint.  Then the gradient of a single-direction ``directional_scan``
+   ("rl"), kernels #1 and #2 against the plain path; then the
+   single-launch quad kernel (#5) against its plain version at the
+   main-path shapes (N = 56/28/14/7), at 1024² (G = 32, N = 256, its
+   transposed directions streaming column slabs of x through the ring)
+   and on a ragged square (N = 19, cpw 1 and 4), float32 and bfloat16,
+   timed through its wrapper, which reads x in place (no stacked copy),
+   warm and with a cold L2;
 4. model (serving): GSPN-2-T classification forward at 224², batch 64, weights from
    a seeded generator, images from ``synth_images``; the kernel path
    against the plain path on the card (TF32 off for convolutions and
@@ -95,15 +99,17 @@ REPLACES = {
     "gspn_scan_bwd": "src/repro/kernels/gspn_scan.py:384",
 }
 SOURCES = {name: f"src/repro_torch/kernels/csrc/{src}" for name, src in (
-    ("gspn_quad_fwd", "gspn_scan.cu"), ("gspn_scan_fwd", "gspn_scan.cu"),
+    ("gspn_quad_fwd", "gspn_pair.cu"), ("gspn_scan_fwd", "gspn_pair.cu"),
     ("gspn_scan_bwd", "gspn_scan.cu"), ("gspn_pair_fwd", "gspn_pair.cu"),
     ("gspn_pair_bwd", "gspn_pair.cu"))}
-# Kernels timed with a cold L2 at the main-path shapes: the pair kernels of
-# the main path, and #1 as the control.
-COLD = ("gspn_pair_fwd", "gspn_pair_bwd", "gspn_scan_fwd")
+# Kernels timed with a cold L2 at the main-path shapes: the forward
+# template's instances and the pair adjoint.
+COLD = ("gspn_pair_fwd", "gspn_pair_bwd", "gspn_scan_fwd", "gspn_quad_fwd")
 # Names of the scan kernels in the profiler's device records.
-SCAN_KERNELS = ("gspn_pair_fwd_kernel", "gspn_pair_bwd_kernel",
-                "gspn_scan_kernel", "gspn_scan_bwd_kernel")
+SCAN_KERNELS = ("gspn_fwd_kernel", "gspn_pair_bwd_kernel",
+                "gspn_scan_bwd_kernel")
+# The forward template's direction count D of each forward kernel.
+NDIR = {"gspn_scan_fwd": 1, "gspn_pair_fwd": 2, "gspn_quad_fwd": 4}
 
 
 def _run(cmd) -> str:
@@ -234,14 +240,9 @@ def kernel_phase(gen):
             row = dict(kernel=name, g=g, h=h, w=w, cpw=cpw, chunk=chunk,
                        dtype=dname, max_abs_err=err, max_abs=scale,
                        tol=tol[kind, dtype] * scale)
-            if pair:
-                s = gspn_multidir.pair_launch_shape(g, h, w, cpw, dtype, kind)
-                row["launch_shape"] = (f"planes={s.planes},warps={s.warps},"
-                                       f"K={s.k},"
-                                       f"splits={s.splits},S={s.stages},"
-                                       f"batch={s.batch},"
-                                       f"grid={'x'.join(map(str, s.grid))},"
-                                       f"smem={s.smem_bytes}")
+            if name != "gspn_scan_bwd":
+                row["launch_shape"] = _launch_shape(
+                    g, h, w, cpw, dtype, kind, NDIR.get(name, 2))
             if timed:
                 nbytes = sum(t.numel() * t.element_size() for t in args) \
                     + got.numel() * got.element_size()
@@ -265,6 +266,18 @@ def kernel_phase(gen):
     return results + _quad_rows(gen)
 
 
+def _launch_shape(g, h, w, cpw, dtype, kind, ndir):
+    """The launch shape ``pair_launch_shape`` picks, as printed in a kernel
+    row."""
+    from repro_torch.kernels.gspn_scan import pair_launch_shape
+
+    s = pair_launch_shape(g, h, w, cpw, dtype, kind, ndir)
+    return (f"planes={s.planes},warps={s.warps},K={s.k},splits={s.splits},"
+            f"S={s.stages},batch={s.batch},"
+            f"grid={'x'.join(map(str, s.grid))},xpitch={s.xpitch},"
+            f"smem={s.smem_bytes}")
+
+
 def _bound(nbytes, out_elements, kind):
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
     t_ops = OPS_PER_ELEMENT[kind] * out_elements / PEAK_F32_OPS_PER_S * 1e3
@@ -273,11 +286,9 @@ def _bound(nbytes, out_elements, kind):
 
 
 def _quad_rows(gen):
-    """Kernel #5 against its plain version.  ``ms`` is the public wrapper,
-    its stacking copy included, against the bound of the function it
-    computes (x read once, taps and lam read, out written);
-    ``kernel_ms`` is the kernel alone on x already stacked with its
-    transpose."""
+    """Kernel #5 against its plain version.  ``ms`` and ``cold_ms`` are
+    the public wrapper, which reads x in place, against the bound of the
+    function it computes (x read once, taps and lam read, out written)."""
     from repro_torch.kernels import gspn_multidir as mk
 
     cases = []
@@ -288,7 +299,6 @@ def _quad_rows(gen):
     rows = []
     for g, n, cpw, dtype, timed in cases:
         args = _scan_inputs(gen, g, n, n, cpw, dtype, False, ndir=4)
-        xx = torch.stack([args[0], args[0].transpose(-1, -2)])
         got = mk.gspn_scan_quad(*args)
         want = mk.gspn_scan_quad_torch(*args)
         torch.cuda.synchronize()
@@ -297,18 +307,20 @@ def _quad_rows(gen):
         tol = 1e-5 if dtype == torch.float32 else 1e-2
         row = dict(kernel=mk.KERNEL_QUAD, g=g, h=n, w=n, cpw=cpw, chunk=None,
                    dtype=str(dtype).removeprefix("torch."), max_abs_err=err,
-                   max_abs=scale, tol=tol * scale)
+                   max_abs=scale, tol=tol * scale,
+                   launch_shape=_launch_shape(g, n, n, cpw, dtype, "fwd", 4))
         if timed:
             nbytes = sum(t.numel() * t.element_size() for t in args) \
                 + got.numel() * got.element_size()
             row.update(
                 ms=_graph_ms(lambda: mk.gspn_scan_quad(*args), 10),
-                kernel_ms=_graph_ms(lambda: mk.launch_quad(xx, *args[1:]), 10),
                 plain_ms=_graph_ms(lambda: mk.gspn_scan_quad_torch(*args), 2),
                 call_ms=_median_ms(lambda: mk.gspn_scan_quad(*args)),
                 plain_call_ms=_median_ms(
                     lambda: mk.gspn_scan_quad_torch(*args)),
                 **_bound(nbytes, got.numel(), "fwd"))
+            if n in MAIN_WIDTHS:
+                row["cold_ms"] = _cold_ms(lambda: mk.gspn_scan_quad(*args))
         print("kernel " + " ".join(f"{k}={v}" for k, v in row.items()),
               flush=True)
         if not err <= row["tol"]:

@@ -1,31 +1,45 @@
-// The opposite-direction pair scan and its adjoint for Hopper (sm_90a): the
-// kernels of the vision main path, two launches of each per GSPN-2 block.
+// The GSPN scan forward over 1, 2 or 4 directions, and the pair adjoint, for
+// Hopper (sm_90a).
 //
-//   gspn_pair_fwd_kernel replaces gspn_scan_bidir_pallas
-//     (src/repro/kernels/gspn_multidir.py, kernel #3): direction 0 walks
-//     rows 0..H-1, direction 1 walks H-1..0, over one shared x.
+//   gspn_fwd_kernel<D, K, T>, one template over the direction count D:
+//     D = 1 replaces gspn_scan_fwd_pallas (src/repro/kernels/gspn_scan.py,
+//       kernel #1): rows 0..H-1, the carry reset every `chunk` rows (the
+//       LM mixer's passes need it);
+//     D = 2 replaces gspn_scan_bidir_pallas (src/repro/kernels/
+//       gspn_multidir.py, kernel #3, the vision main path): direction 0 walks
+//       rows 0..H-1, direction 1 walks H-1..0, over one shared x;
+//     D = 4 replaces gspn_scan_quad_pallas (same file, kernel #5): all four
+//       directions of a square N x N grid in one launch, (tb, bt, lr, rl) =
+//       (0, 1, 2, 3).  Direction d walks in reverse when d is odd; 2 and 3
+//       run in transposed geometry, so their taps, lam and out arrive and
+//       leave transposed (rows of entry 2 are the original columns), and
+//       they read x itself transposed: walk step i needs column i of x.  The
+//       reference stacks x with its transpose first, because a BlockSpec
+//       cannot express a transposed read; here x is read in place.  No
+//       chunk: the quad is one-shot.
 //   gspn_pair_bwd_kernel replaces gspn_scan_bidir_bwd_pallas (same file,
 //     kernel #4): direction 0 walks H-1..0, direction 1 walks 0..H-1 (the
 //     forward's walks with the roles swapped), g written in f32.
 //
-// Both compute what the first design (gspn_scan.cu, D = 2) computed: the
-// same operands, layouts and outputs, the carry reset every `chunk` rows of
-// the walk, an f32 carry, each element by gspn::scan_cell or
-// gspn::adjoint_cell, so the pair gives the bits of the single scan and of
-// the quad on shared directions, and the pair adjoint's direction 0 the bits
-// of the single adjoint.  Layouts (all contiguous): x (G,H,W); wl/wc/wr
-// (2,G/cpw,H,W); lam, out (2,G,H,W); dy (2,G,H,W) in T, g (2,G,H,W) in f32.
-// Plane g reads weight plane g / cpw.
+// Every element goes through gspn::scan_cell or gspn::adjoint_cell, with an
+// f32 carry and the carry reset every `chunk` rows of the walk, so the three
+// forward instances agree bit for bit on shared directions and the pair
+// adjoint's direction 0 gives the bits of the single adjoint (gspn_scan.cu).
+// Layouts (all contiguous): x (G,H,W); wl/wc/wr (D,G/cpw,H,W); lam, out
+// (D,G,H,W), the leading axis absent for D = 1; dy (2,G,H,W) in T, g
+// (2,G,H,W) in f32.  Plane g reads weight plane g / cpw.
 //
 // Bound.  Each input read once and each output written once: per (g,h,w)
-// element the forward moves x once, lam and out twice and the six tap planes
-// 6/cpw times, 32 bytes in f32 at cpw = 2; the adjoint moves dy, the taps at
-// 3/cpw per direction and an f32 g, 14 bytes.  At G = 128 and
-// N = 56 / 28 / 14 / 7 that is 3.83 / 0.96 / 0.24 / 0.060 us (forward) and
-// 3.36 / 0.84 / 0.21 / 0.052 us (adjoint) at 3.35 TB/s; 7 and 9 operations
-// per element are far below the f32 rate.
+// element the forward moves x once, lam and out D times each and the 3D tap
+// planes 3D/cpw times: 18 / 32 / 60 bytes in f32 at cpw = 2 for D = 1 / 2 /
+// 4; the adjoint moves dy, the taps at 3/cpw per direction and an f32 g, 14
+// bytes.  At G = 128 and N = 56 / 28 / 14 / 7 that is 2.16 / 0.54 / 0.135 /
+// 0.034 us (D = 1), 3.83 / 0.96 / 0.24 / 0.060 us (D = 2), 7.19 / 1.80 /
+// 0.45 / 0.11 us (D = 4) and 3.36 / 0.84 / 0.21 / 0.052 us (adjoint) at
+// 3.35 TB/s; 7 and 9 operations per element are far below the f32 rate.
 //
-// What held the first design back:
+// What held the first design (a CTA per plane and direction, a thread per
+// column) back:
 //   1. a chain of H dependent rows per CTA, each one __syncthreads() plus the
 //      latency of that row's loads, fetched only one row ahead into
 //      registers: its time fit 1.3 us + 0.22 us per row, whatever the bytes;
@@ -34,15 +48,18 @@
 //      1.75x slower in the step than in graph replays);
 //   3. each plane's CTA read its weight rows itself: cpw reads per group;
 //   4. at W > 32 a row spans warps, so the neighbour exchange needed a
-//      CTA-wide barrier every row.
+//      CTA-wide barrier every row;
+//   5. the quad read x twice, as x stacked with its transpose by a copy
+//      before the launch.
 //
 // Design, and what each choice does about it:
 //   - One CTA per (weight group, direction), one warp per plane of the group
 //     (a group of more planes than the registers allow splits over CTAs,
 //     `splits`), and at least 8 warps in all: every warp issues copies.
-//     Both directions in one CTA would walk opposite ends of the plane at
-//     every moment, so they would share no staged row, and one direction per
-//     CTA doubles the CTAs in flight (128 at G = 128, cpw = 2, on 132 SMs).
+//     Two directions in one CTA would walk opposite ends of the plane (or
+//     the plane and its transpose) at every moment, so they would share no
+//     staged row, and one direction per CTA multiplies the CTAs in flight
+//     (128 at G = 128, cpw = 2, D = 2, on 132 SMs; 256 for D = 4).
 //   - Lane l owns columns l, l+32, ..., l+32(K-1) (K a power of two, 32K >= W)
 //     and keeps their carry in registers.  The +-1 neighbours come by
 //     __shfl_sync from lanes l-1 and l+1, lane 0 taking lane 31's previous
@@ -75,24 +92,57 @@
 //     the regions w, w + warps, ...: 16-byte copies for the run's 16-byte
 //     aligned middle, 4-byte ones for its ends, the region placed at the
 //     run's offset within its 16-byte block so that both sides agree.
+//   - The quad's transposed directions read x in place (item 5).  Walk steps
+//     r0..r0+nb-1 need columns r0..r0+nb-1 of x, so that direction's x region
+//     of a batch is a column slab: W runs of nb items, one per row j of x, at
+//     stride W in memory; as many bytes as a row batch, since the grid is
+//     square.  Run j lands at word j * pitch of the region, in 4-byte copies
+//     (its source alignment differs from run to run, so 16-byte copies would
+//     fix the run's place modulo 16 bytes), and lane l reads run l at word
+//     l * pitch + step.  The pitch is odd, so at a step the 32 lanes read 32
+//     different banks in f32 (a pitch of 56 or 28 words would put 8 or 4
+//     lanes on one bank).  A bf16 run starting mid-word is widened to the
+//     words that cover it and read from its offset in the first one.  Every
+//     region of a quad's stage is sized for the larger of a row batch and a
+//     slab, so row and slab directions share one stage layout.  The walk
+//     reads the slab through the same walker as the rows, with x's own step
+//     (+-1 item) and slot stride (32 runs), and a run of up to 32 words takes
+//     a share of a warp's copy instruction.
 //   - cp.async and not TMA: a tensor map needs 16-byte row pitches and a bulk
 //     copy 16-byte aligned runs, and rows of 7 or 14 f32 items (28, 56 B) or
 //     planes of 49 items give neither.  A bf16 run starting at a 2-byte
 //     boundary is widened to the 4-byte words that cover it; the extra 2
 //     bytes read lie in the same aligned word as a byte of the operand, so in
 //     mapped memory.
-//   - The launch shape (planes, warps, K, splits, batch, nbuf, shared bytes)
-//     is chosen by one plain function, gspn_multidir.pair_launch_shape, and
-//     checked here; shared memory above 48 KB is opted into per launch.
+//   - The launch shape (planes, warps, K, splits, batch, nbuf, slab pitch,
+//     shared bytes) is chosen by one plain function,
+//     gspn_scan.pair_launch_shape, and checked here; shared memory above 48
+//     KB is opted into per launch.  D = 1 keeps the whole weight group in
+//     one CTA (64 CTAs of two planes at G = 128, cpw = 2): one plane per
+//     CTA (128 CTAs, each staging the group's taps again) was no faster in
+//     three sweeps, within 0.25 us either way at every main width
+//     (tools/pair_launch_sweep.py on the H100; PERF.md).  The quad spreads
+//     a group over CTAs while whole groups would leave SMs idle: at 1024²
+//     (G = 32) 128 CTAs of one plane ran 118 us against 182 for 64 of two;
+//     at the main widths its 256 CTAs fill the card as they are.  Its
+//     padded pitch read within -0.14..+0.27 us of the unpadded one at N =
+//     56 and 28 (8 and 4 lanes on a bank): the conflicts cost no more than
+//     the sweep's spread, so a transpose of the slab in shared memory,
+//     which adds a pass and a barrier, was not built.
 //
 // ptxas -v (CUDA 12.9, sm_90a): registers per thread at K = 1 2 4 8 16
 // 32, and stack / spill stores / spill loads in bytes where not 0.  No
 // static shared memory: the ring is dynamic, sized by the launch shape.
-//   fwd f32   52 62 121 165 239 255   K = 32: 96 / 180 / 184
-//   fwd bf16  51 64 120 166 244 255   K = 32: 88 / 176 / 180
-//   bwd f32   52 63 105 128 249 255   K = 32: 32 / 44 / 68
-//   bwd bf16  52 63 105 128 255 255   K = 8: 8 / 8 / 12, K = 32: 8 / 8 / 20
-// The main widths use K = 1 and 2, without spills.
+//   fwd D = 1 f32   46 64 128 146 246 255   K = 32: 152 / 240 / 308
+//   fwd D = 1 bf16  44 62 128 128 237 255   K = 8: 32 / 36 / 68, K = 32: 152 / 240 / 312
+//   fwd D = 2 f32   52 62 121 165 239 255   K = 32: 96 / 180 / 184
+//   fwd D = 2 bf16  51 64 120 166 244 255   K = 32: 88 / 176 / 180
+//   fwd D = 4 f32   52 64 106 170 255 255   K = 32: 96 / 272 / 284
+//   fwd D = 4 bf16  51 64 104 168 247 255   K = 32: 96 / 268 / 280
+//   bwd f32         52 63 105 128 249 255   K = 32: 32 / 44 / 68
+//   bwd bf16        52 63 105 128 255 255   K = 8: 8 / 8 / 12, K = 32: 8 / 8 / 20
+// The main widths use K = 1 and 2, without spills; D = 2 compiles to the
+// registers it had as the pair's own kernel.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -124,6 +174,22 @@ __host__ __device__ constexpr int max_threads(int k) {
 // so that every region starts 16-byte aligned.
 __host__ __device__ inline int region_bytes(int rows, int W, int item) {
   return (rows * W * item + 18 + 15) / 16 * 16;
+}
+
+// 4-byte words one column-slab run of `rows` items may cover: a bf16 run
+// that starts mid-word takes one more half word.  The slab's pitch is at
+// least this.
+__host__ __device__ inline int slab_words(int rows, int item) {
+  return (rows * item + (item < 4 ? 2 : 0) + 3) / 4;
+}
+
+// Bytes of a forward region over D directions: rows, or for D = 4 the
+// larger of rows and a column slab of W runs at `pitch` words, so that one
+// stage layout serves the launch's row and slab directions alike.
+__host__ __device__ inline int fwd_region_bytes(int D, int rows, int W, int item, int pitch) {
+  const int r = region_bytes(rows, W, item);
+  const int slab = (W * pitch * 4 + 15) / 16 * 16;
+  return D == 4 && slab > r ? slab : r;
 }
 
 __device__ __forceinline__ void cp_async4(uint32_t dst, uintptr_t src) {
@@ -177,6 +243,31 @@ __device__ __forceinline__ void copy_run(unsigned char* region, const T* src, in
   }
 }
 
+// Issue, from warp `warp` of `warps`, the copies of a column slab: `runs`
+// runs of nb items, run j from src + j * stride items to word j * pitch of
+// dst, in 4-byte copies.  The word holding a run's first byte goes to the
+// run's first word, so its items start at (src & 3) there whatever the
+// run's alignment mod 16.  A run that covers up to 32 words takes a share
+// of a warp's copy instruction: lane l copies word l % wpr of run l / wpr.
+template <typename T>
+__device__ __forceinline__ void copy_slab(unsigned char* dst, const T* src, int runs, int stride,
+                                          int nb, int pitch, int warp, int warps, int lane) {
+  constexpr int item = static_cast<int>(sizeof(T));
+  const uint32_t d0 = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  const int wpr = slab_words(nb, item);
+  const int per = wpr < 32 ? 32 / wpr : 1;  // runs per warp instruction
+  const int q = wpr < 32 ? lane / wpr : 0;  // this lane's run of the instruction
+  if (q >= per) return;
+  for (int j = warp * per + q; j < runs; j += warps * per) {
+    const uintptr_t a = reinterpret_cast<uintptr_t>(src + static_cast<size_t>(j) * stride);
+    const uintptr_t w0 = a & ~static_cast<uintptr_t>(3);
+    const uintptr_t w1 = (a + nb * item + 3) & ~static_cast<uintptr_t>(3);
+    const uint32_t base = d0 + 4u * j * pitch - static_cast<uint32_t>(w0);
+    for (uintptr_t c = w0 + 4u * (lane - q * wpr); c < w1; c += 4u * 32u)
+      cp_async4(base + static_cast<uint32_t>(c), c);
+  }
+}
+
 // Item 0 of the run copied from src by copy_run into region.
 template <typename T>
 __device__ __forceinline__ const T* run_items(const unsigned char* region, const T* src) {
@@ -185,7 +276,7 @@ __device__ __forceinline__ const T* run_items(const unsigned char* region, const
 
 // Where each CTA sits: its weight group, direction, first plane of the group
 // and number of planes it computes (one warp each; the other warps only copy).
-// The grid is (G_w, splits, 2): group, part of the group, direction.
+// The grid is (G_w, splits, D): group, part of the group, direction.
 struct Cta {
   int gw, d, p0, np;
   __device__ Cta(int cpw, int P) {
@@ -233,21 +324,29 @@ template <int K> struct Lanes {
 };
 
 // N staged arrays' rows at this lane's column, walked through a batch: one
-// pointer per array, stepped by `step` items (negative on a reverse walk).
-template <int N, int K, typename T> struct Rows {
+// pointer per array, stepped by `step` items (negative on a reverse walk),
+// slot k of a row 32 k items on.  With Slab, the last array is a column slab
+// instead: stepped by `xstep` items (+-1) with slot k `xk` items on (32
+// runs).
+template <int N, int K, typename T, bool Slab = false> struct Rows {
   const T* p[N];
   int step;
+  int xstep = 0, xk = 0;
   // This lane's operands of the current row as f32, 0 in masked slots.
   __device__ __forceinline__ void load(float (&v)[N][K], const Lanes<K>& ln) const {
 #pragma unroll
     for (int i = 0; i < N; ++i)
 #pragma unroll
-      for (int k = 0; k < K; ++k) v[i][k] = ln.valid[k] ? to_f32(p[i][32 * k]) : 0.f;
+      for (int k = 0; k < K; ++k) {
+        const int at = Slab && i == N - 1 ? xk * k : 32 * k;
+        v[i][k] = ln.valid[k] ? to_f32(p[i][at]) : 0.f;
+      }
   }
   __device__ __forceinline__ void advance(bool more) {
     const int s = more ? step : 0;
 #pragma unroll
-    for (int i = 0; i < N; ++i) p[i] += s;
+    for (int i = 0; i < (Slab ? N - 1 : N); ++i) p[i] += s;
+    if (Slab) p[N - 1] += more ? xstep : 0;
   }
 };
 
@@ -278,8 +377,8 @@ __device__ __forceinline__ void from_right(const float (&v)[K], int lane, float 
 // used in turn, four rows to an unrolled step; at K = 32 one set, for
 // registers).  The pointers stop at the batch's last row, so no read leaves
 // it.
-template <int N, int K, typename T, typename Row>
-__device__ __forceinline__ void walk_batch(Rows<N, K, T>& rows, const Lanes<K>& ln, int nb,
+template <int N, int K, typename T, bool S, typename Row>
+__device__ __forceinline__ void walk_batch(Rows<N, K, T, S>& rows, const Lanes<K>& ln, int nb,
                                            Row row) {
   if constexpr (K >= 32) {
     for (int q = 0; q < nb; ++q) {
@@ -328,39 +427,49 @@ struct Reset {
   }
 };
 
-template <int K, typename T>
+template <int D, int K, typename T>
 __global__ void __launch_bounds__(max_threads(K))
-gspn_pair_fwd_kernel(const T* __restrict__ x, const T* __restrict__ wl,
-                     const T* __restrict__ wc, const T* __restrict__ wr,
-                     const T* __restrict__ lam, T* __restrict__ out, int G, int H, int W,
-                     int cpw, int chunk, int P, int batch, int nbuf) {
+gspn_fwd_kernel(const T* __restrict__ x, const T* __restrict__ wl, const T* __restrict__ wc,
+                const T* __restrict__ wr, const T* __restrict__ lam, T* __restrict__ out, int G,
+                int H, int W, int cpw, int chunk, int P, int batch, int nbuf, int xpitch) {
   extern __shared__ __align__(16) unsigned char smem[];
+  constexpr int item = static_cast<int>(sizeof(T));
   const Cta cta(cpw, P);
   const int warps = static_cast<int>(blockDim.x) / 32;
   const int warp = static_cast<int>(threadIdx.x) / 32, lane = static_cast<int>(threadIdx.x) % 32;
   const size_t plane = static_cast<size_t>(H) * W;
   const int g0 = cta.gw * cpw + cta.p0;  // first plane of this CTA
-  const Walk walk{H, batch, cta.d == 1};
+  // Odd directions walk H-1..0; the quad's directions 2 and 3 read x
+  // transposed, as column slabs.
+  const bool slab = D == 4 && cta.d >= 2;
+  const Walk walk{H, batch, D == 2 ? cta.d == 1 : D == 4 && (cta.d & 1)};
   // Regions of a stage: 0..2 the taps, 3+p plane p's x, 3+P+p its lam.
-  const Ring ring{smem, 3 + 2 * P, region_bytes(batch, W, static_cast<int>(sizeof(T))), nbuf,
+  const Ring ring{smem, 3 + 2 * P, fwd_region_bytes(D, batch, W, item, xpitch), nbuf,
                   (H + batch - 1) / batch};
   const size_t tap_off = (static_cast<size_t>(cta.d) * gridDim.x + cta.gw) * plane;
   const T *twl = wl + tap_off, *twc = wc + tap_off, *twr = wr + tap_off;
   const T* xg = x + static_cast<size_t>(g0) * plane;
   const T* lamg = lam + (static_cast<size_t>(cta.d) * G + g0) * plane;
-  auto source = [&](int a) -> const T* {  // plane of region a; null if not this CTA's
+  // Plane of region a; null if not this CTA's, or if it is x read as a slab.
+  auto source = [&](int a) -> const T* {
     if (a < 3) return a == 0 ? twl : a == 1 ? twc : twr;
     const int p = a < 3 + P ? a - 3 : a - 3 - P;
-    if (p >= cta.np) return nullptr;
+    if (p >= cta.np || (slab && a < 3 + P)) return nullptr;
     return (a < 3 + P ? xg : lamg) + static_cast<size_t>(p) * plane;
   };
   auto issue = [&](int b) {
     if (b < ring.nbat) {
       unsigned char* stage = ring.stage(b);
       const size_t off = static_cast<size_t>(walk.row0(b)) * W;
-      const int nbytes = walk.rows(b) * W * static_cast<int>(sizeof(T));
+      const int nbytes = walk.rows(b) * W * item;
       for (int a = warp; a < ring.narr; a += warps)
         if (const T* src = source(a)) copy_run(stage + a * ring.rb, src + off, nbytes, lane);
+      // x's column slabs: run j of plane p holds x[j, r0 .. r0+nb-1].
+      if (slab)
+        for (int p = 0; p < cta.np; ++p)
+          copy_slab(stage + (3 + p) * ring.rb,
+                    xg + static_cast<size_t>(p) * plane + walk.row0(b), W, W, walk.rows(b),
+                    xpitch, warp, warps, lane);
     }
     cp_commit();
   };
@@ -384,16 +493,8 @@ gspn_pair_fwd_kernel(const T* __restrict__ x, const T* __restrict__ wl,
     const int nb = walk.rows(b);
     // This lane's column in the first walked row of the batch.
     const int first = (walk.reverse ? (nb - 1) * W : 0) + lane, step = walk.reverse ? -W : W;
-    Rows<5, K, T> rows{{run_items(stage, twl + off) + first,
-                        run_items(stage + ring.rb, twc + off) + first,
-                        run_items(stage + 2 * ring.rb, twr + off) + first,
-                        run_items(stage + (3 + P + warp) * ring.rb, source(3 + P + warp) + off) +
-                            first,
-                        run_items(stage + (3 + warp) * ring.rb, source(3 + warp) + off) + first},
-                       step};
     T* o = outg + off + first;
-    // The main path has no chunk: its walk carries no reset test.
-    auto walk_rows = [&](auto chunked) {
+    auto walk_rows = [&](auto chunked, auto& rows) {
       walk_batch(rows, ln, nb, [&](float (&v)[5][K]) {
         if constexpr (decltype(chunked)::value) {
           if (reset.now()) {
@@ -417,10 +518,35 @@ gspn_pair_fwd_kernel(const T* __restrict__ x, const T* __restrict__ wl,
         o += step;
       });
     };
+    if constexpr (D == 4) {
+      if (slab) {  // x from this plane's column slab: lane l reads run l
+        const T* run = xg + static_cast<size_t>(warp) * plane +
+                       static_cast<size_t>(lane) * W + walk.row0(b);
+        Rows<5, K, T, true> rows{
+            {run_items(stage, twl + off) + first,
+             run_items(stage + ring.rb, twc + off) + first,
+             run_items(stage + 2 * ring.rb, twr + off) + first,
+             run_items(stage + (3 + P + warp) * ring.rb, source(3 + P + warp) + off) + first,
+             reinterpret_cast<const T*>(stage + (3 + warp) * ring.rb + lane * xpitch * 4 +
+                                        (reinterpret_cast<uintptr_t>(run) & 3)) +
+                 (walk.reverse ? nb - 1 : 0)},
+            step, walk.reverse ? -1 : 1, 32 * xpitch * 4 / item};
+        walk_rows(std::false_type{}, rows);  // the quad is one-shot: no chunk
+        continue;
+      }
+    }
+    Rows<5, K, T> rows{{run_items(stage, twl + off) + first,
+                        run_items(stage + ring.rb, twc + off) + first,
+                        run_items(stage + 2 * ring.rb, twr + off) + first,
+                        run_items(stage + (3 + P + warp) * ring.rb, source(3 + P + warp) + off) +
+                            first,
+                        run_items(stage + (3 + warp) * ring.rb, source(3 + warp) + off) + first},
+                       step};
+    // The main path has no chunk: its walk carries no reset test.
     if (chunk > 0)
-      walk_rows(std::true_type{});
+      walk_rows(std::true_type{}, rows);
     else
-      walk_rows(std::false_type{});
+      walk_rows(std::false_type{}, rows);
   }
 }
 
@@ -515,19 +641,17 @@ gspn_pair_bwd_kernel(const T* __restrict__ dy, const T* __restrict__ wl,
   }
 }
 
-// Check a launch shape against the operands and this file's layout;
+// Check a launch shape against the operands and a stage of stage_bytes;
 // cudaSuccess if it can run.
 cudaError_t check_shape(int G, int H, int W, int cpw, int P, int warps, int k, int splits,
-                        int batch, int nbuf, int smem, int arrays_per_plane, int item) {
+                        int batch, int nbuf, int smem, long stage_bytes) {
   const bool k_ok = k == 1 || k == 2 || k == 4 || k == 8 || k == 16 || k == 32;
   if (G < 1 || H < 1 || W < 1 || cpw < 1 || G % cpw || !k_ok || 32 * k < W || P < 1 ||
       warps < P || 32 * warps > max_threads(k) || splits < 1 || P * splits < cpw ||
       P * (splits - 1) >= cpw || batch < 1 || nbuf < 1 || nbuf > kMaxBufs ||
       (nbuf == 1 && batch < H))
     return cudaErrorInvalidValue;
-  const long need = static_cast<long>(nbuf) * (3 + arrays_per_plane * P) *
-                    region_bytes(batch, W, item);
-  if (need > smem || smem > kMaxShared) return cudaErrorInvalidValue;
+  if (nbuf * stage_bytes > smem || smem > kMaxShared) return cudaErrorInvalidValue;
   return cudaSuccess;
 }
 
@@ -537,22 +661,22 @@ cudaError_t opt_in(Kernel kernel, int smem) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
 }
 
-// The launch shape of gspn_multidir.pair_launch_shape.
+// The launch shape of gspn_scan.pair_launch_shape.
 struct Shape {
-  int P, warps, k, splits, batch, nbuf, smem;
+  int P, warps, k, splits, batch, nbuf, xpitch, smem;
 };
 
-template <int K, typename T>
+template <int D, int K, typename T>
 cudaError_t launch_fwd(const void* x, const void* wl, const void* wc, const void* wr,
                        const void* lam, void* out, int G, int H, int W, int cpw, int chunk,
                        const Shape& sh, cudaStream_t stream) {
-  const cudaError_t err = opt_in(gspn_pair_fwd_kernel<K, T>, sh.smem);
+  const cudaError_t err = opt_in(gspn_fwd_kernel<D, K, T>, sh.smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid(static_cast<unsigned>(G / cpw), static_cast<unsigned>(sh.splits), 2);
-  gspn_pair_fwd_kernel<K, T><<<grid, 32 * sh.warps, sh.smem, stream>>>(
+  const dim3 grid(static_cast<unsigned>(G / cpw), static_cast<unsigned>(sh.splits), D);
+  gspn_fwd_kernel<D, K, T><<<grid, 32 * sh.warps, sh.smem, stream>>>(
       static_cast<const T*>(x), static_cast<const T*>(wl), static_cast<const T*>(wc),
       static_cast<const T*>(wr), static_cast<const T*>(lam), static_cast<T*>(out), G, H, W,
-      cpw, chunk, sh.P, sh.batch, sh.nbuf);
+      cpw, chunk, sh.P, sh.batch, sh.nbuf, sh.xpitch);
   return cudaGetLastError();
 }
 
@@ -570,17 +694,29 @@ cudaError_t launch_bwd(const void* dy, const void* wl, const void* wc, const voi
   return cudaGetLastError();
 }
 
-template <typename T>
+template <int D, typename T>
 cudaError_t dispatch_fwd(const void* x, const void* wl, const void* wc, const void* wr,
                          const void* lam, void* out, int G, int H, int W, int cpw, int chunk,
                          const Shape& sh, cudaStream_t s) {
   switch (sh.k) {
-    case 1: return launch_fwd<1, T>(x, wl, wc, wr, lam, out, G, H, W, cpw, chunk, sh, s);
-    case 2: return launch_fwd<2, T>(x, wl, wc, wr, lam, out, G, H, W, cpw, chunk, sh, s);
-    case 4: return launch_fwd<4, T>(x, wl, wc, wr, lam, out, G, H, W, cpw, chunk, sh, s);
-    case 8: return launch_fwd<8, T>(x, wl, wc, wr, lam, out, G, H, W, cpw, chunk, sh, s);
-    case 16: return launch_fwd<16, T>(x, wl, wc, wr, lam, out, G, H, W, cpw, chunk, sh, s);
-    case 32: return launch_fwd<32, T>(x, wl, wc, wr, lam, out, G, H, W, cpw, chunk, sh, s);
+    case 1: return launch_fwd<D, 1, T>(x, wl, wc, wr, lam, out, G, H, W, cpw, chunk, sh, s);
+    case 2: return launch_fwd<D, 2, T>(x, wl, wc, wr, lam, out, G, H, W, cpw, chunk, sh, s);
+    case 4: return launch_fwd<D, 4, T>(x, wl, wc, wr, lam, out, G, H, W, cpw, chunk, sh, s);
+    case 8: return launch_fwd<D, 8, T>(x, wl, wc, wr, lam, out, G, H, W, cpw, chunk, sh, s);
+    case 16: return launch_fwd<D, 16, T>(x, wl, wc, wr, lam, out, G, H, W, cpw, chunk, sh, s);
+    case 32: return launch_fwd<D, 32, T>(x, wl, wc, wr, lam, out, G, H, W, cpw, chunk, sh, s);
+  }
+  return cudaErrorInvalidValue;
+}
+
+template <typename T>
+cudaError_t dispatch_ndir(int ndir, const void* x, const void* wl, const void* wc,
+                          const void* wr, const void* lam, void* out, int G, int H, int W,
+                          int cpw, int chunk, const Shape& sh, cudaStream_t s) {
+  switch (ndir) {
+    case 1: return dispatch_fwd<1, T>(x, wl, wc, wr, lam, out, G, H, W, cpw, chunk, sh, s);
+    case 2: return dispatch_fwd<2, T>(x, wl, wc, wr, lam, out, G, H, W, cpw, chunk, sh, s);
+    case 4: return dispatch_fwd<4, T>(x, wl, wc, wr, lam, out, G, H, W, cpw, chunk, sh, s);
   }
   return cudaErrorInvalidValue;
 }
@@ -602,38 +738,49 @@ cudaError_t dispatch_bwd(const void* dy, const void* wl, const void* wc, const v
 
 }  // namespace
 
-// The pair forward.  dtype: 0 = float32, 1 = bfloat16.  chunk <= 0: no
-// reset.  planes, warps, k, splits, batch, nbuf, smem: the launch shape of
-// gspn_multidir.pair_launch_shape (ring depth S = nbuf * batch rows).
-// Returns the cudaError_t of the launch (0 on success).
-extern "C" int gspn_pair_launch(int dtype, const void* x, const void* wl, const void* wc,
-                                const void* wr, const void* lam, void* out, int G, int H,
-                                int W, int cpw, int chunk, int planes, int warps, int k,
-                                int splits, int batch, int nbuf, int smem, void* stream) {
+// The forward over ndir = 1, 2 or 4 directions (4: a square grid, no chunk).
+// dtype: 0 = float32, 1 = bfloat16.  chunk <= 0: no reset.  planes, warps,
+// k, splits, batch, nbuf, xpitch, smem: the launch shape of
+// gspn_scan.pair_launch_shape (ring depth S = nbuf * batch rows; xpitch the
+// column slab's pitch in words for ndir = 4, else 0).  Returns the
+// cudaError_t of the launch (0 on success).
+extern "C" int gspn_fwd_launch(int ndir, int dtype, const void* x, const void* wl,
+                               const void* wc, const void* wr, const void* lam, void* out,
+                               int G, int H, int W, int cpw, int chunk, int planes, int warps,
+                               int k, int splits, int batch, int nbuf, int xpitch, int smem,
+                               void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const Shape sh{planes, warps, k, splits, batch, nbuf, smem};
-  cudaError_t err = check_shape(G, H, W, cpw, planes, warps, k, splits, batch, nbuf, smem, 2,
-                                dtype == 1 ? 2 : 4);
+  const Shape sh{planes, warps, k, splits, batch, nbuf, xpitch, smem};
+  const int item = dtype == 1 ? 2 : 4;
+  const bool quad = ndir == 4;
+  if ((ndir != 1 && ndir != 2 && !quad) || dtype < 0 || dtype > 1 ||
+      (quad && (H != W || chunk > 0 || xpitch < slab_words(batch, item))) ||
+      (!quad && xpitch != 0))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err =
+      check_shape(G, H, W, cpw, planes, warps, k, splits, batch, nbuf, smem,
+                  (3L + 2 * planes) * fwd_region_bytes(ndir, batch, W, item, xpitch));
   if (err != cudaSuccess) return static_cast<int>(err);
   if (dtype == 0)
-    err = dispatch_fwd<float>(x, wl, wc, wr, lam, out, G, H, W, cpw, chunk, sh, s);
-  else if (dtype == 1)
-    err = dispatch_fwd<__nv_bfloat16>(x, wl, wc, wr, lam, out, G, H, W, cpw, chunk, sh, s);
+    err = dispatch_ndir<float>(ndir, x, wl, wc, wr, lam, out, G, H, W, cpw, chunk, sh, s);
   else
-    err = cudaErrorInvalidValue;
+    err = dispatch_ndir<__nv_bfloat16>(ndir, x, wl, wc, wr, lam, out, G, H, W, cpw, chunk, sh,
+                                       s);
   return static_cast<int>(err);
 }
 
 // The pair adjoint.  dtype of dy and the taps: 0 = float32, 1 = bfloat16; g
-// is float32.  The other arguments as for gspn_pair_launch.
+// is float32.  The other arguments as for gspn_fwd_launch, without xpitch.
 extern "C" int gspn_pair_bwd_launch(int dtype, const void* dy, const void* wl, const void* wc,
                                     const void* wr, void* g, int G, int H, int W, int cpw,
                                     int chunk, int planes, int warps, int k, int splits,
                                     int batch, int nbuf, int smem, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const Shape sh{planes, warps, k, splits, batch, nbuf, smem};
-  cudaError_t err = check_shape(G, H, W, cpw, planes, warps, k, splits, batch, nbuf, smem, 1,
-                                dtype == 1 ? 2 : 4);
+  const Shape sh{planes, warps, k, splits, batch, nbuf, 0, smem};
+  const int item = dtype == 1 ? 2 : 4;
+  cudaError_t err =
+      check_shape(G, H, W, cpw, planes, warps, k, splits, batch, nbuf, smem,
+                  static_cast<long>(3 + planes) * region_bytes(batch, W, item));
   if (err != cudaSuccess) return static_cast<int>(err);
   if (dtype == 0)
     err = dispatch_bwd<float>(dy, wl, wc, wr, g, G, H, W, cpw, chunk, sh, s);

@@ -36,22 +36,20 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 # C entry points of each library: name -> (restype, argtypes).
 _SIGNATURES = {
     "gspn_scan": {
-        # ndir, dtype, x, wl, wc, wr, lam, out, G, H, W, cpw, chunk, stream
-        "gspn_scan_launch": (_I, [_I, _I, _P, _P, _P, _P, _P, _P,
-                                  _I, _I, _I, _I, _I, _P]),
         # dtype, dy, wl, wc, wr, g, G, H, W, cpw, chunk, stream
         "gspn_scan_bwd_launch": (_I, [_I, _P, _P, _P, _P, _P,
                                       _I, _I, _I, _I, _I, _P]),
         "gspn_error_string": (ctypes.c_char_p, [_I]),
     },
     "gspn_pair": {
-        # dtype, x, wl, wc, wr, lam, out, G, H, W, cpw, chunk, then the
-        # launch shape: planes, warps, k, splits, batch, nbuf, smem; stream
-        "gspn_pair_launch": (_I, [_I, _P, _P, _P, _P, _P, _P,
-                                  _I, _I, _I, _I, _I,
-                                  _I, _I, _I, _I, _I, _I, _I, _P]),
-        # dtype, dy, wl, wc, wr, g, G, H, W, cpw, chunk, the launch shape,
-        # stream
+        # ndir, dtype, x, wl, wc, wr, lam, out, G, H, W, cpw, chunk, then
+        # the launch shape: planes, warps, k, splits, batch, nbuf, xpitch,
+        # smem; stream
+        "gspn_fwd_launch": (_I, [_I, _I, _P, _P, _P, _P, _P, _P,
+                                 _I, _I, _I, _I, _I,
+                                 _I, _I, _I, _I, _I, _I, _I, _I, _P]),
+        # dtype, dy, wl, wc, wr, g, G, H, W, cpw, chunk, the launch shape
+        # without xpitch, stream
         "gspn_pair_bwd_launch": (_I, [_I, _P, _P, _P, _P, _P,
                                       _I, _I, _I, _I, _I,
                                       _I, _I, _I, _I, _I, _I, _I, _P]),

@@ -1,47 +1,58 @@
 """Single-direction line scan and its adjoint on the card (CUDA,
-``sm_90a``).
+``sm_90a``), and the launch of the forward scan template.
 
 :func:`gspn_scan_fwd` replaces the Pallas kernel
 ``src/repro/kernels/gspn_scan.py:gspn_scan_fwd_pallas``: the top-to-bottom
 scan over (G, H, W) with compact weights indexed ``g // cpw``, the
 GSPN-local carry reset every ``chunk`` rows, an f32 carry and the output
-in the stream dtype.  It is the D = 1 instance of the forward template in
-``csrc/gspn_scan.cu``; :func:`gspn_scan_fwd_torch` is its plain version.
+in the stream dtype.  It is the D = 1 instance of ``gspn_fwd_kernel`` in
+``csrc/gspn_pair.cu``, the forward template whose D = 2 and D = 4
+instances are the pair and the quad (:mod:`~repro_torch.kernels.
+gspn_multidir`); :func:`gspn_scan_fwd_torch` is its plain version.
 
 :func:`gspn_scan_bwd` replaces ``gspn_scan_bwd_pallas`` (same file): the
 adjoint walk from the last row to the first with three f32 product rows,
 the same chunk reset, an f32 output, and no flipped copies of its
-operands.  It is the D = 1 instance of the adjoint template;
-:func:`gspn_scan_bwd_torch` is its plain version.
+operands.  Its kernel is the last one of the port's first design (a CTA
+per plane, a thread per column, the next row prefetched into registers, a
+barrier per row, ``csrc/gspn_scan.cu``); moving it onto the template's
+design is the next step.  :func:`gspn_scan_bwd_torch` is its plain
+version.
 
 Bound.  Each input is read once and the output written once: per (g,h,w)
 element the forward moves x, lam and out (one stream item each) and the
-three taps (``3 / cpw`` items), 18 bytes in f32 at cpw = 2; the adjoint
-moves dy, the taps and an f32 g, 14 bytes.  The operations (7 per element
-forward, 9 adjoint) are far below the card's rate, so bytes set the floor;
-but every row depends on the previous one, so each kernel really runs a
-chain of H row steps, each one barrier plus the latency of that row's
-loads.
+three taps (``3 / cpw`` items), 18 bytes in f32 at cpw = 2, 7.2 / 1.8 /
+0.45 / 0.11 MB per launch at batch 64 and W = 56 / 28 / 14 / 7, about 2.16
+/ 0.54 / 0.135 / 0.034 us at the H100's 3.35 TB/s; the adjoint moves dy,
+the taps and an f32 g, 14 bytes.  The operations (7 per element forward,
+9 adjoint) are far below the card's rate, so bytes set the floor; but
+every row depends on the previous one, so each kernel runs a chain of H
+dependent row steps.
 
-Design.  One CTA per plane, a thread per column, the previous row (the
-adjoint: its two shifted product rows) staged in shared memory and the
-next row's inputs loaded into registers while the current row computes
-(see the source): the first design of the port, which these two kernels
-and the quad (:func:`launch`, D = 4) still use.  The pair kernels of the
-main path have moved to the redesign in ``csrc/gspn_pair.cu`` (a warp per
-plane, neighbours by shuffle, a shared-memory prefetch ring, taps loaded
-once per weight group; :mod:`repro_torch.kernels.gspn_multidir`); moving
-these three kernels onto it is the next step.
+The forward template (the source's note says why each choice): one CTA
+per (weight group, direction) with one warp per plane of the group and at
+least eight warps that issue copies; each lane keeps the carry of columns
+``l, l+32, ...`` in registers and takes its neighbours by warp shuffle,
+with no barrier per row; the group's tap rows are staged once for all its
+planes, with each plane's streamed rows, by ``cp.async`` into a
+shared-memory ring that holds the whole plane at the main widths (one
+batch, one barrier) and streams taller planes in four batches.
+:func:`pair_launch_shape` chooses the launch shape from the operands'
+shape and the direction count alone, and :func:`launch` launches the
+template for 1, 2 or 4 directions.
 
-Every launch (:func:`launch`, :func:`launch_bwd`, and the pair's launches
-in :mod:`~repro_torch.kernels.gspn_multidir`) enters the ``kernel.launch``
-span of DESIGN.md §13 with the reference's attributes ``kernel``,
-``dtype``, ``g``, ``h`` and ``w``; the reference's ``row_tile`` and
-``pipeline_depth`` are left out, since the port's launch shapes are not
-the Pallas launch plan.
+Every launch (:func:`launch`, :func:`launch_bwd`, and the pair adjoint's
+launch in :mod:`~repro_torch.kernels.gspn_multidir`) enters the
+``kernel.launch`` span of DESIGN.md §13 with the reference's attributes
+``kernel``, ``dtype``, ``g``, ``h`` and ``w``; the reference's
+``row_tile`` and ``pipeline_depth`` are left out, since the port's launch
+shapes are not the Pallas launch plan.
 """
 
 from __future__ import annotations
+
+import math
+from typing import NamedTuple
 
 import torch
 
@@ -51,9 +62,20 @@ from repro_torch.kernels import cuda_lib, ref
 KERNEL = "gspn_scan_fwd"
 KERNEL_BWD = "gspn_scan_bwd"
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-# Widest row the kernels take: one thread per column here, at most 1024
-# threads per CTA; the pair's lanes hold up to 32 columns each.
+# Widest row the kernels take: one thread per column in the single
+# adjoint, at most 1024 threads per CTA; the template's lanes hold up to 32
+# columns each.
 _MAX_W = 1024
+
+SMEM_MAX = 232_448   # shared memory one CTA may use on the H100, bytes
+RING_ROWS = 64       # ring depth cap: enough rows ahead to cover HBM latency
+BATCHES = 4          # batches a ring is cut into when the plane does not fit
+COPY_WARPS = 8       # warps that issue the ring's copies, at the least
+SMS = 132            # streaming multiprocessors of the H100 SXM
+# Warps per CTA that the register budget allows at K columns per lane (the
+# kernels' __launch_bounds__, two rows of operands in registers): 64
+# registers a thread at 1024 threads, 128 at 512, 255 at 256 and 128.
+_MAX_WARPS = {1: 32, 2: 16, 4: 16, 8: 8, 16: 4, 32: 4}
 
 
 def chunk_arg(h: int, chunk: int | None) -> int:
@@ -70,6 +92,122 @@ def compute_dtype(dtype: torch.dtype) -> torch.dtype:
     """Arithmetic dtype of the plain versions: float32, or float64 for
     float64 operands (``torch.autograd.gradcheck``)."""
     return torch.float64 if dtype == torch.float64 else torch.float32
+
+
+class PairLaunch(NamedTuple):
+    """Launch shape of a kernel of ``csrc/gspn_pair.cu``.
+
+    ``planes``: planes per CTA, one warp each; ``warps``: warps per CTA
+    (``planes`` or more: every warp issues ring copies); ``k``: columns
+    per lane (a power of two, ``32·k >= W``); ``splits``: CTAs per weight
+    group; ``stages``: ring depth S in rows, ``nbuf`` batches of
+    ``batch`` rows; ``grid``: (G_w, splits, D), the weight group, the
+    part of the group and the direction; ``smem_bytes``: the ring's
+    dynamic shared memory; ``xpitch``: for the quad (D = 4), the pitch in
+    4-byte words of the column slab from which its transposed directions
+    read x, else 0."""
+    planes: int
+    warps: int
+    k: int
+    splits: int
+    stages: int
+    batch: int
+    nbuf: int
+    grid: tuple[int, int, int]
+    smem_bytes: int
+    xpitch: int = 0
+
+
+def _region_bytes(rows: int, w: int, item: int) -> int:
+    """Bytes of one (array, batch) region of the ring, as ``region_bytes``
+    in the source: ``rows`` rows of W items placed at their source's offset
+    within its 16-byte block and widened to whole words, in 16-byte units."""
+    return (rows * w * item + 18 + 15) // 16 * 16
+
+
+def _slab_words(rows: int, item: int) -> int:
+    """4-byte words one column-slab run of ``rows`` items may cover, as
+    ``slab_words`` in the source (a bf16 run may start mid-word)."""
+    return (rows * item + (2 if item < 4 else 0) + 3) // 4
+
+
+def ring_bytes(direction: str, ndir: int, w: int, item: int, planes: int,
+               batch: int, nbuf: int, xpitch: int = 0) -> int:
+    """Shared bytes of a ring of ``nbuf`` stages of ``batch`` rows, as the
+    source lays a stage out: the three tap regions and per plane its dy
+    region (``"bwd"``) or its x and lam regions (``"fwd"``), every region
+    of the quad sized for the larger of its rows and a column slab of W
+    runs at ``xpitch`` words (``fwd_region_bytes`` in the source)."""
+    rb = _region_bytes(batch, w, item)
+    if direction == "bwd":
+        return nbuf * (3 + planes) * rb
+    if ndir == 4:
+        rb = max(rb, (w * xpitch * 4 + 15) // 16 * 16)
+    return nbuf * (3 + 2 * planes) * rb
+
+
+def pair_launch_shape(g: int, h: int, w: int, cpw: int, dtype: torch.dtype,
+                      direction: str, ndir: int = 2) -> PairLaunch:
+    """The launch shape of the forward over ``ndir`` directions (1, 2 or
+    4; ``direction="fwd"``) or of the pair adjoint (``"bwd"``, ndir 2) on
+    (g, h, w) planes with ``cpw`` planes per weight group, derived from
+    the shape alone.
+
+    A warp per plane of the group, as many as the registers at ``k``
+    columns per lane allow and as leave two ring rows in shared memory (a
+    larger group splits evenly over CTAs), and at least ``COPY_WARPS``
+    warps, which all issue copies.  The ring holds the whole plane (S = H,
+    one batch, one barrier) when it fits in ``RING_ROWS`` rows and the
+    shared memory; otherwise S = min(H, 64) rows or as many as fit, cut
+    into ``BATCHES`` batches of ``ceil(S / BATCHES)`` rows (S rounded down
+    to whole batches), refilled as the walk goes.  The quad takes fewer
+    planes per CTA while its grid would hold fewer CTAs than the card has
+    SMs, and its slab pitch is the words a run of a batch may cover, made
+    odd so that the 32 lanes of a step read 32 banks."""
+    if direction not in ("fwd", "bwd"):
+        raise ValueError(f"direction must be 'fwd' or 'bwd', not "
+                         f"{direction!r}")
+    if ndir not in (1, 2, 4) or (direction == "bwd" and ndir != 2):
+        raise ValueError(f"ndir={ndir}: the forward runs 1, 2 or 4 "
+                         f"directions, the adjoint 2")
+    item = torch.empty((), dtype=dtype).element_size()
+    k = 1 << max(0, math.ceil(w / 32) - 1).bit_length()
+
+    def pitch(batch):
+        return _slab_words(batch, item) | 1 if ndir == 4 else 0
+
+    def fits(planes, batch, nbuf):
+        return ring_bytes(direction, ndir, w, item, planes, batch, nbuf,
+                          pitch(batch)) <= SMEM_MAX
+
+    planes = min(cpw, _MAX_WARPS[k])
+    while planes > 1 and not fits(planes, 1, min(h, 2)):
+        planes -= 1
+    # The quad spreads a group's planes over CTAs while whole groups would
+    # leave SMs without a CTA (1024², G = 32: 128 CTAs of one plane took
+    # 118 us on the H100, 64 of two 182; tools/pair_launch_sweep.py).
+    while ndir == 4 and planes > 1 and \
+            g // cpw * -(-cpw // planes) * ndir < SMS:
+        planes -= 1
+    splits = -(-cpw // planes)
+    planes = -(-cpw // splits)
+    if h <= RING_ROWS and fits(planes, h, 1):
+        batch, nbuf = h, 1
+    else:
+        rows = min(h, RING_ROWS)
+        while True:
+            batch = -(-rows // BATCHES)
+            nbuf = rows // batch
+            if fits(planes, batch, nbuf):
+                break
+            rows -= 1
+    return PairLaunch(
+        planes=planes, warps=max(planes, min(COPY_WARPS, _MAX_WARPS[k])),
+        k=k, splits=splits, stages=nbuf * batch, batch=batch, nbuf=nbuf,
+        grid=(g // cpw, splits, ndir),
+        smem_bytes=ring_bytes(direction, ndir, w, item, planes, batch, nbuf,
+                              pitch(batch)),
+        xpitch=pitch(batch))
 
 
 def _lead(ndir: int) -> tuple[int, ...]:
@@ -133,31 +271,33 @@ def _span(name: str, g: int, h: int, w: int, dtype: torch.dtype):
 
 
 def launch(ndir: int, name: str, x, wl, wc, wr, lam, chunk) -> torch.Tensor:
-    """Check the operands of one ``ndir``-direction forward scan, 1 or 4,
-    and launch the kernel on the current stream.  Shapes: x (G,H,W), or
-    for the quad x stacked with its transpose (2,G,N,N); taps (G_w,H,W),
-    or (4,G_w,N,N); lam (G,H,W), or (4,G,N,N)."""
-    if ndir not in (1, 4):
-        raise ValueError(f"ndir={ndir}: this template runs 1 or 4 "
-                         f"directions; the pair launches through "
-                         f"gspn_multidir")
+    """Check the operands of one forward scan over ``ndir`` directions (1,
+    2 or 4) and launch that instance of the template on the current
+    stream, counted and traced as ``name``.  Shapes: x (G,H,W); taps
+    (G_w,H,W), or (ndir,G_w,H,W); lam (G,H,W), or (ndir,G,H,W).  The quad
+    (4) needs a square grid and no chunk."""
+    if ndir not in (1, 2, 4):
+        raise ValueError(f"ndir={ndir}: the forward template runs 1, 2 or 4 "
+                         f"directions")
     lead = _lead(ndir)
-    x_lead = (2,) if ndir == 4 else ()
-    cpw, chunk = _check(ndir, [("x", x, x_lead), ("lam", lam, lead)],
+    cpw, chunk = _check(ndir, [("x", x, ()), ("lam", lam, lead)],
                         (wl, wc, wr), chunk)
-    g, h, w = x.shape[len(x_lead):]
+    g, h, w = x.shape
     if ndir == 4 and (h != w or chunk):
         raise ValueError(f"the quad scan is one-shot on a square grid, got "
                          f"H={h}, W={w}, chunk={chunk}")
     out = torch.empty(lead + (g, h, w), dtype=x.dtype, device=x.device)
     if out.numel() == 0:
         return out
-    lib = cuda_lib.library("gspn_scan")
+    s = pair_launch_shape(g, h, w, cpw, x.dtype, "fwd", ndir)
+    lib = cuda_lib.library("gspn_pair")
     with _span(name, g, h, w, x.dtype), torch.cuda.device(x.device):
-        err = lib.gspn_scan_launch(
+        err = lib.gspn_fwd_launch(
             ndir, _DTYPE_CODES[x.dtype], x.data_ptr(), wl.data_ptr(),
             wc.data_ptr(), wr.data_ptr(), lam.data_ptr(), out.data_ptr(),
-            g, h, w, cpw, chunk, torch.cuda.current_stream().cuda_stream)
+            g, h, w, cpw, chunk, s.planes, s.warps, s.k, s.splits, s.batch,
+            s.nbuf, s.xpitch, s.smem_bytes,
+            torch.cuda.current_stream().cuda_stream)
     cuda_lib.check(lib, err, name)
     _count(name, g, h, w, x.dtype)
     return out

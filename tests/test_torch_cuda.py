@@ -85,6 +85,72 @@ def test_quad_kernel_matches_plain(card, dtype, g, n, cpw):
     assert _err_ok(got, gspn_multidir.gspn_scan_quad_torch(*q), tol)
 
 
+# The single scan (#1) on whole planes (H <= 64: the ring holds the plane)
+# and streamed ones (H = 200 and 512 pass through the 64-row ring), at the
+# main widths, with and without a chunk reset.
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("h", [56, 200, 512])
+@pytest.mark.parametrize("w", [28, 56])
+def test_single_scan_over_whole_and_streamed_planes(card, dtype, h, w):
+    tol = 1e-5 if dtype == torch.float32 else 1e-2
+    for chunk in (None, h // 4):
+        a = _inputs(31, 8, h, w, 2, dtype)
+        cuda_lib.clear_counts()
+        got = gspn_scan.gspn_scan_fwd(*a, chunk=chunk)
+        assert cuda_lib.launch_counts == {"gspn_scan_fwd": 1}, chunk
+        assert got.dtype == dtype and got.shape == (8, h, w)
+        assert _err_ok(got, gspn_scan.gspn_scan_fwd_torch(*a, chunk=chunk),
+                       tol), chunk
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,cpw,chunk", [((6, 201, 27), 3, None),
+                                             ((6, 201, 27), 3, 67),
+                                             ((5, 19, 37), 5, 19),
+                                             ((4, 49, 7), 1, 7)])
+def test_single_scan_planes_at_odd_offsets(card, dtype, shape, cpw, chunk):
+    """Planes of an odd number of items: in bfloat16 every other plane (of
+    x, lam, out and the taps) starts at a 2-byte boundary, and the ring's
+    runs are widened to the words that cover them."""
+    tol = 1e-5 if dtype == torch.float32 else 1e-2
+    a = _inputs(32, *shape, cpw, dtype)
+    assert _err_ok(gspn_scan.gspn_scan_fwd(*a, chunk=chunk),
+                   gspn_scan.gspn_scan_fwd_torch(*a, chunk=chunk), tol)
+
+
+# The quad (#5): whole planes in the ring at N <= 56, streamed column slabs
+# at N = 96 and 256; N = 7 and 19 give planes of an odd number of items.
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n", [7, 19, 56, 96, 256])
+@pytest.mark.parametrize("cpw", [1, 2, 4])
+def test_quad_kernel_over_whole_and_streamed_slabs(card, dtype, n, cpw):
+    tol = 1e-5 if dtype == torch.float32 else 1e-2
+    q = _inputs(33, 2 * cpw, n, n, cpw, dtype, ndir=4)
+    cuda_lib.clear_counts()
+    got = gspn_multidir.gspn_scan_quad(*q)
+    assert cuda_lib.launch_counts == {"gspn_quad_fwd": 1}
+    assert got.dtype == dtype and got.shape == (4, 2 * cpw, n, n)
+    assert _err_ok(got, gspn_multidir.gspn_scan_quad_torch(*q), tol)
+
+
+def test_quad_reads_x_in_place(card):
+    """The quad launches one kernel and allocates its output and nothing
+    else: no copy of x stacked with its transpose, nor a transpose."""
+    x, wl, wc, wr, lam = _inputs(34, 64, 56, 56, 2, torch.float32, ndir=4)
+    x_bytes = x.numel() * x.element_size()
+    gspn_multidir.gspn_scan_quad(x, wl, wc, wr, lam)   # builds, warms up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    cuda_lib.clear_counts()
+    out = gspn_multidir.gspn_scan_quad(x, wl, wc, wr, lam)
+    torch.cuda.synchronize()
+    grown = torch.cuda.max_memory_allocated() - before
+    assert cuda_lib.launch_counts == {"gspn_quad_fwd": 1}
+    assert out.numel() == 4 * x.numel()
+    assert grown < 4 * x_bytes + x_bytes // 2, grown
+
+
 def test_quad_kernel_refuses_what_it_cannot_run(card):
     q = _inputs(12, 4, 6, 6, 2, torch.float32, ndir=4)
     with pytest.raises(ValueError, match="square"):
@@ -94,12 +160,13 @@ def test_quad_kernel_refuses_what_it_cannot_run(card):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("g,n,cpw", [(8, 19, 1), (128, 28, 2)])
+@pytest.mark.parametrize("g,n,cpw", [(8, 19, 1), (128, 28, 2), (4, 96, 2)])
 def test_template_instances_agree_bitwise(card, dtype, g, n, cpw):
     """The single scan (D = 1), the pair (D = 2) and the quad (D = 4) are
     instances of one template: on the same operands each direction gives
-    the same bits in every instance, so adding D = 4 left the arithmetic
-    of D = 1 and D = 2 as it was."""
+    the same bits in every instance, the quad's transposed directions
+    (read from column slabs of x) the bits of the pair and the single scan
+    on x transposed; at N = 96 the planes stream through the ring."""
     x, wl4, wc4, wr4, lam4 = _inputs(13, g, n, n, cpw, dtype, ndir=4)
     quad = gspn_multidir.gspn_scan_quad(x, wl4, wc4, wr4, lam4)
     xt = x.transpose(-1, -2).contiguous()

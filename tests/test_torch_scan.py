@@ -253,6 +253,28 @@ def test_launch_checks_operands(case):
         gspn_scan.launch(ndir, "test", x, wl, wc, wr, lam, chunk)
 
 
+@pytest.mark.parametrize("case,match", [("ndir", "ndir"),
+                                        ("square", "square"),
+                                        ("chunk", "square")])
+def test_template_launch_refuses_what_it_has_no_instance_for(case, match):
+    """The forward template runs 1, 2 or 4 directions, the quad on a
+    square grid without a chunk; anything else raises before any build or
+    launch."""
+    g, h, w = 4, 6, 6
+    ndir, chunk = 4, None
+    if case == "ndir":
+        ndir = 3
+    elif case == "square":
+        w = 5
+    elif case == "chunk":
+        chunk = 3
+    x = torch.zeros(g, h, w)
+    taps = torch.zeros(ndir, 2, h, w)
+    lam = torch.zeros(ndir, g, h, w)
+    with pytest.raises(ValueError, match=match):
+        gspn_scan.launch(ndir, "test", x, taps, taps, taps, lam, chunk)
+
+
 
 # ---------------------------------------------------------------------------
 # Backward: the adjoint oracle, the plain adjoint walks and the gradients of
