@@ -16,26 +16,34 @@ Phases, each of which fails the run on any error:
    #2 and #4) against its plain version on the card, at the main path's
    shapes (batch 64 of GSPN-2-T at 224²: G = 128 planes, G_w = 64,
    H = W = 56/28/14/7), the 1024² stage-1 shape (G = 32, H = W = 256), a
-   ragged shape (H = 19, W = 37, cpw 1 and 4) and a chunked one, in
+   ragged shape (H = 19, W = 37, cpw 1 and 4) and a chunked one, and the
+   single scan and its adjoint also at the ``qwen2-1.5b-gspn`` mixer's
+   two passes at ``train_4k`` (G = 128, cpw 8: H = 4 rows of W = 1024,
+   and H = 1024 rows of W = 4) and at H = 32, W = 1024 with chunk 8, in
    float32 and bfloat16 streams (tolerance 1e-5 of the largest magnitude,
-   1e-2 for the forward's bfloat16 output); at the main-path and 1024²
-   shapes, the device time per launch of the kernel and of the plain
-   version (CUDA-graph replays timed by CUDA events, median of 20) and of
-   one eager call, and at the main-path shapes the kernel's time with the
-   L2 flushed before each launch (``cold_ms``, as the main path finds its
-   operands in device memory).  #1, #3 and #5 are the D = 1, 2 and 4
-   instances of one forward template (a warp per plane, neighbours by
-   shuffle, a ``cp.async`` ring in shared memory, taps staged once per
-   weight group), #4 its pair adjoint, #2 the first design's single
-   adjoint.  Then the gradient of a single-direction ``directional_scan``
-   ("rl"), kernels #1 and #2 against the plain path; then the
-   single-launch quad kernel (#5) against its plain version at the
-   main-path shapes (N = 56/28/14/7), at 1024² (G = 32, N = 256, its
-   transposed directions streaming column slabs of x through the ring)
-   and on a ragged square (N = 19, cpw 1 and 4), float32 and bfloat16,
-   timed through its wrapper, which reads x in place (no stacked copy),
-   warm and with a cold L2;
-4. model (serving): GSPN-2-T classification forward at 224², batch 64, weights from
+   1e-2 for the forward's bfloat16 output); at all but the ragged and
+   small chunked shapes, the device time per launch of the kernel and of
+   the plain version (CUDA-graph replays timed by CUDA events, median of
+   20) and of one eager call, and at the main-path shapes the kernel's
+   time with the L2 flushed before each launch (``cold_ms``, as the main
+   path finds its operands in device memory).  #1, #3 and #5 are the D =
+   1, 2 and 4 instances of one forward template (a warp per plane,
+   neighbours by shuffle, a ``cp.async`` ring in shared memory, taps
+   staged once per weight group), #2 and #4 the D = 1 and 2 instances of
+   its adjoint template (#2 spreading a row of more than 128 columns over
+   warps: on a plane of up to 16 rows, windows of 64 or 128 columns read
+   from device memory four rows ahead; on a taller one, eight bands that
+   share the row from the ring).  Then the single-launch quad kernel (#5) against its
+   plain version at the main-path shapes (N = 56/28/14/7), at 1024² (G =
+   32, N = 256, its transposed directions streaming column slabs of x
+   through the ring) and on a ragged square (N = 19, cpw 1 and 4),
+   float32 and bfloat16, timed through its wrapper, which reads x in
+   place (no stacked copy), warm and with a cold L2;
+4. the single-direction gradient: the gradients of one "rl"
+   ``directional_scan`` at 28², G = 128, through kernels #1 and #2 under
+   autograd, counted (one launch each, no plain call) and held against
+   the plain path (1e-5 of the largest magnitude);
+5. model (serving): GSPN-2-T classification forward at 224², batch 64, weights from
    a seeded generator, images from ``synth_images``; the kernel path
    against the plain path on the card (TF32 off for convolutions and
    matrix products, 1e-4 of the largest logit), one counted forward that
@@ -43,16 +51,16 @@ Phases, each of which fails the run on any error:
    forward's images/s over 10 timed runs, a profile of one forward
    (device time by kernel, idle share, the forward as one CUDA graph);
    and the reduced model on the card against the plain path on the CPU;
-5. training: one GSPN-2-T training step at 224², batch 64, f32: a counted
+6. training: one GSPN-2-T training step at 224², batch 64, f32: a counted
    ``vision_loss`` + ``backward()`` that must launch the pair kernel and
    its adjoint 52 times each and never call a plain scan, its gradients
    against the plain path on the card (loss 1e-5 relative, each
    parameter's gradient 1e-4 of its largest magnitude), 5 timed runs of
    the loss and gradients alone, 5 timed AdamW steps (step ms, images/s,
    peak memory) and a profile of one step;
-6. the trainer twin ``examples/train_vision_torch.py``, 60 steps on the
+7. the trainer twin ``examples/train_vision_torch.py``, 60 steps on the
    reduced model, whose held-out accuracy must end above 2/n_classes;
-7. the four-direction launch ladder (the paper's §4.3 design point) at
+8. the four-direction launch ladder (the paper's §4.3 design point) at
    GSPN-2-T's stage shapes, batch 64 (G = 128, cpw 2, N = 56/28/14/7,
    float32): the GSPN-1 per-step emulation, one scan per direction (#1
    four times), the pair dispatch (#3 twice) and the quad (#5 once), each
@@ -98,18 +106,20 @@ REPLACES = {
     "gspn_pair_bwd": "src/repro/kernels/gspn_multidir.py:336",
     "gspn_scan_bwd": "src/repro/kernels/gspn_scan.py:384",
 }
-SOURCES = {name: f"src/repro_torch/kernels/csrc/{src}" for name, src in (
-    ("gspn_quad_fwd", "gspn_pair.cu"), ("gspn_scan_fwd", "gspn_pair.cu"),
-    ("gspn_scan_bwd", "gspn_scan.cu"), ("gspn_pair_fwd", "gspn_pair.cu"),
-    ("gspn_pair_bwd", "gspn_pair.cu"))}
-# Kernels timed with a cold L2 at the main-path shapes: the forward
-# template's instances and the pair adjoint.
-COLD = ("gspn_pair_fwd", "gspn_pair_bwd", "gspn_scan_fwd", "gspn_quad_fwd")
+# Every kernel is an instance of a template in one source.
+SOURCES = dict.fromkeys(REPLACES, "src/repro_torch/kernels/csrc/gspn_pair.cu")
+# Kernels timed with a cold L2 at the main-path shapes: all of them.
+COLD = tuple(REPLACES)
 # Names of the scan kernels in the profiler's device records.
-SCAN_KERNELS = ("gspn_fwd_kernel", "gspn_pair_bwd_kernel",
-                "gspn_scan_bwd_kernel")
-# The forward template's direction count D of each forward kernel.
-NDIR = {"gspn_scan_fwd": 1, "gspn_pair_fwd": 2, "gspn_quad_fwd": 4}
+SCAN_KERNELS = ("gspn_fwd_kernel", "gspn_bwd_kernel")
+# The templates' direction count D of each kernel.
+NDIR = {"gspn_scan_fwd": 1, "gspn_pair_fwd": 2, "gspn_quad_fwd": 4,
+        "gspn_scan_bwd": 1, "gspn_pair_bwd": 2}
+# The single scan's and its adjoint's further shapes (G, H, W, cpw,
+# chunk): the qwen2-1.5b-gspn mixer's T→B pass and within-row pass at
+# train_4k (batch 16, C_proxy 8), and a chunked wide shape.
+LM_SHAPES = ((128, 4, 1024, 8, None), (128, 1024, 4, 8, None),
+             (128, 32, 1024, 8, 8))
 
 
 def _run(cmd) -> str:
@@ -223,6 +233,7 @@ def kernel_phase(gen):
                   (8, 19, 37, 1, None, dtype, False),
                   (8, 19, 37, 4, None, dtype, False),
                   (8, 38, 37, 4, 19, dtype, False)]
+        cases += [shape + (dtype, True) for shape in LM_SHAPES]
     # The adjoints write f32 computed in f32 from the same inputs as their
     # plain versions, in either stream dtype.
     tol = {("fwd", torch.float32): 1e-5, ("fwd", torch.bfloat16): 1e-2,
@@ -230,6 +241,8 @@ def kernel_phase(gen):
     results = []
     for name, (kernel, plain, pair, kind) in kernels.items():
         for g, h, w, cpw, chunk, dtype, timed in cases:
+            if pair and (g, h, w, cpw, chunk) in LM_SHAPES:
+                continue
             args = _scan_inputs(gen, g, h, w, cpw, dtype, pair, kind)
             got = kernel(*args, chunk=chunk)
             want = plain(*args, chunk=chunk)
@@ -239,10 +252,9 @@ def kernel_phase(gen):
             dname = str(dtype).removeprefix("torch.")
             row = dict(kernel=name, g=g, h=h, w=w, cpw=cpw, chunk=chunk,
                        dtype=dname, max_abs_err=err, max_abs=scale,
-                       tol=tol[kind, dtype] * scale)
-            if name != "gspn_scan_bwd":
-                row["launch_shape"] = _launch_shape(
-                    g, h, w, cpw, dtype, kind, NDIR.get(name, 2))
+                       tol=tol[kind, dtype] * scale,
+                       launch_shape=_launch_shape(g, h, w, cpw, dtype, kind,
+                                                  NDIR[name]))
             if timed:
                 nbytes = sum(t.numel() * t.element_size() for t in args) \
                     + got.numel() * got.element_size()
@@ -262,7 +274,6 @@ def kernel_phase(gen):
                 raise AssertionError(f"{name} disagrees with its plain "
                                      f"version: {row}")
             results.append(row)
-    _single_direction_grad_check(gen)
     return results + _quad_rows(gen)
 
 
@@ -275,7 +286,7 @@ def _launch_shape(g, h, w, cpw, dtype, kind, ndir):
     return (f"planes={s.planes},warps={s.warps},K={s.k},splits={s.splits},"
             f"S={s.stages},batch={s.batch},"
             f"grid={'x'.join(map(str, s.grid))},xpitch={s.xpitch},"
-            f"smem={s.smem_bytes}")
+            f"bands={s.bands},direct={int(s.direct)},smem={s.smem_bytes}")
 
 
 def _bound(nbytes, out_elements, kind):
@@ -330,9 +341,10 @@ def _quad_rows(gen):
     return rows
 
 
-def _single_direction_grad_check(gen):
+def single_direction_grad_check(gen):
     """Gradients of one "rl" ``directional_scan`` (kernels #1 and #2 under
-    autograd) against the plain path, 1e-5 of the largest magnitude."""
+    autograd) against the plain path, 1e-5 of the largest magnitude.
+    Returns the counted run's launches by shape."""
     from repro_torch.core.gspn import directional_scan
     from repro_torch.kernels import cuda_lib
 
@@ -347,6 +359,7 @@ def _single_direction_grad_check(gen):
     cuda_lib.clear_counts()
     got = grads("auto")
     launches = dict(cuda_lib.launch_counts)
+    shapes = dict(cuda_lib.launch_shapes)
     want = grads("torch")
     torch.cuda.synchronize()
     worst = max(((a - b).abs().max() / b.abs().max()).item()
@@ -358,6 +371,7 @@ def _single_direction_grad_check(gen):
             or not worst <= 1e-5:
         raise AssertionError("single-direction gradients disagree or "
                              "missed the kernels")
+    return shapes
 
 
 def _profile(fn, wall_s, what):
@@ -735,6 +749,9 @@ def main() -> int:
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     rows = kernel_phase(gen)
+    # #2's launches are those of the single-direction gradient.
+    single_bwd = {k: v for k, v in single_direction_grad_check(gen).items()
+                  if k[0] == "gspn_scan_bwd"}
     shapes = model_phase(torch.Generator().manual_seed(0))
     # The adjoints' launches are those of the counted training step.
     shapes.update({k: v for k, v in
@@ -742,10 +759,11 @@ def main() -> int:
                    if k[0].endswith("_bwd")})
     twin_phase()
     shapes.update(ladder_phase(torch.Generator(device="cuda").manual_seed(1)))
+    shapes.update(single_bwd)
 
     entries = []
     for row in rows:
-        if row["dtype"] != "float32" or row["h"] not in MAIN_WIDTHS:
+        if row["dtype"] != "float32" or "ms" not in row:
             continue
         key = (row["kernel"], row["g"], row["h"], row["w"], row["dtype"])
         entries.append({

@@ -1,12 +1,13 @@
-// One element of the GSPN scan and of its adjoint, shared by gspn_scan.cu and
-// gspn_pair.cu so that every kernel computes each element by the same
+// One element of the GSPN scan and of its adjoint, shared by every kernel
+// of gspn_pair.cu so that each computes an element by the same
 // instructions.
 //
 // The chains are written with explicit round-to-nearest intrinsics, which
 // nvcc never contracts or reorders: the result does not depend on how the
 // compiler would have fused a plain `a*b + c*d + ...` in each kernel's own
 // context, so the single, pair and quad kernels agree bit for bit on shared
-// directions, and the pair adjoint agrees with the single adjoint.
+// directions, and the pair adjoint agrees with the single adjoint, banded
+// or not.
 
 #pragma once
 

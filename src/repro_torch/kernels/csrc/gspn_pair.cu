@@ -1,5 +1,5 @@
-// The GSPN scan forward over 1, 2 or 4 directions, and the pair adjoint, for
-// Hopper (sm_90a).
+// The GSPN scan forward over 1, 2 or 4 directions, and its adjoint over 1 or
+// 2, for Hopper (sm_90a).
 //
 //   gspn_fwd_kernel<D, K, T>, one template over the direction count D:
 //     D = 1 replaces gspn_scan_fwd_pallas (src/repro/kernels/gspn_scan.py,
@@ -17,26 +17,35 @@
 //       reference stacks x with its transpose first, because a BlockSpec
 //       cannot express a transposed read; here x is read in place.  No
 //       chunk: the quad is one-shot.
-//   gspn_pair_bwd_kernel replaces gspn_scan_bidir_bwd_pallas (same file,
-//     kernel #4): direction 0 walks H-1..0, direction 1 walks 0..H-1 (the
-//     forward's walks with the roles swapped), g written in f32.
+//   gspn_bwd_kernel<D, K, L, T>, the adjoint template over D, g written in
+//   f32, direction 0 walking H-1..0 and direction 1 0..H-1 (the forward's
+//   walks with the roles swapped):
+//     D = 1 replaces gspn_scan_bwd_pallas (src/repro/kernels/gspn_scan.py,
+//       kernel #2), the `chunk` reset kept for the LM mixer; a row of more
+//       than 128 columns is laid out over several warps (layout L: bands
+//       from the ring, or windows from device memory; at the kernel);
+//     D = 2 replaces gspn_scan_bidir_bwd_pallas (src/repro/kernels/
+//       gspn_multidir.py, kernel #4, the vision training step).
 //
 // Every element goes through gspn::scan_cell or gspn::adjoint_cell, with an
 // f32 carry and the carry reset every `chunk` rows of the walk, so the three
 // forward instances agree bit for bit on shared directions and the pair
-// adjoint's direction 0 gives the bits of the single adjoint (gspn_scan.cu).
-// Layouts (all contiguous): x (G,H,W); wl/wc/wr (D,G/cpw,H,W); lam, out
-// (D,G,H,W), the leading axis absent for D = 1; dy (2,G,H,W) in T, g
-// (2,G,H,W) in f32.  Plane g reads weight plane g / cpw.
+// adjoint's direction 0 gives the bits of the single adjoint, banded or not.
+// Layouts (all contiguous): x (G,H,W); wl/wc/wr (D,G/cpw,H,W); lam, out, dy
+// (D,G,H,W) in T, g (D,G,H,W) in f32, the leading axis absent for D = 1.
+// Plane g reads weight plane g / cpw.
 //
 // Bound.  Each input read once and each output written once: per (g,h,w)
 // element the forward moves x once, lam and out D times each and the 3D tap
 // planes 3D/cpw times: 18 / 32 / 60 bytes in f32 at cpw = 2 for D = 1 / 2 /
 // 4; the adjoint moves dy, the taps at 3/cpw per direction and an f32 g, 14
-// bytes.  At G = 128 and N = 56 / 28 / 14 / 7 that is 2.16 / 0.54 / 0.135 /
-// 0.034 us (D = 1), 3.83 / 0.96 / 0.24 / 0.060 us (D = 2), 7.19 / 1.80 /
-// 0.45 / 0.11 us (D = 4) and 3.36 / 0.84 / 0.21 / 0.052 us (adjoint) at
-// 3.35 TB/s; 7 and 9 operations per element are far below the f32 rate.
+// bytes per direction.  At G = 128 and N = 56 / 28 / 14 / 7 that is 2.16 /
+// 0.54 / 0.135 / 0.034 us (D = 1), 3.83 / 0.96 / 0.24 / 0.060 us (D = 2),
+// 7.19 / 1.80 / 0.45 / 0.11 us (D = 4), 3.36 / 0.84 / 0.21 / 0.052 us (the
+// pair adjoint) and 1.68 / 0.42 / 0.105 / 0.026 us (the single adjoint) at
+// 3.35 TB/s; the single adjoint at the LM mixer's shapes (G = 128, cpw = 8,
+// 4 x 1024 or 1024 x 4 planes) moves 9.5 bytes per element, 1.49 us.  7 and 9
+// operations per element are far below the f32 rate.
 //
 // What held the first design (a CTA per plane and direction, a thread per
 // column) back:
@@ -114,16 +123,36 @@
 //     boundary is widened to the 4-byte words that cover it; the extra 2
 //     bytes read lie in the same aligned word as a byte of the operand, so in
 //     mapped memory.
+//   - The single adjoint at rows of more than 128 columns (1024² stage 1, W =
+//     256; the LM mixer's rows, W = 1024), where one warp per plane would
+//     take K = 8 or 32 columns per lane (K = 32 spills) and leave most of
+//     the card idle.  On a plane taller than 16 rows, 8 warps share the
+//     row in bands from the ring, exchanging their edge products under a
+//     named barrier each row (1024² on an H100 80GB HBM3 at 700 W: 44 us
+//     against 66 for one warp per plane and 54-92 for the first design).  On a shorter plane
+//     the ring is the cost: a plane that fits is filled before its walk
+//     starts, so at 4 rows of 1024 the bands ran 4.7-5.0 us against the
+//     first design's 3.7-3.9, which streams each row into registers while
+//     the previous one computes.  There each warp walks a window of 64 or
+//     128 columns with a halo of H at each end straight from device memory,
+//     four rows ahead, with no barrier at all: 3.7-3.9 us.  Column tiles per
+//     CTA staged through the ring lost to the bands at every shape (6.7 us
+//     at 4 rows of 1024), on the issue cost of many small copies, and
+//     windows of 128 columns lost 0.2-0.3 us to those of 64 there, which
+//     put two CTAs of 10 warps on a plane instead of one of 9
+//     (tools/pair_launch_sweep.py; PERF.md).
 //   - The launch shape (planes, warps, K, splits, batch, nbuf, slab pitch,
-//     shared bytes) is chosen by one plain function,
+//     bands, direct, shared bytes) is chosen by one plain function,
 //     gspn_scan.pair_launch_shape, and checked here; shared memory above 48
-//     KB is opted into per launch.  D = 1 keeps the whole weight group in
-//     one CTA (64 CTAs of two planes at G = 128, cpw = 2): one plane per
-//     CTA (128 CTAs, each staging the group's taps again) was no faster in
-//     three sweeps, within 0.25 us either way at every main width
-//     (tools/pair_launch_sweep.py on the H100; PERF.md).  The quad spreads
-//     a group over CTAs while whole groups would leave SMs idle: at 1024²
-//     (G = 32) 128 CTAs of one plane ran 118 us against 182 for 64 of two;
+//     KB is opted into per launch.  The forward's D = 1 keeps the whole
+//     weight group in one CTA (64 CTAs of two planes at G = 128, cpw = 2):
+//     one plane per CTA (128 CTAs, each staging the group's taps again) was
+//     no faster in three sweeps, within 0.25 us either way at every main
+//     width (tools/pair_launch_sweep.py on an H100 at 700 W; PERF.md).  The quad and
+//     the single adjoint spread a group over CTAs while whole groups would
+//     leave SMs idle: at 1024² (G = 32) the quad's 128 CTAs of one plane ran
+//     118 us against 182 for 64 of two, the single adjoint's 32 ran 44 us
+//     against 63 for 16 (its main widths: within 0.3 us either way);
 //     at the main widths its 256 CTAs fill the card as they are.  Its
 //     padded pitch read within -0.14..+0.27 us of the unpadded one at N =
 //     56 and 28 (8 and 4 lanes on a bank): the conflicts cost no more than
@@ -139,14 +168,20 @@
 //   fwd D = 2 bf16  51 64 120 166 244 255   K = 32: 88 / 176 / 180
 //   fwd D = 4 f32   52 64 106 170 255 255   K = 32: 96 / 272 / 284
 //   fwd D = 4 bf16  51 64 104 168 247 255   K = 32: 96 / 268 / 280
-//   bwd f32         52 63 105 128 249 255   K = 32: 32 / 44 / 68
-//   bwd bf16        52 63 105 128 255 255   K = 8: 8 / 8 / 12, K = 32: 8 / 8 / 20
+//   bwd D = 2 f32   52 63 105 128 249 255   K = 32: 32 / 44 / 68
+//   bwd D = 2 bf16  52 63 105 128 255 255   K = 8: 8 / 8 / 12, K = 32: 8 / 8 / 20
+//   bwd D = 1 f32   47 62 105 128 252 255   K = 32: 40 / 64 / 80
+//   bwd D = 1 bf16  49 64 106 128 255 255   K = 32: 32 / 40 / 68
+//   bwd D = 1 f32, bands 62 59 110; windows 44 63 121 (K = 1 2 4)
+//   bwd D = 1 bf16, bands 62 64 124; windows 48 64 127 (K = 1 2 4)
 // The main widths use K = 1 and 2, without spills; D = 2 compiles to the
-// registers it had as the pair's own kernel.
+// registers it had as the pair's own kernel, and the single adjoint's wide
+// rows take bands or windows at K <= 4, without spills.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 
+#include <cstddef>
 #include <cstdint>
 #include <type_traits>
 
@@ -182,6 +217,10 @@ __host__ __device__ inline int region_bytes(int rows, int W, int item) {
 __host__ __device__ inline int slab_words(int rows, int item) {
   return (rows * item + (item < 4 ? 2 : 0) + 3) / 4;
 }
+
+// Bytes of the banded adjoint's edge products after the ring: two row
+// parities of Pl and Pr per warp.
+__host__ __device__ inline int edge_bytes(int warps) { return 2 * 2 * 4 * warps; }
 
 // Bytes of a forward region over D directions: rows, or for D = 4 the
 // larger of rows and a column slab of W runs at `pitch` words, so that one
@@ -285,6 +324,14 @@ struct Cta {
     p0 = static_cast<int>(blockIdx.y) * P;
     np = min(P, cpw - p0);
   }
+  // The same with the part of the group given (the grid's y axis also
+  // counts groups of a row's windows).
+  __device__ Cta(int cpw, int P, int split) {
+    gw = static_cast<int>(blockIdx.x);
+    d = static_cast<int>(blockIdx.z);
+    p0 = split * P;
+    np = min(P, cpw - p0);
+  }
 };
 
 // The batches of one walk: batch b holds walk steps b*batch .. +nb-1, which
@@ -314,12 +361,19 @@ struct Ring {
   __device__ int pending(int b) const { return refills() ? nbuf - 2 : nbat - 1 - b; }
 };
 
-// This lane's slots: column lane + 32k is valid when it is below W.
+// This lane's slots: column col + 32k is valid when it is below W (col is
+// the lane, plus the first column of the warp's band or window in the
+// single adjoint's layouts).
 template <int K> struct Lanes {
   bool valid[K];
-  __device__ Lanes(int lane, int W) {
+  __device__ Lanes(int col, int W) {
 #pragma unroll
-    for (int k = 0; k < K; ++k) valid[k] = lane + 32 * k < W;
+    for (int k = 0; k < K; ++k) valid[k] = col + 32 * k < W;
+  }
+  // A window that may start left of column 0 (col < 0).
+  __device__ Lanes(int col, int lo, int W) {
+#pragma unroll
+    for (int k = 0; k < K; ++k) valid[k] = col + 32 * k >= lo && col + 32 * k < W;
   }
 };
 
@@ -413,6 +467,42 @@ __device__ __forceinline__ void walk_batch(Rows<N, K, T, S>& rows, const Lanes<K
       }
     }
   }
+}
+
+// Walk nb rows straight from device memory with four rows in flight: rows
+// q+1 .. q+4 load into four register sets while row q computes, so a walk
+// of a few rows waits out the memory's latency about once.  The pointers
+// stop at the last row, and no row is loaded twice.
+template <int N, int K, typename T, typename Row>
+__device__ __forceinline__ void walk_ahead(Rows<N, K, T>& rows, const Lanes<K>& ln, int nb,
+                                           Row row) {
+  float a[N][K], b[N][K], c[N][K], d[N][K];
+  rows.load(a, ln);
+  rows.advance(1 < nb);
+  if (1 < nb) rows.load(b, ln);
+  rows.advance(2 < nb);
+  if (2 < nb) rows.load(c, ln);
+  rows.advance(3 < nb);
+  if (3 < nb) rows.load(d, ln);
+  rows.advance(4 < nb);
+  int q = 0;
+  for (; q + 4 <= nb; q += 4) {  // a..d hold rows q..q+3
+    row(a);
+    if (q + 4 < nb) rows.load(a, ln);
+    rows.advance(q + 5 < nb);
+    row(b);
+    if (q + 5 < nb) rows.load(b, ln);
+    rows.advance(q + 6 < nb);
+    row(c);
+    if (q + 6 < nb) rows.load(c, ln);
+    rows.advance(q + 7 < nb);
+    row(d);
+    if (q + 7 < nb) rows.load(d, ln);
+    rows.advance(q + 8 < nb);
+  }
+  if (q < nb) row(a);
+  if (q + 1 < nb) row(b);
+  if (q + 2 < nb) row(c);
 }
 
 // Rows of the walk until the next carry reset: every `chunk` rows from the
@@ -550,22 +640,76 @@ gspn_fwd_kernel(const T* __restrict__ x, const T* __restrict__ wl, const T* __re
   }
 }
 
-template <int K, typename T>
+// Wait at named barrier `id` (1..15; 0 is __syncthreads) for `threads`
+// threads, whole warps; it orders their shared-memory accesses as
+// __syncthreads does.
+__device__ __forceinline__ void bar_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+// How the single adjoint lays a plane's columns over warps.
+enum Layout {
+  kRows,    // one warp walks whole rows, from the ring (always for D = 2)
+  kBands,   // `bands` warps share a row, each a band of 32K columns, from the ring
+  kDirect,  // `bands` warps each walk a window of the row from device memory
+};
+
+// The adjoint over D = 1 or 2 directions.  Direction 0 walks H-1..0 (D = 1
+// is the pair's direction 0), direction 1 walks 0..H-1.  L = kRows is the
+// pair adjoint's code, which must keep its registers and time; the other
+// layouts are the single adjoint's (D = 1) for rows of more than 128
+// columns:
+//   kBands: `bands` warps share a plane, warp b of the plane owning the
+//     columns b*32K .. b*32K + 32K - 1 at K per lane; each row the edge
+//     products of each band (Pl of its first column, Pr of its last) cross
+//     to the neighbouring bands through shared memory under a named
+//     barrier of the plane's warps, double-buffered by row parity so that
+//     one barrier a row suffices.
+//   kDirect (planes of few rows): window b of a plane is the 32K columns
+//     from c0 = b*tile - H, tile = 32K - 2H; a CTA walks `bands` windows of
+//     each of its planes, one warp each (blockIdx.y = group of windows *
+//     splits + split), and stores their middle `tile` columns.  A walk of H
+//     rows carries a product at most H columns, so the zeros assumed past a
+//     window's ends never reach the stored columns, which get the bits of a
+//     whole-row walk, and the warps need no exchange and no barrier.  Each
+//     warp reads its operands from device memory four rows ahead
+//     (walk_ahead), with no ring: a ring that holds the whole plane is
+//     filled before the walk starts, so fill and walk add up, and on a
+//     short wide plane both are a few rows of 16 KB; reading rows while
+//     earlier ones are walked overlaps them and drops the fill's issue,
+//     wait and barrier.
+template <int D, int K, int L, typename T>
 __global__ void __launch_bounds__(max_threads(K))
-gspn_pair_bwd_kernel(const T* __restrict__ dy, const T* __restrict__ wl,
-                     const T* __restrict__ wc, const T* __restrict__ wr,
-                     float* __restrict__ gout, int G, int H, int W, int cpw, int chunk, int P,
-                     int batch, int nbuf) {
+gspn_bwd_kernel(const T* __restrict__ dy, const T* __restrict__ wl, const T* __restrict__ wc,
+                const T* __restrict__ wr, float* __restrict__ gout, int G, int H, int W, int cpw,
+                int chunk, int P, int batch, int nbuf, int bands) {
+  static_assert(D == 1 || (D == 2 && L == kRows), "the layouts are the single adjoint's");
+  constexpr bool Direct = L == kDirect, Banded = L == kBands;
+  constexpr int item = static_cast<int>(sizeof(T));
   extern __shared__ __align__(16) unsigned char smem[];
-  const Cta cta(cpw, P);
+  // Direct: blockIdx.y = window group * splits + split.
+  const int splits = (cpw + P - 1) / P;
+  const Cta cta = [&] {
+    if constexpr (Direct) return Cta(cpw, P, static_cast<int>(blockIdx.y) % splits);
+    else return Cta(cpw, P);
+  }();
   const int warps = static_cast<int>(blockDim.x) / 32;
   const int warp = static_cast<int>(threadIdx.x) / 32, lane = static_cast<int>(threadIdx.x) % 32;
+  // This warp's plane of the CTA and band (or window) of the plane, the
+  // band's first column and this lane's.
+  const int pw = Banded || Direct ? warp / bands : warp;
+  const int band = Banded || Direct ? warp % bands : 0;
+  const int window = Direct ? static_cast<int>(blockIdx.y) / splits * bands + band : 0;
+  const int c0 = Direct ? window * (32 * K - 2 * H) - H : band * 32 * K;
+  const int col = c0 + lane;
   const size_t plane = static_cast<size_t>(H) * W;
   const int g0 = cta.gw * cpw + cta.p0;
-  const Walk walk{H, batch, cta.d == 0};
+  const Walk walk{H, batch, D == 1 || cta.d == 0};
   // Regions of a stage: 0..2 the taps, 3+p plane p's dy.
-  const Ring ring{smem, 3 + P, region_bytes(batch, W, static_cast<int>(sizeof(T))), nbuf,
-                  (H + batch - 1) / batch};
+  const Ring ring{smem, 3 + P, region_bytes(batch, W, item), nbuf, (H + batch - 1) / batch};
+  // The bands' edge products after the ring: [row parity][Pl, Pr][warp].
+  float* const edges =
+      reinterpret_cast<float*>(smem + static_cast<size_t>(nbuf) * ring.narr * ring.rb);
   const size_t tap_off = (static_cast<size_t>(cta.d) * gridDim.x + cta.gw) * plane;
   const T *twl = wl + tap_off, *twc = wc + tap_off, *twr = wr + tap_off;
   const T* dyg = dy + (static_cast<size_t>(cta.d) * G + g0) * plane;
@@ -577,56 +721,70 @@ gspn_pair_bwd_kernel(const T* __restrict__ dy, const T* __restrict__ wl,
     if (b < ring.nbat) {
       unsigned char* stage = ring.stage(b);
       const size_t off = static_cast<size_t>(walk.row0(b)) * W;
-      const int nbytes = walk.rows(b) * W * static_cast<int>(sizeof(T));
+      const int nbytes = walk.rows(b) * W * item;
       for (int a = warp; a < ring.narr; a += warps)
         if (const T* src = source(a)) copy_run(stage + a * ring.rb, src + off, nbytes, lane);
     }
     cp_commit();
   };
 
-  const bool active = warp < cta.np;
-  const Lanes<K> ln(lane, W);
-  float* outg = gout + (static_cast<size_t>(cta.d) * G + g0 + warp) * plane;
+  const bool active = pw < cta.np;
+  // The lane's valid slots (columns 0..W-1) and those it stores: all valid
+  // ones, or a window's middle.
+  const Lanes<K> ln = [&] {
+    if constexpr (Direct) return Lanes<K>(col, 0, W);
+    else return Lanes<K>(col, W);
+  }();
+  bool keep[K];
+#pragma unroll
+  for (int k = 0; k < K; ++k)
+    keep[k] = ln.valid[k] && (!Direct || (col + 32 * k >= c0 + H &&
+                                          col + 32 * k < c0 + 32 * K - H));
+  float* outg = gout + (static_cast<size_t>(cta.d) * G + g0 + pw) * plane;
   // This lane's products of the previously walked row.
   float pl[K], pc[K], pr[K];
 #pragma unroll
   for (int k = 0; k < K; ++k) pl[k] = pc[k] = pr[k] = 0.f;
   Reset reset(chunk);
-
-  for (int b = 0; b < ring.ahead(); ++b) issue(b);
-  for (int b = 0; b < ring.nbat; ++b) {
-    cp_wait(ring.pending(b));
-    __syncthreads();  // batch b visible to every warp; batch b-1's stage free
-    if (ring.refills()) issue(b + nbuf - 1);
-    if (!active) continue;
-    const unsigned char* stage = ring.stage(b);
-    const size_t off = static_cast<size_t>(walk.row0(b)) * W;
-    const int nb = walk.rows(b);
-    const int first = (walk.reverse ? (nb - 1) * W : 0) + lane, step = walk.reverse ? -W : W;
-    Rows<4, K, T> rows{{run_items(stage, twl + off) + first,
-                        run_items(stage + ring.rb, twc + off) + first,
-                        run_items(stage + 2 * ring.rb, twr + off) + first,
-                        run_items(stage + (3 + warp) * ring.rb, source(3 + warp) + off) + first},
-                       step};
-    float* o = outg + off + first;
-    auto walk_rows = [&](auto chunked) {
-      walk_batch(rows, ln, nb, [&](float (&v)[4][K]) {
+  int parity = 0;
+  // Walk nb rows of `rows`, g stored at o, o stepped by `step` a row; from
+  // device memory four rows ahead (kDirect), else from the ring.
+  auto walk_rows = [&](auto& rows, int nb, float* o, int step) {
+    auto body = [&](auto chunked) {
+      auto walk_from = [&](auto&& row) {
+        if constexpr (Direct)
+          walk_ahead(rows, ln, nb, row);
+        else
+          walk_batch(rows, ln, nb, row);
+      };
+      walk_from([&](float (&v)[4][K]) {
         if constexpr (decltype(chunked)::value) {
           if (reset.now()) {
 #pragma unroll
             for (int k = 0; k < K; ++k) pl[k] = pc[k] = pr[k] = 0.f;
           }
         }
-        // Pl at column j+1 and Pr at column j-1, 0 past the row's ends.
+        // Pl at column j+1 and Pr at column j-1, 0 past the row's ends (and
+        // past a window's: the stored columns never see it).
         float pl_r[K], pr_l[K];
         from_right(pl, lane, pl_r);
         from_left(pr, lane, pr_l);
-        if (lane == 31) pl_r[K - 1] = 0.f;
-        if (lane == 0) pr_l[0] = 0.f;
+        float next_pl = 0.f, prev_pr = 0.f;  // across the band's ends
+        if constexpr (Banded) {
+          float* e = edges + parity * 2 * warps;
+          if (lane == 0) e[warp] = pl[0];
+          if (lane == 31) e[warps + warp] = pr[K - 1];
+          bar_sync(1 + pw, 32 * bands);
+          if (band + 1 < bands) next_pl = e[warp + 1];
+          if (band > 0) prev_pr = e[warps + warp - 1];
+          parity ^= 1;
+        }
+        if (lane == 31) pl_r[K - 1] = next_pl;
+        if (lane == 0) pr_l[0] = prev_pr;
 #pragma unroll
         for (int k = 0; k < K; ++k) {
           const float gv = gspn::adjoint_cell(v[3][k], pl_r[k], pc[k], pr_l[k]);
-          if (ln.valid[k]) o[32 * k] = gv;
+          if (keep[k]) o[32 * k] = gv;
           // Masked slots have zero taps, so their products stay 0.
           pl[k] = __fmul_rn(v[0][k], gv); pc[k] = __fmul_rn(v[1][k], gv);
           pr[k] = __fmul_rn(v[2][k], gv);
@@ -634,24 +792,60 @@ gspn_pair_bwd_kernel(const T* __restrict__ dy, const T* __restrict__ wl,
         o += step;
       });
     };
+    // The main path has no chunk: its walk carries no reset test.
     if (chunk > 0)
-      walk_rows(std::true_type{});
+      body(std::true_type{});
     else
-      walk_rows(std::false_type{});
+      body(std::false_type{});
+  };
+
+  if constexpr (Direct) {  // rows H-1..0 straight from device memory
+    if (!active || c0 + H >= W) return;  // no plane, or a window past the row
+    const ptrdiff_t first = static_cast<ptrdiff_t>(H - 1) * W + col;
+    Rows<4, K, T> rows{{twl + first, twc + first, twr + first, source(3 + pw) + first}, -W};
+    walk_rows(rows, H, outg + first, -W);
+  } else {
+    for (int b = 0; b < ring.ahead(); ++b) issue(b);
+    for (int b = 0; b < ring.nbat; ++b) {
+      cp_wait(ring.pending(b));
+      __syncthreads();  // batch b visible to every warp; batch b-1's stage free
+      if (ring.refills()) issue(b + nbuf - 1);
+      if (!active) continue;
+      const unsigned char* stage = ring.stage(b);
+      const size_t off = static_cast<size_t>(walk.row0(b)) * W;
+      const int nb = walk.rows(b);
+      const int first = (walk.reverse ? (nb - 1) * W : 0) + col, step = walk.reverse ? -W : W;
+      Rows<4, K, T> rows{{run_items(stage, twl + off) + first,
+                          run_items(stage + ring.rb, twc + off) + first,
+                          run_items(stage + 2 * ring.rb, twr + off) + first,
+                          run_items(stage + (3 + pw) * ring.rb, source(3 + pw) + off) + first},
+                         step};
+      walk_rows(rows, nb, outg + off + first, step);
+    }
   }
 }
 
-// Check a launch shape against the operands and a stage of stage_bytes;
-// cudaSuccess if it can run.
+// Check a launch shape against the operands and a stage of stage_bytes
+// (plus `extra` bytes after the ring); cudaSuccess if it can run.  The
+// single adjoint's layouts: with bands > 1 (kBands) `bands` warps share a
+// plane, K <= 4 per lane, a named barrier per plane (at most 15 planes);
+// direct (kDirect), a CTA walks `bands` windows of 32K columns of each of
+// its planes, K <= 4, each window storing 32K - 2H >= 1 of them.
 cudaError_t check_shape(int G, int H, int W, int cpw, int P, int warps, int k, int splits,
-                        int batch, int nbuf, int smem, long stage_bytes) {
+                        int batch, int nbuf, int smem, long stage_bytes, int bands = 1,
+                        long extra = 0, bool direct = false) {
   const bool k_ok = k == 1 || k == 2 || k == 4 || k == 8 || k == 16 || k == 32;
-  if (G < 1 || H < 1 || W < 1 || cpw < 1 || G % cpw || !k_ok || 32 * k < W || P < 1 ||
-      warps < P || 32 * warps > max_threads(k) || splits < 1 || P * splits < cpw ||
-      P * (splits - 1) >= cpw || batch < 1 || nbuf < 1 || nbuf > kMaxBufs ||
-      (nbuf == 1 && batch < H))
+  const bool bands_ok = bands == 1 || ((bands == 2 || bands == 4 || bands == 8 ||
+                                        bands == 16 || bands == 32) &&
+                                       k <= 4 && P <= 15);
+  const bool direct_ok = k <= 4 && bands >= 1 && bands <= 32 && 32 * k > 2 * H;
+  if (G < 1 || H < 1 || W < 1 || cpw < 1 || G % cpw || !k_ok ||
+      !(direct ? direct_ok : bands_ok && 32 * k * bands >= W) || P < 1 ||
+      warps < P * bands || 32 * warps > max_threads(k) ||
+      splits < 1 || P * splits < cpw || P * (splits - 1) >= cpw || batch < 1 || nbuf < 1 ||
+      nbuf > kMaxBufs || (nbuf == 1 && batch < H))
     return cudaErrorInvalidValue;
-  if (nbuf * stage_bytes > smem || smem > kMaxShared) return cudaErrorInvalidValue;
+  if (nbuf * stage_bytes + extra > smem || smem > kMaxShared) return cudaErrorInvalidValue;
   return cudaSuccess;
 }
 
@@ -663,7 +857,7 @@ cudaError_t opt_in(Kernel kernel, int smem) {
 
 // The launch shape of gspn_scan.pair_launch_shape.
 struct Shape {
-  int P, warps, k, splits, batch, nbuf, xpitch, smem;
+  int P, warps, k, splits, batch, nbuf, xpitch, smem, bands = 1, direct = 0;
 };
 
 template <int D, int K, typename T>
@@ -680,17 +874,19 @@ cudaError_t launch_fwd(const void* x, const void* wl, const void* wc, const void
   return cudaGetLastError();
 }
 
-template <int K, typename T>
+template <int D, int K, int L, typename T>
 cudaError_t launch_bwd(const void* dy, const void* wl, const void* wc, const void* wr,
                        void* g, int G, int H, int W, int cpw, int chunk, const Shape& sh,
                        cudaStream_t stream) {
-  const cudaError_t err = opt_in(gspn_pair_bwd_kernel<K, T>, sh.smem);
+  const cudaError_t err = opt_in(gspn_bwd_kernel<D, K, L, T>, sh.smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid(static_cast<unsigned>(G / cpw), static_cast<unsigned>(sh.splits), 2);
-  gspn_pair_bwd_kernel<K, T><<<grid, 32 * sh.warps, sh.smem, stream>>>(
+  const int windows = L == kDirect ? (W + 32 * K - 2 * H - 1) / (32 * K - 2 * H) : 1;
+  const int groups = (windows + sh.bands - 1) / sh.bands;
+  const dim3 grid(static_cast<unsigned>(G / cpw), static_cast<unsigned>(sh.splits * groups), D);
+  gspn_bwd_kernel<D, K, L, T><<<grid, 32 * sh.warps, sh.smem, stream>>>(
       static_cast<const T*>(dy), static_cast<const T*>(wl), static_cast<const T*>(wc),
       static_cast<const T*>(wr), static_cast<float*>(g), G, H, W, cpw, chunk, sh.P, sh.batch,
-      sh.nbuf);
+      sh.nbuf, sh.bands);
   return cudaGetLastError();
 }
 
@@ -721,17 +917,36 @@ cudaError_t dispatch_ndir(int ndir, const void* x, const void* wl, const void* w
   return cudaErrorInvalidValue;
 }
 
-template <typename T>
+// The single adjoint's banded layout L at K <= 4.
+template <int L, typename T>
+cudaError_t dispatch_spread(const void* dy, const void* wl, const void* wc, const void* wr,
+                            void* g, int G, int H, int W, int cpw, int chunk, const Shape& sh,
+                            cudaStream_t s) {
+  switch (sh.k) {
+    case 1: return launch_bwd<1, 1, L, T>(dy, wl, wc, wr, g, G, H, W, cpw, chunk, sh, s);
+    case 2: return launch_bwd<1, 2, L, T>(dy, wl, wc, wr, g, G, H, W, cpw, chunk, sh, s);
+    case 4: return launch_bwd<1, 4, L, T>(dy, wl, wc, wr, g, G, H, W, cpw, chunk, sh, s);
+  }
+  return cudaErrorInvalidValue;
+}
+
+template <int D, typename T>
 cudaError_t dispatch_bwd(const void* dy, const void* wl, const void* wc, const void* wr,
                          void* g, int G, int H, int W, int cpw, int chunk, const Shape& sh,
                          cudaStream_t s) {
+  if constexpr (D == 1) {
+    if (sh.direct)
+      return dispatch_spread<kDirect, T>(dy, wl, wc, wr, g, G, H, W, cpw, chunk, sh, s);
+    if (sh.bands > 1)
+      return dispatch_spread<kBands, T>(dy, wl, wc, wr, g, G, H, W, cpw, chunk, sh, s);
+  }
   switch (sh.k) {
-    case 1: return launch_bwd<1, T>(dy, wl, wc, wr, g, G, H, W, cpw, chunk, sh, s);
-    case 2: return launch_bwd<2, T>(dy, wl, wc, wr, g, G, H, W, cpw, chunk, sh, s);
-    case 4: return launch_bwd<4, T>(dy, wl, wc, wr, g, G, H, W, cpw, chunk, sh, s);
-    case 8: return launch_bwd<8, T>(dy, wl, wc, wr, g, G, H, W, cpw, chunk, sh, s);
-    case 16: return launch_bwd<16, T>(dy, wl, wc, wr, g, G, H, W, cpw, chunk, sh, s);
-    case 32: return launch_bwd<32, T>(dy, wl, wc, wr, g, G, H, W, cpw, chunk, sh, s);
+    case 1: return launch_bwd<D, 1, kRows, T>(dy, wl, wc, wr, g, G, H, W, cpw, chunk, sh, s);
+    case 2: return launch_bwd<D, 2, kRows, T>(dy, wl, wc, wr, g, G, H, W, cpw, chunk, sh, s);
+    case 4: return launch_bwd<D, 4, kRows, T>(dy, wl, wc, wr, g, G, H, W, cpw, chunk, sh, s);
+    case 8: return launch_bwd<D, 8, kRows, T>(dy, wl, wc, wr, g, G, H, W, cpw, chunk, sh, s);
+    case 16: return launch_bwd<D, 16, kRows, T>(dy, wl, wc, wr, g, G, H, W, cpw, chunk, sh, s);
+    case 32: return launch_bwd<D, 32, kRows, T>(dy, wl, wc, wr, g, G, H, W, cpw, chunk, sh, s);
   }
   return cudaErrorInvalidValue;
 }
@@ -769,25 +984,35 @@ extern "C" int gspn_fwd_launch(int ndir, int dtype, const void* x, const void* w
   return static_cast<int>(err);
 }
 
-// The pair adjoint.  dtype of dy and the taps: 0 = float32, 1 = bfloat16; g
-// is float32.  The other arguments as for gspn_fwd_launch, without xpitch.
-extern "C" int gspn_pair_bwd_launch(int dtype, const void* dy, const void* wl, const void* wc,
-                                    const void* wr, void* g, int G, int H, int W, int cpw,
-                                    int chunk, int planes, int warps, int k, int splits,
-                                    int batch, int nbuf, int smem, void* stream) {
+// The adjoint over ndir = 1 or 2 directions.  dtype of dy and the taps: 0 =
+// float32, 1 = bfloat16; g is float32.  The other arguments as for
+// gspn_fwd_launch, without xpitch and with the single adjoint's layout
+// (ndir = 1): bands, the warps that share a plane (else 1), and direct, 1
+// when those warps walk windows of the row from device memory with no ring
+// (batch = H, nbuf = 1, no shared memory).
+extern "C" int gspn_bwd_launch(int ndir, int dtype, const void* dy, const void* wl,
+                               const void* wc, const void* wr, void* g, int G, int H, int W,
+                               int cpw, int chunk, int planes, int warps, int k, int splits,
+                               int batch, int nbuf, int bands, int direct, int smem,
+                               void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const Shape sh{planes, warps, k, splits, batch, nbuf, 0, smem};
+  const Shape sh{planes, warps, k, splits, batch, nbuf, 0, smem, bands, direct};
   const int item = dtype == 1 ? 2 : 4;
-  cudaError_t err =
-      check_shape(G, H, W, cpw, planes, warps, k, splits, batch, nbuf, smem,
-                  static_cast<long>(3 + planes) * region_bytes(batch, W, item));
+  if ((ndir != 1 && ndir != 2) || dtype < 0 || dtype > 1 || direct < 0 || direct > 1 ||
+      (ndir == 2 && (bands != 1 || direct)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = check_shape(
+      G, H, W, cpw, planes, warps, k, splits, batch, nbuf, smem,
+      direct ? 0L : static_cast<long>(3 + planes) * region_bytes(batch, W, item), bands,
+      bands > 1 && !direct ? edge_bytes(warps) : 0, direct);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (dtype == 0)
-    err = dispatch_bwd<float>(dy, wl, wc, wr, g, G, H, W, cpw, chunk, sh, s);
-  else if (dtype == 1)
-    err = dispatch_bwd<__nv_bfloat16>(dy, wl, wc, wr, g, G, H, W, cpw, chunk, sh, s);
+    err = ndir == 1 ? dispatch_bwd<1, float>(dy, wl, wc, wr, g, G, H, W, cpw, chunk, sh, s)
+                    : dispatch_bwd<2, float>(dy, wl, wc, wr, g, G, H, W, cpw, chunk, sh, s);
   else
-    err = cudaErrorInvalidValue;
+    err = ndir == 1
+              ? dispatch_bwd<1, __nv_bfloat16>(dy, wl, wc, wr, g, G, H, W, cpw, chunk, sh, s)
+              : dispatch_bwd<2, __nv_bfloat16>(dy, wl, wc, wr, g, G, H, W, cpw, chunk, sh, s);
   return static_cast<int>(err);
 }
 

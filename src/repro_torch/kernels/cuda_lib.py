@@ -27,20 +27,13 @@ import subprocess
 
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-SOURCES = {"gspn_scan": CSRC / "gspn_scan.cu",
-           "gspn_pair": CSRC / "gspn_pair.cu"}
+SOURCES = {"gspn_pair": CSRC / "gspn_pair.cu"}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # C entry points of each library: name -> (restype, argtypes).
 _SIGNATURES = {
-    "gspn_scan": {
-        # dtype, dy, wl, wc, wr, g, G, H, W, cpw, chunk, stream
-        "gspn_scan_bwd_launch": (_I, [_I, _P, _P, _P, _P, _P,
-                                      _I, _I, _I, _I, _I, _P]),
-        "gspn_error_string": (ctypes.c_char_p, [_I]),
-    },
     "gspn_pair": {
         # ndir, dtype, x, wl, wc, wr, lam, out, G, H, W, cpw, chunk, then
         # the launch shape: planes, warps, k, splits, batch, nbuf, xpitch,
@@ -48,11 +41,12 @@ _SIGNATURES = {
         "gspn_fwd_launch": (_I, [_I, _I, _P, _P, _P, _P, _P, _P,
                                  _I, _I, _I, _I, _I,
                                  _I, _I, _I, _I, _I, _I, _I, _I, _P]),
-        # dtype, dy, wl, wc, wr, g, G, H, W, cpw, chunk, the launch shape
-        # without xpitch, stream
-        "gspn_pair_bwd_launch": (_I, [_I, _P, _P, _P, _P, _P,
-                                      _I, _I, _I, _I, _I,
-                                      _I, _I, _I, _I, _I, _I, _I, _P]),
+        # ndir, dtype, dy, wl, wc, wr, g, G, H, W, cpw, chunk, then the
+        # launch shape: planes, warps, k, splits, batch, nbuf, bands,
+        # direct, smem; stream
+        "gspn_bwd_launch": (_I, [_I, _I, _P, _P, _P, _P, _P,
+                                 _I, _I, _I, _I, _I,
+                                 _I, _I, _I, _I, _I, _I, _I, _I, _I, _P]),
         "gspn_error_string": (ctypes.c_char_p, [_I]),
     },
 }

@@ -15,7 +15,8 @@ instance); :func:`gspn_scan_bidir_torch` is its plain version.
 file), the adjoint of the pair on the training path: direction 0 walks
 rows H-1..0 and direction 1 rows 0..H-1 (the forward's walks with the
 roles swapped), three f32 product rows per column, g written in f32.  Its
-kernel is ``gspn_pair_bwd_kernel`` in the same source;
+kernel is the D = 2 instance of ``gspn_bwd_kernel``, the adjoint template
+in the same source (the single adjoint is its D = 1 instance);
 :func:`gspn_scan_bidir_bwd_torch` is its plain version.
 
 :func:`gspn_scan_quad` replaces ``gspn_scan_quad_pallas`` (same file), the
@@ -46,35 +47,12 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import cuda_lib, ref
-from repro_torch.kernels.gspn_scan import (_DTYPE_CODES, _check, _count,
-                                           _span, chunk_arg, compute_dtype,
-                                           launch, pair_launch_shape)
+from repro_torch.kernels.gspn_scan import (chunk_arg, compute_dtype, launch,
+                                           launch_bwd)
 
 KERNEL = "gspn_pair_fwd"
 KERNEL_BWD = "gspn_pair_bwd"
 KERNEL_QUAD = "gspn_quad_fwd"
-
-
-def launch_pair_bwd(dy2, wl2, wc2, wr2, chunk) -> torch.Tensor:
-    """Check the pair adjoint's operands (the shapes of
-    :func:`gspn_scan_bidir_bwd`) and launch its kernel on the current
-    stream.  Returns g, (2, G, H, W) in float32."""
-    cpw, chunk = _check(2, [("dy", dy2, (2,))], (wl2, wc2, wr2), chunk)
-    g, h, w = dy2.shape[1:]
-    out = torch.empty(dy2.shape, dtype=torch.float32, device=dy2.device)
-    if out.numel() == 0:
-        return out
-    s = pair_launch_shape(g, h, w, cpw, dy2.dtype, "bwd")
-    lib = cuda_lib.library("gspn_pair")
-    with _span(KERNEL_BWD, g, h, w, dy2.dtype), torch.cuda.device(dy2.device):
-        err = lib.gspn_pair_bwd_launch(
-            _DTYPE_CODES[dy2.dtype], dy2.data_ptr(), wl2.data_ptr(),
-            wc2.data_ptr(), wr2.data_ptr(), out.data_ptr(), g, h, w, cpw,
-            chunk, s.planes, s.warps, s.k, s.splits, s.batch, s.nbuf,
-            s.smem_bytes, torch.cuda.current_stream().cuda_stream)
-    cuda_lib.check(lib, err, KERNEL_BWD)
-    _count(KERNEL_BWD, g, h, w, dy2.dtype)
-    return out
 
 
 def gspn_scan_bidir(x, wl2, wc2, wr2, lam2, *, chunk: int | None = None):
@@ -121,7 +99,7 @@ def gspn_scan_bidir_bwd(dy2, wl2, wc2, wr2, *, chunk: int | None = None):
     :func:`gspn_scan_bidir_bwd_torch`."""
     if not dy2.is_cuda:
         return gspn_scan_bidir_bwd_torch(dy2, wl2, wc2, wr2, chunk=chunk)
-    return launch_pair_bwd(dy2, wl2, wc2, wr2, chunk)
+    return launch_bwd(2, KERNEL_BWD, dy2, wl2, wc2, wr2, chunk)
 
 
 def gspn_scan_bidir_bwd_torch(dy2, wl2, wc2, wr2, *,

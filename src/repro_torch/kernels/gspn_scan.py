@@ -1,5 +1,5 @@
 """Single-direction line scan and its adjoint on the card (CUDA,
-``sm_90a``), and the launch of the forward scan template.
+``sm_90a``), and the launch of the forward and adjoint templates.
 
 :func:`gspn_scan_fwd` replaces the Pallas kernel
 ``src/repro/kernels/gspn_scan.py:gspn_scan_fwd_pallas``: the top-to-bottom
@@ -13,11 +13,15 @@ gspn_multidir`); :func:`gspn_scan_fwd_torch` is its plain version.
 :func:`gspn_scan_bwd` replaces ``gspn_scan_bwd_pallas`` (same file): the
 adjoint walk from the last row to the first with three f32 product rows,
 the same chunk reset, an f32 output, and no flipped copies of its
-operands.  Its kernel is the last one of the port's first design (a CTA
-per plane, a thread per column, the next row prefetched into registers, a
-barrier per row, ``csrc/gspn_scan.cu``); moving it onto the template's
-design is the next step.  :func:`gspn_scan_bwd_torch` is its plain
-version.
+operands.  It is the D = 1 instance of ``gspn_bwd_kernel``, the adjoint
+template in the same source, whose D = 2 instance is the pair's adjoint;
+a row of more than 128 columns is spread over several warps of the CTA:
+on a plane of at most 16 rows each warp walks a window of 64 or 128
+columns straight from device memory, four rows ahead, and stores its
+middle (a product travels at most H columns in H rows); on a taller plane
+the warps share the row from the ring in bands, their edge products
+crossing through shared memory under a named barrier each row.
+:func:`gspn_scan_bwd_torch` is its plain version.
 
 Bound.  Each input is read once and the output written once: per (g,h,w)
 element the forward moves x, lam and out (one stream item each) and the
@@ -38,11 +42,11 @@ planes, with each plane's streamed rows, by ``cp.async`` into a
 shared-memory ring that holds the whole plane at the main widths (one
 batch, one barrier) and streams taller planes in four batches.
 :func:`pair_launch_shape` chooses the launch shape from the operands'
-shape and the direction count alone, and :func:`launch` launches the
-template for 1, 2 or 4 directions.
+shape and the direction count alone; :func:`launch` launches the forward
+template for 1, 2 or 4 directions and :func:`launch_bwd` the adjoint
+template for 1 or 2.
 
-Every launch (:func:`launch`, :func:`launch_bwd`, and the pair adjoint's
-launch in :mod:`~repro_torch.kernels.gspn_multidir`) enters the
+Every launch (:func:`launch`, :func:`launch_bwd`) enters the
 ``kernel.launch`` span of DESIGN.md §13 with the reference's attributes
 ``kernel``, ``dtype``, ``g``, ``h`` and ``w``; the reference's
 ``row_tile`` and ``pipeline_depth`` are left out, since the port's launch
@@ -62,15 +66,17 @@ from repro_torch.kernels import cuda_lib, ref
 KERNEL = "gspn_scan_fwd"
 KERNEL_BWD = "gspn_scan_bwd"
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-# Widest row the kernels take: one thread per column in the single
-# adjoint, at most 1024 threads per CTA; the template's lanes hold up to 32
-# columns each.
+# Widest row the kernels take: 32 columns a lane (K = 32, the templates'
+# largest instance) on one warp.
 _MAX_W = 1024
 
 SMEM_MAX = 232_448   # shared memory one CTA may use on the H100, bytes
 RING_ROWS = 64       # ring depth cap: enough rows ahead to cover HBM latency
 BATCHES = 4          # batches a ring is cut into when the plane does not fit
 COPY_WARPS = 8       # warps that issue the ring's copies, at the least
+# The single adjoint's rows wider than 128 columns:
+BANDS = 8            # warps that share a row from the ring
+DIRECT_ROWS = 16     # planes of at most this many rows: windows, no ring
 SMS = 132            # streaming multiprocessors of the H100 SXM
 # Warps per CTA that the register budget allows at K columns per lane (the
 # kernels' __launch_bounds__, two rows of operands in registers): 64
@@ -105,7 +111,12 @@ class PairLaunch(NamedTuple):
     part of the group and the direction; ``smem_bytes``: the ring's
     dynamic shared memory; ``xpitch``: for the quad (D = 4), the pitch in
     4-byte words of the column slab from which its transposed directions
-    read x, else 0."""
+    read x, else 0; ``bands``: warps that share a plane, each a band of
+    ``32·k`` columns (the single adjoint at wide rows), else 1;
+    ``direct``: the ``bands`` warps of a plane each walk a window of
+    ``32·k`` columns from device memory and store its middle ``32·k −
+    2H``, no ring (``batch`` = H, ``nbuf`` = 1, no shared memory); the
+    grid's y axis is then (group of windows, split)."""
     planes: int
     warps: int
     k: int
@@ -116,6 +127,8 @@ class PairLaunch(NamedTuple):
     grid: tuple[int, int, int]
     smem_bytes: int
     xpitch: int = 0
+    bands: int = 1
+    direct: bool = False
 
 
 def _region_bytes(rows: int, w: int, item: int) -> int:
@@ -146,10 +159,19 @@ def ring_bytes(direction: str, ndir: int, w: int, item: int, planes: int,
     return nbuf * (3 + 2 * planes) * rb
 
 
+def edge_bytes(warps: int) -> int:
+    """Shared bytes after the ring of the banded adjoint: Pl and Pr of each
+    warp's band edge for two row parities (``edge_bytes`` in the source)."""
+    return 2 * 2 * 4 * warps
+
+
 def pair_launch_shape(g: int, h: int, w: int, cpw: int, dtype: torch.dtype,
-                      direction: str, ndir: int = 2) -> PairLaunch:
+                      direction: str, ndir: int = 2, *,
+                      bands: int | None = None,
+                      direct: bool | None = None,
+                      window_k: int | None = None) -> PairLaunch:
     """The launch shape of the forward over ``ndir`` directions (1, 2 or
-    4; ``direction="fwd"``) or of the pair adjoint (``"bwd"``, ndir 2) on
+    4; ``direction="fwd"``) or of the adjoint over 1 or 2 (``"bwd"``) on
     (g, h, w) planes with ``cpw`` planes per weight group, derived from
     the shape alone.
 
@@ -160,38 +182,92 @@ def pair_launch_shape(g: int, h: int, w: int, cpw: int, dtype: torch.dtype,
     one batch, one barrier) when it fits in ``RING_ROWS`` rows and the
     shared memory; otherwise S = min(H, 64) rows or as many as fit, cut
     into ``BATCHES`` batches of ``ceil(S / BATCHES)`` rows (S rounded down
-    to whole batches), refilled as the walk goes.  The quad takes fewer
-    planes per CTA while its grid would hold fewer CTAs than the card has
-    SMs, and its slab pitch is the words a run of a batch may cover, made
-    odd so that the 32 lanes of a step read 32 banks."""
+    to whole batches), refilled as the walk goes.  The quad and the single
+    adjoint take fewer planes per CTA while their grid would hold fewer
+    CTAs than the card has SMs; the quad's slab pitch is the words a run
+    of a batch may cover, made odd so that the 32 lanes of a step read 32
+    banks.
+
+    The single adjoint spreads a row that would take 8 or more columns per
+    lane (W > 128) over warps.  On a plane of at most ``DIRECT_ROWS`` rows
+    (``direct``) warps walk windows straight from device memory, with no
+    ring, each storing its middle (the window less a halo of H columns at
+    each end); a window is 64 columns, or 128 where the two halos would
+    take more than a quarter of 64.  A CTA takes ``bands`` windows of a
+    row, as many as the registers allow, the row's windows split evenly
+    over CTAs.  On a taller plane ``BANDS`` warps share the row from the
+    ring, each a band of it.  ``bands``, ``direct`` and ``window_k`` (the
+    windows' columns per lane) ask for a layout instead (the sweep)."""
     if direction not in ("fwd", "bwd"):
         raise ValueError(f"direction must be 'fwd' or 'bwd', not "
                          f"{direction!r}")
-    if ndir not in (1, 2, 4) or (direction == "bwd" and ndir != 2):
+    if ndir not in ((1, 2, 4) if direction == "fwd" else (1, 2)):
         raise ValueError(f"ndir={ndir}: the forward runs 1, 2 or 4 "
-                         f"directions, the adjoint 2")
+                         f"directions, the adjoint 1 or 2")
+    single_bwd = direction == "bwd" and ndir == 1
     item = torch.empty((), dtype=dtype).element_size()
     k = 1 << max(0, math.ceil(w / 32) - 1).bit_length()
+    if direct is None:
+        direct = bands is None and window_k is None and single_bwd and \
+            k >= 8 and h <= DIRECT_ROWS
+    groups = 1  # CTAs that share a row's windows
+    if direct:
+        k = window_k or (2 if 8 * h <= 64 else 4)
+        tile = 32 * k - 2 * h
+        if not (single_bwd and k in (1, 2, 4) and tile >= 1
+                and (bands or 1) <= _MAX_WARPS[k]):
+            raise ValueError(f"direct: only the single adjoint walks "
+                             f"windows of 32, 64 or 128 columns from device "
+                             f"memory, wider than 2H = {2 * h}, at most "
+                             f"{_MAX_WARPS.get(k)} to a CTA")
+        windows = -(-w // tile)
+        groups = -(-windows // (bands or min(windows, _MAX_WARPS[k])))
+        bands = bands or -(-windows // groups)
+    else:
+        if window_k is not None:
+            raise ValueError("window_k: only direct windows have it")
+        if bands is None:
+            bands = BANDS if single_bwd and k >= 8 else 1
+        if bands != 1 and not (single_bwd and bands in _MAX_WARPS
+                               and 1 <= k // bands <= 4):
+            raise ValueError(f"bands={bands}: only the single adjoint "
+                             f"spreads a row over warps, at 1 to 4 columns "
+                             f"per lane")
+        k //= bands
 
     def pitch(batch):
         return _slab_words(batch, item) | 1 if ndir == 4 else 0
 
-    def fits(planes, batch, nbuf):
-        return ring_bytes(direction, ndir, w, item, planes, batch, nbuf,
-                          pitch(batch)) <= SMEM_MAX
+    def warps(planes):
+        if direct:
+            return planes * bands
+        return max(planes * bands, min(COPY_WARPS, _MAX_WARPS[k]))
 
-    planes = min(cpw, _MAX_WARPS[k])
+    def size(planes, batch, nbuf):
+        if direct:
+            return 0
+        edges = edge_bytes(warps(planes)) if bands > 1 else 0
+        return ring_bytes(direction, ndir, w, item, planes, batch, nbuf,
+                          pitch(batch)) + edges
+
+    def fits(planes, batch, nbuf):
+        return size(planes, batch, nbuf) <= SMEM_MAX
+
+    # A banded plane waits at a named barrier of its own, 1..15.
+    planes = min(cpw, _MAX_WARPS[k] // bands,
+                 15 if bands > 1 and not direct else 32)
     while planes > 1 and not fits(planes, 1, min(h, 2)):
         planes -= 1
-    # The quad spreads a group's planes over CTAs while whole groups would
-    # leave SMs without a CTA (1024², G = 32: 128 CTAs of one plane took
-    # 118 us on the H100, 64 of two 182; tools/pair_launch_sweep.py).
-    while ndir == 4 and planes > 1 and \
-            g // cpw * -(-cpw // planes) * ndir < SMS:
+    # The quad and the single adjoint spread a group's planes over CTAs
+    # while whole groups would leave SMs without a CTA (the quad at 1024²,
+    # G = 32: 128 CTAs of one plane took 118 us on an H100 80GB HBM3 at
+    # 700 W, 64 of two 182; tools/pair_launch_sweep.py).
+    while (ndir == 4 or single_bwd) and planes > 1 and \
+            g // cpw * -(-cpw // planes) * groups * ndir < SMS:
         planes -= 1
     splits = -(-cpw // planes)
     planes = -(-cpw // splits)
-    if h <= RING_ROWS and fits(planes, h, 1):
+    if direct or (h <= RING_ROWS and fits(planes, h, 1)):
         batch, nbuf = h, 1
     else:
         rows = min(h, RING_ROWS)
@@ -202,12 +278,11 @@ def pair_launch_shape(g: int, h: int, w: int, cpw: int, dtype: torch.dtype,
                 break
             rows -= 1
     return PairLaunch(
-        planes=planes, warps=max(planes, min(COPY_WARPS, _MAX_WARPS[k])),
-        k=k, splits=splits, stages=nbuf * batch, batch=batch, nbuf=nbuf,
-        grid=(g // cpw, splits, ndir),
-        smem_bytes=ring_bytes(direction, ndir, w, item, planes, batch, nbuf,
-                              pitch(batch)),
-        xpitch=pitch(batch))
+        planes=planes, warps=warps(planes), k=k, splits=splits,
+        stages=nbuf * batch, batch=batch, nbuf=nbuf,
+        grid=(g // cpw, splits * groups, ndir),
+        smem_bytes=size(planes, batch, nbuf), xpitch=pitch(batch),
+        bands=bands, direct=direct)
 
 
 def _lead(ndir: int) -> tuple[int, ...]:
@@ -303,21 +378,29 @@ def launch(ndir: int, name: str, x, wl, wc, wr, lam, chunk) -> torch.Tensor:
     return out
 
 
-def launch_bwd(name: str, dy, wl, wc, wr, chunk) -> torch.Tensor:
-    """Check the operands of one single-direction adjoint walk and launch
-    the kernel on the current stream.  Shapes: dy (G,H,W); taps
-    (G_w,H,W).  Returns g in float32, dy's shape."""
-    cpw, chunk = _check(1, [("dy", dy, ())], (wl, wc, wr), chunk)
-    g, h, w = dy.shape
+def launch_bwd(ndir: int, name: str, dy, wl, wc, wr, chunk) -> torch.Tensor:
+    """Check the operands of one adjoint walk over ``ndir`` directions (1
+    or 2) and launch that instance of the adjoint template on the current
+    stream, counted and traced as ``name``.  Shapes: dy (G,H,W), or
+    (2,G,H,W); taps (G_w,H,W), or (2,G_w,H,W).  Returns g in float32,
+    dy's shape."""
+    if ndir not in (1, 2):
+        raise ValueError(f"ndir={ndir}: the adjoint template runs 1 or 2 "
+                         f"directions")
+    cpw, chunk = _check(ndir, [("dy", dy, _lead(ndir))], (wl, wc, wr), chunk)
+    g, h, w = dy.shape[-3:]
     out = torch.empty(dy.shape, dtype=torch.float32, device=dy.device)
     if out.numel() == 0:
         return out
-    lib = cuda_lib.library("gspn_scan")
+    s = pair_launch_shape(g, h, w, cpw, dy.dtype, "bwd", ndir)
+    lib = cuda_lib.library("gspn_pair")
     with _span(name, g, h, w, dy.dtype), torch.cuda.device(dy.device):
-        err = lib.gspn_scan_bwd_launch(
-            _DTYPE_CODES[dy.dtype], dy.data_ptr(), wl.data_ptr(),
+        err = lib.gspn_bwd_launch(
+            ndir, _DTYPE_CODES[dy.dtype], dy.data_ptr(), wl.data_ptr(),
             wc.data_ptr(), wr.data_ptr(), out.data_ptr(), g, h, w, cpw,
-            chunk, torch.cuda.current_stream().cuda_stream)
+            chunk, s.planes, s.warps, s.k, s.splits, s.batch, s.nbuf,
+            s.bands, int(s.direct), s.smem_bytes,
+            torch.cuda.current_stream().cuda_stream)
     cuda_lib.check(lib, err, name)
     _count(name, g, h, w, dy.dtype)
     return out
@@ -356,7 +439,7 @@ def gspn_scan_bwd(dy, wl, wc, wr, *, chunk: int | None = None):
     :func:`gspn_scan_bwd_torch`."""
     if not dy.is_cuda:
         return gspn_scan_bwd_torch(dy, wl, wc, wr, chunk=chunk)
-    return launch_bwd(KERNEL_BWD, dy, wl, wc, wr, chunk)
+    return launch_bwd(1, KERNEL_BWD, dy, wl, wc, wr, chunk)
 
 
 def gspn_scan_bwd_torch(dy, wl, wc, wr, *, chunk: int | None = None):

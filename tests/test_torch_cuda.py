@@ -280,7 +280,7 @@ def test_pair_kernels_over_ring_shapes(card, w, height, dtype):
     for cpw in (1, 2, 3, 4, 33):
         g = 2 * cpw
         for kind in ("fwd", "bwd"):
-            s = gspn_multidir.pair_launch_shape(g, 64, w, cpw, dtype, kind)
+            s = gspn_scan.pair_launch_shape(g, 64, w, cpw, dtype, kind)
             h = max(1, RING_HEIGHTS[height](s.stages))
             for chunk in (None, _proper_divisor(h)):
                 x, wl, wc, wr, lam = _inputs(21, g, h, w, cpw, dtype,
@@ -303,15 +303,116 @@ def test_pair_kernels_over_ring_shapes(card, w, height, dtype):
                     assert _err_ok(got, want, 1e-5), where
 
 
+# The single adjoint (#2) where it runs: the main widths, 1024² stage 1,
+# the LM mixer's T→B pass (H = 4 rows of 1024) and its within-row pass
+# transposed (1024 rows of 4) at cpw 8, a chunked LM shape, ragged shapes.
+SINGLE_BWD_SHAPES = [((128, n, n), 2, None) for n in (56, 28, 14, 7)] + [
+    ((32, 256, 256), 2, None), ((128, 4, 1024), 8, None),
+    ((128, 1024, 4), 8, None), ((128, 32, 1024), 8, 8),
+    ((8, 19, 37), 1, None), ((8, 19, 37), 4, None)]
+
+
+def _adjoint_inputs(seed, shape, cpw, dtype):
+    """(dy, wl, wc, wr) of the single adjoint, dy in (-0.5, 0.5)."""
+    _, wl, wc, wr, lam = _inputs(seed, *shape, cpw, dtype)
+    return (lam.float() - 0.5).to(dtype).contiguous(), wl, wc, wr
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,cpw,chunk", SINGLE_BWD_SHAPES)
+def test_single_adjoint_matches_plain(card, dtype, shape, cpw, chunk):
+    """#2, the D = 1 instance of the adjoint template, against its plain
+    version: 1e-5 of the largest magnitude in both stream dtypes (f32
+    arithmetic and output from the same inputs), one launch."""
+    a = _adjoint_inputs(41, shape, cpw, dtype)
+    cuda_lib.clear_counts()
+    got = gspn_scan.gspn_scan_bwd(*a, chunk=chunk)
+    assert cuda_lib.launch_counts == {"gspn_scan_bwd": 1}
+    assert got.dtype == torch.float32 and got.shape == shape
+    assert _err_ok(got, gspn_scan.gspn_scan_bwd_torch(*a, chunk=chunk), 1e-5)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("height", list(RING_HEIGHTS))
+@pytest.mark.parametrize("w", RING_WIDTHS)
+def test_single_adjoint_over_ring_shapes(card, w, height, dtype):
+    """#2 at widths around the lane mapping and its layouts (W > 128
+    spreads a row over warps: in windows on the planes of up to 16 rows
+    here, in bands from the ring on the taller ones), heights around the
+    ring depth S of its launch shape at H = 64, cpw 1, 2, 8 and 33,
+    without and with a chunk reset."""
+    for cpw in (1, 2, 8, 33):
+        s = gspn_scan.pair_launch_shape(2 * cpw, 64, w, cpw, dtype, "bwd", 1)
+        h = max(1, RING_HEIGHTS[height](s.stages))
+        for chunk in (None, _proper_divisor(h)):
+            a = _adjoint_inputs(42, (2 * cpw, h, w), cpw, dtype)
+            got = gspn_scan.gspn_scan_bwd(*a, chunk=chunk)
+            assert _err_ok(got, gspn_scan.gspn_scan_bwd_torch(
+                *a, chunk=chunk), 1e-5), (cpw, h, chunk)
+
+
+def _adjoint_with_shape(dy, wl, wc, wr, chunk, shape):
+    """#2 launched through the library's C entry with launch ``shape``."""
+    lib = cuda_lib.library("gspn_pair")
+    g, h, w = dy.shape
+    out = torch.empty(dy.shape, dtype=torch.float32, device=dy.device)
+    err = lib.gspn_bwd_launch(
+        1, 0 if dy.dtype == torch.float32 else 1, dy.data_ptr(),
+        wl.data_ptr(), wc.data_ptr(), wr.data_ptr(), out.data_ptr(), g, h, w,
+        g // wl.shape[0], gspn_scan.chunk_arg(h, chunk), shape.planes,
+        shape.warps, shape.k, shape.splits, shape.batch, shape.nbuf,
+        shape.bands, int(shape.direct), shape.smem_bytes,
+        torch.cuda.current_stream().cuda_stream)
+    cuda_lib.check(lib, err, "gspn_scan_bwd")
+    return out
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,cpw,chunk", [((4, 37, 129), 2, None),
+                                             ((32, 256, 256), 2, None),
+                                             ((16, 9, 1000), 8, 3),
+                                             ((128, 4, 1024), 8, None),
+                                             ((6, 1, 200), 3, None),
+                                             ((8, 16, 160), 2, 4),
+                                             ((8, 24, 1024), 8, 6)])
+def test_adjoint_layouts_agree_bitwise(card, dtype, shape, cpw, chunk):
+    """A row spread over 2 to 32 warps of a plane from the ring, or walked
+    in windows of 32, 64 or 128 columns straight from device memory (where
+    a window is wider than 2H; all of a row's windows to a CTA that the
+    registers allow, or 3), gives the bits of one warp per plane (K = 8 or
+    32 columns per lane) on the same operands: only the neighbours at the
+    band edges, or the columns a window stores, are reached otherwise."""
+    a = _adjoint_inputs(43, shape, cpw, dtype)
+    g, h, w = shape
+    one_warp = gspn_scan.pair_launch_shape(g, h, w, cpw, dtype, "bwd", 1,
+                                           bands=1)
+    one = _adjoint_with_shape(*a, chunk, one_warp)
+    assert _err_ok(one, gspn_scan.gspn_scan_bwd_torch(*a, chunk=chunk), 1e-5)
+    layouts = [{"bands": b} for b in (2, 4, 8, 16, 32)
+               if 1 <= one_warp.k // b <= 4]
+    layouts += [{"direct": True, "window_k": k, "bands": per}
+                for k in (1, 2, 4) if 32 * k > 2 * h for per in (None, 3)]
+    for layout in layouts:
+        s = gspn_scan.pair_launch_shape(g, h, w, cpw, dtype, "bwd", 1,
+                                        **layout)
+        assert torch.equal(_adjoint_with_shape(*a, chunk, s), one), layout
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("shape,cpw,chunk", [((8, 19, 37), 4, None),
                                              ((8, 18, 37), 4, 6),
                                              ((128, 56, 56), 2, None),
-                                             ((6, 9, 1024), 3, 3)])
+                                             ((6, 9, 1024), 3, 3),
+                                             ((32, 256, 256), 2, None),
+                                             ((128, 4, 1024), 8, None),
+                                             ((128, 1024, 4), 8, None),
+                                             ((128, 32, 1024), 8, 8)])
 def test_pair_adjoint_agrees_with_single_adjoint_bitwise(card, dtype, shape,
                                                          cpw, chunk):
     """Direction 0 of the pair adjoint walks H-1..0 as the single adjoint
-    (#2) does: on the same operands both give the same bits."""
+    (#2) does: on the same operands both give the same bits, the single
+    adjoint's rows of more than 128 columns spread over warps in windows
+    (up to 16 rows) or bands."""
     _, wl2, wc2, wr2, lam2 = _inputs(22, *shape, cpw, dtype, pair=True)
     dy2 = (lam2 - 0.5).contiguous()
     pair = gspn_multidir.gspn_scan_bidir_bwd(dy2, wl2, wc2, wr2, chunk=chunk)

@@ -19,8 +19,8 @@ import itertools
 import pytest
 import torch
 
-from repro_torch.kernels.gspn_scan import (SMEM_MAX, PairLaunch,
-                                           pair_launch_shape)
+from repro_torch.kernels.gspn_scan import (BANDS, DIRECT_ROWS, SMEM_MAX,
+                                           PairLaunch, pair_launch_shape)
 
 HS = (1, 7, 56, 256)
 # Warps a CTA may hold at K columns per lane (the kernels' launch bounds).
@@ -254,7 +254,172 @@ def test_shape_refuses_an_unknown_direction():
 
 
 @pytest.mark.parametrize("direction,ndir", [("fwd", 3), ("fwd", 0),
-                                            ("bwd", 1), ("bwd", 4)])
+                                            ("bwd", 3), ("bwd", 4)])
 def test_shape_refuses_an_unknown_direction_count(direction, ndir):
     with pytest.raises(ValueError, match="ndir"):
         pair_launch_shape(4, 7, 7, 2, torch.float32, direction, ndir)
+
+
+@pytest.mark.parametrize("direction,ndir,h,layout", [
+    ("fwd", 1, 7, {"bands": 2}), ("bwd", 2, 7, {"bands": 2}),
+    ("bwd", 1, 7, {"bands": 3}), ("bwd", 1, 7, {"bands": 64}),
+    ("fwd", 1, 7, {"direct": True}), ("bwd", 2, 7, {"direct": True}),
+    ("bwd", 1, 7, {"window_k": 3, "direct": True}),
+    ("bwd", 1, 7, {"window_k": 2}), ("bwd", 1, 7, {"bands": 17, "direct": True}),
+    ("bwd", 1, 64, {"direct": True}), ("bwd", 1, 16, {"window_k": 1, "direct": True})])
+def test_shape_refuses_a_layout_it_has_no_instance_for(direction, ndir, h,
+                                                       layout):
+    """Only the single adjoint spreads a row over warps: in power-of-two
+    bands of 1 to 4 columns per lane, or in windows of 32, 64 or 128
+    columns read straight from device memory, wider than 2H, as many to a
+    CTA as the registers allow."""
+    with pytest.raises(ValueError, match="bands|direct|window_k"):
+        pair_launch_shape(4, h, 1024, 2, torch.float32, direction, ndir,
+                          **layout)
+
+
+def _single_adjoint_fits(s: PairLaunch, h: int, w: int, cpw: int,
+                         item: int) -> None:
+    """The single adjoint's shape: the pair's bounds with ``bands`` warps
+    to a plane, each a band of 32·k columns, the bands' edge products (16
+    bytes a warp) after the ring and a named barrier per banded plane; or
+    direct: ``bands`` warps a plane each walking a window of 32·k columns
+    from device memory and storing 32·k − 2H of them, no ring, no copy
+    warps, no shared memory."""
+    where = (w, h, s)
+    if s.direct:
+        tile = 32 * s.k - 2 * h
+        windows, groups = -(-w // tile), s.grid[1] // s.splits
+        assert s.k == (2 if 8 * h <= 64 else 4) and tile >= 1, where
+        assert s.bands <= MAX_WARPS[s.k], where
+        assert groups == -(-windows // s.bands), where
+        assert groups == 1 or s.bands == -(-windows // groups), where
+        assert s.warps == s.planes * s.bands and s.smem_bytes == 0, where
+        assert (s.batch, s.nbuf) == (h, 1), where
+    else:
+        edges = 16 * s.warps if s.bands > 1 else 0
+        assert s.smem_bytes == _ring_bytes(s, w, item, 1) + edges, where
+        assert 32 * s.k * s.bands >= w, where
+        assert s.k * s.bands == 1 or 16 * s.k * s.bands < w, where
+        assert s.bands == 1 or (s.k <= 4 and s.planes <= 15), where
+    assert s.smem_bytes <= SMEM_MAX, where
+    assert 1 <= s.stages <= h and s.stages == s.nbuf * s.batch, where
+    assert 1 <= s.nbuf <= 8 and (s.nbuf > 1 or s.batch >= h), where
+    assert s.k in MAX_WARPS, where
+    assert 1 <= s.planes * s.bands <= s.warps <= MAX_WARPS[s.k], where
+    assert s.planes * (s.splits - 1) < cpw <= s.planes * s.splits, where
+    assert s.xpitch == 0, where
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("cpw", [1, 2, 3, 4, 8, 33])
+def test_single_adjoint_shape_fits_the_card(cpw, dtype):
+    """Over W = 1…1024 and H ∈ {1, 7, 16, 17, 56, 256}: a row that needs 8
+    or more columns per lane (W > 128) is walked in windows straight from
+    device memory on a plane of at most ``DIRECT_ROWS`` rows (64 columns
+    while the two halos of H take at most a quarter of that, else 128),
+    and spread over ``BANDS`` warps from the ring on a taller one; a
+    narrower row is walked whole by one warp from the ring."""
+    item = torch.empty((), dtype=dtype).element_size()
+    for w in range(1, 1025):
+        for h in (1, 7, 16, 17, 56, 256):
+            s = pair_launch_shape(2 * cpw, h, w, cpw, dtype, "bwd", 1)
+            _single_adjoint_fits(s, h, w, cpw, item)
+            assert s.grid[0] == 2 and s.grid[2] == 1, (w, s)
+            assert s.direct or s.grid[1] == s.splits, (w, s)
+            assert s.direct == (w > 128 and h <= DIRECT_ROWS), (w, h, s)
+            if not s.direct:
+                assert s.bands == (BANDS if w > 128 else 1), (w, h, s)
+
+
+@pytest.mark.parametrize("h", [16, 56])
+@pytest.mark.parametrize("bands", [1, 2, 4, 8, 16, 32])
+@pytest.mark.parametrize("gw,cpw,w", [(3, 1, 7), (2, 2, 56), (2, 3, 33),
+                                      (1, 33, 64), (2, 33, 1024),
+                                      (1, 8, 1000), (16, 8, 1024),
+                                      (16, 2, 256)])
+def test_single_adjoint_grid_covers_every_plane_and_column_once(gw, cpw, w,
+                                                                bands, h):
+    """Every plane is computed by exactly one CTA and, within it, every
+    column by exactly one (warp, lane, slot): plane ``warp // bands`` of
+    the CTA, column ``(warp % bands)·32k + lane + 32·slot``, as the
+    kernel's ``pw`` and ``col`` map them; at every band count the sweep
+    may ask for where the row allows it, on a short plane (H = 16) and a
+    taller one (H = 56)."""
+    k = 1 << max(0, -(-w // 32) - 1).bit_length()
+    if bands > 1 and not 1 <= k // bands <= 4:
+        return
+    g = gw * cpw
+    s = pair_launch_shape(g, h, w, cpw, torch.float32, "bwd", 1,
+                          bands=bands)
+    assert s.grid == (gw, s.splits, 1) and s.bands == bands
+    assert not s.direct
+
+    blocks = list(itertools.product(*map(range, s.grid)))
+    seen = collections.Counter(pd for block in blocks
+                               for pd in _cta_planes(s, block, cpw))
+    assert seen == {(p, 0): 1 for p in range(g)}
+    cols = collections.Counter(
+        (warp // bands, (warp % bands) * 32 * s.k + lane + 32 * slot)
+        for warp in range(s.planes * bands) for lane in range(32)
+        for slot in range(s.k))
+    assert all(cols[p, c] == 1 for p in range(s.planes) for c in range(w))
+
+
+@pytest.mark.parametrize("layout", [{}, {"window_k": 2}, {"window_k": 1},
+                                    {"bands": 3}])
+@pytest.mark.parametrize("g,h,w,cpw", [(128, 4, 1024, 8), (6, 1, 1000, 3),
+                                       (4, 12, 160, 2), (66, 9, 256, 33),
+                                       (2, 12, 1024, 1), (8, 5, 129, 4)])
+def test_direct_windows_store_every_column_once(g, h, w, cpw, layout):
+    """Direct: window b of a plane is the 32·k columns from c0 = b·tile − H
+    (tile = 32·k − 2H) and stores columns c0 + H … c0 + 32·k − H − 1
+    within 0 … W − 1; the CTA at grid y takes windows (y // splits)·bands
+    … + bands − 1 of planes (y % splits)·planes … of its weight group, as
+    the kernel's ``window``, ``c0`` and ``keep`` have it.  Over the grid
+    every column of every plane is stored exactly once, at least H columns
+    inside its window."""
+    if 32 * layout.get("window_k", 2 if 8 * h <= 64 else 4) <= 2 * h:
+        return
+    s = pair_launch_shape(g, h, w, cpw, torch.float32, "bwd", 1,
+                          direct=True, **layout)
+    tile = 32 * s.k - 2 * h
+    stored = collections.Counter()
+    for gw, y in itertools.product(range(s.grid[0]), range(s.grid[1])):
+        group, split = divmod(y, s.splits)
+        for p in range(split * s.planes, min(split * s.planes + s.planes,
+                                             cpw)):
+            for band in range(s.bands):
+                c0 = (group * s.bands + band) * tile - h
+                for c in range(max(c0 + h, 0), min(c0 + 32 * s.k - h, w)):
+                    stored[gw * cpw + p, c] += 1
+    assert stored == {(p, c): 1 for p in range(g) for c in range(w)}
+
+
+# The single adjoint (G, H, W, cpw, float32) where it is timed: the main
+# widths, 1024², and the LM mixer's two passes at cpw 8.
+SINGLE_BWD = {
+    (128, 56, 56, 2): PairLaunch(1, 8, 2, 2, 56, 56, 1, (64, 2, 1), 50304),
+    (128, 28, 28, 2): PairLaunch(1, 8, 1, 2, 28, 28, 1, (64, 2, 1), 12672),
+    (128, 14, 14, 2): PairLaunch(1, 8, 1, 2, 14, 14, 1, (64, 2, 1), 3264),
+    (128, 7, 7, 2): PairLaunch(1, 8, 1, 2, 7, 7, 1, (64, 2, 1), 896),
+    (32, 256, 256, 2): PairLaunch(1, 8, 1, 2, 48, 16, 3, (16, 2, 1), 197120,
+                                  bands=8),
+    (128, 4, 1024, 8): PairLaunch(1, 10, 2, 8, 4, 4, 1, (16, 16, 1), 0,
+                                  bands=10, direct=True),
+    (128, 1024, 4, 8): PairLaunch(1, 8, 1, 8, 64, 16, 4, (16, 8, 1), 4608),
+    (128, 32, 1024, 8): PairLaunch(1, 8, 4, 8, 12, 4, 3, (16, 8, 1), 197120,
+                                   bands=8),
+}
+
+
+@pytest.mark.parametrize("shape", list(SINGLE_BWD))
+def test_single_adjoint_shapes(shape):
+    """One plane per CTA wherever whole weight groups would leave SMs idle
+    (128 CTAs at the main widths and at the LM's shapes, 32 at 1024²);
+    rows of more than 128 columns banded over 8 warps from the ring, and on
+    the LM's T→B pass (4 rows of 1024) walked in 19 windows of 64 columns
+    straight from device memory, each storing 56, 10 to a CTA (256
+    CTAs)."""
+    assert pair_launch_shape(*shape, torch.float32, "bwd", 1) == \
+        SINGLE_BWD[shape]

@@ -13,6 +13,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro.kernels import gspn_scan as jgs
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro_torch.kernels import cuda_lib, gspn_multidir, gspn_scan, ops, ref
@@ -227,29 +228,53 @@ def test_plain_versions_store_in_stream_dtype():
     assert torch.equal(out, want)
 
 
-@pytest.mark.parametrize("case", ["taps", "lam", "dtype", "contig", "width",
-                                  "groups", "chunk"])
-def test_launch_checks_operands(case):
-    """The wrapper's operand checks run before any build or launch."""
-    x, wl, wc, wr, lam = _t(_inputs(15, 4, 6, 5, 2, pair=True))
-    ndir, chunk = 2, None
+# Each operand case of the launch wrappers and the message it must raise.
+OPERAND_CASES = [("taps", "taps must be"), ("dtype", "float32 or bfloat16"),
+                 ("contig", "contiguous"), ("width", "exceeds 1024"),
+                 ("groups", "not a multiple of G_w"),
+                 ("chunk", "positive divisor")]
+
+
+def _bad_operands(case, stream, wl, wc, wr, ndir, stream_lead=()):
+    """(stream, wl, wc, wr, chunk) with the fault ``case`` put in: stream
+    is x or dy, shaped (G, H, W) = (4, 6, 5), taps (2, 6, 5), with a
+    leading direction axis for ``ndir`` = 2 (``stream_lead`` for the
+    stream), all contiguous, so that each case trips its own check
+    alone."""
+    lead = (2,) if ndir == 2 else ()
+    chunk = None
     if case == "taps":
         wl = wl[0]
-    elif case == "lam":
-        lam = lam[0]
     elif case == "dtype":
-        x, wl, wc, wr, lam = (t.half() for t in (x, wl, wc, wr, lam))
+        stream, wl, wc, wr = (t.half() for t in (stream, wl, wc, wr))
     elif case == "contig":
         wc = wc.transpose(-1, -2).contiguous().transpose(-1, -2)
     elif case == "width":
-        x = torch.zeros(4, 1, 1025)
-        wl = wc = wr = torch.zeros(2, 2, 1, 1025)
-        lam = torch.zeros(2, 4, 1, 1025)
+        stream = torch.zeros(stream_lead + (4, 1, 1025))
+        wl = wc = wr = torch.zeros(lead + (2, 1, 1025))
     elif case == "groups":
-        wl, wc, wr = (torch.zeros(2, 3, 6, 5) for _ in range(3))
+        wl, wc, wr = (torch.zeros(lead + (3, 6, 5)) for _ in range(3))
     elif case == "chunk":
         chunk = 4
-    with pytest.raises(ValueError):
+    return stream, wl, wc, wr, chunk
+
+
+@pytest.mark.parametrize("case,match", OPERAND_CASES + [("lam", "lam must")])
+@pytest.mark.parametrize("ndir", [1, 2])
+def test_launch_checks_operands(ndir, case, match):
+    """The forward wrapper's operand checks run before any build or
+    launch, for the single scan and the pair, each with its own
+    message."""
+    x, wl, wc, wr, lam = (t.contiguous() for t in _t(
+        _inputs(15, 4, 6, 5, 2, pair=ndir == 2)))
+    x, wl, wc, wr, chunk = _bad_operands(case, x, wl, wc, wr, ndir)
+    if case == "lam":
+        lam = lam[0]
+    elif case == "width":
+        lam = torch.zeros(wl.shape[:-3] + x.shape)
+    elif case == "dtype":
+        lam = lam.half()
+    with pytest.raises(ValueError, match=match):
         gspn_scan.launch(ndir, "test", x, wl, wc, wr, lam, chunk)
 
 
@@ -400,21 +425,39 @@ def test_adjoint_wrappers_take_plain_version_on_cpu():
     assert cuda_lib.plain_calls == {"gspn_scan_bwd": 2, "gspn_pair_bwd": 2}
 
 
-@pytest.mark.parametrize("case", ["taps", "dy", "dtype", "contig", "chunk"])
-def test_launch_bwd_checks_operands(case):
-    """The pair adjoint's operand checks run before any build or
-    launch."""
-    _, wl, wc, wr, dy = _t(_inputs(36, 4, 6, 5, 2, pair=True))
-    chunk = None
-    if case == "taps":
-        wl = wl[0]
-    elif case == "dy":
+@pytest.mark.parametrize("case,match", OPERAND_CASES + [("dy", "dy must")])
+@pytest.mark.parametrize("ndir", [1, 2])
+def test_launch_bwd_checks_operands(ndir, case, match):
+    """The adjoint wrapper's operand checks run before any build or
+    launch, for the single adjoint (#2) and the pair's (#4), each with
+    its own message."""
+    _, wl, wc, wr, dy = (t.contiguous() for t in _t(
+        _inputs(36, 4, 6, 5, 2, pair=ndir == 2)))
+    dy, wl, wc, wr, chunk = _bad_operands(case, dy, wl, wc, wr, ndir,
+                                          dy.shape[:-3])
+    if case == "dy":
         dy = dy[0]
-    elif case == "dtype":
-        dy, wl, wc, wr = (t.double() for t in (dy, wl, wc, wr))
-    elif case == "contig":
-        dy = dy.transpose(-1, -2).contiguous().transpose(-1, -2)
-    elif case == "chunk":
-        chunk = 4
-    with pytest.raises(ValueError):
-        gspn_multidir.launch_pair_bwd(dy, wl, wc, wr, chunk)
+    with pytest.raises(ValueError, match=match):
+        gspn_scan.launch_bwd(ndir, "test", dy, wl, wc, wr, chunk)
+
+
+def test_launch_bwd_refuses_what_it_has_no_instance_for():
+    _, wl, wc, wr, dy = _t(_inputs(37, 4, 6, 5, 2))
+    with pytest.raises(ValueError, match="ndir"):
+        gspn_scan.launch_bwd(4, "test", dy, wl, wc, wr, None)
+
+
+@pytest.mark.parametrize("h,w,cpw,chunk", [(4, 96, 8, None), (4, 96, 8, 2),
+                                           (96, 4, 8, None)])
+def test_plain_adjoint_matches_pallas_at_lm_aspect_ratios(h, w, cpw, chunk):
+    """The plain single adjoint against the reference's Pallas kernel #2
+    (``gspn_scan_bwd_pallas``, interpret mode) at the LM mixer's aspect
+    ratios, shrunk: few rows of many columns (its T→B pass, with and
+    without the chunk reset) and many rows of few (the within-row pass,
+    transposed), cpw 8."""
+    _, wl, wc, wr, _ = _inputs(38, 16, h, w, cpw)
+    dy = _dy(39, (16, h, w))
+    got = gspn_scan.gspn_scan_bwd_torch(*_t((dy, wl, wc, wr)), chunk=chunk)
+    want = jgs.gspn_scan_bwd_pallas(*_j((dy, wl, wc, wr)),
+                                    channels_per_weight=cpw, chunk=chunk)
+    _close(got, want)

@@ -7,15 +7,20 @@ the PyTorch port, on one CUDA card, in alternating fresh processes.
 
 Each leg is a fresh process that imports ``repro_torch`` from one
 checkout's ``src`` and times, through the public wrappers, the single
-scan #1 (``gspn_scan_fwd``), the pair #3 (``gspn_scan_bidir``), its
-adjoint #4 (``gspn_scan_bidir_bwd``) and the quad #5 (``gspn_scan_quad``)
-at the vision main path's shapes (G = 128, cpw = 2, float32, N = 56 / 28
-/ 14 / 7), on operands made from seed 0: CUDA-graph replays of 10
-launches, median of 20, with ``chip_smoke.py``'s timer.  ``--order``
+scan #1 (``gspn_scan_fwd``), its adjoint #2 (``gspn_scan_bwd``), the pair
+#3 (``gspn_scan_bidir``), its adjoint #4 (``gspn_scan_bidir_bwd``) and
+the quad #5 (``gspn_scan_quad``) at the vision main path's shapes (G =
+128, cpw = 2, float32, N = 56 / 28 / 14 / 7); then #2 at 1024² (G = 32,
+cpw 2, N = 256) and #1 and #2 at the two shapes of the
+``qwen2-1.5b-gspn`` mixer's passes at ``train_4k`` (G = 128, cpw 8: H = 4
+rows of W = 1024, and the within-row pass transposed, H = 1024 rows of W
+= 4), in float32 and, for #2, bfloat16 streams.  Operands are made from
+seed 0; each time is CUDA-graph replays of 10 launches (2 at the shapes
+above 50 µs), median of 20, with ``chip_smoke.py``'s timer.  ``--order``
 names the legs by checkout, A for the first argument, B for the second.
-For each kernel and N it prints both sides' medians over their legs, the
-spread between the quartiles of each side's legs, and in how many of the
-order's AB pairs (legs 1-2, 3-4, ...) the second checkout was faster.
+For each kernel and shape it prints both sides' medians over their legs,
+the spread between the quartiles of each side's legs, and in how many of
+the order's AB pairs (legs 1-2, 3-4, ...) the second checkout was faster.
 """
 
 from __future__ import annotations
@@ -32,10 +37,13 @@ import torch
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 G, CPW = 128, 2
 WIDTHS = (56, 28, 14, 7)
+# (label, G, H, W, cpw): the shapes beyond the main widths.
+WIDE = (("1024^2", 32, 256, 256, 2),)
+LM = (("LM T-B", 128, 4, 1024, 8), ("LM row", 128, 1024, 4, 8))
 
 
 def leg(src: str) -> dict:
-    """µs per launch of each kernel at each width, from the checkout whose
+    """µs per launch of each kernel at each shape, from the checkout whose
     ``src`` is given."""
     sys.path.insert(0, src)
     sys.path.insert(1, str(ROOT))
@@ -45,19 +53,23 @@ def leg(src: str) -> dict:
 
     gen = torch.Generator(device="cuda").manual_seed(0)
 
-    def operands(n, lead):
-        taps = torch.softmax(torch.randn(lead + (G // CPW, n, n, 3),
+    def operands(g, h, w, cpw, lead, dtype=torch.float32):
+        taps = torch.softmax(torch.randn(lead + (g // cpw, h, w, 3),
                                          generator=gen, device="cuda"), -1)
-        x = torch.randn((G, n, n), generator=gen, device="cuda")
-        lam = torch.rand(lead + (G, n, n), generator=gen, device="cuda")
-        return [x] + [taps[..., i].contiguous() for i in range(3)] + [lam]
+        x = torch.randn((g, h, w), generator=gen, device="cuda")
+        lam = torch.rand(lead + (g, h, w), generator=gen, device="cuda")
+        return [t.to(dtype).contiguous()
+                for t in [x] + [taps[..., i] for i in range(3)] + [lam]]
 
     out = {}
     for n in WIDTHS:
-        single, pair, quad = (operands(n, lead) for lead in ((), (2,), (4,)))
+        single, pair, quad = (operands(G, n, n, CPW, lead)
+                              for lead in ((), (2,), (4,)))
         dy = torch.randn((2, G, n, n), generator=gen, device="cuda")
         calls = {
             "#1 gspn_scan_fwd": lambda: gspn_scan.gspn_scan_fwd(*single),
+            "#2 gspn_scan_bwd": lambda: gspn_scan.gspn_scan_bwd(
+                dy[0], *single[1:4]),
             "#3 gspn_scan_bidir": lambda: mk.gspn_scan_bidir(*pair),
             "#4 gspn_scan_bidir_bwd": lambda: mk.gspn_scan_bidir_bwd(
                 dy, *pair[1:4]),
@@ -65,6 +77,20 @@ def leg(src: str) -> dict:
         }
         for name, fn in calls.items():
             out[f"{name} N={n}"] = _graph_ms(fn, 10) * 1e3
+    cases = [shape + (torch.float32,) for shape in WIDE]
+    cases += [shape + (dt,) for shape in LM
+              for dt in (torch.float32, torch.bfloat16)]
+    for label, g, h, w, cpw, dtype in cases:
+        single = operands(g, h, w, cpw, (), dtype)
+        dy = single[4] - 0.5
+        calls = {"#2 gspn_scan_bwd": lambda: gspn_scan.gspn_scan_bwd(
+            dy, *single[1:4])}
+        if label.startswith("LM") and dtype == torch.float32:
+            calls["#1 gspn_scan_fwd"] = lambda: gspn_scan.gspn_scan_fwd(
+                *single)
+        for name, fn in calls.items():
+            out[f"{name} {label} {str(dtype)[6:]}"] = \
+                _graph_ms(fn, 2 if h > 64 else 10) * 1e3
     return out
 
 
