@@ -68,7 +68,24 @@ Phases, each of which fails the run on any error:
    (1e-5 of the largest magnitude); its launches asserted from the
    counters and again from the ``kernel.launch`` spans; its device time as
    a CUDA graph and as an eager call (per_step eager only); a Chrome trace
-   of one traced pass of every rung written to ``build/ladder_trace.json``.
+   of one traced pass of every rung written to ``build/ladder_trace.json``;
+9. LM serving: ``qwen2-1.5b-gspn`` at full width (28 layers, d_model 1536,
+   d_ff 8960, vocab 151 936, C_proxy 8, row width 1024) with weights from
+   a seeded generator on the card: its parameter count; under the f32
+   policy, one 2048-token prefill through kernel #1 against the plain
+   path (``impl="torch"``), a chunk chain of 2 × 1024 tokens against the
+   one-shot prefill, and two decode steps against ``apply_lm`` at the same
+   positions (logits within 1e-4 of their largest magnitude), each pass
+   counted (56 launches of #1 per prefill or chunk, none per decode step,
+   no plain scan); then a ``ServeEngine`` with 4 slots, prefill chunks of
+   1024, greedy, under the config's own policy, over 6 requests of 4096,
+   2048, 1536, 1024, 100 and 16 prompt tokens and 16 new tokens each:
+   per-request TTFT and tokens, tok/s, the median decode step and chunk
+   (``serve.*`` spans), the card's idle share over one decode step and
+   one chunk (profiler), peak memory, and #1's launches by shape from the
+   counters (56 per prefill or chunk, none per decode step), which the
+   ``kernels`` line reports at the kernel phase's serving shapes (#1 at
+   G = 8, cpw 8: 1 and 2 rows of 1024, 1024 rows of 1 and 2).
 
 It prints a ``{"kernels": [...]}`` line and, last, the ``{"ok": true, ...}``
 line.
@@ -120,6 +137,18 @@ NDIR = {"gspn_scan_fwd": 1, "gspn_pair_fwd": 2, "gspn_quad_fwd": 4,
 # train_4k (batch 16, C_proxy 8), and a chunked wide shape.
 LM_SHAPES = ((128, 4, 1024, 8, None), (128, 1024, 4, 8, None),
              (128, 32, 1024, 8, 8))
+# The single scan's shapes on the LM serving path (one request, C_proxy 8):
+# the T→B pass of a one-shot prefill of up to 1024 tokens and of a seeded
+# chunk of 1024 (1 and 2 rows of 1024), the within-row pass of both (1024
+# rows of 1), and of a one-shot prefill of 2048 (1024 rows of 2).
+SERVE_SHAPES = ((8, 1, 1024, 8, None), (8, 2, 1024, 8, None),
+                (8, 1024, 1, 8, None), (8, 1024, 2, 8, None))
+# The serving phase: the engine's requests (prompt tokens) and new tokens.
+SERVE_PROMPTS = (4096, 2048, 1536, 1024, 100, 16)
+SERVE_NEW = 16
+SERVE_CHUNK = 1024
+# The f32 checks' prompt: two chunks.
+CHECK_LEN = 2048
 
 
 def _run(cmd) -> str:
@@ -234,6 +263,7 @@ def kernel_phase(gen):
                   (8, 19, 37, 4, None, dtype, False),
                   (8, 38, 37, 4, 19, dtype, False)]
         cases += [shape + (dtype, True) for shape in LM_SHAPES]
+        cases += [shape + (dtype, True) for shape in SERVE_SHAPES]
     # The adjoints write f32 computed in f32 from the same inputs as their
     # plain versions, in either stream dtype.
     tol = {("fwd", torch.float32): 1e-5, ("fwd", torch.bfloat16): 1e-2,
@@ -242,6 +272,9 @@ def kernel_phase(gen):
     for name, (kernel, plain, pair, kind) in kernels.items():
         for g, h, w, cpw, chunk, dtype, timed in cases:
             if pair and (g, h, w, cpw, chunk) in LM_SHAPES:
+                continue
+            if name != "gspn_scan_fwd" and \
+                    (g, h, w, cpw, chunk) in SERVE_SHAPES:
                 continue
             args = _scan_inputs(gen, g, h, w, cpw, dtype, pair, kind)
             got = kernel(*args, chunk=chunk)
@@ -722,6 +755,201 @@ def ladder_phase(gen):
     return shapes
 
 
+def _wall_s(fn, n: int = 5) -> float:
+    """Median host-clock seconds of one eager call of ``fn`` that ends in a
+    synchronise, after one warm-up call."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    return statistics.median(times)
+
+
+def _counted(fn, what, expect):
+    """Run ``fn`` with the counters at 0; fail unless #1 was launched
+    ``expect`` times and no plain scan ran.  Returns fn's result."""
+    from repro_torch.kernels import cuda_lib
+
+    cuda_lib.clear_counts()
+    out = fn()
+    torch.cuda.synchronize()
+    launches = cuda_lib.launch_counts["gspn_scan_fwd"]
+    plain = sum(cuda_lib.plain_calls.values())
+    print(f"lm {what}: #1 launches {launches}, plain scan calls {plain}",
+          flush=True)
+    if dict(cuda_lib.launch_counts) != ({"gspn_scan_fwd": expect}
+                                        if expect else {}) or plain:
+        raise AssertionError(f"lm {what}: expected {expect} launches of #1 "
+                             f"and no plain scan, got "
+                             f"{dict(cuda_lib.launch_counts)} and {plain}")
+    return out
+
+
+def _logits_check(what, got, want, tol=1e-4):
+    err = (got.float() - want.float()).abs().max().item()
+    scale = want.float().abs().max().item()
+    print(f"lm {what}: logits max_abs_err={err} max_abs={scale} "
+          f"tol={tol * scale}", flush=True)
+    if not (torch.isfinite(got).all() and err <= tol * scale):
+        raise AssertionError(f"lm {what}: logits disagree")
+
+
+def lm_serve_phase():
+    """The LM serving path at full width (``qwen2-1.5b-gspn`` ``full()``):
+    kernel path against the plain path, chunk chain against one-shot and
+    decode against the forward under the f32 policy, then the engine over
+    the requests of ``SERVE_PROMPTS`` under the config's own policy.
+    Returns the engine run's launches by shape."""
+    from repro_torch import obs
+    from repro_torch.configs.base import with_precision
+    from repro_torch.configs.qwen2_1_5b_gspn import full
+    from repro_torch.kernels import cuda_lib
+    from repro_torch.models import lm
+    from repro_torch.serve.engine import Request, ServeEngine
+
+    cfg = full()
+    prompts, chunk, new, check_len = (SERVE_PROMPTS, SERVE_CHUNK, SERVE_NEW,
+                                      CHECK_LEN)
+    device = "cuda"
+    per_pass = 2 * cfg.layer_count()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=device).manual_seed(0)
+    model = lm.LM(cfg, device=device, generator=gen)
+    torch.cuda.synchronize()
+    print(f"lm {cfg.name}: {lm.count_params(model)} parameters "
+          f"({cfg.layer_count()} layers, d_model {cfg.d_model}, d_ff "
+          f"{cfg.d_ff}, vocab {cfg.vocab}, C_proxy {cfg.gspn_proxy_dim}, "
+          f"row width {cfg.gspn_row_width}), set-up "
+          f"{time.perf_counter() - t0:.3f} s", flush=True)
+
+    # (b), (c): the f32 policy over the same weights (stored in f32).
+    f32 = with_precision(cfg, "f32")
+    kern = lm.LM(f32, device="meta")
+    kern.load_state_dict(model.state_dict(), assign=True)
+    plain = lm.LM(dataclasses.replace(f32, gspn_impl="torch"), device="meta")
+    plain.load_state_dict(model.state_dict(), assign=True)
+    toks = torch.randint(0, cfg.vocab, (1, check_len + 2), generator=gen,
+                         device=device)
+    prompt = toks[:, :check_len]
+    with torch.no_grad():
+        logits, caches = _counted(lambda: lm.lm_prefill(kern, prompt),
+                                  f"f32 prefill of {check_len}", per_pass)
+        want, _ = lm.lm_prefill(plain, prompt)
+        _logits_check(f"f32 prefill of {check_len}, kernel vs plain",
+                      logits, want)
+        del want
+        c = lm.init_lm_cache(f32, 1, device=device)
+        parts = []
+        for lo in range(0, check_len, chunk):
+            part, c = _counted(
+                lambda: lm.lm_prefill_chunk(kern, prompt[:, lo:lo + chunk],
+                                            c, lo),
+                f"f32 chunk at {lo}", per_pass)
+            parts.append(part)
+        _logits_check(f"f32 chunk chain of {check_len} vs one-shot",
+                      torch.cat(parts, 1), logits)
+        worst = max((a.float() - b.float()).abs().max().item()
+                    / max(b.float().abs().max().item(), 1e-30)
+                    for k in caches for n in caches[k]
+                    for a, b in [(c[k][n], caches[k][n])])
+        print(f"lm f32 chunk chain caches vs one-shot: worst leaf error / "
+              f"largest magnitude {worst:.3e} (tol 1e-4)", flush=True)
+        if not worst <= 1e-4:
+            raise AssertionError("chunk-chain caches disagree")
+        del parts, c
+        steps = []
+        for i in (check_len, check_len + 1):
+            step, caches = _counted(
+                lambda: lm.lm_decode_step(kern, toks[:, i:i + 1], caches),
+                f"f32 decode step at {i}", 0)
+            steps.append(step)
+        full_logits = lm.apply_lm(kern, toks)[:, check_len:]
+        _logits_check("f32 decode vs apply_lm", torch.cat(steps, 1),
+                      full_logits)
+        del logits, caches, steps, full_logits, kern, plain
+    print(f"lm f32 checks: peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB", flush=True)
+
+    # (d): the engine under the config's own policy.
+    torch.cuda.reset_peak_memory_stats()
+    eng = ServeEngine(model, batch_size=4, max_len=max(prompts) + new,
+                      prefill_chunk=chunk)
+    rng = torch.Generator().manual_seed(1)
+    reqs = [Request(uid=i, prompt=torch.randint(0, cfg.vocab, (n,),
+                                                generator=rng).numpy(),
+                    max_new_tokens=new) for i, n in enumerate(prompts)]
+    handles = [eng.submit(r) for r in reqs]
+    torch.cuda.synchronize()
+    cuda_lib.clear_counts()
+    obs.clear()
+    obs.enable()
+    try:
+        t0 = time.perf_counter()
+        eng.run()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+    finally:
+        obs.disable()
+    launches = dict(cuda_lib.launch_counts)
+    shapes = dict(cuda_lib.launch_shapes)
+    plain_calls = sum(cuda_lib.plain_calls.values())
+    m = eng.metrics
+    passes = m["prefills"] + m["prefill_chunks"]
+    results = [h.result() for h in handles]
+    total = sum(len(r.tokens) for r in results)
+    for r, n in zip(results, prompts):
+        print(f"lm serve request {r.uid}: prompt {n}, ttft "
+              f"{r.ttft * 1e3:.3f} ms, queue {r.queue_delay * 1e3:.3f} ms, "
+              f"chunks {r.prefill_chunks}, {len(r.tokens)} tokens "
+              f"{r.tokens}", flush=True)
+    step_ms = [s.dur / 1e6 for s in obs.spans("serve.decode_step")]
+    chunk_ms = [s.dur / 1e6 for s in obs.spans("serve.prefill_chunk")]
+    print(f"lm serve: {len(results)} requests, {total} tokens in "
+          f"{dt:.3f} s ({total / dt:.3f} tok/s); {m['prefills']} one-shot "
+          f"prefills, {m['prefill_chunks']} chunks, {m['decode_steps']} "
+          f"decode steps; median decode step {statistics.median(step_ms):.3f}"
+          f" ms (of {len(step_ms)}), median chunk "
+          f"{statistics.median(chunk_ms):.3f} ms (of {len(chunk_ms)}); peak "
+          f"memory of the run {torch.cuda.max_memory_allocated() / 2**30:.3f}"
+          f" GiB",
+          flush=True)
+    print(f"lm serve: #1 launches {launches} by shape "
+          f"{ {'/'.join(map(str, k)): v for k, v in shapes.items()} }, "
+          f"plain scan calls {plain_calls}, {per_pass} expected per prefill "
+          f"or chunk", flush=True)
+    if launches != {"gspn_scan_fwd": per_pass * passes} or plain_calls:
+        raise AssertionError(f"lm serve: expected {per_pass} launches of #1 "
+                             f"per prefill or chunk ({passes}) and none per "
+                             f"decode step")
+    if [len(r.tokens) for r in results] != [new] * len(prompts) or \
+            not all(0 <= t < cfg.vocab for r in results for t in r.tokens):
+        raise AssertionError("lm serve: wrong tokens")
+
+    # The card's idle share over one decode step of the 4 slots and one
+    # chunk of 1024 tokens resumed at 1024.
+    last = eng.last_token
+    caches = eng.pool.caches
+    c = lm.init_lm_cache(cfg, 1, device=device)
+    for sub in c.values():
+        sub["pos"].fill_(chunk)
+    ctoks = toks[:, :chunk]
+    with torch.no_grad():
+        def decode():
+            return lm.lm_decode_step(model, last, caches)
+
+        def resume():
+            return lm.lm_prefill_chunk(model, ctoks, c, chunk)
+
+        _profile(decode, _wall_s(decode), "lm decode step (4 slots)")
+        _profile(resume, _wall_s(resume), f"lm chunk of {chunk}")
+    return shapes
+
+
 def main() -> int:
     print(f"torch {torch.__version__} cuda {torch.version.cuda} python "
           f"{sys.version.split()[0]}", flush=True)
@@ -760,6 +988,8 @@ def main() -> int:
     twin_phase()
     shapes.update(ladder_phase(torch.Generator(device="cuda").manual_seed(1)))
     shapes.update(single_bwd)
+    # #1's launches at the serving shapes are those of the engine's run.
+    shapes.update(lm_serve_phase())
 
     entries = []
     for row in rows:

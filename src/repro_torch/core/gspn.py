@@ -1,4 +1,4 @@
-"""GSPN-2 core algorithm, vision half (paper §3.2, §4.2).
+"""GSPN-2 core algorithm (paper §3.2, §4.2).
 
 * :func:`normalize_taps` — row-stochastic normalisation of the 3-tap
   propagation logits (masked softmax in f32; boundary taps excluded).
@@ -11,9 +11,15 @@
 * :class:`GSPNAttentionConfig` + :class:`GSPNAttention` — the GSPN-2
   attention module with compact channel propagation: channel-shared taps
   and a compressive proxy space ``C → C_proxy → C`` (paper §4.2).
+* :class:`GSPNSeqConfig` + :class:`GSPNSeqMixer` — the 1D-sequence
+  adaptation, a causal sub-quadratic token mixer for language models
+  (DESIGN.md §4): fold L → (H, W), a causal T→B 2D scan plus a causal
+  within-row scan, with :func:`gspn_seq_prefill_chunk` resuming both
+  from the O(W) streaming cache (DESIGN.md §9).
 
-Tensors keep the reference package's layout: images NHWC, scan operands
-(G, H, W) with G = B·C_proxy in channel-major order.
+Tensors keep the reference package's layout: images NHWC, sequences
+(B, L, D), scan operands (G, H, W) with G = B·C_proxy in channel-major
+order.
 """
 
 from __future__ import annotations
@@ -202,7 +208,8 @@ def _normalize_taps_oriented(logits, direction: str, mode: str):
 
 def _uniform(scale: float):
     def init(shape, generator):
-        return torch.empty(shape).uniform_(-scale, scale, generator=generator)
+        return torch.empty(shape, device=generator.device).uniform_(
+            -scale, scale, generator=generator)
     return init
 
 
@@ -292,3 +299,258 @@ def gspn_attention_param_count(cfg: GSPNAttentionConfig) -> int:
     tap_out = 3 * nd if cfg.channel_shared else 3 * nd * cp
     return (cfg.dim * cp + cfg.dim * tap_out + 2 * cfg.dim * nd * cp
             + cp * cfg.dim)
+
+
+# ---------------------------------------------------------------------------
+# 1D-sequence causal mixer (LM adaptation, DESIGN.md §4).
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class GSPNSeqConfig:
+    """The sequence mixer's configuration.  ``impl`` defaults to
+    ``"auto"``, which runs the CUDA kernel #1 on CUDA tensors and the
+    plain scan on the CPU; the reference's ``LMConfig.gspn_impl`` defaults
+    to ``"xla"``, its plain path."""
+    dim: int
+    proxy_dim: int = 8
+    row_width: int = 0             # 0 => the fold derives from L per call
+    norm_mode: str = "softmax"
+    impl: str = "auto"
+    param_dtype: torch.dtype = torch.float32
+    # Mixed-precision policy (DESIGN.md §10): projections and streamed
+    # scan operands in compute_dtype; tap softmax, carries and the decode
+    # cache in f32.
+    compute_dtype: torch.dtype = torch.float32
+    carry_dtype: torch.dtype = torch.float32
+
+
+class GSPNSeqMixer(nn.Module):
+    """x: (B, L, D) -> (B, L, D), causal.
+
+    Parameters, named and laid out as the reference's
+    ``init_gspn_seq_mixer``: ``down`` (D, Cp), ``w_taps`` (D, 3), ``w_row``
+    (D, 1), ``w_lam`` and ``w_u`` (D, 2·Cp), ``up`` (Cp, D).  Both folded
+    passes are single scans (``kernels.ops.gspn_scan``) with
+    channels_per_weight = Cp.
+    """
+
+    def __init__(self, cfg: GSPNSeqConfig, *, device=None,
+                 generator: torch.Generator | None = None):
+        super().__init__()
+        device = resolve_device(device)
+        if generator is None:
+            generator = torch.Generator().manual_seed(0)
+        self.cfg = cfg
+        cp, d = cfg.proxy_dim, cfg.dim
+        init = _uniform(1.0 / math.sqrt(d))
+        pd = cfg.param_dtype
+        self.down = new_param((d, cp), init, generator, device, pd)
+        self.w_taps = new_param((d, 3), init, generator, device, pd)
+        self.w_row = new_param((d, 1), init, generator, device, pd)
+        self.w_lam = new_param((d, 2 * cp), init, generator, device, pd)
+        self.w_u = new_param((d, 2 * cp), init, generator, device, pd)
+        self.up = new_param((cp, d), _uniform(1.0 / math.sqrt(cp)),
+                            generator, device, pd)
+        spec = ScanSpec(impl=cfg.impl,
+                        stream_dtype=dtype_name(cfg.compute_dtype),
+                        carry_dtype=dtype_name(cfg.carry_dtype))
+        self.spec = spec
+        self.resume_spec = spec.with_(boundary="chunk_resume")
+
+    def forward(self, x, return_cache: bool = False):
+        return apply_gspn_seq_mixer(self, x, return_cache)
+
+
+def _fold_len(l: int, row_width: int) -> tuple[int, int]:
+    w = row_width or 1 << max(1, math.ceil(math.log2(max(l, 4)) / 2))
+    h = -(-l // w)
+    return h, w
+
+
+def _seq_mixer_projections(mixer: GSPNSeqMixer, xf):
+    """Per-token projections shared by the one-shot and chunked paths.
+    xf: (B, L, D) in the compute dtype.  Returns (x_p, taps, row_g, lam,
+    u), all in xf.dtype."""
+    cd = xf.dtype
+    x_p = xf @ mixer.down.to(cd)                             # (B,L,Cp)
+    taps = xf @ mixer.w_taps.to(cd)                          # (B,L,3)
+    row_g = torch.sigmoid(xf @ mixer.w_row.to(cd))
+    lam = torch.sigmoid(xf @ mixer.w_lam.to(cd))
+    u = xf @ mixer.w_u.to(cd)
+    return x_p, taps, row_g, lam, u
+
+
+def _fold_ops(b, h, w, l):
+    """The row-major (B, L, K) <-> (B·K, H, W) fold/unfold pair for a
+    sequence of l tokens on an (h, w) grid (zero-padded tail).  One
+    definition serves the one-shot and chunked paths: the chunked ≡
+    one-shot equivalence depends on an identical layout."""
+    pad = h * w - l
+
+    def fold(a):
+        k = a.shape[-1]
+        a = torch.nn.functional.pad(a, (0, 0, 0, pad))
+        return a.reshape(b, h, w, k).movedim(-1, 1).reshape(b * k, h, w)
+
+    def unfold(a, k):
+        a = a.reshape(b, k, h, w).movedim(1, -1)
+        return a.reshape(b, h * w, k)[:, :l]
+
+    return fold, unfold
+
+
+def _tb_taps(taps, fold, b, h, w, mode, dtype):
+    """Row-stochastic T→B tap weights from per-token logits (B, L, 3):
+    fold to the grid, put the 3 taps innermost and normalise (the softmax
+    in f32); returned in ``dtype``, the stream dtype."""
+    wl, wc, wr = normalize_taps(
+        fold(taps).reshape(b, 3, h, w).permute(0, 2, 3, 1), mode)
+    return wl.to(dtype), wc.to(dtype), wr.to(dtype)
+
+
+def _within_row_pass(x_p, row_g, lam_hi, fold, spec):
+    """Pass 2: the causal within-row recurrence h[j] = g·h[j-1] + λ·x[j],
+    a centre-tap-only scan in the 'lr' orientation (wl = wr = 0), each
+    grid row independent.  Every row resets its carry at column 0, so the
+    pass is local to whatever fold it is given."""
+    x_lr = _to_canonical(fold(x_p), "lr")
+    gate = _to_canonical(fold(row_g), "lr")
+    zeros = torch.zeros_like(gate)
+    h_row = gspn_scan(x_lr, zeros, gate, zeros,
+                      _to_canonical(fold(lam_hi), "lr"), spec=spec)
+    return _from_canonical(h_row, "lr")
+
+
+def _slice_boundary_cache(grid_tb, grid_row, l, w, prev_fallback):
+    """The outgoing O(W) decode cache at position l from the scanned grids
+    (B, Cp, H, W): the previous and current grid rows of the T→B pass and
+    the within-row state.  ``prev_fallback`` stands in for the row above
+    when the last, partial row is the grid's first: zeros at the start of
+    a sequence, the incoming boundary row when chunking.  One definition
+    serves both paths, so the streaming convention cannot drift."""
+    i_last, j_last = (l - 1) // w, (l - 1) % w
+    row_i = grid_tb[:, :, i_last, :]
+    if j_last == w - 1:
+        prev_row = row_i
+        cur_row = row_i
+    else:
+        prev_row = (grid_tb[:, :, i_last - 1, :] if i_last > 0
+                    else prev_fallback)
+        col_mask = (torch.arange(w, device=row_i.device) <= j_last).float()
+        cur_row = row_i * col_mask
+    return {
+        "prev_row": prev_row.float(),
+        "cur_row": cur_row.float(),
+        "row_state": grid_row[:, :, i_last, j_last].float(),
+    }
+
+
+def apply_gspn_seq_mixer(mixer: GSPNSeqMixer, x, return_cache: bool = False):
+    """The causal mixer over x: (B, L, D) -> (B, L, D).
+
+    The sequence folds row-major into (H, W); causality holds because the
+    T→B pass reads only row i-1, all of whose tokens precede row i, and
+    the within-row pass is a left-to-right recurrence.
+    ``return_cache=True`` also returns the O(W) decode cache (previous
+    grid row, current row, within-row state, position) for streaming.
+    """
+    cfg = mixer.cfg
+    b, l, _ = x.shape
+    cp = cfg.proxy_dim
+    h, w = _fold_len(l, cfg.row_width)
+    cd = cfg.compute_dtype
+    xf = x.to(cd)
+
+    x_p, taps, row_g, lam, u = _seq_mixer_projections(mixer, xf)
+    fold, unfold = _fold_ops(b, h, w, l)
+
+    # Pass 1: causal T->B 2D scan in proxy space, channel-shared taps.
+    wl, wc, wr = _tb_taps(taps, fold, b, h, w, cfg.norm_mode, cd)
+    h_tb = gspn_scan(fold(x_p), wl, wc, wr, fold(lam[..., :cp]),
+                     spec=mixer.spec)
+
+    # Pass 2: causal within-row scan.
+    h_row = _within_row_pass(x_p, row_g, lam[..., cp:], fold, mixer.spec)
+
+    y = unfold(h_tb, cp) * u[..., :cp] + unfold(h_row, cp) * u[..., cp:]
+    y = (y @ mixer.up.to(cd)).to(x.dtype)
+    if not return_cache:
+        return y
+    cache = _slice_boundary_cache(
+        h_tb.reshape(b, cp, h, w), h_row.reshape(b, cp, h, w), l, w,
+        torch.zeros((b, cp, w), dtype=h_tb.dtype, device=x.device))
+    cache["pos"] = torch.full((b,), l, dtype=torch.int32, device=x.device)
+    return y, cache
+
+
+def gspn_seq_prefill_chunk(mixer: GSPNSeqMixer, x, cache, *,
+                           pos: int | None = None):
+    """Resume the folded causal scans from a streaming cache (DESIGN.md §9).
+
+    x: (B, T, D), the next T prompt tokens; ``cache``: the O(W) decode
+    cache of a previous call (or a fresh all-zero cache at position 0).
+    Returns (y (B, T, D), new_cache) such that a chain of chunks equals one
+    one-shot prefill over the concatenated tokens.  A cache advanced
+    mid-row by ``gspn_decode_step`` is not a valid input: this path resumes
+    from ``prev_row`` only.
+
+    The incoming ``prev_row`` becomes a synthetic row 0 of the chunk's
+    folded grid with λ = 1 and zero taps (the scan's zero carry then
+    reproduces it exactly), launched under the ``chunk_resume`` boundary
+    label; the within-row pass is chunk-local because every grid row
+    resets at column 0.
+
+    Contract: the chunk starts on a grid-row boundary,
+    ``cache['pos'] % row_width == 0``, and ``row_width`` is fixed; a
+    ValueError otherwise.  ``pos`` is the chunk's offset when the caller
+    knows it on the host (the LM passes it), which spares reading the
+    cache's positions back from the device.
+    """
+    cfg = mixer.cfg
+    b, t, _ = x.shape
+    cp = cfg.proxy_dim
+    w = cfg.row_width
+    if w <= 0:
+        raise ValueError(
+            "chunked GSPN prefill needs a fixed row_width (row_width=0 "
+            "derives the fold from the total length, which a chunked "
+            "caller does not know)")
+    offsets = {pos} if pos is not None else set(cache["pos"].tolist())
+    if any(o % w for o in offsets):
+        raise ValueError(
+            f"a prefill chunk must start on a grid-row boundary: position "
+            f"{sorted(offsets)} is not a multiple of row_width={w}")
+    hc = -(-t // w)
+    cd = cfg.compute_dtype
+    xf = x.to(cd)
+
+    x_p, taps, row_g, lam, u = _seq_mixer_projections(mixer, xf)
+    fold, unfold = _fold_ops(b, hc, w, t)
+
+    # Pass 1: T->B scan seeded with the incoming boundary row (λ = 1,
+    # taps 0 at row 0).  The f32 cached row is rounded to the stream dtype
+    # here, the one cross-chunk rounding of the §10 error budget.
+    wl, wc, wr = _tb_taps(taps, fold, b, hc, w, cfg.norm_mode, cd)
+    ztap = torch.zeros((b, 1, w), dtype=cd, device=x.device)
+    x_tb = torch.cat(
+        [cache["prev_row"].to(cd).reshape(b * cp, 1, w), fold(x_p)], dim=1)
+    lam_tb = torch.cat(
+        [torch.ones((b * cp, 1, w), dtype=cd, device=x.device),
+         fold(lam[..., :cp])], dim=1)
+    h_tb = gspn_scan(x_tb, torch.cat([ztap, wl], dim=1),
+                     torch.cat([ztap, wc], dim=1),
+                     torch.cat([ztap, wr], dim=1), lam_tb,
+                     spec=mixer.resume_spec)[:, 1:]
+
+    # Pass 2: within-row scan, chunk-local.
+    h_row = _within_row_pass(x_p, row_g, lam[..., cp:], fold,
+                             mixer.resume_spec)
+
+    y = unfold(h_tb, cp) * u[..., :cp] + unfold(h_row, cp) * u[..., cp:]
+    y = (y @ mixer.up.to(cd)).to(x.dtype)
+    new_cache = _slice_boundary_cache(
+        h_tb.reshape(b, cp, hc, w), h_row.reshape(b, cp, hc, w), t, w,
+        cache["prev_row"].float())
+    new_cache["pos"] = cache["pos"] + t
+    return y, new_cache
+

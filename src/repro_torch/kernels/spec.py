@@ -38,9 +38,12 @@ import torch
 # and the forward-only single launch of all four directions.
 DIRECTIONS = ("fwd", "bwd", "pair_fwd", "pair_bwd", "quad")
 _ADJOINT = {"fwd": "bwd", "pair_fwd": "pair_bwd"}
-# How a scan segment relates to state outside itself: the whole sequence
-# in one launch from a zero carry.
-BOUNDARIES = ("one_shot",)
+# How a scan segment relates to state outside itself (DESIGN.md §14):
+#   one_shot      the whole sequence in one launch from a zero carry;
+#   chunk_resume  serve chunked prefill: the carry enters as a synthetic
+#                 resumed row 0 (core.gspn.gspn_seq_prefill_chunk).
+# The label changes no number; it names the launch (canonical()).
+BOUNDARIES = ("one_shot", "chunk_resume")
 IMPLS = ("auto", "cuda", "torch", "per_step")
 
 
@@ -142,7 +145,8 @@ class ScanSpec:
                           carry_dtype="float32")
 
 
-def enumerate_specs(*, cpws=(1, 3)) -> list[ScanSpec]:
+def enumerate_specs(*, boundaries=("one_shot",),
+                    cpws=(1, 3)) -> list[ScanSpec]:
     """The admissible forward spec grid, the one the conformance sweep runs
     (every spec forward, and except ``quad`` its gradient, through
     ``ScanSpec.adjoint``).
@@ -153,13 +157,15 @@ def enumerate_specs(*, cpws=(1, 3)) -> list[ScanSpec]:
     stream float32 and bfloat16 with the carry in float32 (the narrow
     carry the reference also enumerates is refused for ``cuda``, see
     :meth:`ScanSpec.check_cuda`, and the plain leg has none); each
-    ``channels_per_weight`` of ``cpws``.  The reference's pipeline depths
-    are a TPU launch knob the port has no counterpart for.
+    requested boundary label and each ``channels_per_weight`` of
+    ``cpws``.  The reference's pipeline depths are a TPU launch knob the
+    port has no counterpart for.
     """
     impls_for = {"fwd": ("cuda", "torch"), "pair_fwd": ("cuda", "torch"),
                  "quad": ("cuda",)}
     return [ScanSpec(direction=direction, impl=impl, channels_per_weight=cpw,
-                     stream_dtype=stream)
-            for direction, cpw in itertools.product(impls_for, cpws)
+                     stream_dtype=stream, boundary=boundary)
+            for direction, boundary, cpw in itertools.product(
+                impls_for, boundaries, cpws)
             for impl in impls_for[direction]
             for stream in ("float32", "bfloat16")]

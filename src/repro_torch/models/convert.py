@@ -1,7 +1,8 @@
-"""Carry the reference package's vision parameters into a ``GSPNVision``.
+"""Carry the reference package's parameters into the port's modules: the
+vision backbone (``GSPNVision``) and the language model (``LM``).
 
 The reference keeps its parameters as a pytree: per-block leaves stacked
-along a leading depth axis (its blocks are initialised under ``vmap`` and
+along leading depth axes (its blocks are initialised under ``vmap`` and
 walked by ``scan``) and convolution weights in HWIO.  The port keeps one
 module per block and OIHW weights (a depthwise ``(3,3,1,C)`` becomes
 ``(C,1,3,3)`` for ``groups=C``).  The pytree arrives as numpy arrays, so
@@ -23,6 +24,13 @@ _BLOCK_LEAVES = {
     "mlp": ("fc1", "b1", "fc2", "b2"),
 }
 _CONV_MODULES = ("lpu", "lpu2")
+# Leaves of one LM block of the gspn kind.
+_GSPN_BLOCK_LEAVES = {
+    "ln1": ("scale",),
+    "mix": ("down", "w_taps", "w_row", "w_lam", "w_u", "up"),
+    "ln2": ("scale",),
+    "ffn": ("gate", "up", "down"),
+}
 
 
 def _flatten(tree, prefix=()):
@@ -34,6 +42,22 @@ def _flatten(tree, prefix=()):
             yield from _flatten(v, prefix + (i,))
     else:
         yield prefix, tree
+
+
+def _taker(leaves):
+    def take(*path):
+        if path not in leaves:
+            raise KeyError(f"missing leaf {'/'.join(map(str, path))}")
+        return np.asarray(leaves.pop(path))
+    return take
+
+
+def _to_state(leaves, state) -> dict[str, torch.Tensor]:
+    if leaves:
+        raise ValueError("leaves with no counterpart: " + ", ".join(
+            "/".join(map(str, p)) for p in leaves))
+    return {k: torch.from_numpy(np.array(v, copy=True, order="C"))
+            for k, v in state.items()}
 
 
 def _hwio_to_oihw(a: np.ndarray) -> np.ndarray:
@@ -51,11 +75,7 @@ def vision_state_from_jax(params_np) -> dict[str, torch.Tensor]:
     """
     leaves = dict(_flatten(params_np))
     state: dict[str, np.ndarray] = {}
-
-    def take(*path):
-        if path not in leaves:
-            raise KeyError(f"missing leaf {'/'.join(map(str, path))}")
-        return np.asarray(leaves.pop(path))
+    take = _taker(leaves)
 
     state["stem.w"] = _hwio_to_oihw(take("stem", "w"))
     state["stem.b"] = take("stem", "b")
@@ -83,8 +103,42 @@ def vision_state_from_jax(params_np) -> dict[str, torch.Tensor]:
     state["ln_f.scale"] = take("ln_f", "scale")
     state["ln_f.bias"] = take("ln_f", "bias")
     state["head"] = take("head")
-    if leaves:
-        raise ValueError("leaves with no counterpart: " + ", ".join(
-            "/".join(map(str, p)) for p in leaves))
-    return {k: torch.from_numpy(np.array(v, copy=True, order="C"))
-            for k, v in state.items()}
+    return _to_state(leaves, state)
+
+
+def lm_state_from_jax(params_np) -> dict[str, torch.Tensor]:
+    """``state_dict`` of an ``LM`` from the reference's ``init_lm`` pytree
+    given as numpy arrays.
+
+    Each stage ``stages/s{i}_gspn`` stacks its blocks' leaves along
+    leading axes: (n,) for a prelude stage, (n_units, n) for a unit stage,
+    told apart by the rank of ``ln1/scale``.  They unstack into
+    ``stages.s{i}_gspn.{i}`` or ``stages.s{i}_gspn.{u}.{i}``.  Every leaf
+    maps to exactly one entry; a missing leaf raises ``KeyError`` and a
+    leaf left over raises ``ValueError``.
+    """
+    leaves = dict(_flatten(params_np))
+    state: dict[str, np.ndarray] = {}
+    take = _taker(leaves)
+    state["embed"] = take("embed")
+    state["ln_f.scale"] = take("ln_f", "scale")
+    if ("head",) in leaves:
+        state["head"] = take("head")
+    keys = sorted({p[1] for p in leaves if p[0] == "stages"})
+    for key in keys:
+        if not key.endswith("_gspn"):
+            raise ValueError(f"stage {key}: only the gspn kind is ported")
+        lead = np.asarray(leaves[("stages", key, "ln1", "scale")]).shape[:-1]
+        for mod, names in _GSPN_BLOCK_LEAVES.items():
+            for name in names:
+                stacked = take("stages", key, mod, name)
+                if stacked.shape[:len(lead)] != lead:
+                    raise ValueError(
+                        f"stage {key}: {mod}/{name} stacks "
+                        f"{stacked.shape[:len(lead)]} blocks, expected "
+                        f"{lead}")
+                for idx in np.ndindex(*lead):
+                    where = ".".join(map(str, idx))
+                    state[f"stages.{key}.{where}.{mod}.{name}"] = \
+                        stacked[idx]
+    return _to_state(leaves, state)

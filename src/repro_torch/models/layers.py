@@ -1,16 +1,22 @@
-"""Common layers of the vision backbone, channels-last (NHWC) like the
-reference package.
+"""Common layers: the vision backbone's, channels-last (NHWC) like the
+reference package, and the language model's forward (``DTypePolicy``,
+``RMSNorm``, ``SwiGLU``).
 
 Parameters keep the reference's names and, for dense weights, its
 ``(d_in, d_out)`` layout, so converted parameters map 1:1; convolution
-weights are OIHW.  Initial values are drawn on the CPU from an explicit
-``torch.Generator`` and then moved, so a seed gives the same weights on
-every device; on the ``meta`` device nothing is drawn.  Layernorm,
-convolutions and the biases run in f32 and cast back to the input dtype.
+weights are OIHW.  Initial values are drawn from an explicit
+``torch.Generator`` on the generator's device and then moved, so a CPU
+generator's seed gives the same weights on every device (a CUDA
+generator draws a large model on the card); on the ``meta`` device
+nothing is drawn.  Layernorm, convolutions and the biases run in f32 and
+cast back to the input dtype.  The LM layers follow the reference's
+mixed-precision policy (DESIGN.md §10): parameters are stored in
+``param_dtype`` and cast to ``compute_dtype`` at use.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import math
 
 import torch
@@ -29,7 +35,7 @@ def new_param(shape, init, generator, device, dtype) -> nn.Parameter:
 def trunc_normal(scale: float):
     """Standard normal truncated to [-2, 2], times ``scale``."""
     def init(shape, generator):
-        t = torch.empty(shape)
+        t = torch.empty(shape, device=generator.device)
         nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0, generator=generator)
         return t * scale
     return init
@@ -48,6 +54,63 @@ def dense_init(d_in: int, d_out: int, generator, device, dtype,
     """Dense weight (d_in, d_out), truncated normal times 1/sqrt(d_in)."""
     s = scale if scale is not None else 1.0 / math.sqrt(d_in)
     return new_param((d_in, d_out), trunc_normal(s), generator, device, dtype)
+
+
+def embed_init(vocab: int, dim: int, generator, device,
+               dtype) -> nn.Parameter:
+    """Embedding table (vocab, dim), truncated normal times 0.02."""
+    return new_param((vocab, dim), trunc_normal(0.02), generator, device,
+                     dtype)
+
+
+@dataclasses.dataclass(frozen=True)
+class DTypePolicy:
+    """Parameters stored in ``param_dtype``, matrix products and streamed
+    operands in ``compute_dtype``; scan carries and accumulators in
+    ``carry_dtype`` (f32 under every preset, DESIGN.md §10)."""
+    param_dtype: torch.dtype = torch.float32
+    compute_dtype: torch.dtype = torch.bfloat16
+    carry_dtype: torch.dtype = torch.float32
+
+    def cast(self, t: torch.Tensor) -> torch.Tensor:
+        return t.to(self.compute_dtype)
+
+
+class RMSNorm(nn.Module):
+    """The reference's ``_rmsnorm_core`` forward: the mean square in f32,
+    its inverse root cast to ``x.dtype``, then ``x * inv * scale`` in
+    ``x.dtype`` (under bf16 that order of roundings is the result)."""
+
+    def __init__(self, dim: int, *, device, dtype=torch.float32,
+                 eps: float = 1e-6):
+        super().__init__()
+        self.eps = eps
+        self.scale = new_param((dim,), ones, None, device, dtype)
+
+    def forward(self, x):
+        ms = x.float().square().sum(-1) / x.shape[-1]
+        inv = torch.rsqrt(ms + self.eps)[..., None].to(x.dtype)
+        return x * inv * self.scale.to(x.dtype)
+
+
+class SwiGLU(nn.Module):
+    """``(silu(x @ gate) * (x @ up)) @ down`` in the policy's compute
+    dtype, cast back to ``x.dtype``."""
+
+    def __init__(self, dim: int, hidden: int, policy: DTypePolicy, *,
+                 generator, device):
+        super().__init__()
+        self.policy = policy
+        dt = policy.param_dtype
+        self.gate = dense_init(dim, hidden, generator, device, dt)
+        self.up = dense_init(dim, hidden, generator, device, dt)
+        self.down = dense_init(hidden, dim, generator, device, dt)
+
+    def forward(self, x):
+        cast = self.policy.cast
+        xc = cast(x)
+        h = F.silu(xc @ cast(self.gate)) * (xc @ cast(self.up))
+        return (h @ cast(self.down)).to(x.dtype)
 
 
 class LayerNorm(nn.Module):
@@ -115,7 +178,8 @@ class DWConv2d(nn.Module):
         super().__init__()
 
         def init(shape, gen):
-            return torch.randn(shape, generator=gen) * (1.0 / k)
+            return torch.randn(shape, generator=gen,
+                               device=gen.device) * (1.0 / k)
 
         self.w = new_param((dim, 1, k, k), init, generator, device, dtype)
         self.b = new_param((dim,), zeros, None, device, dtype)

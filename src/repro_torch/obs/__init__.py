@@ -3,8 +3,9 @@
 and record formats; enabled spans enter ``torch.profiler.record_function``
 (see :mod:`repro_torch.obs.tracing`).
 
-One import surface for every instrumented layer; in the port that is the
-kernel layer, whose dispatches and launches enter spans::
+One import surface for every instrumented layer; in the port those are
+the kernel layer, whose dispatches and launches enter spans, and the
+serving engine (``serve.*`` spans, ``serve_*`` metrics)::
 
     from repro_torch import obs
 
@@ -13,8 +14,7 @@ kernel layer, whose dispatches and launches enter spans::
     obs.counter("example_total").inc()
 
 Tracing is OFF by default (``obs.enable()`` turns it on; disabled spans
-are shared no-op singletons).  Metrics are always on; no module of the
-port records one yet.
+are shared no-op singletons).  Metrics are always on.
 Export via :func:`save_chrome_trace` (Perfetto / chrome://tracing) and
 :func:`save_metrics` (JSON or Prometheus text); pretty-print either with
 ``python -m repro_torch.obs.report``.

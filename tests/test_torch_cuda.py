@@ -10,7 +10,8 @@ Every test skips without a card.  Tolerances: 1e-5 of the largest
 magnitude in float32 and 1e-2 in bfloat16 (DESIGN.md §10); the adjoint
 kernels 1e-5 in both, since they compute in f32 and write f32 from the
 same inputs as their plain versions; the model's logits and gradients
-1e-4 of the largest magnitude with TF32 off.
+1e-4 of the largest magnitude with TF32 off (the language model's under
+its f32 policy).
 """
 
 import dataclasses
@@ -19,9 +20,12 @@ import pytest
 import torch
 
 from repro_torch import obs
+from repro_torch.configs.base import with_precision
 from repro_torch.configs.gspn2_vision import reduced_vision
+from repro_torch.configs.qwen2_1_5b_gspn import reduced as reduced_lm
 from repro_torch.core.gspn import DIRECTIONS, directional_scan
 from repro_torch.kernels import cuda_lib, gspn_multidir, gspn_scan, ops
+from repro_torch.models import lm
 from repro_torch.models.vision import GSPNVision, apply_vision, vision_loss
 from repro_torch.optim.adamw import AdamWConfig, adamw_init, adamw_update
 
@@ -523,3 +527,67 @@ def test_reduced_model_on_card_matches_cpu(card):
                        device="meta").eval()
     plain.load_state_dict(gpu.state_dict(), assign=True)
     assert _err_ok(got, apply_vision(plain, x.cuda()), 1e-4)
+
+
+# The single scan's planes on the LM serving path, cpw 8 (C_proxy): T→B
+# passes of one-shot prefills of 1 or 2 rows and of a seeded chunk of
+# 4096 tokens (5 rows), and the within-row passes of 1024 rows of 1, 2 and
+# (batch 4) 4 columns.
+SERVING_SHAPES = [(8, 1, 1024), (8, 2, 1024), (8, 5, 1024), (8, 1024, 1),
+                  (8, 1024, 2), (32, 1024, 4)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", SERVING_SHAPES)
+def test_single_scan_at_the_serving_shapes(card, dtype, shape):
+    tol = 1e-5 if dtype == torch.float32 else 1e-2
+    a = _inputs(11, *shape, 8, dtype)
+    cuda_lib.clear_counts()
+    got = gspn_scan.gspn_scan_fwd(*a)
+    assert cuda_lib.launch_counts == {"gspn_scan_fwd": 1}
+    assert _err_ok(got, gspn_scan.gspn_scan_fwd_torch(*a), tol)
+
+
+def test_reduced_lm_on_card_matches_cpu(card):
+    """The reduced LM under its f32 policy: prefill, a chunk chain and
+    decode steps on the card (kernel #1) against the CPU (plain scan)
+    from the same weights: logits 1e-4 of the largest magnitude; two
+    launches of #1 a layer per prefill or chunk, none per decode step,
+    no plain scan on the card."""
+    cfg = with_precision(reduced_lm(), "f32")
+    cpu = lm.LM(cfg, device="cpu", generator=torch.Generator().manual_seed(3))
+    gpu = lm.LM(cfg, device="meta")
+    gpu.load_state_dict({k: v.cuda() for k, v in cpu.state_dict().items()},
+                        assign=True)
+    toks = torch.randint(0, cfg.vocab, (2, 29),
+                         generator=torch.Generator().manual_seed(4))
+    per_pass = {"gspn_scan_fwd": 2 * cfg.n_layers}
+
+    def run(model, dev):
+        t = toks.to(dev)
+        counts, outs = [], []
+
+        def step(fn):
+            cuda_lib.clear_counts()
+            out = fn()
+            counts.append((dict(cuda_lib.launch_counts),
+                           sum(cuda_lib.plain_calls.values())))
+            outs.append(out[0])
+            return out[1]
+
+        with torch.no_grad():
+            caches = step(lambda: lm.lm_prefill(model, t[:, :26]))
+            c = lm.init_lm_cache(cfg, 2, device=dev)
+            for lo, hi in ((0, 16), (16, 26)):
+                c = step(lambda: lm.lm_prefill_chunk(model, t[:, lo:hi], c,
+                                                     lo))
+            for i in range(26, 29):
+                caches = step(lambda: lm.lm_decode_step(
+                    model, t[:, i:i + 1], caches))
+        return counts, [o.cpu() for o in outs]
+
+    _, want = run(cpu, "cpu")
+    counts, got = run(gpu, "cuda")
+    assert counts == [(per_pass, 0)] * 3 + [({}, 0)] * 3
+    for g, w in zip(got, want):
+        assert _err_ok(g, w, 1e-4)

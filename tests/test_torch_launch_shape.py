@@ -423,3 +423,36 @@ def test_single_adjoint_shapes(shape):
     CTAs)."""
     assert pair_launch_shape(*shape, torch.float32, "bwd", 1) == \
         SINGLE_BWD[shape]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("h", [1, 2, 1024])
+@pytest.mark.parametrize("w", [1, 2, 4, 1024])
+def test_single_scan_at_the_serving_shapes(w, h, dtype):
+    """#1 at the LM serving path's planes, cpw 8 (C_proxy): T→B passes of
+    1 or 2 rows of 1024 columns, within-row passes of 1024 rows of 1 to 4
+    columns, and the crossings, for one request (G = 8) and four (G =
+    32).  The ring fits, every plane is covered once, and a plane of 1024
+    rows streams through the ring in batches."""
+    item = torch.empty((), dtype=dtype).element_size()
+    for g in (8, 32):
+        s = pair_launch_shape(g, h, w, 8, dtype, "fwd", 1)
+        _check_fits(s, h, w, 8, item, 2)
+        assert s.grid == (g // 8, s.splits, 1), s
+        blocks = list(itertools.product(*map(range, s.grid)))
+        seen = collections.Counter(pd for block in blocks
+                                   for pd in _cta_planes(s, block, 8))
+        assert seen == {(p, 0): 1 for p in range(g)}, s
+        if h == 1024:
+            assert s.nbuf > 1 and s.stages < h, s
+
+
+def test_single_scan_refuses_rows_wider_than_1024():
+    """Past 1 048 576 tokens the within-row pass would give #1 rows of
+    more than 1024 columns: the launch raises before reaching the card,
+    it never falls back to the plain scan."""
+    from repro_torch.kernels import gspn_scan
+    x = torch.zeros((8, 4, 1025))
+    taps = torch.zeros((1, 4, 1025))
+    with pytest.raises(ValueError, match="exceeds 1024"):
+        gspn_scan.launch(1, gspn_scan.KERNEL, x, taps, taps, taps, x, None)
