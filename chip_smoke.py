@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's main paths (serving, training and the
-four-direction launch ladder) on one CUDA card and hold every CUDA kernel
-against its plain PyTorch version.
+"""Drive the PyTorch port's main paths (vision serving and training, the
+four-direction launch ladder, LM serving and LM training) on one CUDA
+card and hold every CUDA kernel against its plain PyTorch version.
 
 Run from the root of a checkout, with no arguments:
 
@@ -19,7 +19,8 @@ Phases, each of which fails the run on any error:
    ragged shape (H = 19, W = 37, cpw 1 and 4) and a chunked one, and the
    single scan and its adjoint also at the ``qwen2-1.5b-gspn`` mixer's
    two passes at ``train_4k`` (G = 128, cpw 8: H = 4 rows of W = 1024,
-   and H = 1024 rows of W = 4) and at H = 32, W = 1024 with chunk 8, in
+   and H = 1024 rows of W = 4), at the LM train phase's (G = 16) and at
+   H = 32, W = 1024 with chunk 8, in
    float32 and bfloat16 streams (tolerance 1e-5 of the largest magnitude,
    1e-2 for the forward's bfloat16 output); at all but the ragged and
    small chunked shapes, the device time per launch of the kernel and of
@@ -85,7 +86,24 @@ Phases, each of which fails the run on any error:
    one chunk (profiler), peak memory, and #1's launches by shape from the
    counters (56 per prefill or chunk, none per decode step), which the
    ``kernels`` line reports at the kernel phase's serving shapes (#1 at
-   G = 8, cpw 8: 1 and 2 rows of 1024, 1024 rows of 1 and 2).
+   G = 8, cpw 8: 1 and 2 rows of 1024, 1024 rows of 1 and 2);
+10. LM training (``lm train ...`` lines), ``qwen2-1.5b-gspn`` at full
+   width with seeded weights and ``synth_tokens`` batches: (a) under the
+   f32 policy without rematerialisation, ``lm_loss`` and every
+   parameter's gradient at 1 × 2048 tokens through #1 and #2 against the
+   plain path (loss 1e-5 relative, each gradient 1e-4 of its largest
+   magnitude; 56 launches of each, no plain scan); (b) under the config's
+   own policy and ``remat="unit"``, ``build_train_step`` with AdamW at
+   2 × 4096 tokens: one counted step (112 launches of #1 and 56 of #2, by
+   shape: G = 16, cpw 8, 4 rows of 1024 and 1024 rows of 4, which the
+   ``kernels`` line reports at the kernel phase's training shapes), the
+   median of 5 timed steps and tokens/s, loss and gradients alone, peak
+   memory and a profiled step; (c) two steps of the ``bf16`` preset with
+   the f32 master copy and loss scaling (finite gradients, the working
+   copy equal to the master rounded, the kernels' bf16 instances); (d)
+   the trainer twin ``examples/train_lm_torch.py --preset small`` for 60
+   steps, whose loss must fall, then a restart that resumes from its
+   checkpoint under ``build/``.
 
 It prints a ``{"kernels": [...]}`` line and, last, the ``{"ok": true, ...}``
 line.
@@ -149,6 +167,14 @@ SERVE_NEW = 16
 SERVE_CHUNK = 1024
 # The f32 checks' prompt: two chunks.
 CHECK_LEN = 2048
+# The LM training phase: batch x tokens of the timed steps (one chip's
+# share of train_4k), the shapes of #1 and #2 there (G = 2 sequences x
+# C_proxy 8, cpw 8: the T→B pass, 4 rows of 1024, and the within-row pass,
+# 1024 rows of 4), the timed steps, and the trainer twin's steps.
+TRAIN_BATCH, TRAIN_SEQ = 2, 4096
+TRAIN_SHAPES = ((16, 4, 1024, 8, None), (16, 1024, 4, 8, None))
+TRAIN_STEPS = 5
+TWIN_STEPS = 60
 
 
 def _run(cmd) -> str:
@@ -264,6 +290,7 @@ def kernel_phase(gen):
                   (8, 38, 37, 4, 19, dtype, False)]
         cases += [shape + (dtype, True) for shape in LM_SHAPES]
         cases += [shape + (dtype, True) for shape in SERVE_SHAPES]
+        cases += [shape + (dtype, True) for shape in TRAIN_SHAPES]
     # The adjoints write f32 computed in f32 from the same inputs as their
     # plain versions, in either stream dtype.
     tol = {("fwd", torch.float32): 1e-5, ("fwd", torch.bfloat16): 1e-2,
@@ -271,7 +298,7 @@ def kernel_phase(gen):
     results = []
     for name, (kernel, plain, pair, kind) in kernels.items():
         for g, h, w, cpw, chunk, dtype, timed in cases:
-            if pair and (g, h, w, cpw, chunk) in LM_SHAPES:
+            if pair and (g, h, w, cpw, chunk) in LM_SHAPES + TRAIN_SHAPES:
                 continue
             if name != "gspn_scan_fwd" and \
                     (g, h, w, cpw, chunk) in SERVE_SHAPES:
@@ -950,6 +977,207 @@ def lm_serve_phase():
     return shapes
 
 
+def _train_counted(fn, what, expect):
+    """Run ``fn`` with the counters at 0; fail unless #1 and #2 were
+    launched as ``expect`` says and no plain scan ran.  Returns fn's
+    result and the launches by shape."""
+    from repro_torch.kernels import cuda_lib
+
+    cuda_lib.clear_counts()
+    out = fn()
+    torch.cuda.synchronize()
+    launches = dict(cuda_lib.launch_counts)
+    shapes = dict(cuda_lib.launch_shapes)
+    plain = sum(cuda_lib.plain_calls.values())
+    print(f"lm train {what}: launches {launches} by shape "
+          f"{ {'/'.join(map(str, k)): v for k, v in shapes.items()} }, "
+          f"plain scan calls {plain}", flush=True)
+    if launches != expect or plain:
+        raise AssertionError(f"lm train {what}: expected launches {expect} "
+                             f"and no plain scan, got {launches} and {plain}")
+    return out, shapes
+
+
+def _lm_example():
+    """``examples/train_lm_torch.py`` as a module."""
+    path = ROOT / "examples" / "train_lm_torch.py"
+    spec = importlib.util.spec_from_file_location("train_lm_torch", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def lm_train_phase():
+    """The LM training path at full width (``qwen2-1.5b-gspn`` ``full()``,
+    seeded weights, ``synth_tokens`` batches): (a) the f32 kernel path
+    against the plain path, loss and every gradient; (b) the config's own
+    policy under ``remat="unit"``: a counted step, the timed steps, loss
+    and gradients alone, peak memory and a profiled step; (c) the ``bf16``
+    preset with the master copy and loss scaling; (d) the trainer twin and
+    its restart.  Returns (b)'s counted step's launches by shape."""
+    import shutil
+
+    from repro_torch.configs.base import with_precision
+    from repro_torch.configs.qwen2_1_5b_gspn import full
+    from repro_torch.data.pipeline import DataConfig, host_batch, to_device
+    from repro_torch.models import lm
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.train.step import (LossScaleConfig, build_train_step,
+                                        init_train_state)
+
+    cfg = full()
+    n_layers = cfg.layer_count()
+    device = "cuda"
+
+    def batch_of(n, seq, step):
+        return to_device(host_batch(DataConfig(vocab=cfg.vocab, seq_len=seq,
+                                               global_batch=n), step), device)
+
+    def loss_and_grads(m, batch):
+        loss, _ = lm.lm_loss(m, batch)
+        return loss, torch.autograd.grad(loss, list(m.parameters()))
+
+    # (a) The f32 policy, no rematerialisation: kernels against plain.
+    f32 = dataclasses.replace(with_precision(cfg, "f32"), remat="none")
+    gen = torch.Generator(device=device).manual_seed(2)
+    model = lm.LM(f32, device=device, generator=gen)
+    plain = lm.LM(dataclasses.replace(f32, gspn_impl="torch"), device="meta")
+    plain.load_state_dict(model.state_dict(), assign=True)
+    batch = batch_of(1, CHECK_LEN, 0)
+    per = 2 * n_layers
+    (loss, grads), _ = _train_counted(
+        lambda: loss_and_grads(model, batch),
+        f"f32 loss and gradients, 1 x {CHECK_LEN} tokens",
+        {"gspn_scan_fwd": per, "gspn_scan_bwd": per})
+    want_loss, want = loss_and_grads(plain, batch)
+    torch.cuda.synchronize()
+    rel = abs(loss.item() - want_loss.item()) / abs(want_loss.item())
+    errs = {n: ((g - w).abs().max() / w.abs().max()).item()
+            for (n, _), g, w in zip(model.named_parameters(), grads, want)}
+    worst = max(errs, key=errs.get)
+    print(f"lm train f32 kernel vs plain: loss {loss.item()} vs "
+          f"{want_loss.item()} (relative {rel:.3e}, tol 1e-5); gradients "
+          f"of {len(errs)} parameters, worst {worst} at {errs[worst]:.3e} "
+          f"of its largest magnitude (tol 1e-4), median "
+          f"{statistics.median(errs.values()):.3e}", flush=True)
+    if not all(torch.isfinite(g).all() for g in grads):
+        raise AssertionError("lm train: non-finite gradients")
+    if not rel <= 1e-5 or not errs[worst] <= 1e-4:
+        raise AssertionError("lm train: kernel path disagrees with the "
+                             "plain path")
+    del model, plain, grads, want, loss, want_loss
+    torch.cuda.empty_cache()
+
+    # (b) The config's own policy (f32 parameters, bf16 products, the
+    # mixer in f32) under remat="unit", AdamW.
+    if cfg.remat != "unit":
+        raise AssertionError(f"full() rematerialises {cfg.remat!r}")
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    gen = torch.Generator(device=device).manual_seed(3)
+    model = lm.LM(cfg, device=device, generator=gen)
+    ocfg = AdamWConfig(lr=3e-4, warmup_steps=5, total_steps=100)
+    state = init_train_state(model, ocfg)
+    step = build_train_step(model, ocfg)
+    batches = [batch_of(TRAIN_BATCH, TRAIN_SEQ, s) for s in range(2)]
+    state, _ = step(state, batches[0])                # warm-up, not counted
+    torch.cuda.synchronize()
+    (state, metrics), shapes = _train_counted(
+        lambda: step(state, batches[1]),
+        f"step, {TRAIN_BATCH} x {TRAIN_SEQ} tokens, remat unit",
+        {"gspn_scan_fwd": 4 * n_layers, "gspn_scan_bwd": 2 * n_layers})
+    for (g, h, w, _, _) in TRAIN_SHAPES:
+        for name, n in (("gspn_scan_fwd", 2 * n_layers),
+                        ("gspn_scan_bwd", n_layers)):
+            if shapes.get((name, g, h, w, "float32")) != n:
+                raise AssertionError(f"lm train: expected {n} launches of "
+                                     f"{name} at {g}x{h}x{w}")
+    print(f"lm train step metrics: " + ", ".join(
+        f"{k} {float(v):.6g}" for k, v in metrics.items()), flush=True)
+
+    batch = batches[1]
+    dt_grads = _wall_s(lambda: loss_and_grads(model, batch), n=TRAIN_STEPS)
+    torch.cuda.reset_peak_memory_stats()
+    times, losses = [], []
+    for s in range(TRAIN_STEPS):
+        b = batch_of(TRAIN_BATCH, TRAIN_SEQ, 2 + s)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, metrics = step(state, b)
+        losses.append(float(metrics["loss"]))
+        times.append(time.perf_counter() - t0)
+    dt = statistics.median(times)
+    print(f"lm train step {TRAIN_BATCH} x {TRAIN_SEQ} tokens, its own "
+          f"policy, remat unit, AdamW: median {dt * 1e3:.3f} ms of "
+          f"{TRAIN_STEPS} steps ({[round(t * 1e3, 3) for t in times]}), "
+          f"{tokens / dt:.1f} tokens/s; loss and gradients alone "
+          f"{dt_grads * 1e3:.3f} ms; peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB; losses "
+          f"{losses}", flush=True)
+    if not all(map(math.isfinite, losses)):
+        raise AssertionError("lm train: non-finite loss")
+    _profile(lambda: step(state, batch), dt, "lm train step")
+    del model, state, step, batches, batch, metrics
+    torch.cuda.empty_cache()
+
+    # (c) The bf16 preset: bf16 parameters and scans, the f32 master copy
+    # and dynamic loss scaling.
+    bf16 = with_precision(cfg, "bf16")
+    gen = torch.Generator(device=device).manual_seed(4)
+    model = lm.LM(bf16, device=device, generator=gen)
+    ls = LossScaleConfig()
+    state = init_train_state(model, ocfg, master_weights=True,
+                             loss_scaling=ls)
+    step = build_train_step(model, ocfg, master_weights=True,
+                            loss_scaling=ls)
+    torch.cuda.reset_peak_memory_stats()
+    for s in range(2):
+        b = batch_of(TRAIN_BATCH, TRAIN_SEQ, s)
+        t0 = time.perf_counter()
+        (state, metrics), bshapes = _train_counted(
+            lambda: step(state, b), f"bf16 master step {s}",
+            {"gspn_scan_fwd": 4 * n_layers, "gspn_scan_bwd": 2 * n_layers})
+        dt_b = time.perf_counter() - t0
+        if {k[-1] for k in bshapes} != {"bfloat16"}:
+            raise AssertionError("lm train: the bf16 step ran f32 scans")
+        same = all(torch.equal(p, state["master"][n].to(torch.bfloat16))
+                   for n, p in state["params"].items())
+        print(f"lm train bf16 master step {s}: {dt_b * 1e3:.3f} ms, loss "
+              f"{float(metrics['loss']):.6f}, grads_finite "
+              f"{float(metrics['grads_finite']):.0f}, loss scale "
+              f"{float(metrics['loss_scale'])} -> "
+              f"{float(state['loss_scale']['scale'])}, working copy == "
+              f"master rounded to bf16: {same}", flush=True)
+        if float(metrics["grads_finite"]) != 1.0 or not same:
+            raise AssertionError("lm train: bf16 master step failed")
+    print(f"lm train bf16 master steps: peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB", flush=True)
+    del model, state, step, metrics
+    torch.cuda.empty_cache()
+
+    # (d) The trainer twin, then a restart from its checkpoint.
+    ckpt = ROOT / "build" / "lm_twin_ckpt"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    example = _lm_example()
+    argv = ["--preset", "small", "--mixer", "gspn", "--ckpt-dir", str(ckpt)]
+    t0 = time.perf_counter()
+    tr = example.main(argv + ["--steps", str(TWIN_STEPS)])
+    print(f"lm trainer twin: loss {tr.history[0]:.4f} -> "
+          f"{tr.history[-1]:.4f} over {len(tr.history)} steps, "
+          f"{tr.recoveries} recoveries, {tr.stragglers} stragglers, "
+          f"{time.perf_counter() - t0:.3f} s", flush=True)
+    if not tr.history[-1] < tr.history[0] or tr.step != TWIN_STEPS:
+        raise AssertionError("lm trainer twin: the loss did not fall")
+    tr = example.main(argv + ["--steps", "10"])
+    print(f"lm trainer twin restart: resumed at step {tr._first_step}, "
+          f"ran to {tr.step}, loss {tr.history[0]:.4f} -> "
+          f"{tr.history[-1]:.4f}", flush=True)
+    if tr._first_step != TWIN_STEPS or tr.step != TWIN_STEPS + 10 or \
+            not all(map(math.isfinite, tr.history)):
+        raise AssertionError("lm trainer twin did not restart from its "
+                             "checkpoint")
+    return shapes
+
+
 def main() -> int:
     print(f"torch {torch.__version__} cuda {torch.version.cuda} python "
           f"{sys.version.split()[0]}", flush=True)
@@ -990,6 +1218,8 @@ def main() -> int:
     shapes.update(single_bwd)
     # #1's launches at the serving shapes are those of the engine's run.
     shapes.update(lm_serve_phase())
+    # #1's and #2's at the training shapes, those of the counted step.
+    shapes.update(lm_train_phase())
 
     entries = []
     for row in rows:

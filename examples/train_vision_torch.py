@@ -15,7 +15,7 @@ import argparse
 import torch
 
 from repro_torch.configs.gspn2_vision import reduced_vision
-from repro_torch.data.pipeline import DataConfig, synth_images
+from repro_torch.data.pipeline import DataConfig, synth_images, to_device
 from repro_torch.models.vision import GSPNVision, apply_vision, vision_loss
 from repro_torch.optim.adamw import AdamWConfig, adamw_init, adamw_update
 
@@ -28,10 +28,6 @@ def parse_args(argv=None):
     ap.add_argument("--device", default=None,
                     help="torch device; the CUDA card when not given")
     return ap.parse_args(argv)
-
-
-def to_device(batch: dict, device) -> dict:
-    return {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
 
 
 def make_step(model: GSPNVision, ocfg: AdamWConfig):

@@ -1,8 +1,13 @@
-"""Deterministic synthetic image batches, numpy only.
+"""Deterministic synthetic data, numpy only: token batches for the LM and
+image batches for the vision model.
 
-Every batch derives purely from ``(seed, step)``, so a run regenerates the
-same images for any step; the numbers equal the reference package's bit
-for bit.  This port runs one process, so a host's batch is the global one.
+Every batch derives purely from ``(seed, step)``, so a restarted job
+regenerates the same stream for any step; the numbers equal the reference
+package's bit for bit.  This port runs one process, so a host's batch is
+the global one (host sharding comes with ROADMAP.md §1 item 6).  Token
+streams are Zipf-distributed with a Markov skeleton, so models have
+learnable structure (losses fall in the examples' training runs); the
+reference's uniform streams have no caller.
 """
 
 from __future__ import annotations
@@ -10,6 +15,7 @@ from __future__ import annotations
 import dataclasses
 
 import numpy as np
+import torch
 
 
 @dataclasses.dataclass(frozen=True)
@@ -23,6 +29,38 @@ class DataConfig:
 def _batch_rng(cfg: DataConfig, step: int) -> np.random.Generator:
     # Stable across restarts: the seed folds in the step only.
     return np.random.default_rng(np.random.SeedSequence([cfg.seed, step]))
+
+
+def synth_tokens(cfg: DataConfig, step: int) -> np.ndarray:
+    """Global batch of tokens (global_batch, seq_len + 1), int32; callers
+    slice inputs [:-1] and labels [1:]."""
+    rng = _batch_rng(cfg, step)
+    b, s, v = cfg.global_batch, cfg.seq_len + 1, cfg.vocab
+    # Markov skeleton: next token = (prev * a + noise) mod small_band, then
+    # mapped through a Zipf-ish permutation for a realistic marginal.
+    band = min(v, 4096)
+    a = 31
+    x = np.empty((b, s), np.int64)
+    x[:, 0] = rng.integers(0, band, b)
+    noise = rng.integers(0, 7, (b, s))
+    for t in range(1, s):
+        x[:, t] = (x[:, t - 1] * a + noise[:, t]) % band
+    # Zipf-ify: token id -> floor(band * u^1.5) spreads mass toward low ids.
+    u = x.astype(np.float64) / band
+    return (np.floor((u ** 1.5) * min(v, band * 8)) % v).astype(np.int32)
+
+
+def host_batch(cfg: DataConfig, step: int) -> dict:
+    """The batch of ``step`` as numpy: ``tokens`` and ``labels``
+    (global_batch, seq_len), the labels shifted one token left."""
+    toks = synth_tokens(cfg, step)
+    return {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+
+
+def to_device(batch: dict, device) -> dict:
+    """A numpy batch as torch tensors on ``device``."""
+    return {k: torch.from_numpy(np.ascontiguousarray(v)).to(device)
+            for k, v in batch.items()}
 
 
 def synth_images(cfg: DataConfig, step: int, img_size: int,

@@ -1,9 +1,10 @@
 """Launcher flags shared by the entry points, the port's copy of the
-groups of ``repro.launch.args`` that its serving path uses: the kernel
-impl, the precision policy with the pooled state's dtype, the device,
-and the trace and metrics outputs.  The reference's router, tuning-cache
-and sequence-parallel flags come with the parts of the port that use
-them (ROADMAP.md §1 items 2, 4 and 6); until then they do not parse.
+groups of ``repro.launch.args`` that its serving and training paths use:
+the kernel impl, the precision policy with the pooled state's dtype, the
+device, and the trace and metrics outputs.  The reference's router,
+tuning-cache, sequence-parallel and multi-host flags come with the parts
+of the port that use them (ROADMAP.md §1 items 2, 4 and 6); until then
+they do not parse.
 """
 
 from __future__ import annotations

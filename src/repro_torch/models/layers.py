@@ -1,6 +1,7 @@
 """Common layers: the vision backbone's, channels-last (NHWC) like the
-reference package, and the language model's forward (``DTypePolicy``,
-``RMSNorm``, ``SwiGLU``).
+reference package, and the language model's (``DTypePolicy``,
+``RMSNorm`` with the reference's hand VJP, ``SwiGLU``,
+``cross_entropy_loss``).
 
 Parameters keep the reference's names and, for dense weights, its
 ``(d_in, d_out)`` layout, so converted parameters map 1:1; convolution
@@ -76,10 +77,46 @@ class DTypePolicy:
         return t.to(self.compute_dtype)
 
 
+def _rmsnorm(x, scale, eps):
+    """(y, the f32 inverse root of each row's mean square)."""
+    ms = x.float().square().sum(-1) / x.shape[-1]
+    inv = torch.rsqrt(ms + eps)
+    return x * inv[..., None].to(x.dtype) * scale.to(x.dtype), inv
+
+
+class _RMSNormFn(torch.autograd.Function):
+    """The reference's ``_rmsnorm_core`` with its hand VJP
+    (``_rmsnorm_fwd``/``_rmsnorm_bwd``): the mean square and the row
+    reductions of the backward in f32, every other product in ``x.dtype``.
+    Under bf16 that order of roundings is the result, which plain
+    autograd through the forward would not reproduce."""
+
+    @staticmethod
+    def forward(ctx, x, scale, eps):
+        y, inv = _rmsnorm(x, scale, eps)
+        ctx.save_for_backward(x, scale, inv)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        x, scale, inv = ctx.saved_tensors
+        d = x.shape[-1]
+        inv_c = inv[..., None].to(x.dtype)
+        gs = g * scale.to(x.dtype)
+        dot = (gs.float() * x.float()).sum(-1)
+        coef = (dot * inv ** 3 / d)[..., None].to(x.dtype)
+        dx = gs * inv_c - x * coef
+        dscale = (g * x * inv_c).float().reshape(-1, d).sum(0)
+        return dx.to(x.dtype), dscale.to(scale.dtype), None
+
+
 class RMSNorm(nn.Module):
-    """The reference's ``_rmsnorm_core`` forward: the mean square in f32,
-    its inverse root cast to ``x.dtype``, then ``x * inv * scale`` in
-    ``x.dtype`` (under bf16 that order of roundings is the result)."""
+    """The reference's rmsnorm: the mean square in f32, its inverse root
+    cast to ``x.dtype``, then ``x * inv * scale`` in ``x.dtype``; the
+    gradient is the reference's hand VJP (:class:`_RMSNormFn`).  Without
+    grad mode (serving) the forward runs bare: ``Function.apply`` costs
+    ~28 µs of host time a call on the H100's host, 57 calls a decode step
+    (``tools/ab_serve.py``)."""
 
     def __init__(self, dim: int, *, device, dtype=torch.float32,
                  eps: float = 1e-6):
@@ -88,9 +125,9 @@ class RMSNorm(nn.Module):
         self.scale = new_param((dim,), ones, None, device, dtype)
 
     def forward(self, x):
-        ms = x.float().square().sum(-1) / x.shape[-1]
-        inv = torch.rsqrt(ms + self.eps)[..., None].to(x.dtype)
-        return x * inv * self.scale.to(x.dtype)
+        if torch.is_grad_enabled():
+            return _RMSNormFn.apply(x, self.scale, self.eps)
+        return _rmsnorm(x, self.scale, self.eps)[0]
 
 
 class SwiGLU(nn.Module):
@@ -143,6 +180,28 @@ class GeluMLP(nn.Module):
     def forward(self, x):
         h = F.gelu(x @ self.fc1 + self.b1, approximate="tanh")
         return (h @ self.fc2 + self.b2).to(x.dtype)
+
+
+def cross_entropy_loss(logits, labels, mask=None):
+    """Token-level cross entropy in f32: the reference's
+    ``cross_entropy_loss`` (the log-sum-exp from the row maximum, taken in
+    the logits' dtype), the mean over tokens, or over the tokens where
+    ``mask`` is non-zero.
+
+    The reference picks each label's logit with a one-hot einsum, which
+    sums exactly one non-zero product, so ``gather`` gives the same f32
+    value without building the (B, S, V) one-hot: at 8192 tokens of a
+    151 936-word vocabulary that one-hot alone would take 5 GB.
+    """
+    lf = logits.float()
+    m = logits.amax(-1, keepdim=True).float()
+    lse = m[..., 0] + torch.log(torch.exp(lf - m).sum(-1))
+    ll = lf.gather(-1, labels.long()[..., None])[..., 0]
+    nll = lse - ll
+    if mask is not None:
+        mask = mask.float()
+        return (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+    return nll.mean()
 
 
 def same_padding(n: int, k: int, s: int) -> tuple[int, int]:

@@ -9,7 +9,8 @@ stages repeated ``n_units`` times.  The port runs the ``gspn`` block kind
 brings it.
 
 Entry points, each the reference's twin over an :class:`LM` module:
-:func:`apply_lm` (logits of a whole sequence), :func:`lm_prefill` (logits
+:func:`apply_lm` (logits of a whole sequence), :func:`lm_loss` (the
+training loss and its parts), :func:`lm_prefill` (logits
 and the decode caches), :func:`lm_prefill_chunk` (one prompt chunk against
 live caches, DESIGN.md §9), :func:`init_lm_cache` and
 :func:`lm_decode_step` (one token per sequence, O(W) state per layer).
@@ -24,21 +25,32 @@ is gathered in the compute dtype, the residual stream stays in it, the
 mixer computes in ``gspn_compute_dtype`` (f32 unless a precision preset
 narrows it), the FFN in the compute dtype, and the head is
 ``x.to(cd) @ embed.T.to(cd)``; the decode step's mixer runs in f32.
+
+:func:`apply_lm` and :func:`lm_loss` run under the caller's grad mode;
+with gradients on, each block is rematerialised as ``LMConfig.remat``
+says (the reference's ``_maybe_remat``): ``"none"`` keeps every
+activation and ``"unit"`` keeps only each block's input and runs the
+block again in the backward (so the mixer's scans launch twice a step).
+The reference's ``"dots"`` (keep the matrix products' outputs) has no
+caller in the port until the dry-run of ROADMAP.md §1 item 8, and raises.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any
 
 import torch
 from torch import nn
+from torch.utils import checkpoint
 
 from repro_torch.core.gspn import (GSPNSeqConfig, GSPNSeqMixer,
                                    gspn_seq_prefill_chunk)
 from repro_torch.device import resolve_device
 from repro_torch.models.layers import (DTypePolicy, RMSNorm, SwiGLU,
-                                       dense_init, embed_init)
+                                       cross_entropy_loss, dense_init,
+                                       embed_init)
 
 # Block kinds of the reference that the port does not run yet, and the
 # ROADMAP.md §1 item that brings each.
@@ -79,8 +91,9 @@ class LMConfig:
     # compute_dtype, so chunked ≡ one-shot stays exact unless a precision
     # preset (configs.base.with_precision) narrows it.
     gspn_compute_dtype: torch.dtype = torch.float32
-    # The reference's sharding and rematerialisation knobs; the configs
-    # set them and this forward reads neither.
+    # The reference's sharding knob, which the configs set and nothing
+    # reads yet, and the rematerialisation of each block under gradients:
+    # "none" or "unit".
     n_model_shards: int = 1
     remat: str = "unit"
     param_dtype: torch.dtype = torch.float32
@@ -320,12 +333,41 @@ class LM(nn.Module):
         return apply_lm(self, tokens)
 
 
+REMAT = ("none", "unit")
+
+
+def _maybe_remat(cfg: LMConfig, block):
+    """``block`` as the reference's ``_maybe_remat`` wraps a layer's body:
+    as it is under "none" or without gradients, else under non-reentrant
+    activation checkpointing."""
+    if cfg.remat == "dots":
+        raise NotImplementedError(
+            'remat="dots" is not in the port yet; ROADMAP.md §1 item 8 (the '
+            "dry-run, its only caller) brings it")
+    if cfg.remat not in REMAT:
+        raise ValueError(f"remat must be one of {REMAT}, got {cfg.remat!r}")
+    if cfg.remat == "none" or not torch.is_grad_enabled():
+        return block
+    return functools.partial(checkpoint.checkpoint, block,
+                             use_reentrant=False)
+
+
 def apply_lm(model: LM, tokens, *, ctx: Ctx | None = None):
     """Logits (B, S, V) of tokens (B, S) int."""
     x = model.embed_tokens(tokens)
     for _, _, block in model.walk():
-        x = block(x)
+        x = _maybe_remat(model.cfg, block)(x)
     return model.logits(x)
+
+
+def lm_loss(model: LM, batch, *, ctx: Ctx | None = None):
+    """batch: dict(tokens (B, S), labels (B, S), [mask]).  Returns
+    (ce + aux, {"ce", "aux"}); ``aux`` is 0, the gspn kind having no
+    auxiliary loss (the reference adds the MoE kinds' here)."""
+    logits = apply_lm(model, batch["tokens"], ctx=ctx)
+    ce = cross_entropy_loss(logits, batch["labels"], batch.get("mask"))
+    aux = torch.zeros((), dtype=torch.float32, device=ce.device)
+    return ce + aux, {"ce": ce, "aux": aux}
 
 
 def init_lm_cache(cfg: LMConfig, batch: int, *, device):

@@ -9,17 +9,21 @@ holds one copy of them; it returns only the step's statistics.
 
 The reference decays a leaf when its pytree path passes ``_decay_mask``
 and the leaf has two or more dimensions.  Its block parameters are
-stacked along depth, one leaf per stage: a depthwise bias
+stacked along depth, one leaf per stage: a vision block's depthwise bias
 ``stages/S/blocks/lpu/b`` is (depth, C) there and decayed, while the
-port's ``stages.S.blocks.K.lpu.b`` is (C,).  :func:`decays` therefore asks
-the reference's question of the reference's leaf, not of the port's
-tensor (:func:`reference_path`).
+port's ``stages.S.blocks.K.lpu.b`` is (C,); an LM block's
+``stages/s0_gspn/ln1/scale`` is (n, D) in a prelude stage and
+(n_units, n, D) in a unit stage, where the port has
+``stages.s0_gspn.I.ln1.scale`` or ``stages.s0_gspn.U.I.ln1.scale``, (D,).
+:func:`decays` therefore asks the reference's question of the reference's
+leaf, not of the port's tensor (:func:`reference_leaf`).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
+import re
 
 import torch
 
@@ -86,24 +90,35 @@ def adamw_init(cfg: AdamWConfig, params) -> dict:
 _NO_DECAY = ("scale", "bias", "b1", "b2", "dt_bias", "a_log", "d_skip")
 
 
-def reference_path(name: str) -> str:
-    """The reference's pytree path of the leaf a port parameter comes
-    from: ``stages.2.blocks.1.lpu.b`` -> ``stages/2/blocks/lpu/b`` (the
-    reference stacks a stage's blocks in one leaf, so the block index
-    goes)."""
-    parts = name.split(".")
-    return "/".join(p for i, p in enumerate(parts)
-                    if not (i and parts[i - 1] == "blocks" and p.isdigit()))
+# An LM stage key, ``s{i}_{kind}``: the block indices after it are
+# stacking axes of the reference's leaf.
+_STAGE_KEY = re.compile(r"s\d+_\w+")
+
+
+def reference_leaf(name: str) -> tuple[str, int]:
+    """(the reference's pytree path of the leaf a port parameter comes
+    from, the number of stacking axes that leaf has in front of the port's
+    tensor).  The block indices that follow ``blocks`` (vision) or a stage
+    key (LM: one for a prelude stage, two for a unit stage) are stacking
+    axes there: ``stages.2.blocks.1.lpu.b`` -> (``stages/2/blocks/lpu/b``,
+    1), ``stages.s0_gspn.0.3.ln1.scale`` -> (``stages/s0_gspn/ln1/scale``,
+    2)."""
+    kept, axes, stacks = [], 0, False
+    for part in name.split("."):
+        if stacks and part.isdigit():
+            axes += 1
+            continue
+        kept.append(part)
+        stacks = part == "blocks" or bool(_STAGE_KEY.fullmatch(part))
+    return "/".join(kept), axes
 
 
 def decays(name: str, p: torch.Tensor) -> bool:
     """Whether the reference decays this parameter: its path passes the
-    mask and its reference leaf (one dimension more for a block parameter,
-    stacked along depth) has at least two dimensions."""
-    path = reference_path(name)
-    stacked = path != name.replace(".", "/")
-    return (not any(t in path for t in _NO_DECAY)
-            and p.dim() + stacked >= 2)
+    mask and its reference leaf (stacked along depth for a block
+    parameter) has at least two dimensions."""
+    path, axes = reference_leaf(name)
+    return not any(t in path for t in _NO_DECAY) and p.dim() + axes >= 2
 
 
 @torch.no_grad()

@@ -591,3 +591,105 @@ def test_reduced_lm_on_card_matches_cpu(card):
     assert counts == [(per_pass, 0)] * 3 + [({}, 0)] * 3
     for g, w in zip(got, want):
         assert _err_ok(g, w, 1e-4)
+
+
+# ---------------------------------------------------------------------------
+# LM training on the card: a narrow LM with the full model's 1024-wide rows.
+# ---------------------------------------------------------------------------
+
+def _narrow_lm(precision="f32", **kw):
+    """2 layers, d 64, C_proxy 8, row width 1024: 2048 tokens fold into 2
+    rows of 1024, the within-row pass into 1024 rows of 2 columns."""
+    return dataclasses.replace(
+        with_precision(reduced_lm(), precision), d_model=64,
+        gspn_proxy_dim=8, gspn_row_width=1024, **kw)
+
+
+def _lm_batch(cfg, seed=0, n=1, seq=2048):
+    toks = torch.randint(0, cfg.vocab, (n, seq + 1),
+                         generator=torch.Generator().manual_seed(seed))
+    return {"tokens": toks[:, :-1].cuda(), "labels": toks[:, 1:].cuda()}
+
+
+def test_lm_loss_gradients_on_card_match_plain(card):
+    """``lm_loss`` and every parameter's gradient through #1 and #2
+    against the plain scans on the card (f32, TF32 off): loss 1e-5
+    relative, gradients 1e-4 of each one's largest magnitude."""
+    cfg = _narrow_lm()
+    model = lm.LM(cfg, device="cuda",
+                  generator=torch.Generator(device="cuda").manual_seed(0))
+    plain = lm.LM(dataclasses.replace(cfg, gspn_impl="torch"), device="meta")
+    plain.load_state_dict(model.state_dict(), assign=True)
+    batch = _lm_batch(cfg)
+
+    def loss_and_grads(m):
+        loss, _ = lm.lm_loss(m, batch)
+        return loss, torch.autograd.grad(loss, list(m.parameters()))
+
+    cuda_lib.clear_counts()
+    loss, grads = loss_and_grads(model)
+    torch.cuda.synchronize()
+    assert dict(cuda_lib.launch_counts) == {"gspn_scan_fwd": 4,
+                                            "gspn_scan_bwd": 4}
+    assert not cuda_lib.plain_calls
+    want_loss, want = loss_and_grads(plain)
+    assert abs(loss.item() - want_loss.item()) <= 1e-5 * abs(want_loss.item())
+    for g, w in zip(grads, want):
+        assert torch.isfinite(g).all()
+        assert _err_ok(g, w, 1e-4)
+
+
+@pytest.mark.parametrize("remat,fwd", [("none", 4), ("unit", 8)])
+def test_lm_train_step_launches_on_card(card, remat, fwd):
+    """One train step's launches: two scans a layer forward, two adjoints
+    a layer backward, and the forward's again under rematerialisation;
+    no plain scan."""
+    from repro_torch.train.step import build_train_step, init_train_state
+
+    cfg = _narrow_lm(remat=remat)
+    model = lm.LM(cfg, device="cuda",
+                  generator=torch.Generator(device="cuda").manual_seed(1))
+    ocfg = AdamWConfig()
+    state = init_train_state(model, ocfg)
+    step = build_train_step(model, ocfg)
+    batch = _lm_batch(cfg, seed=1)
+    cuda_lib.clear_counts()
+    state, metrics = step(state, batch)
+    torch.cuda.synchronize()
+    assert dict(cuda_lib.launch_counts) == {"gspn_scan_fwd": fwd,
+                                            "gspn_scan_bwd": 4}
+    assert dict(cuda_lib.launch_shapes) == {
+        ("gspn_scan_fwd", 8, 2, 1024, "float32"): fwd // 2,
+        ("gspn_scan_fwd", 8, 1024, 2, "float32"): fwd // 2,
+        ("gspn_scan_bwd", 8, 2, 1024, "float32"): 2,
+        ("gspn_scan_bwd", 8, 1024, 2, "float32"): 2}
+    assert not cuda_lib.plain_calls
+    assert torch.isfinite(metrics["loss"]) and state["opt"]["step"] == 1
+
+
+def test_bf16_master_weight_step_on_card(card):
+    """One step under the ``bf16`` preset with the f32 master copy and
+    loss scaling: finite gradients, the working copy equal to the master
+    rounded to bf16, the scans' bf16 instances launched."""
+    from repro_torch.train.step import (LossScaleConfig, build_train_step,
+                                        init_train_state)
+
+    cfg = _narrow_lm("bf16", remat="unit")
+    model = lm.LM(cfg, device="cuda",
+                  generator=torch.Generator(device="cuda").manual_seed(2))
+    ocfg, ls = AdamWConfig(), LossScaleConfig()
+    state = init_train_state(model, ocfg, master_weights=True,
+                             loss_scaling=ls)
+    step = build_train_step(model, ocfg, master_weights=True,
+                            loss_scaling=ls)
+    cuda_lib.clear_counts()
+    state, metrics = step(state, _lm_batch(cfg, seed=2))
+    torch.cuda.synchronize()
+    assert float(metrics["grads_finite"]) == 1.0
+    assert state["opt"]["step"] == 1
+    assert {k[-1] for k in cuda_lib.launch_shapes} == {"bfloat16"}
+    assert dict(cuda_lib.launch_counts) == {"gspn_scan_fwd": 8,
+                                            "gspn_scan_bwd": 4}
+    for n, p in state["params"].items():
+        assert p.dtype == torch.bfloat16
+        assert torch.equal(p, state["master"][n].to(torch.bfloat16)), n

@@ -8,6 +8,7 @@ each leaf's largest magnitude (convolutions and matrix products sum in
 another order than XLA's), AdamW 1e-6, the twin's losses 1e-4 relative.
 """
 
+import dataclasses
 import functools
 import importlib.util
 import pathlib
@@ -19,13 +20,17 @@ import pytest
 import torch
 
 from repro.configs import gspn2_vision as jconfigs
+from repro.configs import qwen2_1_5b_gspn as jq
+from repro.models import lm as jlm
 from repro.models import vision as jvision
 from repro.optim import adamw as jadamw
 from repro_torch.configs import gspn2_vision as configs
+from repro_torch.configs import qwen2_1_5b_gspn as tq
 from repro_torch.data import pipeline
 from repro_torch.kernels import cuda_lib
+from repro_torch.models import lm as tlm
 from repro_torch.models import vision
-from repro_torch.models.convert import vision_state_from_jax
+from repro_torch.models.convert import lm_state_from_jax, vision_state_from_jax
 from repro_torch.optim import adamw
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
@@ -150,7 +155,8 @@ def test_global_norm_and_clip_match_reference():
 
 def test_decayed_names_match_reference_mask(reduced):
     """The port decays what the reference decays, leaf by leaf, although
-    the reference's block leaves carry one more (depth) dimension."""
+    the reference's block leaves carry one more (depth) dimension, two in
+    an LM's unit stage."""
     _, params, _ = reduced
     flat, treedef = jax.tree_util.tree_flatten_with_path(_np(params))
     masks = [np.full(leaf.shape, float(jadamw._decay_mask(path)
@@ -165,6 +171,38 @@ def test_decayed_names_match_reference_mask(reduced):
     assert got == want
     # The trap: a block's depthwise bias is (C,) here, (depth, C) there.
     assert "stages.0.blocks.0.lpu.b" in got and "stem.b" not in got
+
+    # The LM's trees: a unit stage stacks its blocks along (n_units, n),
+    # a prelude stage along (n,); every leaf against the reference's mask
+    # and ndim rule.
+    reduced_lm = jq.reduced()
+    for jcfg in (reduced_lm, dataclasses.replace(
+            reduced_lm, prelude=(("gspn", 1),), unit=(("gspn", 2),),
+            n_units=2, n_layers=5)):
+        shapes = jax.eval_shape(lambda k: jlm.init_lm(k, jcfg),
+                                jax.random.PRNGKey(0))
+        flat, treedef = jax.tree_util.tree_flatten_with_path(shapes)
+        masks = [np.full(leaf.shape, float(jadamw._decay_mask(path)
+                                           and leaf.ndim >= 2), np.float32)
+                 for path, leaf in flat]
+        state = lm_state_from_jax(jax.tree_util.tree_unflatten(treedef,
+                                                               masks))
+        assert not any(v.any() and not v.all() for v in state.values())
+        model = tlm.LM(dataclasses.replace(
+            tq.reduced(), prelude=jcfg.prelude, unit=jcfg.unit,
+            n_units=jcfg.n_units, n_layers=jcfg.n_layers), device="meta")
+        got = {n for n, p in model.named_parameters() if adamw.decays(n, p)}
+        assert got == {k for k, v in state.items() if bool(v.all())}
+        assert model.state_dict().keys() == state.keys()
+        assert "embed" in got and "ln_f.scale" not in got
+        assert not any(n.endswith(".scale") for n in got)
+        assert any(n.endswith("mix.w_row") for n in got)
+    assert adamw.reference_leaf("stages.s0_gspn.1.ln1.scale") == (
+        "stages/s0_gspn/ln1/scale", 1)
+    assert adamw.reference_leaf("stages.s1_gspn.0.1.mix.up") == (
+        "stages/s1_gspn/mix/up", 2)
+    assert adamw.reference_leaf("stages.2.blocks.1.lpu.b") == (
+        "stages/2/blocks/lpu/b", 1)
 
 
 @pytest.mark.parametrize("n_steps", [1, 3])
