@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's main paths (vision serving and training, the
-four-direction launch ladder, LM serving and LM training) on one CUDA
-card and hold every CUDA kernel against its plain PyTorch version.
+four-direction launch ladder, LM serving and LM training on the GSPN-2
+mixer and on attention) on one CUDA card and hold every CUDA kernel
+against its plain PyTorch version.
 
 Run from the root of a checkout, with no arguments:
 
@@ -103,7 +104,28 @@ Phases, each of which fails the run on any error:
    copy equal to the master rounded, the kernels' bf16 instances); (d)
    the trainer twin ``examples/train_lm_torch.py --preset small`` for 60
    steps, whose loss must fall, then a restart that resumes from its
-   checkpoint under ``build/``.
+   checkpoint under ``build/``;
+11. the attn block kind (``lm attn ...`` lines), ``qwen2-1.5b`` at full
+   width (28 layers, d_model 1536, 12 heads over 2, vocab 151 936, tied,
+   qkv bias) with seeded weights, no scan launched anywhere: (a) under
+   the f32 policy, a 2048-token prompt as two chunks of 1024 against the
+   one-shot prefill (logits 1e-4, KV caches 1e-4) and 2 decode steps
+   against ``apply_lm`` with its attention dense (1e-4; blockwise, 2050
+   tokens would halve the key block to 2), and ``chunked_attention`` at
+   1 x 4096,
+   forward and gradients, against the exact (f64) attention (1e-5) and
+   against ``full_attention`` (2e-5: on the card the dense path's own
+   f32 dv sits 8.9e-6 from the exact one, the blockwise path's 3.9e-6);
+   (b) the
+   engine under the config's own policy over the serving phase's
+   requests (4 slots, chunks of 1024, max_len 4112): TTFT per request,
+   tok/s, the median decode step and chunk, their idle shares and
+   attention's share of their device time, the KV pool's bytes, peak
+   memory; (c) training at 2 x 4096 under ``remat="unit"`` with AdamW:
+   the median of 5 steps, tokens/s, loss and gradients alone, peak
+   memory, a profiled step and attention's share of its device time
+   (the kernels under the ``attention.*`` spans of that profile); (d) ``granite-3-2b`` ``full()`` under the f32 policy: a
+   prefill of 1024 and 4 decode steps against ``apply_lm`` (1e-4).
 
 It prints a ``{"kernels": [...]}`` line and, last, the ``{"ok": true, ...}``
 line.
@@ -111,6 +133,7 @@ line.
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import importlib.util
 import json
@@ -434,20 +457,35 @@ def single_direction_grad_check(gen):
     return shapes
 
 
-def _profile(fn, wall_s, what):
+def _profile(fn, wall_s, what, spans=None):
     """Where one call of ``fn`` spends device time: the profiler's device
     time by kernel, the scan kernels' share (forward and adjoint), and the
-    device's idle share of an eager call that took ``wall_s``."""
+    device's idle share of an eager call that took ``wall_s``.  With
+    ``spans``, a prefix of ``obs`` span names, tracing is on for the call
+    and the device time of the kernels launched inside those spans is
+    read from the same profile, by span.  Returns the device time in ms,
+    None when the profiler recorded none."""
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    # Kernel records only: the operator records carry the same device time.
+    from repro_torch import obs
+
+    if spans:
+        obs.clear()
+        obs.enable()
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+    finally:
+        obs.disable()
+    # Kernel records only: the operator records carry the same device
+    # time, and so do the device-side ranges that the profiler adds for
+    # each obs span (named as the span, idle gaps included).
+    spanned = {r.name for r in obs.records()}
     ops = [e for e in prof.key_averages()
            if e.device_type == torch.autograd.DeviceType.CUDA
-           and e.self_device_time_total > 0]
+           and e.self_device_time_total > 0 and e.key not in spanned]
     ops.sort(key=lambda e: -e.self_device_time_total)
     device_us = sum(e.self_device_time_total for e in ops)
     scan_us = {k: sum(e.self_device_time_total for e in ops
@@ -456,7 +494,7 @@ def _profile(fn, wall_s, what):
     if device_us == 0:
         print(f"profile {what}: the profiler recorded no device time; "
               f"device breakdown not measured", flush=True)
-        return
+        return None
     scans = ", ".join(f"{k} {v / 1e3:.3f} ms ({v / device_us:.4f})"
                       for k, v in scan_us.items())
     print(f"profile {what}: device time {device_us / 1e3:.3f} ms, eager "
@@ -468,6 +506,39 @@ def _profile(fn, wall_s, what):
     for e in ops[:15]:
         print(f"profile {what} op: {e.self_device_time_total / 1e3:9.3f} ms "
               f"x{e.count:<5d} {e.key[:90]}", flush=True)
+    if spans:
+        _span_share(prof, spans, device_us, what)
+    return device_us / 1e3
+
+
+def _span_share(prof, prefix, device_us, what):
+    """The device time under the host-side ``record_function`` ranges
+    whose names start with ``prefix`` (each range's kernels and those of
+    the operators inside it), by name, and their share of the profile's
+    device time ``device_us``.  Fails when the spans hold more device
+    time than the profile has, or when no span was recorded."""
+    by_name = collections.Counter()
+    count = collections.Counter()
+    for e in prof.events():
+        if e.name.startswith(prefix) and \
+                e.device_type == torch.autograd.DeviceType.CPU:
+            by_name[e.name] += e.device_time_total
+            count[e.name] += 1
+    total = sum(by_name.values())
+    if not count:
+        raise AssertionError(f"profile {what}: no {prefix}* span recorded")
+    parts = ", ".join(f"{n} {by_name[n] / 1e3:.3f} ms x{count[n]}"
+                      for n in sorted(by_name))
+    if total == 0:
+        print(f"profile {what}: {prefix}* spans ({parts}) hold no device "
+              f"time; their share not measured", flush=True)
+        return
+    print(f"profile {what}: {prefix}* spans' device time "
+          f"{total / 1e3:.3f} ms, {total / device_us:.4f} of the profile's "
+          f"device time ({parts})", flush=True)
+    if total > device_us * 1.0001:
+        raise AssertionError(f"profile {what}: the {prefix}* spans hold "
+                             f"more device time than the profile")
 
 
 def _profile_forward(model, images, wall_s):
@@ -864,13 +935,14 @@ def lm_serve_phase():
                          device=device)
     prompt = toks[:, :check_len]
     with torch.no_grad():
-        logits, caches = _counted(lambda: lm.lm_prefill(kern, prompt),
+        logits, caches = _counted(lambda: lm.lm_prefill(kern, prompt,
+                                                        check_len + 2),
                                   f"f32 prefill of {check_len}", per_pass)
-        want, _ = lm.lm_prefill(plain, prompt)
+        want, _ = lm.lm_prefill(plain, prompt, check_len + 2)
         _logits_check(f"f32 prefill of {check_len}, kernel vs plain",
                       logits, want)
         del want
-        c = lm.init_lm_cache(f32, 1, device=device)
+        c = lm.init_lm_cache(f32, 1, check_len + 2, device=device)
         parts = []
         for lo in range(0, check_len, chunk):
             part, c = _counted(
@@ -961,7 +1033,7 @@ def lm_serve_phase():
     # chunk of 1024 tokens resumed at 1024.
     last = eng.last_token
     caches = eng.pool.caches
-    c = lm.init_lm_cache(cfg, 1, device=device)
+    c = lm.init_lm_cache(cfg, 1, eng.max_len, device=device)
     for sub in c.values():
         sub["pos"].fill_(chunk)
     ctoks = toks[:, :chunk]
@@ -1178,6 +1250,311 @@ def lm_train_phase():
     return shapes
 
 
+def _no_scans(fn, what):
+    """Run ``fn`` with the counters at 0; fail if any GSPN scan ran (the
+    attention path launches no kernel of its own and no scan).  Returns
+    fn's result."""
+    from repro_torch.kernels import cuda_lib
+
+    cuda_lib.clear_counts()
+    out = fn()
+    torch.cuda.synchronize()
+    if cuda_lib.launch_counts or cuda_lib.plain_calls:
+        raise AssertionError(f"lm attn {what}: a scan ran: "
+                             f"{dict(cuda_lib.launch_counts)}, "
+                             f"{dict(cuda_lib.plain_calls)}")
+    return out
+
+
+def _exact_attention(q, k, v):
+    """Causal GQA attention in f64 (q's head h reads kv head h // G),
+    returned in q's dtype: the exact value both f32 paths round."""
+    b, s, hq, d = q.shape
+    hkv = k.shape[2]
+    qg = q.double().reshape(b, s, hkv, hq // hkv, d)
+    logits = torch.einsum("bqhgd,bkhd->bhgqk", qg, k.double()) / math.sqrt(d)
+    i = torch.arange(s, device=q.device)
+    p = torch.softmax(torch.where(i[None, :] <= i[:, None], logits,
+                                  -math.inf), dim=-1)
+    out = torch.einsum("bhgqk,bkhd->bqhgd", p, v.double())
+    return out.reshape(b, s, hq, d).to(q.dtype)
+
+
+def lm_attn_phase():
+    """The attn block kind at full width: ``qwen2-1.5b`` ``full()`` with
+    seeded weights.  (a) Under the f32 policy: a chunk chain against the
+    one-shot prefill, decode against ``apply_lm``, and
+    ``chunked_attention`` against ``full_attention`` at one layer's
+    shapes; (b) the engine over ``SERVE_PROMPTS`` under the config's own
+    policy; (c) training at ``TRAIN_BATCH`` x ``TRAIN_SEQ`` under
+    ``remat="unit"`` with AdamW; (d) ``granite-3-2b`` ``full()`` under the
+    f32 policy, prefill and decode against ``apply_lm``."""
+    from repro_torch import obs
+    from repro_torch.configs import granite_3_2b
+    from repro_torch.configs.base import with_precision
+    from repro_torch.configs.qwen2_1_5b import full
+    from repro_torch.data.pipeline import DataConfig, host_batch, to_device
+    from repro_torch.models import attention, lm
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.serve.engine import Request, ServeEngine
+    from repro_torch.train.step import build_train_step, init_train_state
+
+    cfg = full()
+    device = "cuda"
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=device).manual_seed(0)
+    model = lm.LM(cfg, device=device, generator=gen)
+    torch.cuda.synchronize()
+    print(f"lm attn {cfg.name}: {lm.count_params(model)} parameters "
+          f"({cfg.layer_count()} layers, d_model {cfg.d_model}, "
+          f"{cfg.n_heads} heads over {cfg.n_kv_heads}, head_dim {cfg.hd}, "
+          f"d_ff {cfg.d_ff}, vocab {cfg.vocab}, qkv bias {cfg.qkv_bias}, "
+          f"tied {cfg.tie_embeddings}), set-up "
+          f"{time.perf_counter() - t0:.3f} s", flush=True)
+
+    # (a) The f32 policy over the same weights (stored in f32).
+    f32 = with_precision(cfg, "f32")
+    kern = lm.LM(f32, device="meta")
+    kern.load_state_dict(model.state_dict(), assign=True)
+    chunk, check_len = SERVE_CHUNK, CHECK_LEN
+    max_len = check_len + 2
+    toks = torch.randint(0, cfg.vocab, (1, max_len), generator=gen,
+                         device=device)
+    prompt = toks[:, :check_len]
+    with torch.no_grad():
+        t0 = time.perf_counter()
+        logits, caches = _no_scans(
+            lambda: lm.lm_prefill(kern, prompt, max_len),
+            f"f32 prefill of {check_len}")
+        print(f"lm attn f32 prefill of {check_len}: "
+              f"{(time.perf_counter() - t0) * 1e3:.3f} ms", flush=True)
+        c = lm.init_lm_cache(f32, 1, max_len, device=device)
+        parts = []
+        for lo in range(0, check_len, chunk):
+            part, c = _no_scans(
+                lambda: lm.lm_prefill_chunk(kern, prompt[:, lo:lo + chunk],
+                                            c, lo),
+                f"f32 chunk at {lo}")
+            parts.append(part)
+        _logits_check(f"attn f32 chunk chain of {check_len} vs one-shot",
+                      torch.cat(parts, 1), logits)
+        worst = max((a.float() - b.float()).abs().max().item()
+                    / max(b.float().abs().max().item(), 1e-30)
+                    for k in caches for n in ("k", "v")
+                    for a, b in [(c[k][n], caches[k][n])])
+        print(f"lm attn f32 chunk chain KV caches vs one-shot: worst leaf "
+              f"error / largest magnitude {worst:.3e} (tol 1e-4)",
+              flush=True)
+        if not worst <= 1e-4 or not all(
+                torch.equal(c[k]["length"], caches[k]["length"])
+                for k in caches):
+            raise AssertionError("lm attn: chunk-chain caches disagree")
+        del parts, c
+        steps = []
+        for i in (check_len, check_len + 1):
+            step, caches = _no_scans(
+                lambda: lm.lm_decode_step(kern, toks[:, i:i + 1], caches),
+                f"f32 decode step at {i}")
+            steps.append(step)
+        # The reference forward of all max_len tokens with its attention
+        # dense: 2050 = 2 x 1025 would halve block_k from 512 down to 2.
+        dense = lm.LM(dataclasses.replace(f32, attn_block_k=max_len),
+                      device="meta")
+        dense.load_state_dict(model.state_dict(), assign=True)
+        t0 = time.perf_counter()
+        full_logits = _no_scans(lambda: lm.apply_lm(dense, toks),
+                                f"f32 apply_lm of {max_len}")
+        print(f"lm attn f32 apply_lm of {max_len} tokens (attention dense, "
+              f"attn_block_k {max_len}): "
+              f"{(time.perf_counter() - t0) * 1e3:.3f} ms", flush=True)
+        _logits_check("attn f32 decode vs apply_lm", torch.cat(steps, 1),
+                      full_logits[:, check_len:])
+        del logits, caches, steps, full_logits, kern, dense
+
+    # One layer's attention in f32: blockwise against dense, forward and
+    # gradients, at 1 x 4096 tokens; and each against the exact (f64)
+    # attention, which tells the two paths' own f32 rounding apart.
+    g2 = torch.Generator(device=device).manual_seed(5)
+    seq = 4096
+    shapes = ((1, seq, cfg.n_heads, cfg.hd), (1, seq, cfg.n_kv_heads, cfg.hd),
+              (1, seq, cfg.n_kv_heads, cfg.hd))
+    qkv = [torch.randn(s, generator=g2, device=device).requires_grad_()
+           for s in shapes]
+    ct = torch.randn(shapes[0], generator=g2, device=device)
+    outs = {}
+    for name, fn in (("chunked", lambda *a: attention.chunked_attention(
+            *a, block_k=cfg.attn_block_k)),
+                     ("full", attention.full_attention),
+                     ("exact", _exact_attention)):
+        out = fn(*qkv)
+        outs[name] = (out.detach(), *torch.autograd.grad(out, qkv, ct))
+
+    def errs(a, b):
+        return [((x.double() - y.double()).abs().max()
+                 / y.double().abs().max()).item()
+                for x, y in zip(outs[a], outs[b])]
+
+    for a, b in (("chunked", "full"), ("chunked", "exact"),
+                 ("full", "exact")):
+        e = errs(a, b)
+        print(f"lm attn {a} vs {b} attention, 1 x {seq}, {cfg.n_heads} "
+              f"over {cfg.n_kv_heads} heads, {cfg.hd}, f32: error / "
+              f"largest magnitude out {e[0]:.3e}, dq {e[1]:.3e}, dk "
+              f"{e[2]:.3e}, dv {e[3]:.3e}", flush=True)
+    if not max(errs("chunked", "exact")) <= 1e-5:
+        raise AssertionError("lm attn: chunked_attention is not within "
+                             "1e-5 of the exact attention")
+    if not max(errs("chunked", "full")) <= 2e-5:
+        raise AssertionError("lm attn: chunked_attention disagrees with "
+                             "full_attention")
+    del qkv, ct, outs
+    print(f"lm attn f32 checks: peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB", flush=True)
+
+    # (b) The engine under the config's own policy.
+    torch.cuda.reset_peak_memory_stats()
+    prompts, new = SERVE_PROMPTS, SERVE_NEW
+    eng = ServeEngine(model, batch_size=4, max_len=max(prompts) + new,
+                      prefill_chunk=chunk)
+    rng = torch.Generator().manual_seed(1)
+    reqs = [Request(uid=i, prompt=torch.randint(0, cfg.vocab, (n,),
+                                                generator=rng).numpy(),
+                    max_new_tokens=new) for i, n in enumerate(prompts)]
+    handles = [eng.submit(r) for r in reqs]
+    torch.cuda.synchronize()
+    obs.clear()
+    obs.enable()
+    try:
+        t0 = time.perf_counter()
+        _no_scans(eng.run, "engine run")
+        dt = time.perf_counter() - t0
+    finally:
+        obs.disable()
+    m = eng.metrics
+    results = [h.result() for h in handles]
+    total = sum(len(r.tokens) for r in results)
+    for r, n in zip(results, prompts):
+        print(f"lm attn serve request {r.uid}: prompt {n}, ttft "
+              f"{r.ttft * 1e3:.3f} ms, queue {r.queue_delay * 1e3:.3f} ms, "
+              f"chunks {r.prefill_chunks}, {len(r.tokens)} tokens "
+              f"{r.tokens}", flush=True)
+    step_ms = [s.dur / 1e6 for s in obs.spans("serve.decode_step")]
+    chunk_ms = [s.dur / 1e6 for s in obs.spans("serve.prefill_chunk")]
+    print(f"lm attn serve: {len(results)} requests, {total} tokens in "
+          f"{dt:.3f} s ({total / dt:.3f} tok/s); {m['prefills']} one-shot "
+          f"prefills, {m['prefill_chunks']} chunks, {m['decode_steps']} "
+          f"decode steps; median decode step {statistics.median(step_ms):.3f}"
+          f" ms (of {len(step_ms)}), median chunk "
+          f"{statistics.median(chunk_ms):.3f} ms (of {len(chunk_ms)}); KV "
+          f"pool {eng.pool.nbytes} bytes ({max(prompts) + new} positions x "
+          f"4 slots); peak memory of the run "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB", flush=True)
+    if [len(r.tokens) for r in results] != [new] * len(prompts) or \
+            not all(0 <= t < cfg.vocab for r in results for t in r.tokens):
+        raise AssertionError("lm attn serve: wrong tokens")
+    last, pooled = eng.last_token, eng.pool.caches
+    c = lm.init_lm_cache(cfg, 1, eng.max_len, device=device)
+    ctoks = toks[:, :chunk]
+    with torch.no_grad():
+        def decode():
+            return lm.lm_decode_step(model, last, pooled)
+
+        def resume():
+            return lm.lm_prefill_chunk(model, ctoks, c, chunk)
+
+        _profile(decode, _wall_s(decode), "lm attn decode step (4 slots)",
+                 spans="attention.")
+        _profile(resume, _wall_s(resume), f"lm attn chunk of {chunk} at "
+                                          f"{chunk}", spans="attention.")
+    del eng, last, pooled, c, model
+    torch.cuda.empty_cache()
+
+    # (c) Training under the config's own policy, remat="unit", AdamW.
+    if cfg.remat != "unit":
+        raise AssertionError(f"full() rematerialises {cfg.remat!r}")
+
+    def batch_of(n, seq, step):
+        return to_device(host_batch(DataConfig(vocab=cfg.vocab, seq_len=seq,
+                                               global_batch=n), step), device)
+
+    def loss_and_grads(m, batch):
+        loss, _ = lm.lm_loss(m, batch)
+        return loss, torch.autograd.grad(loss, list(m.parameters()))
+
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    gen = torch.Generator(device=device).manual_seed(3)
+    model = lm.LM(cfg, device=device, generator=gen)
+    ocfg = AdamWConfig(lr=3e-4, warmup_steps=5, total_steps=100)
+    state = init_train_state(model, ocfg)
+    step = build_train_step(model, ocfg)
+    batch = batch_of(TRAIN_BATCH, TRAIN_SEQ, 0)
+    state, metrics = _no_scans(lambda: step(state, batch), "train step")
+    print(f"lm attn train step metrics: " + ", ".join(
+        f"{k} {float(v):.6g}" for k, v in metrics.items()), flush=True)
+    dt_grads = _wall_s(lambda: loss_and_grads(model, batch), n=TRAIN_STEPS)
+    torch.cuda.reset_peak_memory_stats()
+    times, losses = [], []
+    for s in range(TRAIN_STEPS):
+        b = batch_of(TRAIN_BATCH, TRAIN_SEQ, 1 + s)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, metrics = step(state, b)
+        losses.append(float(metrics["loss"]))
+        times.append(time.perf_counter() - t0)
+    dt = statistics.median(times)
+    print(f"lm attn train step {TRAIN_BATCH} x {TRAIN_SEQ} tokens, its own "
+          f"policy, remat unit, AdamW: median {dt * 1e3:.3f} ms of "
+          f"{TRAIN_STEPS} steps ({[round(t * 1e3, 3) for t in times]}), "
+          f"{tokens / dt:.1f} tokens/s; loss and gradients alone "
+          f"{dt_grads * 1e3:.3f} ms; peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB; losses "
+          f"{losses}", flush=True)
+    if not all(map(math.isfinite, losses)):
+        raise AssertionError("lm attn train: non-finite loss")
+    # Attention's share: the device time under the attention.* spans of
+    # the same profiled step (the blockwise forward, its recompute under
+    # remat and its two-sweep backward, in each of the 28 layers).
+    _profile(lambda: step(state, batch), dt, "lm attn train step",
+             spans="attention.")
+    del state, step, metrics, model
+    torch.cuda.empty_cache()
+
+    # (d) granite-3-2b full() under the f32 policy: no qkv bias, groups of
+    # 4, an odd vocabulary.
+    gcfg = with_precision(granite_3_2b.full(), "f32")
+    gen = torch.Generator(device=device).manual_seed(7)
+    t0 = time.perf_counter()
+    model = lm.LM(gcfg, device=device, generator=gen)
+    print(f"lm attn {gcfg.name}: {lm.count_params(model)} parameters "
+          f"({gcfg.layer_count()} layers, d_model {gcfg.d_model}, "
+          f"{gcfg.n_heads} heads over {gcfg.n_kv_heads}, vocab {gcfg.vocab}, "
+          f"qkv bias {gcfg.qkv_bias}), f32, set-up "
+          f"{time.perf_counter() - t0:.3f} s", flush=True)
+    plen, n_dec = 1024, 4
+    gtoks = torch.randint(0, gcfg.vocab, (1, plen + n_dec), generator=gen,
+                          device=device)
+    with torch.no_grad():
+        logits, caches = _no_scans(
+            lambda: lm.lm_prefill(model, gtoks[:, :plen], plen + n_dec),
+            f"granite prefill of {plen}")
+        steps = []
+        for i in range(plen, plen + n_dec):
+            step_logits, caches = _no_scans(
+                lambda: lm.lm_decode_step(model, gtoks[:, i:i + 1], caches),
+                f"granite decode step at {i}")
+            steps.append(step_logits)
+        full_logits = lm.apply_lm(model, gtoks)
+        _logits_check(f"attn {gcfg.name} f32 prefill of {plen} vs "
+                      f"apply_lm", logits, full_logits[:, :plen])
+        _logits_check(f"attn {gcfg.name} f32 {n_dec} decode steps vs "
+                      f"apply_lm", torch.cat(steps, 1), full_logits[:, plen:])
+    if full_logits.shape[-1] != gcfg.vocab:
+        raise AssertionError("lm attn granite: wrong vocabulary")
+    del model, logits, caches, steps, full_logits
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     print(f"torch {torch.__version__} cuda {torch.version.cuda} python "
           f"{sys.version.split()[0]}", flush=True)
@@ -1220,6 +1597,8 @@ def main() -> int:
     shapes.update(lm_serve_phase())
     # #1's and #2's at the training shapes, those of the counted step.
     shapes.update(lm_train_phase())
+    # The attention LM launches no kernel: its phase adds no launches.
+    lm_attn_phase()
 
     entries = []
     for row in rows:

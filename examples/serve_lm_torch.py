@@ -1,12 +1,15 @@
 """Request-generator driver for the PyTorch port's continuous-batching
-engine, the twin of ``examples/serve_lm.py --mixer gspn``.
+engine, the twin of ``examples/serve_lm.py`` for its ``gspn`` and
+``attn`` mixers.
 
     PYTHONPATH=src python examples/serve_lm_torch.py --requests 12 --rate 8 \\
-        --prefill-chunk 32 --scheduler sjf
+        --prefill-chunk 32 --scheduler sjf --mixer attn
 
-Builds a small GSPN-mixer LM with seeded weights on the card (``--device
-cpu`` runs the plain path on the CPU), then plays an arrival process
-against the engine: requests arrive at ``--rate`` req/s (exponential
+Builds a small LM with seeded weights on the card (``--device cpu`` runs
+the plain path on the CPU), with the GSPN-2 mixer (``--mixer gspn``, the
+default) or GQA attention (``--mixer attn``, the reference example's
+default; its KV cache holds 512 positions a slot), then plays an arrival
+process against the engine: requests arrive at ``--rate`` req/s (exponential
 inter-arrivals) with a short/long prompt mix, and the driver interleaves
 ``submit`` with engine ``tick()``s, as a front end would.  Long prompts
 are consumed in ``--prefill-chunk``-token chunks between decode steps, so
@@ -39,6 +42,7 @@ def main(argv=None):
     ap.add_argument("--prefill-chunk", type=int, default=32)
     ap.add_argument("--scheduler", default="fcfs", choices=["fcfs", "sjf"])
     ap.add_argument("--temperature", type=float, default=0.8)
+    ap.add_argument("--mixer", default="gspn", choices=["gspn", "attn"])
     ap.add_argument("--device", default=None,
                     help="torch device (default: the CUDA card)")
     ap.add_argument("--stream", action="store_true",
@@ -47,9 +51,9 @@ def main(argv=None):
 
     device = resolve_device(args.device)
     cfg = LMConfig(
-        name="serve-gspn", family="dense", n_layers=4, d_model=256,
+        name=f"serve-{args.mixer}", family="dense", n_layers=4, d_model=256,
         n_heads=8, n_kv_heads=4, d_ff=1024, vocab=8192,
-        unit=(("gspn", 4),), n_units=1, gspn_proxy_dim=8,
+        unit=((args.mixer, 4),), n_units=1, gspn_proxy_dim=8,
         gspn_row_width=32, remat="none")
     model = LM(cfg, device=device,
                generator=torch.Generator(device=device).manual_seed(0))
@@ -83,7 +87,7 @@ def main(argv=None):
     total = sum(len(r.tokens) for r in results.values())
     ttfts = sorted(r.ttft for r in results.values())
     print(f"served {len(results)} requests / {total} tokens in {dt:.2f}s "
-          f"({total / dt:.1f} tok/s, mixer=gspn, device={device}, "
+          f"({total / dt:.1f} tok/s, mixer={args.mixer}, device={device}, "
           f"slots={args.batch}, chunk={eng.prefill_chunk}, "
           f"sched={args.scheduler})")
     m = eng.metrics

@@ -9,9 +9,9 @@ of ``examples/train_lm.py``, through ``repro_torch`` (no JAX).
 ``--mixer gspn`` (the default here) runs the paper's GSPN-2 sequence
 mixer; on the card its scans run the hand-written CUDA kernels, forward
 and adjoint, and ``--device cpu`` runs their plain versions.
-``--mixer attn``, the reference's default, raises until the attention
-kinds are ported (ROADMAP.md §1 item 3.2).  The run resumes from the
-latest checkpoint in ``--ckpt-dir``.
+``--mixer attn``, the reference's default, runs GQA attention with rope
+(plain PyTorch products, the blockwise softmax past 512 tokens).  The
+run resumes from the latest checkpoint in ``--ckpt-dir``.
 """
 
 import argparse

@@ -116,10 +116,6 @@ REGISTRY: Dict[str, ArchEntry] = {}
 # The reference's architectures the port does not run yet, and the
 # ROADMAP.md §1 item that brings each.
 NOT_PORTED = {
-    "qwen2-1.5b": "item 3.2 (attention kinds)",
-    "qwen2.5-3b": "item 3.2 (attention kinds)",
-    "granite-3-2b": "item 3.2 (attention kinds)",
-    "qwen1.5-32b": "item 3.2 (attention kinds)",
     "qwen2-vl-72b": "item 3.6 (the other families: M-RoPE and vision "
                     "embeddings)",
     "kimi-k2-1t-a32b": "item 3.6 (the other families: MoE)",
@@ -130,13 +126,23 @@ NOT_PORTED = {
 }
 
 
+FULL_ATTENTION_SKIP = (
+    "full attention is quadratic in context; assignment rule: skip "
+    "long_500k for pure full-attention archs (decode itself is O(L) but "
+    "the rule is applied as written; see DESIGN.md §4)")
+
+
 def register(entry: ArchEntry):
     REGISTRY[entry.name] = entry
     return entry
 
 
 def _populate():
+    import repro_torch.configs.granite_3_2b  # noqa: F401
+    import repro_torch.configs.qwen1_5_32b  # noqa: F401
+    import repro_torch.configs.qwen2_1_5b  # noqa: F401
     import repro_torch.configs.qwen2_1_5b_gspn  # noqa: F401
+    import repro_torch.configs.qwen2_5_3b  # noqa: F401
 
 
 def get_arch(name: str) -> ArchEntry:

@@ -4,9 +4,12 @@ synthetic request stream through the continuous-batching engine
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-1.5b-gspn \\
         --requests 8 --prefill-chunk 1024 --max-len 4096
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-1.5b \\
+        --requests 8 --prefill-chunk 1024 --max-len 4112
 
 Engine knobs: ``--max-batch`` (decode slots), ``--max-len`` (prompt plus
-generated tokens per request), ``--prefill-chunk`` (0 = one-shot prefill;
+generated tokens per request, and the positions of each slot's KV cache
+under attention), ``--prefill-chunk`` (0 = one-shot prefill;
 otherwise longer prompts are consumed in chunks between decode steps),
 ``--scheduler fcfs|sjf``, ``--temperature`` (0 = greedy), ``--impl``
 (the GSPN scan: ``auto`` runs kernel #1 on the card), ``--precision``

@@ -6,6 +6,8 @@ unless ``--device`` names another device.
         --steps 20 --batch 2 --seq 4096
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-1.5b-gspn \\
         --reduced --device cpu --steps 4 --batch 2 --seq 32
+    PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-1.5b \\
+        --steps 20 --batch 2 --seq 4096
 
 ``--reduced`` trains the architecture's small config; ``--precision``
 rewrites the dtype policy (DESIGN.md §10), and a low-precision parameter

@@ -24,13 +24,23 @@ _BLOCK_LEAVES = {
     "mlp": ("fc1", "b1", "fc2", "b2"),
 }
 _CONV_MODULES = ("lpu", "lpu2")
-# Leaves of one LM block of the gspn kind.
-_GSPN_BLOCK_LEAVES = {
-    "ln1": ("scale",),
-    "mix": ("down", "w_taps", "w_row", "w_lam", "w_u", "up"),
-    "ln2": ("scale",),
-    "ffn": ("gate", "up", "down"),
+# Leaves of one LM block, by kind.  The attn kind's qkv biases exist only
+# under ``qkv_bias``: present as a group or not at all.
+_LM_BLOCK_LEAVES = {
+    "gspn": {
+        "ln1": ("scale",),
+        "mix": ("down", "w_taps", "w_row", "w_lam", "w_u", "up"),
+        "ln2": ("scale",),
+        "ffn": ("gate", "up", "down"),
+    },
+    "attn": {
+        "ln1": ("scale",),
+        "attn": ("wq", "wk", "wv", "wo"),
+        "ln2": ("scale",),
+        "ffn": ("gate", "up", "down"),
+    },
 }
+_QKV_BIAS = ("bq", "bk", "bv")
 
 
 def _flatten(tree, prefix=()):
@@ -110,12 +120,13 @@ def lm_state_from_jax(params_np) -> dict[str, torch.Tensor]:
     """``state_dict`` of an ``LM`` from the reference's ``init_lm`` pytree
     given as numpy arrays.
 
-    Each stage ``stages/s{i}_gspn`` stacks its blocks' leaves along
-    leading axes: (n,) for a prelude stage, (n_units, n) for a unit stage,
-    told apart by the rank of ``ln1/scale``.  They unstack into
-    ``stages.s{i}_gspn.{i}`` or ``stages.s{i}_gspn.{u}.{i}``.  Every leaf
-    maps to exactly one entry; a missing leaf raises ``KeyError`` and a
-    leaf left over raises ``ValueError``.
+    Each stage ``stages/s{i}_{kind}`` (kind ``gspn`` or ``attn``) stacks
+    its blocks' leaves along leading axes: (n,) for a prelude stage,
+    (n_units, n) for a unit stage, told apart by the rank of
+    ``ln1/scale``.  They unstack into ``stages.s{i}_{kind}.{i}`` or
+    ``stages.s{i}_{kind}.{u}.{i}``.  Every leaf maps to exactly one entry;
+    a missing leaf raises ``KeyError`` and a leaf left over raises
+    ``ValueError``.
     """
     leaves = dict(_flatten(params_np))
     state: dict[str, np.ndarray] = {}
@@ -126,10 +137,14 @@ def lm_state_from_jax(params_np) -> dict[str, torch.Tensor]:
         state["head"] = take("head")
     keys = sorted({p[1] for p in leaves if p[0] == "stages"})
     for key in keys:
-        if not key.endswith("_gspn"):
-            raise ValueError(f"stage {key}: only the gspn kind is ported")
+        kind = key.split("_", 1)[1]
+        if kind not in _LM_BLOCK_LEAVES:
+            raise ValueError(f"stage {key}: the {kind} kind is not ported")
         lead = np.asarray(leaves[("stages", key, "ln1", "scale")]).shape[:-1]
-        for mod, names in _GSPN_BLOCK_LEAVES.items():
+        modules = dict(_LM_BLOCK_LEAVES[kind])
+        if ("stages", key, "attn", "bq") in leaves:
+            modules["attn"] += _QKV_BIAS
+        for mod, names in modules.items():
             for name in names:
                 stacked = take("stages", key, mod, name)
                 if stacked.shape[:len(lead)] != lead:

@@ -182,6 +182,29 @@ class GeluMLP(nn.Module):
         return (h @ self.fc2 + self.b2).to(x.dtype)
 
 
+def rope_freqs(head_dim: int, theta: float = 10000.0, *, device=None):
+    """The rotary frequencies ``1 / theta ** (arange(0, d, 2) / d)`` in
+    f32."""
+    e = torch.arange(0, head_dim, 2, dtype=torch.float32,
+                     device=device) / head_dim
+    return 1.0 / (theta ** e)
+
+
+def apply_rope(x, positions, theta: float = 10000.0):
+    """Rotary position embedding of x (B, S, H, D) at positions (B, S) int:
+    the two halves of the last axis rotate as one pair per frequency
+    (split halves, not interleaved pairs), angles and rotation in f32,
+    the result cast back to x's dtype."""
+    d = x.shape[-1]
+    freqs = rope_freqs(d, theta, device=x.device)             # (D/2,)
+    ang = positions[..., None].float() * freqs                # (B,S,D/2)
+    cos = torch.cos(ang)[:, :, None, :]
+    sin = torch.sin(ang)[:, :, None, :]
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
 def cross_entropy_loss(logits, labels, mask=None):
     """Token-level cross entropy in f32: the reference's
     ``cross_entropy_loss`` (the log-sum-exp from the row maximum, taken in

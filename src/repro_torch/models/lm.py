@@ -1,36 +1,44 @@
-"""The causal language model on the GSPN-2 sequence mixer.
+"""The causal language model: the GSPN-2 sequence mixer and GQA
+attention.
 
 A model is described by :class:`LMConfig`, the reference's
 (``repro.models.lm.LMConfig``) with torch dtypes: ``prelude``, a list of
 ``(kind, n)`` stages applied once, then ``unit``, a list of ``(kind, n)``
-stages repeated ``n_units`` times.  The port runs the ``gspn`` block kind
-(pre-norm GSPN-2 sequence mixer + pre-norm SwiGLU FFN), the whole of
-``qwen2-1.5b-gspn``; any other kind raises and names the ROADMAP item that
-brings it.
+stages repeated ``n_units`` times.  The port runs two block kinds of
+:data:`KINDS`: ``gspn`` (pre-norm GSPN-2 sequence mixer + pre-norm SwiGLU
+FFN, ``qwen2-1.5b-gspn``) and ``attn`` (pre-norm GQA attention with rope +
+pre-norm SwiGLU FFN, ``qwen2-1.5b`` and its kin); any other kind raises
+and names the ROADMAP item that brings it.
 
 Entry points, each the reference's twin over an :class:`LM` module:
 :func:`apply_lm` (logits of a whole sequence), :func:`lm_loss` (the
 training loss and its parts), :func:`lm_prefill` (logits
 and the decode caches), :func:`lm_prefill_chunk` (one prompt chunk against
 live caches, DESIGN.md §9), :func:`init_lm_cache` and
-:func:`lm_decode_step` (one token per sequence, O(W) state per layer).
+:func:`lm_decode_step` (one token per sequence: O(W) state per gspn
+layer, a KV cache of ``max_len`` positions per attn layer).
 
 Caches keep the reference's layout: a dict per stage key ``s{i}_{kind}``
 whose leaves carry leading ``(n,)`` axes for a prelude stage and
 ``(n_units, n)`` for a unit stage before the batch axis, so
-:mod:`repro_torch.serve.cache` scatters a slot along the same axis.
+:mod:`repro_torch.serve.cache` scatters a slot along the same axis.  An
+attn stage's leaves (``k``, ``v``, ``length``) sit directly under its
+key, where the reference nests them one level deeper, under ``"attn"``.
 
 Dtypes follow the reference's cast points (DESIGN.md §10): the embedding
 is gathered in the compute dtype, the residual stream stays in it, the
 mixer computes in ``gspn_compute_dtype`` (f32 unless a precision preset
-narrows it), the FFN in the compute dtype, and the head is
-``x.to(cd) @ embed.T.to(cd)``; the decode step's mixer runs in f32.
+narrows it), attention's projections in the compute dtype and its
+products and softmax in f32, the FFN in the compute dtype, and the head
+is ``x.to(cd) @ embed.T.to(cd)``; the decode step's mixer runs in f32,
+and the KV cache holds k (after rope) and v in the compute dtype.
 
 :func:`apply_lm` and :func:`lm_loss` run under the caller's grad mode;
 with gradients on, each block is rematerialised as ``LMConfig.remat``
 says (the reference's ``_maybe_remat``): ``"none"`` keeps every
 activation and ``"unit"`` keeps only each block's input and runs the
-block again in the backward (so the mixer's scans launch twice a step).
+block again in the backward (so the mixer's scans launch twice a step,
+and attention's blockwise forward runs twice).
 The reference's ``"dots"`` (keep the matrix products' outputs) has no
 caller in the port until the dry-run of ROADMAP.md §1 item 8, and raises.
 """
@@ -48,6 +56,9 @@ from torch.utils import checkpoint
 from repro_torch.core.gspn import (GSPNSeqConfig, GSPNSeqMixer,
                                    gspn_seq_prefill_chunk)
 from repro_torch.device import resolve_device
+from repro_torch.models.attention import (Attention, AttentionConfig,
+                                          chunk_prefill_attention,
+                                          init_kv_cache)
 from repro_torch.models.layers import (DTypePolicy, RMSNorm, SwiGLU,
                                        cross_entropy_loss, dense_init,
                                        embed_init)
@@ -55,7 +66,6 @@ from repro_torch.models.layers import (DTypePolicy, RMSNorm, SwiGLU,
 # Block kinds of the reference that the port does not run yet, and the
 # ROADMAP.md §1 item that brings each.
 NOT_PORTED_KINDS = {
-    "attn": "item 3.2 (attention kinds)",
     "attn_moe": "item 3.6 (the other families: MoE)",
     "xattn": "item 3.6 (the other families: encoder-decoder)",
     "mamba": "item 3.6 (the other families: SSM)",
@@ -75,10 +85,13 @@ class LMConfig:
     family: str                    # dense|moe|ssm|hybrid|vlm|audio
     n_layers: int
     d_model: int
-    n_heads: int                   # read by the attention kinds (not yet
-    n_kv_heads: int                # ported); the gspn kind has no heads
+    n_heads: int                   # read by the attn kind; the gspn
+    n_kv_heads: int                # kind has no heads
     d_ff: int
     vocab: int
+    head_dim: int = 0              # 0 => d_model // n_heads
+    qkv_bias: bool = False
+    rope_theta: float = 1e6
     tie_embeddings: bool = False
     prelude: tuple = ()            # ((kind, n), ...), applied once
     unit: tuple = ()               # ((kind, n), ...), repeated n_units times
@@ -96,9 +109,14 @@ class LMConfig:
     # "none" or "unit".
     n_model_shards: int = 1
     remat: str = "unit"
+    attn_block_k: int = 512        # key block of the blockwise attention
     param_dtype: torch.dtype = torch.float32
     compute_dtype: torch.dtype = torch.bfloat16
     carry_dtype: torch.dtype = torch.float32
+
+    @property
+    def hd(self) -> int:
+        return self.head_dim or self.d_model // self.n_heads
 
     @property
     def policy(self) -> DTypePolicy:
@@ -138,6 +156,13 @@ def gspn_config(cfg: LMConfig) -> GSPNSeqConfig:
         carry_dtype=cfg.carry_dtype)
 
 
+def attn_config(cfg: LMConfig) -> AttentionConfig:
+    return AttentionConfig(
+        dim=cfg.d_model, n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
+        head_dim=cfg.head_dim, qkv_bias=cfg.qkv_bias,
+        rope_theta=cfg.rope_theta, block_k=cfg.attn_block_k)
+
+
 # ---------------------------------------------------------------------------
 # The gspn block kind.
 # ---------------------------------------------------------------------------
@@ -164,7 +189,9 @@ class GSPNBlock(nn.Module):
     def forward(self, x):
         return self._ffn(x + self.mix(self.ln1(x)))
 
-    def prefill(self, x):
+    def prefill(self, x, max_len: int):
+        """``max_len`` sizes an attn block's cache; the O(W) state here
+        does not depend on it."""
         y, cache = self.mix(self.ln1(x), return_cache=True)
         return self._ffn(x + y), cache
 
@@ -178,13 +205,98 @@ class GSPNBlock(nn.Module):
         return self._ffn(x + y), new
 
 
+# ---------------------------------------------------------------------------
+# The attn block kind.
+# ---------------------------------------------------------------------------
+
+def _positions(b: int, t: int, device, off: int = 0):
+    return (off + torch.arange(t, dtype=torch.int32, device=device))[
+        None].expand(b, t)
+
+
+class AttnBlock(nn.Module):
+    """Pre-norm GQA attention with rope + pre-norm SwiGLU FFN, with the
+    four paths of the reference's ``attn`` kind.  Positions are
+    ``arange(S)`` in ``forward`` and ``prefill``, ``off + arange(T)`` in a
+    chunk and each sequence's cache length in ``decode``.  The cache is
+    k (after rope) and v (B, max_len, Hkv, D) in the compute dtype and the
+    int32 ``length`` (B,)."""
+
+    def __init__(self, cfg: LMConfig, *, generator, device):
+        super().__init__()
+        d, pd = cfg.d_model, cfg.param_dtype
+        self.cd = cfg.compute_dtype
+        self.ln1 = RMSNorm(d, device=device, dtype=pd)
+        self.attn = Attention(attn_config(cfg), cfg.policy,
+                              generator=generator, device=device)
+        self.ln2 = RMSNorm(d, device=device, dtype=pd)
+        self.ffn = SwiGLU(d, cfg.d_ff, cfg.policy, generator=generator,
+                          device=device)
+
+    def _ffn(self, x):
+        return x + self.ffn(self.ln2(x))
+
+    def forward(self, x):
+        b, s, _ = x.shape
+        return self._ffn(x + self.attn(self.ln1(x),
+                                       _positions(b, s, x.device)))
+
+    def prefill(self, x, max_len: int):
+        """The forward, and the cache of the prompt's k and v padded to
+        ``max_len`` positions.  A prompt longer than ``max_len`` raises
+        (the reference's pad width would go negative)."""
+        b, s, _ = x.shape
+        if s > max_len:
+            raise ValueError(f"a prompt of {s} tokens does not fit the KV "
+                             f"cache's max_len={max_len}")
+        attn = self.attn
+        q, k, v = attn.project_qkv(self.ln1(x))
+        q, k = attn.apply_positions(q, k, _positions(b, s, x.device))
+        x = x + attn.project_out(attn.attend(q, k, v), x.dtype)
+        cache = init_kv_cache(b, max_len, attn.cfg, self.cd, device=x.device)
+        cache["k"][:, :s] = k
+        cache["v"][:, :s] = v
+        cache["length"].fill_(s)
+        return self._ffn(x), cache
+
+    def prefill_chunk(self, x, cache, off: int):
+        """The (B, T) chunk at offset ``off``: its k and v written into a
+        copy of the cache, attention over the cache with the offset causal
+        mask.  A chunk past the cache's end raises (the reference clamps
+        the write offset)."""
+        b, t, _ = x.shape
+        max_len = cache["k"].shape[1]
+        if off + t > max_len:
+            raise ValueError(f"a chunk of {t} tokens at offset {off} does "
+                             f"not fit the KV cache's max_len={max_len}")
+        attn = self.attn
+        q, k, v = attn.project_qkv(self.ln1(x))
+        q, k = attn.apply_positions(q, k, _positions(b, t, x.device, off))
+        kc, vc = cache["k"].clone(), cache["v"].clone()
+        kc[:, off:off + t] = k
+        vc[:, off:off + t] = v
+        out = attn.project_out(chunk_prefill_attention(q, kc, vc, off),
+                               x.dtype)
+        length = torch.full((b,), off + t, dtype=torch.int32,
+                            device=x.device)
+        return self._ffn(x + out), {"k": kc, "v": vc, "length": length}
+
+    def decode(self, x, cache):
+        y, new = self.attn.decode(self.ln1(x), cache)
+        return self._ffn(x + y), new
+
+
+# The block kinds the port runs.
+KINDS = {"gspn": GSPNBlock, "attn": AttnBlock}
+
+
 def _check_kind(kind: str) -> None:
     """Raise unless the port runs block kind ``kind``."""
     if kind in NOT_PORTED_KINDS:
         raise NotImplementedError(
             f"block kind {kind!r} is not in the port yet; ROADMAP.md §1 "
             f"{NOT_PORTED_KINDS[kind]} brings it")
-    if kind != "gspn":
+    if kind not in KINDS:
         raise ValueError(f"unknown block kind {kind!r}")
 
 
@@ -296,7 +408,7 @@ class LM(nn.Module):
             _check_kind(kind)
 
             def blocks():
-                return nn.ModuleList([GSPNBlock(cfg, **kw)
+                return nn.ModuleList([KINDS[kind](cfg, **kw)
                                       for _ in range(n)])
             self.stages[_stage_key(si, kind)] = (
                 blocks() if where == "prelude" else
@@ -362,22 +474,30 @@ def apply_lm(model: LM, tokens, *, ctx: Ctx | None = None):
 
 def lm_loss(model: LM, batch, *, ctx: Ctx | None = None):
     """batch: dict(tokens (B, S), labels (B, S), [mask]).  Returns
-    (ce + aux, {"ce", "aux"}); ``aux`` is 0, the gspn kind having no
-    auxiliary loss (the reference adds the MoE kinds' here)."""
+    (ce + aux, {"ce", "aux"}); ``aux`` is 0, neither the gspn nor the
+    attn kind having an auxiliary loss (the reference adds the MoE
+    kinds' here)."""
     logits = apply_lm(model, batch["tokens"], ctx=ctx)
     ce = cross_entropy_loss(logits, batch["labels"], batch.get("mask"))
     aux = torch.zeros((), dtype=torch.float32, device=ce.device)
     return ce + aux, {"ce": ce, "aux": aux}
 
 
-def init_lm_cache(cfg: LMConfig, batch: int, *, device):
+def init_lm_cache(cfg: LMConfig, batch: int, max_len: int, *, device):
     """Zeroed decode caches of ``batch`` sequences, in the reference's
-    layout (per stage key, leading (n,) or (n_units, n) axes)."""
+    layout (per stage key, leading (n,) or (n_units, n) axes); an attn
+    stage's KV cache holds ``max_len`` positions, a gspn stage's state
+    does not depend on it."""
     caches = {}
     for si, (where, kind, n) in enumerate(cfg.stages()):
         _check_kind(kind)
         lead = (n,) if where == "prelude" else (cfg.n_units, n)
-        one = init_gspn_decode_cache(batch, gspn_config(cfg), device=device)
+        if kind == "attn":
+            one = init_kv_cache(batch, max_len, attn_config(cfg),
+                                cfg.compute_dtype, device=device)
+        else:
+            one = init_gspn_decode_cache(batch, gspn_config(cfg),
+                                         device=device)
         caches[_stage_key(si, kind)] = {
             k: v.expand(lead + v.shape).clone() for k, v in one.items()}
     return caches
@@ -388,27 +508,33 @@ def _store(caches, key, idx, layer_cache):
         caches[key][name][idx].copy_(v)
 
 
-def lm_prefill(model: LM, tokens, *, ctx: Ctx | None = None):
-    """Forward over the prompt (B, S) that also fills the decode caches.
-    Returns (logits (B, S, V), caches)."""
+def lm_prefill(model: LM, tokens, max_len: int, *, ctx: Ctx | None = None):
+    """Forward over the prompt (B, S) that also fills the decode caches,
+    whose KV caches hold ``max_len`` positions.  Returns (logits (B, S,
+    V), caches)."""
     x = model.embed_tokens(tokens)
-    caches = init_lm_cache(model.cfg, tokens.shape[0], device=x.device)
+    caches = init_lm_cache(model.cfg, tokens.shape[0], max_len,
+                           device=x.device)
     for key, idx, block in model.walk():
-        x, layer_cache = block.prefill(x)
+        x, layer_cache = block.prefill(x, max_len)
         _store(caches, key, idx, layer_cache)
     return model.logits(x), caches
 
 
 def supports_chunked_prefill(cfg: LMConfig) -> bool:
-    """True iff every stage kind resumes from its cache (the gspn kind)
-    and the fold width is fixed (row_width > 0)."""
-    return all(kind == "gspn" for _, kind, _ in cfg.stages()) \
-        and cfg.gspn_row_width > 0
+    """True iff every stage kind resumes from its cache (the gspn and attn
+    kinds do) and, with a gspn stage, the fold width is fixed (row_width
+    > 0)."""
+    kinds = {kind for _, kind, _ in cfg.stages()}
+    if not kinds <= KINDS.keys():
+        return False
+    return "gspn" not in kinds or cfg.gspn_row_width > 0
 
 
 def prefill_chunk_alignment(cfg: LMConfig) -> int:
     """Chunks start on GSPN grid-row boundaries, so chunk sizes snap to a
-    multiple of the fold width when a gspn stage is present; 1 otherwise."""
+    multiple of the fold width when a gspn stage is present; 1 otherwise
+    (an attention-only model chunks anywhere)."""
     if any(kind == "gspn" for _, kind, _ in cfg.stages()):
         return max(1, cfg.gspn_row_width)
     return 1

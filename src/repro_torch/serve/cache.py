@@ -3,7 +3,8 @@ port's ``repro.serve.cache`` without the prefix cache (ROADMAP.md §1
 item 4).
 
 Slot/cache lifecycle contract (DESIGN.md §9): the pool owns one batched
-cache (``init_lm_cache(cfg, n_slots)``) whose batch axis is the slot id.
+cache (``init_lm_cache(cfg, n_slots, max_len)``) whose batch axis is the
+slot id.
 A request's life cycle against the pool is
 
     slot = pool.alloc()          # admission: None when the batch is full
@@ -11,10 +12,11 @@ A request's life cycle against the pool is
     pool.caches / pool.update()  # batched decode reads + writes all slots
     pool.free(slot)              # retirement: the slot returns to the pool
 
-``commit`` overwrites every cache leaf's slot row, so a reused slot never
-sees its previous occupant's state.  The GSPN leaves are O(W) per request
+``commit`` overwrites every cache leaf's slot row, all ``max_len``
+positions of a KV cache included, so a reused slot never sees its
+previous occupant's state.  The GSPN leaves are O(W) per request
 whatever the sequence length, so paging a request in or out moves a
-compact recurrent state, not a history.
+compact recurrent state; an attention layer's K/V pages are O(max_len).
 """
 
 from __future__ import annotations
@@ -40,7 +42,7 @@ def _leaves(tree):
 
 def narrow_state(tree, state_dtype):
     """Cast every floating leaf of a cache to ``state_dtype`` (DESIGN.md
-    §10); integer leaves (positions) pass through.  ``None`` keeps the
+    §10); integer leaves (positions, KV lengths) pass through.  ``None`` keeps the
     dtypes."""
     if state_dtype is None:
         return tree
@@ -67,20 +69,23 @@ def update_cache_slots(cfg, caches, new_caches, slots):
 class StateCachePool:
     """Fixed-capacity pool of per-request propagation-state pages.
 
-    One page is one batch row of the engine-wide cache.  The free list is
-    LIFO, so reuse is predictable; ``alloc`` returns ``None`` on
-    exhaustion (the scheduler's backpressure signal).  ``state_dtype``
-    narrows every floating leaf at rest (bf16 halves the bytes);
-    ``commit``/``update`` cast on the way in, and the decode step lifts
-    state back to f32 at use.
+    One page is one batch row of the engine-wide cache, whose KV caches
+    hold ``max_len`` positions.  The free list is LIFO, so reuse is
+    predictable; ``alloc`` returns ``None`` on exhaustion (the scheduler's
+    backpressure signal).  ``state_dtype`` narrows every floating leaf at
+    rest (bf16 halves the bytes); ``commit``/``update`` cast on the way
+    in, and the decode step lifts state back to f32 at use.
     """
 
-    def __init__(self, cfg, n_slots: int, *, device, state_dtype=None):
+    def __init__(self, cfg, n_slots: int, max_len: int, *, device,
+                 state_dtype=None):
         self.cfg = cfg
         self.n_slots = n_slots
+        self.max_len = max_len
         self.state_dtype = state_dtype
         self.caches = narrow_state(
-            lm_mod.init_lm_cache(cfg, n_slots, device=device), state_dtype)
+            lm_mod.init_lm_cache(cfg, n_slots, max_len, device=device),
+            state_dtype)
         self._free = list(range(n_slots - 1, -1, -1))   # pop() yields slot 0
         self._used = set()
 

@@ -1,5 +1,5 @@
-"""Continuous-batching serving engine with chunked GSPN prefill, the port
-of ``repro.serve.engine``.
+"""Continuous-batching serving engine with chunked prefill, the port of
+``repro.serve.engine``.
 
 Architecture (DESIGN.md §9).  The engine is a slot scheduler over a
 :class:`~repro_torch.serve.cache.StateCachePool`: requests move through
@@ -11,10 +11,12 @@ pool slots (``scheduler="fcfs"`` or ``"sjf"``), advances the one in-flight
 prefill by at most one chunk, and runs one batched decode step for every
 active slot, so a long prompt never stalls the decode batch by more than
 one ``prefill_chunk`` of work.  Chunks run through ``lm_prefill_chunk``
-(the boundary-seeded GSPN grid resume); prompts no longer than one chunk
-take the one-shot ``lm_prefill`` inside the admission tick.  On the card
-every scan of both goes through kernel #1; the decode step is plain
-PyTorch and launches no scan.
+(the boundary-seeded GSPN grid resume, or an attention chunk written
+into the KV cache at its offset); prompts no longer than one chunk take
+the one-shot ``lm_prefill`` inside the admission tick.  Every cache holds
+``max_len`` positions a slot.  On the card every scan of both goes
+through kernel #1; the decode step is plain PyTorch and launches no
+scan.
 
 Observability (DESIGN.md §13): per-request TTFT, queue delay and
 inter-token latencies, a streaming ``stream(uid, token)`` callback, the
@@ -200,14 +202,16 @@ class ServeEngine:
         self.generator = torch.Generator(device=self.device).manual_seed(seed)
 
         # Chunks snap to the GSPN fold width, so each starts on a grid-row
-        # boundary (the gspn_seq_prefill_chunk contract).
+        # boundary (the gspn_seq_prefill_chunk contract); attention alone
+        # chunks anywhere.
         if prefill_chunk > 0 and lm_mod.supports_chunked_prefill(cfg):
             align = lm_mod.prefill_chunk_alignment(cfg)
             self.prefill_chunk = max(align, (prefill_chunk // align) * align)
         else:
             self.prefill_chunk = 0
 
-        self.pool = StateCachePool(cfg, batch_size, device=self.device,
+        self.pool = StateCachePool(cfg, batch_size, max_len,
+                                   device=self.device,
                                    state_dtype=state_dtype)
         self.waiting: list = []              # [(Request, t_submit)]
         self._handles: dict = {}             # uid -> unfinished handle
@@ -303,11 +307,12 @@ class ServeEngine:
             obs.event("request.admitted", uid=req.uid, slot=slot)
             if self.prefill_chunk and len(req.prompt) > self.prefill_chunk:
                 # A fresh zeroed batch-1 cache per admission: a stale
-                # prev_row would corrupt the seeded scan.
+                # prev_row would corrupt the seeded scan, and a stale K/V
+                # page would outlive its request.
                 self._inflight = {
                     "req": req, "slot": slot, "off": 0, "chunks": 0,
                     "toks": np.asarray(req.prompt),
-                    "cache": lm_mod.init_lm_cache(self.cfg, 1,
+                    "cache": lm_mod.init_lm_cache(self.cfg, 1, self.max_len,
                                                   device=self.device),
                     "t_submit": t_submit, "t_admit": t_admit,
                 }
@@ -316,7 +321,7 @@ class ServeEngine:
                         "serve.prefill", uid=req.uid,
                         prompt_tokens=len(req.prompt)):
                     logits, new_caches = lm_mod.lm_prefill(
-                        self.model, self._tokens(req.prompt))
+                        self.model, self._tokens(req.prompt), self.max_len)
                     first = self._sample_first(logits[0, -1])
                     self.pool.commit(slot, new_caches)
                 self._m["prefills"] += 1

@@ -338,20 +338,26 @@ def test_configs_match_the_reference():
 
 
 def test_registry_runs_only_what_the_port_runs():
-    assert tbase.list_archs() == ["qwen2-1.5b-gspn"]
+    ported = ["granite-3-2b", "qwen1.5-32b", "qwen2-1.5b", "qwen2-1.5b-gspn",
+              "qwen2.5-3b"]
+    assert tbase.list_archs() == ported
     assert tbase.get_arch("qwen2-1.5b-gspn").full().n_layers == 28
     for name in jbase.list_archs():
-        if name == "qwen2-1.5b-gspn":
+        if name in ported:
             continue
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             tbase.get_arch(name)
     with pytest.raises(KeyError):
         tbase.get_arch("no-such-arch")
-    attn = dataclasses.replace(tq.reduced(), unit=(("attn", 2),))
-    with pytest.raises(NotImplementedError, match="item 3.2"):
-        lm.LM(attn, device="meta")
+    moe = dataclasses.replace(tq.reduced(), unit=(("attn_moe", 2),))
+    with pytest.raises(NotImplementedError, match="item 3.6"):
+        lm.LM(moe, device="meta")
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        lm.init_lm_cache(attn, 1, device="cpu")
+        lm.init_lm_cache(moe, 1, 8, device="cpu")
+    assert not lm.supports_chunked_prefill(moe)
+    with pytest.raises(ValueError, match="unknown block kind"):
+        lm.LM(dataclasses.replace(tq.reduced(), unit=(("conv", 2),)),
+              device="meta")
     with pytest.raises(NotImplementedError, match="item 6"):
         lm.Ctx(mesh=object())
 
@@ -388,13 +394,13 @@ def _run_both(cj, ct, toks, chunks, decode_steps=2):
     t = torch.from_numpy(toks).long()
     out = {"apply_lm": (lm.apply_lm(model, t),
                         jlm.apply_lm(params, cj, jnp.asarray(toks))[0])}
-    logits, caches = lm.lm_prefill(model, t)
+    logits, caches = lm.lm_prefill(model, t, 64)
     jlogits, jcaches, _ = jlm.lm_prefill(params, cj, jnp.asarray(toks), 64)
     out["lm_prefill"] = (logits, jlogits)
     out["lm_prefill caches"] = (caches, jcaches)
 
     b = toks.shape[0]
-    c = lm.init_lm_cache(ct, b, device="cpu")
+    c = lm.init_lm_cache(ct, b, 64, device="cpu")
     jc = jlm.init_lm_cache(cj, b, 64)
     lo, got, want = 0, [], []
     for size in chunks:
@@ -485,9 +491,9 @@ def test_chunk_chain_equals_one_shot_and_decode_equals_forward():
     toks = torch.from_numpy(_tokens(3, 2, 30)).long()
     with torch.no_grad():
         full = lm.apply_lm(model, toks)
-        logits, caches = lm.lm_prefill(model, toks[:, :27])
+        logits, caches = lm.lm_prefill(model, toks[:, :27], 30)
         _close(logits, full[:, :27], LOGITS_TOL)
-        c = lm.init_lm_cache(ct, 2, device="cpu")
+        c = lm.init_lm_cache(ct, 2, 30, device="cpu")
         outs = []
         for lo, hi in ((0, 16), (16, 24), (24, 27)):
             lg, c = lm.lm_prefill_chunk(model, toks[:, lo:hi], c, lo,
@@ -519,7 +525,7 @@ def test_cpu_path_calls_the_plain_scan_two_times_a_layer():
     toks = torch.from_numpy(_tokens(5, 1, 12)).long()
     cuda_lib.clear_counts()
     with torch.no_grad():
-        _, caches = lm.lm_prefill(model, toks)
+        _, caches = lm.lm_prefill(model, toks, 12)
         assert cuda_lib.plain_calls["gspn_scan_fwd"] == 2 * ct.n_layers
         lm.lm_decode_step(model, toks[:, :1], caches)
     assert cuda_lib.plain_calls["gspn_scan_fwd"] == 2 * ct.n_layers
@@ -538,3 +544,21 @@ def test_converter_carries_every_leaf_and_refuses_the_rest():
         lm_state_from_jax(missing)
     with pytest.raises(ValueError, match="no counterpart"):
         lm_state_from_jax({**params, "extra": np.zeros(3)})
+
+
+def test_long_context_example_streams_on_the_cpu(capsys):
+    """The twin of examples/long_context_gspn.py at --ctx 256: rows of
+    16, an O(W) cache, and streamed logits equal to the full forward's
+    (the script checks them itself)."""
+    import importlib.util
+    import pathlib
+    path = pathlib.Path(__file__).parents[1] / "examples" / \
+        "long_context_gspn_torch.py"
+    spec = importlib.util.spec_from_file_location("long_context_torch", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    got = mod.main(["--ctx", "256", "--stream", "8", "--device", "cpu"])
+    assert got.shape == (1, 8, 512) and torch.isfinite(got).all()
+    out = capsys.readouterr().out
+    assert "folded into rows of 16" in out
+    assert "outputs match full forward" in out

@@ -4,7 +4,8 @@ sjf order, EOS against length retirement, per-request metrics and
 streaming, clean slot reuse, chunked ≡ one-shot tokens), greedy tokens
 equal to the JAX engine's from converted parameters at f32, the launcher
 and the example.  On the ``reduced()`` config of ``qwen2-1.5b-gspn`` (2
-layers, d 48, vocab 512, row width 8), or its f32 policy.
+layers, d 48, vocab 512, row width 8), or its f32 policy; and on the
+reduced ``qwen2-1.5b`` (the attn kind, its KV cache in the pool).
 """
 
 import dataclasses
@@ -15,11 +16,13 @@ import pytest
 import torch
 
 from repro.configs import base as jbase
+from repro.configs import qwen2_1_5b as jqa
 from repro.configs import qwen2_1_5b_gspn as jq
 from repro.models import lm as jlm
 from repro.serve import engine as jengine
 from repro_torch import obs
 from repro_torch.configs import base as tbase
+from repro_torch.configs import qwen2_1_5b as tqa
 from repro_torch.configs import qwen2_1_5b_gspn as tq
 from repro_torch.kernels import cuda_lib
 from repro_torch.launch import serve as launch_serve
@@ -69,7 +72,7 @@ def _prompt(n, seed=0):
 # ---------------------------------------------------------------------------
 
 def test_cache_pool_alloc_free_reuse():
-    pool = StateCachePool(_cfg(), 2, device="cpu")
+    pool = StateCachePool(_cfg(), 2, 16, device="cpu")
     a, b = pool.alloc(), pool.alloc()
     assert {a, b} == {0, 1}
     assert pool.alloc() is None               # exhaustion, not an exception
@@ -86,11 +89,11 @@ def test_cache_pool_commit_writes_only_its_slot():
     """On a gspn prelude (batch axis 1) and a repeated gspn unit (batch
     axis 2)."""
     cfg = _cfg(prelude=(("gspn", 1),), unit=(("gspn", 1),), n_units=2)
-    pool = StateCachePool(cfg, 4, device="cpu")
+    pool = StateCachePool(cfg, 4, 16, device="cpu")
     for sub in pool.caches.values():
         for leaf in sub.values():
             leaf.fill_(7)
-    new = lm.init_lm_cache(cfg, 1, device="cpu")
+    new = lm.init_lm_cache(cfg, 1, 16, device="cpu")
     for sub in new.values():
         for leaf in sub.values():
             leaf.fill_(-3)
@@ -103,13 +106,13 @@ def test_cache_pool_commit_writes_only_its_slot():
             assert torch.all(got[slot] == -3)
             others = [s for s in range(4) if s != slot]
             assert torch.all(got[others] == 7)
-    big = lm.init_lm_cache(cfg, 3, device="cpu")
+    big = lm.init_lm_cache(cfg, 3, 16, device="cpu")
     assert update_cache_slots(cfg, big, new, [2]) is big
 
 
 def test_state_pool_bf16_halves_bytes_and_stays_bf16(model):
-    f32 = StateCachePool(model.cfg, 2, device="cpu")
-    bf16 = StateCachePool(model.cfg, 2, device="cpu",
+    f32 = StateCachePool(model.cfg, 2, 16, device="cpu")
+    bf16 = StateCachePool(model.cfg, 2, 16, device="cpu",
                           state_dtype=torch.bfloat16)
     assert f32.nbytes / bf16.nbytes >= 1.9
     eng = _engine(model, state_dtype=torch.bfloat16)
@@ -273,24 +276,22 @@ def test_drive_open_loop(model):
 # Against the JAX engine.
 # ---------------------------------------------------------------------------
 
-def test_greedy_tokens_equal_the_jax_engine():
-    """The same requests through both engines from converted parameters
-    at f32, chunked prefill included: equal greedy tokens.  Every
-    generated position's top-two logit margin (the port's forward over
-    prompt and tokens) must exceed 10× the logits tolerance, else the
-    test fails naming that margin: a near tie would make the comparison
-    say nothing."""
-    cj = jbase.with_precision(jq.reduced(), "f32")
+def _greedy_against_jax(cj, ct, prefill_chunk):
+    """The same requests through both engines from converted parameters:
+    (port tokens, reference tokens).  Every generated position's top-two
+    logit margin (the port's forward over prompt and tokens) must exceed
+    10× the logits tolerance, else the test fails naming that margin: a
+    near tie would make the comparison say nothing."""
     params = jlm.init_lm(jax.random.PRNGKey(0), cj)
-    model = lm.LM(_cfg(), device="meta")
+    model = lm.LM(ct, device="meta")
     model.load_state_dict(
         lm_state_from_jax(jax.tree.map(np.asarray, params)), assign=True)
     prompts = [_prompt(n, seed=n) for n in (27, 9, 16)]
     n_new = 6
 
     jeng = jengine.ServeEngine(params, cj, batch_size=2, max_len=64,
-                               prefill_chunk=8)
-    eng = _engine(model, max_len=64, prefill_chunk=8)
+                               prefill_chunk=prefill_chunk)
+    eng = _engine(model, max_len=64, prefill_chunk=prefill_chunk)
     for i, pr in enumerate(prompts):
         jeng.submit(jengine.Request(uid=i, prompt=pr, max_new_tokens=n_new))
         eng.submit(Request(uid=i, prompt=pr, max_new_tokens=n_new))
@@ -310,7 +311,71 @@ def test_greedy_tokens_equal_the_jax_engine():
                 f"request {i} token {k}: top-two logit margin {m:.3e} is "
                 f"under 10x the logits tolerance ({10 * tol:.3e})")
         assert steps.argmax(-1).tolist() == got[i]
+    return got, want, eng
+
+
+def test_greedy_tokens_equal_the_jax_engine():
+    """qwen2-1.5b-gspn's reduced config at f32, chunked prefill: equal
+    greedy tokens."""
+    got, want, _ = _greedy_against_jax(
+        jbase.with_precision(jq.reduced(), "f32"), _cfg(), 8)
     assert got == want
+
+
+@pytest.mark.parametrize("chunk", [0, 8, 5])
+def test_attention_lm_greedy_tokens_equal_the_jax_engine(chunk):
+    """The reduced qwen2-1.5b (the attn kind, GQA groups of 3, qkv bias)
+    at f32, one-shot (chunk 0) and chunked prefill (chunks of 8 and, as
+    attention alone chunks anywhere, of 5): equal greedy tokens."""
+    ct = tbase.with_precision(tqa.reduced(), "f32")
+    got, want, eng = _greedy_against_jax(
+        jbase.with_precision(jqa.reduced(), "f32"), ct, chunk)
+    assert eng.prefill_chunk == chunk
+    assert got == want
+
+
+def _attn_model():
+    return lm.LM(tbase.with_precision(tqa.reduced(), "f32"), device="cpu",
+                 generator=torch.Generator().manual_seed(1))
+
+
+def test_attention_slot_reuse_leaves_no_stale_kv():
+    """A short request in the slot a long one held: its commit zeroes the
+    page past its own prompt, and its tokens equal a fresh engine's."""
+    model = _attn_model()
+    prompt = _prompt(9, seed=3)
+    fresh = _engine(model, batch_size=1, max_len=48)
+    fresh.submit(Request(uid=0, prompt=prompt, max_new_tokens=5))
+    expect = fresh.run()[0].tokens
+
+    eng = _engine(model, batch_size=1, max_len=48)
+    eng.submit(Request(uid=0, prompt=_prompt(40, seed=4), max_new_tokens=8))
+    eng.run()
+    k = eng.pool.caches["s0_attn"]["k"]
+    assert k[:, :, 0, 40:47].abs().sum() > 0       # the long request's K
+    eng.submit(Request(uid=1, prompt=prompt, max_new_tokens=1))
+    eng.run()
+    k = eng.pool.caches["s0_attn"]["k"]
+    assert k[:, :, 0, 9:].abs().sum() == 0         # nothing stale past it
+    assert eng.pool.caches["s0_attn"]["length"].tolist() == [[[9], [9]]]
+    eng.submit(Request(uid=2, prompt=prompt, max_new_tokens=5))
+    assert eng.run()[2].tokens == expect
+
+
+def test_attention_pool_holds_a_kv_page_per_slot():
+    """The pool's KV pages: at full width qwen2-1.5b keeps 28 layers × 2 ×
+    2 kv heads × 128 × 2 bytes = 28 672 bytes a token a slot in bf16,
+    472 MB for 4 slots of 4112 (sized on the meta device); the int32
+    lengths pass through the bf16 narrowing."""
+    full = tqa.full()
+    pool = StateCachePool(full, 4, 4112, device="meta")
+    assert pool.nbytes == 4 * 4112 * 28672 + 4 * 28 * 4
+    small = StateCachePool(tbase.with_precision(tqa.reduced(), "f32"), 2, 8,
+                           device="cpu", state_dtype=torch.bfloat16)
+    sub = small.caches["s0_attn"]
+    assert sub["k"].dtype == torch.bfloat16
+    assert sub["length"].dtype == torch.int32
+    assert ServeEngine(_attn_model(), prefill_chunk=13).prefill_chunk == 13
 
 
 # ---------------------------------------------------------------------------
@@ -328,6 +393,20 @@ def test_launcher_serves_on_the_cpu_when_asked(capsys):
     assert "3 requests, 9 tokens" in out
     assert "2 one-shot prefills, 3 prefill chunks" in out
     assert not cuda_lib.launch_counts
+
+
+def test_launcher_serves_the_attention_arch_with_no_code_of_its_own(capsys):
+    """--arch qwen2-1.5b goes through get_arch, the engine and its KV
+    pool like the gspn arch; no scan runs."""
+    cuda_lib.clear_counts()
+    launch_serve.main(["--arch", "qwen2-1.5b", "--reduced", "--device",
+                       "cpu", "--requests", "3", "--prefill-chunk", "16",
+                       "--max-len", "64", "--max-new", "3"])
+    out = capsys.readouterr().out
+    assert "qwen2-reduced on cpu: 74128 parameters" in out
+    assert "3 requests, 9 tokens" in out
+    assert "2 one-shot prefills, 3 prefill chunks" in out
+    assert not cuda_lib.launch_counts and not cuda_lib.plain_calls
 
 
 @pytest.mark.parametrize("flag", [
@@ -359,3 +438,19 @@ def test_example_serves_on_the_cpu():
                     "--max-new", "4", "--prefill-chunk", "32"])
     assert sorted(res) == [0, 1, 2]
     assert all(4 <= len(r.tokens) <= 4 for r in res.values())
+
+
+def test_example_serves_the_attention_mixer_on_the_cpu(capsys):
+    import importlib.util
+    import pathlib
+    path = pathlib.Path(__file__).parents[1] / "examples" / \
+        "serve_lm_torch.py"
+    spec = importlib.util.spec_from_file_location("serve_lm_torch", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    res = mod.main(["--device", "cpu", "--requests", "3", "--rate", "0",
+                    "--max-new", "4", "--prefill-chunk", "20",
+                    "--mixer", "attn"])
+    assert sorted(res) == [0, 1, 2]
+    assert all(len(r.tokens) == 4 for r in res.values())
+    assert "mixer=attn" in capsys.readouterr().out

@@ -20,11 +20,13 @@ import pytest
 import torch
 
 from repro.configs import gspn2_vision as jconfigs
+from repro.configs import qwen2_1_5b as jqa
 from repro.configs import qwen2_1_5b_gspn as jq
 from repro.models import lm as jlm
 from repro.models import vision as jvision
 from repro.optim import adamw as jadamw
 from repro_torch.configs import gspn2_vision as configs
+from repro_torch.configs import qwen2_1_5b as tqa
 from repro_torch.configs import qwen2_1_5b_gspn as tq
 from repro_torch.data import pipeline
 from repro_torch.kernels import cuda_lib
@@ -203,6 +205,30 @@ def test_decayed_names_match_reference_mask(reduced):
         "stages/s1_gspn/mix/up", 2)
     assert adamw.reference_leaf("stages.2.blocks.1.lpu.b") == (
         "stages/2/blocks/lpu/b", 1)
+
+    # The attn kind's tree (reduced qwen2-1.5b): no mask token matches
+    # bq, bk or bv and their stacked leaves have two dimensions or more,
+    # so the reference decays the qkv biases, and so must the port; the
+    # norms it does not.
+    jcfg = jqa.reduced()
+    shapes = jax.eval_shape(lambda k: jlm.init_lm(k, jcfg),
+                            jax.random.PRNGKey(0))
+    flat, treedef = jax.tree_util.tree_flatten_with_path(shapes)
+    masks = [np.full(leaf.shape, float(jadamw._decay_mask(path)
+                                       and leaf.ndim >= 2), np.float32)
+             for path, leaf in flat]
+    state = lm_state_from_jax(jax.tree_util.tree_unflatten(treedef, masks))
+    assert not any(v.any() and not v.all() for v in state.values())
+    model = tlm.LM(tqa.reduced(), device="meta")
+    assert model.state_dict().keys() == state.keys()
+    got = {n for n, p in model.named_parameters() if adamw.decays(n, p)}
+    assert got == {k for k, v in state.items() if bool(v.all())}
+    for u in range(2):
+        for b in ("bq", "bk", "bv"):
+            assert f"stages.s0_attn.0.{u}.attn.{b}" in got
+        for norm in ("ln1", "ln2"):
+            assert f"stages.s0_attn.0.{u}.{norm}.scale" not in got
+    assert "ln_f.scale" not in got
 
 
 @pytest.mark.parametrize("n_steps", [1, 3])

@@ -707,6 +707,20 @@ def test_launcher_trains_on_cpu(tmp_path, capsys):
     assert tr.step == 2 and tr.ckpt.latest_step() == 2
 
 
+def test_launcher_trains_the_attention_arch_on_cpu(tmp_path, capsys):
+    """--arch qwen2-1.5b trains through get_arch and the trainer with no
+    code of its own."""
+    cuda_lib.clear_counts()
+    tr = launch_train.main(["--arch", "qwen2-1.5b", "--reduced", "--device",
+                            "cpu", "--steps", "2", "--batch", "2", "--seq",
+                            "16", "--ckpt-dir", str(tmp_path)])
+    out = capsys.readouterr().out
+    assert "qwen2-reduced on cpu: 74128 parameters" in out
+    assert "recoveries=0" in out
+    assert tr.step == 2 and all(map(np.isfinite, tr.history))
+    assert not cuda_lib.launch_counts and not cuda_lib.plain_calls
+
+
 def test_example_trains_on_cpu(tmp_path, capsys):
     ex = _example()
     tr = ex.main(["--preset", "small", "--steps", "2", "--batch", "2",
@@ -749,7 +763,17 @@ def test_unported_launcher_flags_do_not_parse(flag, tmp_path):
                            *flag])
 
 
-def test_example_attention_mixer_waits_for_its_item(tmp_path):
-    with pytest.raises(NotImplementedError, match=r"§1 item 3\.2"):
-        _example().main(["--mixer", "attn", "--device", "cpu", "--steps",
-                         "1", "--ckpt-dir", str(tmp_path)])
+def test_example_attention_mixer_waits_for_its_item(tmp_path, capsys):
+    """``--mixer attn``, the reference example's default, trains since the
+    attention kinds came (ROADMAP.md §1 item 3.2): a few steps on the
+    CPU, finite losses and no scan."""
+    cuda_lib.clear_counts()
+    tr = _example().main(["--mixer", "attn", "--device", "cpu", "--steps",
+                          "2", "--batch", "2", "--seq", "32", "--ckpt-dir",
+                          str(tmp_path)])
+    out = capsys.readouterr().out
+    assert "small-attn" in out and "mixer=attn  device=cpu" in out
+    assert len(tr.history) == 2 and all(map(np.isfinite, tr.history))
+    assert not cuda_lib.plain_calls and not cuda_lib.launch_counts
+    assert any(n.endswith("attn.wq") for n, _ in
+               tr.model.named_parameters())

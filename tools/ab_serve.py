@@ -73,8 +73,9 @@ def leg(src: str, runs: int, smoke: bool) -> dict:
                           device=dev)
     ctoks = torch.randint(0, cfg.vocab, (1, chunk), generator=gen,
                           device=dev)
-    caches = lm.init_lm_cache(cfg, SLOTS, device=dev)
-    resume = lm.init_lm_cache(cfg, 1, device=dev)
+    # The KV capacity is unused by the gspn kind's O(W) state.
+    caches = lm.init_lm_cache(cfg, SLOTS, 2 * CHUNK, device=dev)
+    resume = lm.init_lm_cache(cfg, 1, 2 * CHUNK, device=dev)
     for sub in resume.values():
         sub["pos"].fill_(chunk)
     x = torch.randn((SLOTS, 1, cfg.d_model), generator=gen,
