@@ -134,6 +134,7 @@ line.
 from __future__ import annotations
 
 import collections
+import contextlib
 import dataclasses
 import importlib.util
 import json
@@ -198,6 +199,15 @@ TRAIN_BATCH, TRAIN_SEQ = 2, 4096
 TRAIN_SHAPES = ((16, 4, 1024, 8, None), (16, 1024, 4, 8, None))
 TRAIN_STEPS = 5
 TWIN_STEPS = 60
+# The serving tier: 6 prompts of a shared 3072-token prefix (three chunks)
+# and suffixes of these lengths; the entries of each LM's prefix cache.
+TIER_PREFIX = 3072
+TIER_SUFFIXES = (1024, 256, 512, 768, 384, 640)
+TIER_CAPACITY = {"gspn": 8, "attn": 4}
+# The two shapes at which every candidate launch shape is held against the
+# plain version: #3 at N = 56 and #1's within-row pass of a chunk.
+TIER_CHECKED = (("pair_fwd", 128, 56, 56, 2, "one_shot"),
+                ("fwd", 8, 1024, 1, 8, "chunk_resume"))
 
 
 def _run(cmd) -> str:
@@ -361,11 +371,12 @@ def kernel_phase(gen):
 
 
 def _launch_shape(g, h, w, cpw, dtype, kind, ndir):
-    """The launch shape ``pair_launch_shape`` picks, as printed in a kernel
-    row."""
-    from repro_torch.kernels.gspn_scan import pair_launch_shape
+    """The launch shape the kernel's wrapper launches (``gspn_scan.plan``:
+    the tuning cache's entry for this card, else ``pair_launch_shape``),
+    as printed in a kernel row."""
+    from repro_torch.kernels import gspn_scan
 
-    s = pair_launch_shape(g, h, w, cpw, dtype, kind, ndir)
+    s = gspn_scan.plan(kind, ndir, g, h, w, cpw, dtype, "cuda")
     return (f"planes={s.planes},warps={s.warps},K={s.k},splits={s.splits},"
             f"S={s.stages},batch={s.batch},"
             f"grid={'x'.join(map(str, s.grid))},xpitch={s.xpitch},"
@@ -1555,6 +1566,320 @@ def lm_attn_phase():
     torch.cuda.empty_cache()
 
 
+def _busy_ms(prof) -> float | None:
+    """Milliseconds in which the card ran at least one kernel, memcpy or
+    memset in a profile (the union of the device records' intervals, so
+    two streams' overlapping kernels count once), read from the raw
+    profiler records; None when it recorded no device activity."""
+    cuda = torch.autograd.DeviceType.CUDA
+    try:
+        spans = sorted((e.start_ns(), e.start_ns() + e.duration_ns())
+                       for e in prof.profiler.kineto_results.events()
+                       if e.device_type() == cuda)
+    except (RuntimeError, AttributeError) as exc:
+        print(f"profile: no device records ({exc!r})", flush=True)
+        return None
+    if not spans:
+        return None
+    busy, lo, hi = 0, *spans[0]
+    for a, b in spans[1:]:
+        if a > hi:
+            busy += hi - lo
+            lo, hi = a, b
+        else:
+            hi = max(hi, b)
+    return (busy + hi - lo) / 1e6
+
+
+def _tier_requests(vocab, lengths, new, seed, prefix=None):
+    """Seeded requests of ``lengths`` prompt tokens (after ``prefix``)."""
+    from repro_torch.serve.engine import Request
+
+    rng = torch.Generator().manual_seed(seed)
+    head = prefix if prefix is not None else torch.empty(0, dtype=torch.long)
+    return [Request(uid=i, prompt=torch.cat(
+                [head, torch.randint(0, vocab, (n,), generator=rng)]).numpy(),
+                    max_new_tokens=new) for i, n in enumerate(lengths)]
+
+
+def _tier_prefix(kind, model, cfg, max_len):
+    """(a) The 6 shared-prefix requests with no prefix cache, then with a
+    ``PrefixStateCache``: equal greedy tokens, 5 hits of 3072 tokens, and
+    for the GSPN LM 3 chunks x 56 fewer launches of #1 per hit."""
+    from repro_torch import obs
+    from repro_torch.kernels import cuda_lib
+    from repro_torch.serve.cache import PrefixStateCache
+    from repro_torch.serve.engine import ServeEngine
+
+    prefix = torch.randint(0, cfg.vocab, (TIER_PREFIX,),
+                           generator=torch.Generator().manual_seed(7))
+    runs = {}
+    for label, cache in (("cold", None),
+                         ("warm", PrefixStateCache(TIER_CAPACITY[kind]))):
+        eng = ServeEngine(model, batch_size=4, max_len=max_len,
+                          prefill_chunk=SERVE_CHUNK, prefix_cache=cache)
+        reqs = _tier_requests(cfg.vocab, TIER_SUFFIXES, SERVE_NEW, 3,
+                              prefix)
+        handles = [eng.submit(r) for r in reqs]
+        hits0 = obs.counter("serve_prefix_hits_total").value
+        torch.cuda.synchronize()
+        cuda_lib.clear_counts()
+        t0 = time.perf_counter()
+        eng.run()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        res = [h.result() for h in handles]
+        shapes = dict(cuda_lib.launch_shapes)
+        plain = sum(cuda_lib.plain_calls.values())
+        total = sum(len(r.tokens) for r in res)
+        hits = obs.counter("serve_prefix_hits_total").value - hits0
+        for r, req in zip(res, reqs):
+            print(f"lm tier {kind} prefix {label} request {r.uid}: prompt "
+                  f"{len(req.prompt)}, ttft {r.ttft * 1e3:.3f} ms, cached "
+                  f"{r.cached_tokens}, chunks {r.prefill_chunks}, tokens "
+                  f"{r.tokens}", flush=True)
+        print(f"lm tier {kind} prefix {label}: {total} tokens in {dt:.3f} s "
+              f"({total / dt:.3f} tok/s), prefix hits {hits}, cached tokens "
+              f"{sum(r.cached_tokens for r in res)}, cache "
+              f"{cache.nbytes if cache is not None else 0} bytes in "
+              f"{len(cache) if cache is not None else 0} entries, #1 "
+              f"launches by shape "
+              f"{ {'/'.join(map(str, k)): v for k, v in shapes.items()} }",
+              flush=True)
+        if plain:
+            raise AssertionError(f"lm tier {kind}: a plain scan ran")
+        runs[label] = (res, shapes, hits)
+        del eng, handles
+    (cold, cshapes, _), (warm, wshapes, hits) = runs["cold"], runs["warm"]
+    if [r.tokens for r in warm] != [r.tokens for r in cold]:
+        raise AssertionError(f"lm tier {kind}: warm tokens differ from cold")
+    cached = sum(r.cached_tokens for r in warm)
+    if hits != 5 or cached != 5 * TIER_PREFIX:
+        raise AssertionError(f"lm tier {kind}: {hits} hits and {cached} "
+                             f"cached tokens, expected 5 and "
+                             f"{5 * TIER_PREFIX}")
+    if kind == "attn":
+        if cshapes or wshapes:
+            raise AssertionError("lm tier attn: a scan kernel ran")
+        return
+    per_hit = 3 * 2 * cfg.layer_count()
+    drop = sum(cshapes.values()) - sum(wshapes.values())
+    by_shape = {k: cshapes[k] - wshapes.get(k, 0) for k in cshapes}
+    print(f"lm tier {kind} prefix: #1 launches fell by {drop} "
+          f"({5 * per_hit} expected: 5 hits x 3 chunks x "
+          f"{2 * cfg.layer_count()}), by shape "
+          f"{ {'/'.join(map(str, k)): v for k, v in by_shape.items()} }",
+          flush=True)
+    if drop != 5 * per_hit or sorted(v for v in by_shape.values() if v) != \
+            [5 * per_hit // 2] * 2:
+        raise AssertionError(f"lm tier {kind}: #1's launches fell by {drop}")
+
+
+def _tier_replicas(model, cfg):
+    """(b) The serving phase's requests twice through a threaded Router of
+    1 and of 2 replicas sharing ``model``, once per policy, against the
+    single engine: equal greedy tokens per uid and equal launches of #1.
+    (c) A sync Router of 2 that loses replica 0 after its first chunk.
+    Returns the single engine's launches by shape."""
+    from repro_torch import obs
+    from repro_torch.kernels import cuda_lib
+    from repro_torch.serve.engine import ServeEngine, drive
+    from repro_torch.serve.router import Router
+    from torch.profiler import ProfilerActivity, profile
+
+    max_len = max(SERVE_PROMPTS) + SERVE_NEW
+    lengths = SERVE_PROMPTS * 2
+
+    def engine(seed=0):
+        return ServeEngine(model, batch_size=4, max_len=max_len,
+                           prefill_chunk=SERVE_CHUNK, seed=seed)
+
+    eng = engine()
+    reqs = _tier_requests(cfg.vocab, lengths, SERVE_NEW, 5)
+    handles = [eng.submit(r) for r in reqs]
+    torch.cuda.synchronize()
+    cuda_lib.clear_counts()
+    t0 = time.perf_counter()
+    eng.run()
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    want = {h.uid: h.result().tokens for h in handles}
+    single = dict(cuda_lib.launch_counts)
+    single_shapes = dict(cuda_lib.launch_shapes)
+    total = sum(len(t) for t in want.values())
+    print(f"lm tier single engine: {len(reqs)} requests, {total} tokens in "
+          f"{dt:.3f} s ({total / dt:.3f} tok/s), #1 launches {single}",
+          flush=True)
+    del eng
+    for policy in ("least_loaded", "ttft"):
+        for n in (1, 2):
+            # Once as it serves, once under a CUDA-only profile for the
+            # card's busy time.
+            runs = []
+            for profiled in (False, True):
+                router = Router([engine(seed=i) for i in range(n)],
+                                policy=policy, threaded=True)
+                reqs = _tier_requests(cfg.vocab, lengths, SERVE_NEW, 5)
+                risk0 = obs.counter("router_slo_at_risk_total").value
+                torch.cuda.synchronize()
+                cuda_lib.clear_counts()
+                prof = profile(activities=[ProfilerActivity.CUDA]) \
+                    if profiled else contextlib.nullcontext()
+                router.start()
+                try:
+                    with prof:
+                        t0 = time.perf_counter()
+                        dt, handles = drive(router, reqs,
+                                            [0.0] * len(reqs))
+                        torch.cuda.synchronize()
+                        wall = time.perf_counter() - t0
+                finally:
+                    router.stop()
+                res = {h.uid: h.result() for h in handles}
+                runs.append(dict(
+                    dt=dt, wall=wall, res=res,
+                    placed=[h.replica for h in handles],
+                    risk=obs.counter("router_slo_at_risk_total").value - risk0,
+                    launches=dict(cuda_lib.launch_counts),
+                    busy=_busy_ms(prof) if profiled else None))
+                del router, prof
+            run, prun = runs
+            res = run["res"]
+            total = sum(len(r.tokens) for r in res.values())
+            ttfts = sorted(r.ttft for r in res.values())
+            busy, pwall = prun["busy"], prun["wall"]
+            idle = ("not measured" if busy is None
+                    else f"{1 - busy / 1e3 / pwall:.3f}")
+            print(f"lm tier replicas={n} policy={policy}: {total} tokens in "
+                  f"{run['dt']:.3f} s ({total / run['dt']:.3f} tok/s), "
+                  f"placement {[run['placed'].count(r) for r in range(n)]},"
+                  f" ttft p50 {ttfts[len(ttfts) // 2] * 1e3:.3f} ms max "
+                  f"{ttfts[-1] * 1e3:.3f} ms, router_slo_at_risk_total "
+                  f"+{run['risk']}, #1 launches {run['launches']}; profiled "
+                  f"run {total / prun['dt']:.3f} tok/s, card busy {busy} ms "
+                  f"of {pwall * 1e3:.3f} ms (idle share {idle})", flush=True)
+            for r in runs:
+                if {u: x.tokens for u, x in r["res"].items()} != want:
+                    raise AssertionError(f"lm tier replicas={n} {policy}: "
+                                         f"tokens differ from the single "
+                                         f"engine's")
+                if r["launches"] != single:
+                    raise AssertionError(f"lm tier replicas={n} {policy}: "
+                                         f"#1 launches {r['launches']} != "
+                                         f"{single}")
+
+    # (c) sync mode, replica 0 fails after its first chunk.
+    router = Router([engine(seed=i) for i in range(2)])
+    reqs = _tier_requests(cfg.vocab, SERVE_PROMPTS, SERVE_NEW, 5)
+    handles = [router.submit(r) for r in reqs]
+    first = {h.uid: h.replica for h in handles}
+    while router.replicas[0].engine.metrics["prefill_chunks"] < 1:
+        router.tick()
+    moved = router.fail_replica(0)
+    router.run()
+    torch.cuda.synchronize()
+    got = {h.uid: h.result().tokens for h in handles}
+    print(f"lm tier failure: replica 0 failed after its first chunk, {moved} "
+          f"requests re-routed; first placement {first}, final "
+          f"{ {h.uid: h.replica for h in handles} }", flush=True)
+    if not all(h.done and h.replica == 1 for h in handles) or \
+            any(got[u] != want[u] for u in got):
+        raise AssertionError("lm tier failure: a request did not finish on "
+                             "the survivor with the unfailed run's tokens")
+    return single_shapes
+
+
+def _tier_tuner():
+    """(d) The committed seed cache: no entry rejected; the heuristic's and
+    the cached shape's µs at each key, beside the bound; and every
+    candidate at ``TIER_CHECKED`` against the plain version."""
+    from repro_torch import obs
+    from repro_torch.kernels import autotune
+
+    seed = autotune.TuningCache.load(autotune.SEED_CACHE_PATH)
+    here = autotune.device_kind("cuda")
+    print(f"lm tier tuner: seed {autotune.SEED_CACHE_PATH.name}, "
+          f"{len(seed)} entries, measured on {seed.meta.get('device')} at "
+          f"{seed.meta.get('power_limit')}; this card {here}", flush=True)
+    rejects0 = obs.counter("autotune_cache_rejects_total").value
+    for enc in sorted(seed.entries):
+        key = autotune.ScanKey.decode(enc)
+        spec = autotune.ScanSpec(direction=key.direction, impl="cuda",
+                                 channels_per_weight=key.cpw,
+                                 stream_dtype=key.dtype,
+                                 boundary=key.boundary)
+        cached = autotune.plan_for_spec(spec, key.g, key.h, key.w,
+                                        device=key.device, cache=seed)
+        heur = autotune.heuristic(key)
+        args = autotune.operands(key)
+        run, _ = autotune.kernel_runner(key, args)
+        out = run(heur)
+        nbytes = sum(t.numel() * t.element_size() for t in args) \
+            + out.numel() * out.element_size()
+        h_us, h_spread = autotune.measure(lambda: run(heur))
+        c_us, c_spread = autotune.measure(lambda: run(cached))
+        print(f"lm tier tuner key {enc}: heuristic "
+              f"{autotune.Candidate.of(heur).label()} {h_us:.3f} us "
+              f"(spread {h_spread:.3f}), cached "
+              f"{autotune.Candidate.of(cached).label()} "
+              f"[{seed.entries[enc]['source']}] {c_us:.3f} us (spread "
+              f"{c_spread:.3f}), bound "
+              f"{nbytes / PEAK_BYTES_PER_S * 1e6:.4f} us", flush=True)
+    rejects = obs.counter("autotune_cache_rejects_total").value - rejects0
+    print(f"lm tier tuner: {rejects} seed entries rejected", flush=True)
+    if rejects or not seed.entries:
+        raise AssertionError(f"lm tier tuner: {rejects} rejects in a seed "
+                             f"of {len(seed)} entries")
+    for direction, g, h, w, cpw, bnd in TIER_CHECKED:
+        for dtype in ("float32", "bfloat16"):
+            key = autotune.ScanKey(here, g, h, w, cpw, direction, dtype,
+                                   boundary=bnd)
+            cands = autotune.enumerate_candidates(key)
+            checked = autotune.check_candidates(key, cands)
+            worst = max(e / tol for _, e, tol in checked)
+            bad = [c.label() for c, e, tol in checked if not e <= tol]
+            print(f"lm tier tuner candidates {key.encode()}: {len(cands)} "
+                  f"shapes against the plain version, worst error / "
+                  f"tolerance {worst:.4f}, disagreeing {bad}", flush=True)
+            if bad:
+                raise AssertionError(f"lm tier tuner: {bad} disagree")
+
+
+def tier_phase():
+    """The serving tier on ``qwen2-1.5b-gspn`` ``full()`` (and ``qwen2-1.5b``
+    for the prefix cache over KV caches), seeded weights, own policy,
+    chunks of 1024: (a) the prefix cache cold vs warm, (b) replicas behind
+    the router, (c) a replica's failure, (d) the tuner's seed cache.
+    Returns the single engine's launches of #1 by shape."""
+    from repro_torch.configs import qwen2_1_5b, qwen2_1_5b_gspn
+    from repro_torch.models import lm
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    cfg = qwen2_1_5b_gspn.full()
+    model = lm.LM(cfg, device="cuda",
+                  generator=torch.Generator(device="cuda").manual_seed(0))
+    _tier_prefix("gspn", model, cfg, TIER_PREFIX + SERVE_CHUNK + SERVE_NEW)
+    print(f"lm tier (a) gspn {time.perf_counter() - t0:.3f} s", flush=True)
+    t0 = time.perf_counter()
+    shapes = _tier_replicas(model, cfg)
+    print(f"lm tier (b), (c) {time.perf_counter() - t0:.3f} s", flush=True)
+    del model
+    t0 = time.perf_counter()
+    cfg = qwen2_1_5b.full()
+    model = lm.LM(cfg, device="cuda",
+                  generator=torch.Generator(device="cuda").manual_seed(0))
+    _tier_prefix("attn", model, cfg, TIER_PREFIX + SERVE_CHUNK + SERVE_NEW)
+    del model
+    print(f"lm tier (a) attn {time.perf_counter() - t0:.3f} s", flush=True)
+    t0 = time.perf_counter()
+    _tier_tuner()
+    print(f"lm tier (d) {time.perf_counter() - t0:.3f} s; peak memory of the "
+          f"phase {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB",
+          flush=True)
+    return shapes
+
+
 def main() -> int:
     print(f"torch {torch.__version__} cuda {torch.version.cuda} python "
           f"{sys.version.split()[0]}", flush=True)
@@ -1580,25 +1905,37 @@ def main() -> int:
     for name, log in cuda_lib.build_logs.items():
         print(f"nvcc {name}:\n{log.strip()}", flush=True)
 
+    def phase(name, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        print(f"phase {name} {time.perf_counter() - t0:.3f} s", flush=True)
+        return out
+
     gen = torch.Generator(device="cuda").manual_seed(0)
-    rows = kernel_phase(gen)
+    rows = phase("kernels", kernel_phase, gen)
     # #2's launches are those of the single-direction gradient.
-    single_bwd = {k: v for k, v in single_direction_grad_check(gen).items()
+    single_bwd = {k: v for k, v in
+                  phase("grad", single_direction_grad_check, gen).items()
                   if k[0] == "gspn_scan_bwd"}
-    shapes = model_phase(torch.Generator().manual_seed(0))
+    shapes = phase("model", model_phase, torch.Generator().manual_seed(0))
     # The adjoints' launches are those of the counted training step.
     shapes.update({k: v for k, v in
-                   train_phase(torch.Generator().manual_seed(0)).items()
+                   phase("train", train_phase,
+                         torch.Generator().manual_seed(0)).items()
                    if k[0].endswith("_bwd")})
-    twin_phase()
-    shapes.update(ladder_phase(torch.Generator(device="cuda").manual_seed(1)))
+    phase("twin", twin_phase)
+    shapes.update(phase("ladder", ladder_phase,
+                        torch.Generator(device="cuda").manual_seed(1)))
     shapes.update(single_bwd)
     # #1's launches at the serving shapes are those of the engine's run.
-    shapes.update(lm_serve_phase())
+    shapes.update(phase("lm serve", lm_serve_phase))
     # #1's and #2's at the training shapes, those of the counted step.
-    shapes.update(lm_train_phase())
+    shapes.update(phase("lm train", lm_train_phase))
     # The attention LM launches no kernel: its phase adds no launches.
-    lm_attn_phase()
+    phase("lm attn", lm_attn_phase)
+    # The tier's launches are read in its own checks; the kernels line
+    # keeps the serving phase's.
+    phase("tier", tier_phase)
 
     entries = []
     for row in rows:

@@ -19,6 +19,14 @@ Printed per request: TTFT (submit -> first token), queue delay (submit ->
 admission), mean inter-token latency, prefill chunk count and finish
 reason; overall: tok/s, p50/max TTFT, max queue depth, and the scan
 kernel's launches.  ``--stream`` prints tokens as they are produced.
+
+The serving tier (DESIGN.md §15): ``--replicas N`` puts N engines, which
+share the model, behind the router (``--router``), and ``--prefix-cache
+N`` gives them one shared prefix-state cache of N entries.  With the
+cache on, every prompt starts with the same three chunks of tokens (a
+shared system prompt) before its own, so later requests resume their
+prefill from the cached state; the run prints the prompt tokens served
+from the cache.
 """
 
 import argparse
@@ -29,7 +37,9 @@ import torch
 from repro_torch.device import resolve_device
 from repro_torch.kernels import cuda_lib
 from repro_torch.models.lm import LM, LMConfig
+from repro_torch.serve.cache import PrefixStateCache
 from repro_torch.serve.engine import Request, ServeEngine, drive
+from repro_torch.serve.router import Router
 
 
 def main(argv=None):
@@ -47,6 +57,13 @@ def main(argv=None):
                     help="torch device (default: the CUDA card)")
     ap.add_argument("--stream", action="store_true",
                     help="print tokens as they are generated")
+    ap.add_argument("--replicas", type=int, default=1,
+                    help="engines behind the router (1 = a bare engine)")
+    ap.add_argument("--router", default="least_loaded",
+                    choices=["least_loaded", "ttft"])
+    ap.add_argument("--prefix-cache", type=int, default=0,
+                    help="entries of the shared prefix-state cache (0 = "
+                         "off); on, the prompts share a 3-chunk prefix")
     args = ap.parse_args(argv)
 
     device = resolve_device(args.device)
@@ -60,10 +77,16 @@ def main(argv=None):
 
     stream = (lambda uid, tok: print(f"    [stream] req {uid} -> {tok}")) \
         if args.stream else None
-    eng = ServeEngine(model, batch_size=args.batch, max_len=512,
-                      temperature=args.temperature, top_k=50,
-                      prefill_chunk=args.prefill_chunk,
-                      scheduler=args.scheduler, stream=stream)
+    prefix_cache = (PrefixStateCache(args.prefix_cache)
+                    if args.prefix_cache > 0 else None)
+    engines = [ServeEngine(model, batch_size=args.batch, max_len=512,
+                           temperature=args.temperature, top_k=50,
+                           prefill_chunk=args.prefill_chunk, seed=i,
+                           scheduler=args.scheduler, stream=stream,
+                           prefix_cache=prefix_cache)
+               for i in range(max(args.replicas, 1))]
+    eng = engines[0]
+    tier = Router(engines, policy=args.router) if args.replicas > 1 else eng
 
     # Request generator: discrete short/long prompt lengths, exponential
     # inter-arrival times at the offered rate.
@@ -72,13 +95,16 @@ def main(argv=None):
     gaps = (rng.exponential(1.0 / args.rate, args.requests)
             if args.rate > 0 else np.zeros(args.requests))
     arrivals = np.cumsum(gaps)
-    reqs = [Request(uid=i, prompt=rng.integers(0, 8192, int(plens[i])),
+    n_shared = 3 * eng.prefill_chunk if prefix_cache is not None else 0
+    shared = rng.integers(0, 8192, n_shared)
+    reqs = [Request(uid=i, prompt=np.concatenate(
+                        [shared, rng.integers(0, 8192, int(plens[i]))]),
                     max_new_tokens=int(rng.integers(
                         min(8, args.max_new), args.max_new + 1)))
             for i in range(args.requests)]
 
     cuda_lib.clear_counts()
-    dt, handles = drive(eng, reqs, arrivals, idle_sleep=0.005)
+    dt, handles = drive(tier, reqs, arrivals, idle_sleep=0.005)
 
     results = {h.uid: h.result() for h in handles if h.done}
     if not results:
@@ -95,6 +121,14 @@ def main(argv=None):
           f"max {ttfts[-1] * 1e3:.1f} ms; queue depth "
           f"mean {m['queue_depth_mean']:.1f} / "
           f"max {m['queue_depth_max']}")
+    if prefix_cache is not None:
+        print(f"prefix cache: {sum(r.cached_tokens for r in results.values())}"
+              f" prompt tokens served from cached state, {len(prefix_cache)} "
+              f"entries, {prefix_cache.nbytes} bytes")
+    if args.replicas > 1:
+        placed = [h.replica for h in handles]
+        print(f"placement: {[placed.count(r) for r in range(args.replicas)]}"
+              f" requests/replica ({args.router})")
     print(f"scan launches {dict(cuda_lib.launch_counts)}, plain scan calls "
           f"{dict(cuda_lib.plain_calls)}")
     for uid in sorted(results)[:6]:

@@ -12,18 +12,23 @@ rebuilt and an unchanged one is reused.  ``build()`` starts one ``nvcc`` per mis
 launches, nowhere else); ``plain_calls`` counts calls of the plain PyTorch
 versions.  A run that must show it went through the kernels clears them
 (:func:`clear_counts`), runs, and reads them.
+
+Safe for threads (the serving tier's replicas launch from worker threads):
+a library is built and loaded once, under a lock, into a temporary file
+named by process and thread; the counters change under a lock of their
+own (:func:`count`).
 """
 
 from __future__ import annotations
 
 import collections
 import ctypes
-import functools
 import hashlib
 import os
 import pathlib
 import shutil
 import subprocess
+import threading
 
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "repro_torch"
@@ -57,9 +62,23 @@ launch_shapes: collections.Counter = collections.Counter()
 plain_calls: collections.Counter = collections.Counter()
 
 
+_COUNT_LOCK = threading.Lock()
+_LIB_LOCK = threading.Lock()
+_LIBS: dict[str, ctypes.CDLL] = {}
+
+
+def count(counter: collections.Counter, key, n: int = 1) -> None:
+    """Add ``n`` to ``counter[key]`` under the counters' lock."""
+    with _COUNT_LOCK:
+        counter[key] += n
+
+
 def clear_counts() -> None:
-    for c in (launch_counts, launch_shapes, plain_calls):
-        c.clear()
+    with _COUNT_LOCK:
+        for c in (launch_counts, launch_shapes, plain_calls):
+            c.clear()
+
+
 # Compiler output (ptxas register and shared-memory report) per library
 # built in this process.
 build_logs: dict[str, str] = {}
@@ -95,7 +114,8 @@ def build(names=None) -> dict[str, pathlib.Path]:
     nvcc = nvcc_path()
     procs = {}
     for n, target in todo.items():
-        tmp = target.with_name(f"{target.name}.{os.getpid()}.tmp")
+        tmp = target.with_name(f"{target.name}.{os.getpid()}."
+                               f"{threading.get_ident()}.tmp")
         procs[n] = (tmp, subprocess.Popen(
             [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(SOURCES[n])],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
@@ -113,14 +133,20 @@ def build(names=None) -> dict[str, pathlib.Path]:
     return targets
 
 
-@functools.cache
 def library(name: str) -> ctypes.CDLL:
-    """The loaded library ``name``, built first if needed."""
-    lib = ctypes.CDLL(str(build([name])[name]))
-    for fn, (restype, argtypes) in _SIGNATURES[name].items():
-        getattr(lib, fn).restype = restype
-        getattr(lib, fn).argtypes = argtypes
-    return lib
+    """The loaded library ``name``, built first if needed; built and
+    loaded once per process, whichever thread asks first."""
+    lib = _LIBS.get(name)
+    if lib is not None:
+        return lib
+    with _LIB_LOCK:
+        if name not in _LIBS:
+            lib = ctypes.CDLL(str(build([name])[name]))
+            for fn, (restype, argtypes) in _SIGNATURES[name].items():
+                getattr(lib, fn).restype = restype
+                getattr(lib, fn).argtypes = argtypes
+            _LIBS[name] = lib
+        return _LIBS[name]
 
 
 def check(lib: ctypes.CDLL, err: int, what: str) -> None:

@@ -73,7 +73,7 @@ def gspn_scan_bidir_torch(x, wl2, wc2, wr2, lam2, *,
                           chunk: int | None = None):
     """Plain PyTorch version of :func:`gspn_scan_bidir`, on any device:
     f32 arithmetic and carry (f64 for f64 operands), output in x.dtype."""
-    cuda_lib.plain_calls[KERNEL] += 1
+    cuda_lib.count(cuda_lib.plain_calls, KERNEL)
     cd = compute_dtype(x.dtype)
     xf = x.to(cd)
     chunked = chunk_arg(x.shape[1], chunk)
@@ -106,7 +106,7 @@ def gspn_scan_bidir_bwd_torch(dy2, wl2, wc2, wr2, *,
                               chunk: int | None = None):
     """Plain PyTorch version of :func:`gspn_scan_bidir_bwd`, on any device:
     f32 arithmetic, carry and output (f64 for f64 operands)."""
-    cuda_lib.plain_calls[KERNEL_BWD] += 1
+    cuda_lib.count(cuda_lib.plain_calls, KERNEL_BWD)
     cd = compute_dtype(dy2.dtype)
     chunked = chunk_arg(dy2.shape[2], chunk)
     return torch.stack([
@@ -140,7 +140,7 @@ def gspn_scan_quad(x, wl4, wc4, wr4, lam4):
 def gspn_scan_quad_torch(x, wl4, wc4, wr4, lam4):
     """Plain PyTorch version of :func:`gspn_scan_quad`, on any device: f32
     arithmetic and carry (f64 for f64 operands), output in x.dtype."""
-    cuda_lib.plain_calls[KERNEL_QUAD] += 1
+    cuda_lib.count(cuda_lib.plain_calls, KERNEL_QUAD)
     cd = compute_dtype(x.dtype)
     return ref.gspn_scan_quad_ref(
         *(a.to(cd) for a in (x, wl4, wc4, wr4, lam4))).to(x.dtype)

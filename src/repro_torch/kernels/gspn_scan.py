@@ -42,9 +42,11 @@ planes, with each plane's streamed rows, by ``cp.async`` into a
 shared-memory ring that holds the whole plane at the main widths (one
 batch, one barrier) and streams taller planes in four batches.
 :func:`pair_launch_shape` chooses the launch shape from the operands'
-shape and the direction count alone; :func:`launch` launches the forward
-template for 1, 2 or 4 directions and :func:`launch_bwd` the adjoint
-template for 1 or 2.
+shape and the direction count alone, the static heuristic of the tuner
+(:mod:`~repro_torch.kernels.autotune`), which may hold a shape measured
+faster on this card; :func:`plan` asks it.  :func:`launch` launches the
+forward template for 1, 2 or 4 directions and :func:`launch_bwd` the
+adjoint template for 1 or 2.
 
 Every launch (:func:`launch`, :func:`launch_bwd`) enters the
 ``kernel.launch`` span of DESIGN.md §13 with the reference's attributes
@@ -55,6 +57,7 @@ shapes are not the Pallas launch plan.
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import NamedTuple
 
@@ -62,6 +65,7 @@ import torch
 
 from repro_torch import obs
 from repro_torch.kernels import cuda_lib, ref
+from repro_torch.kernels.spec import ScanSpec
 
 KERNEL = "gspn_scan_fwd"
 KERNEL_BWD = "gspn_scan_bwd"
@@ -333,9 +337,10 @@ def _check(ndir: int, planes, taps, chunk) -> tuple[int, int]:
 
 
 def _count(name: str, g: int, h: int, w: int, dtype: torch.dtype) -> None:
-    cuda_lib.launch_counts[name] += 1
-    cuda_lib.launch_shapes[(name, g, h, w,
-                            str(dtype).removeprefix("torch."))] += 1
+    with cuda_lib._COUNT_LOCK:
+        cuda_lib.launch_counts[name] += 1
+        cuda_lib.launch_shapes[(name, g, h, w,
+                                str(dtype).removeprefix("torch."))] += 1
 
 
 def _span(name: str, g: int, h: int, w: int, dtype: torch.dtype):
@@ -345,12 +350,41 @@ def _span(name: str, g: int, h: int, w: int, dtype: torch.dtype):
                      dtype=str(dtype).removeprefix("torch."), g=g, h=h, w=w)
 
 
-def launch(ndir: int, name: str, x, wl, wc, wr, lam, chunk) -> torch.Tensor:
+# The spec direction of each template instance: (kind, D) -> direction.
+DIRECTION = {("fwd", 1): "fwd", ("fwd", 2): "pair_fwd", ("fwd", 4): "quad",
+             ("bwd", 1): "bwd", ("bwd", 2): "pair_bwd"}
+
+
+@functools.lru_cache(maxsize=256)
+def _spec(kind: str, ndir: int, cpw: int, dtype: torch.dtype,
+          boundary: str) -> ScanSpec:
+    return ScanSpec(direction=DIRECTION[kind, ndir], impl="cuda",
+                    channels_per_weight=cpw, stream_dtype=dtype,
+                    boundary=boundary)
+
+
+def plan(kind: str, ndir: int, g: int, h: int, w: int, cpw: int,
+         dtype: torch.dtype, device, *, boundary: str = "one_shot",
+         shape: PairLaunch | None = None) -> PairLaunch:
+    """The launch shape of one launch, from the tuner
+    (``autotune.plan_for_spec``): ``shape`` if given, else a valid entry of
+    the tuning cache for this card, else :func:`pair_launch_shape`."""
+    from repro_torch.kernels import autotune
+    return autotune.plan_for_spec(_spec(kind, ndir, cpw, dtype, boundary),
+                                  g, h, w, device=autotune.device_kind(device),
+                                  launch=shape)
+
+
+def launch(ndir: int, name: str, x, wl, wc, wr, lam, chunk, *,
+           boundary: str = "one_shot",
+           shape: PairLaunch | None = None) -> torch.Tensor:
     """Check the operands of one forward scan over ``ndir`` directions (1,
     2 or 4) and launch that instance of the template on the current
     stream, counted and traced as ``name``.  Shapes: x (G,H,W); taps
     (G_w,H,W), or (ndir,G_w,H,W); lam (G,H,W), or (ndir,G,H,W).  The quad
-    (4) needs a square grid and no chunk."""
+    (4) needs a square grid and no chunk.  The launch shape is
+    :func:`plan`'s (``boundary`` names the scan for the tuning cache;
+    ``shape`` asks for one)."""
     if ndir not in (1, 2, 4):
         raise ValueError(f"ndir={ndir}: the forward template runs 1, 2 or 4 "
                          f"directions")
@@ -364,7 +398,8 @@ def launch(ndir: int, name: str, x, wl, wc, wr, lam, chunk) -> torch.Tensor:
     out = torch.empty(lead + (g, h, w), dtype=x.dtype, device=x.device)
     if out.numel() == 0:
         return out
-    s = pair_launch_shape(g, h, w, cpw, x.dtype, "fwd", ndir)
+    s = plan("fwd", ndir, g, h, w, cpw, x.dtype, x.device,
+             boundary=boundary, shape=shape)
     lib = cuda_lib.library("gspn_pair")
     with _span(name, g, h, w, x.dtype), torch.cuda.device(x.device):
         err = lib.gspn_fwd_launch(
@@ -378,12 +413,14 @@ def launch(ndir: int, name: str, x, wl, wc, wr, lam, chunk) -> torch.Tensor:
     return out
 
 
-def launch_bwd(ndir: int, name: str, dy, wl, wc, wr, chunk) -> torch.Tensor:
+def launch_bwd(ndir: int, name: str, dy, wl, wc, wr, chunk, *,
+               boundary: str = "one_shot",
+               shape: PairLaunch | None = None) -> torch.Tensor:
     """Check the operands of one adjoint walk over ``ndir`` directions (1
     or 2) and launch that instance of the adjoint template on the current
     stream, counted and traced as ``name``.  Shapes: dy (G,H,W), or
     (2,G,H,W); taps (G_w,H,W), or (2,G_w,H,W).  Returns g in float32,
-    dy's shape."""
+    dy's shape.  The launch shape is :func:`plan`'s."""
     if ndir not in (1, 2):
         raise ValueError(f"ndir={ndir}: the adjoint template runs 1 or 2 "
                          f"directions")
@@ -392,7 +429,8 @@ def launch_bwd(ndir: int, name: str, dy, wl, wc, wr, chunk) -> torch.Tensor:
     out = torch.empty(dy.shape, dtype=torch.float32, device=dy.device)
     if out.numel() == 0:
         return out
-    s = pair_launch_shape(g, h, w, cpw, dy.dtype, "bwd", ndir)
+    s = plan("bwd", ndir, g, h, w, cpw, dy.dtype, dy.device,
+             boundary=boundary, shape=shape)
     lib = cuda_lib.library("gspn_pair")
     with _span(name, g, h, w, dy.dtype), torch.cuda.device(dy.device):
         err = lib.gspn_bwd_launch(
@@ -406,21 +444,23 @@ def launch_bwd(ndir: int, name: str, dy, wl, wc, wr, chunk) -> torch.Tensor:
     return out
 
 
-def gspn_scan_fwd(x, wl, wc, wr, lam, *, chunk: int | None = None):
+def gspn_scan_fwd(x, wl, wc, wr, lam, *, chunk: int | None = None,
+                  boundary: str = "one_shot"):
     """Forward line scan.  x, lam: (G, H, W); wl/wc/wr: (G_w, H, W) with
-    G_w dividing G.  Returns h: (G, H, W) in x.dtype.
+    G_w dividing G.  Returns h: (G, H, W) in x.dtype.  ``boundary`` names
+    the scan's segment for the tuning cache (:func:`plan`).
 
     CUDA tensors launch the kernel (or raise); CPU tensors take
     :func:`gspn_scan_fwd_torch`."""
     if not x.is_cuda:
         return gspn_scan_fwd_torch(x, wl, wc, wr, lam, chunk=chunk)
-    return launch(1, KERNEL, x, wl, wc, wr, lam, chunk)
+    return launch(1, KERNEL, x, wl, wc, wr, lam, chunk, boundary=boundary)
 
 
 def gspn_scan_fwd_torch(x, wl, wc, wr, lam, *, chunk: int | None = None):
     """Plain PyTorch version of :func:`gspn_scan_fwd`, on any device: f32
     arithmetic and carry (f64 for f64 operands), output in x.dtype."""
-    cuda_lib.plain_calls[KERNEL] += 1
+    cuda_lib.count(cuda_lib.plain_calls, KERNEL)
     cd = compute_dtype(x.dtype)
     args = tuple(a.to(cd) for a in (x, wl, wc, wr, lam))
     if chunk_arg(x.shape[1], chunk):
@@ -430,7 +470,8 @@ def gspn_scan_fwd_torch(x, wl, wc, wr, lam, *, chunk: int | None = None):
     return out.to(x.dtype)
 
 
-def gspn_scan_bwd(dy, wl, wc, wr, *, chunk: int | None = None):
+def gspn_scan_bwd(dy, wl, wc, wr, *, chunk: int | None = None,
+                  boundary: str = "one_shot"):
     """Adjoint of :func:`gspn_scan_fwd`: g = dL/dh from dy (G, H, W) and
     the forward's taps (G_w, H, W), walking rows H-1..0 with the carry
     reset every ``chunk`` rows.  Returns g: (G, H, W) in float32.
@@ -439,13 +480,14 @@ def gspn_scan_bwd(dy, wl, wc, wr, *, chunk: int | None = None):
     :func:`gspn_scan_bwd_torch`."""
     if not dy.is_cuda:
         return gspn_scan_bwd_torch(dy, wl, wc, wr, chunk=chunk)
-    return launch_bwd(1, KERNEL_BWD, dy, wl, wc, wr, chunk)
+    return launch_bwd(1, KERNEL_BWD, dy, wl, wc, wr, chunk,
+                      boundary=boundary)
 
 
 def gspn_scan_bwd_torch(dy, wl, wc, wr, *, chunk: int | None = None):
     """Plain PyTorch version of :func:`gspn_scan_bwd`, on any device: f32
     arithmetic, carry and output (f64 for f64 operands)."""
-    cuda_lib.plain_calls[KERNEL_BWD] += 1
+    cuda_lib.count(cuda_lib.plain_calls, KERNEL_BWD)
     cd = compute_dtype(dy.dtype)
     return ref.gspn_scan_adjoint_ref(
         *(a.to(cd) for a in (dy, wl, wc, wr)), reverse=True,

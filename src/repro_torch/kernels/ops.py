@@ -77,8 +77,8 @@ def _per_step(x, wl, wc, wr, lam, chunk):
     and its H row steps in ``plain_calls``."""
     if chunk:
         raise ValueError("impl='per_step' runs one-shot scans; chunk=None")
-    cuda_lib.plain_calls["per_step"] += 1
-    cuda_lib.plain_calls["per_step_row"] += x.shape[1]
+    cuda_lib.count(cuda_lib.plain_calls, "per_step")
+    cuda_lib.count(cuda_lib.plain_calls, "per_step_row", x.shape[1])
     cd = _pk.compute_dtype(x.dtype)
     return _ref.gspn_scan_per_step(
         *(a.to(cd) for a in (x, wl, wc, wr, lam))).to(x.dtype)
@@ -111,18 +111,19 @@ def _tap_grads(g, h_prev, taps):
 
 class _Scan(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, wl, wc, wr, lam, chunk, impl):
+    def forward(ctx, x, wl, wc, wr, lam, chunk, impl, boundary):
         with _dispatch_span("gspn_scan", impl, x):
             if impl == "cuda":
                 x, wl, wc, wr, lam = (a.contiguous()
                                       for a in (x, wl, wc, wr, lam))
-                h = _pk.gspn_scan_fwd(x, wl, wc, wr, lam, chunk=chunk)
+                h = _pk.gspn_scan_fwd(x, wl, wc, wr, lam, chunk=chunk,
+                                      boundary=boundary)
             elif impl == "per_step":
                 h = _per_step(x, wl, wc, wr, lam, chunk)
             else:
                 h = _pk.gspn_scan_fwd_torch(x, wl, wc, wr, lam, chunk=chunk)
         ctx.save_for_backward(x, wl, wc, wr, lam, h)
-        ctx.chunk, ctx.impl = chunk, impl
+        ctx.chunk, ctx.impl, ctx.boundary = chunk, impl, boundary
         return h
 
     @staticmethod
@@ -131,13 +132,14 @@ class _Scan(torch.autograd.Function):
         with _dispatch_span("gspn_scan_bwd", ctx.impl, dy):
             if ctx.impl == "cuda":
                 g = _pk.gspn_scan_bwd(dy.contiguous(), wl, wc, wr,
-                                      chunk=ctx.chunk)
+                                      chunk=ctx.chunk, boundary=ctx.boundary)
             else:
                 g = _pk.gspn_scan_bwd_torch(dy, wl, wc, wr, chunk=ctx.chunk)
         h_prev = _h_prev(h.to(g.dtype), False, ctx.chunk)
         dx = (lam.to(g.dtype) * g).to(x.dtype)
         dlam = (x.to(g.dtype) * g).to(lam.dtype)
-        return (dx, *_tap_grads(g, h_prev, (wl, wc, wr)), dlam, None, None)
+        return (dx, *_tap_grads(g, h_prev, (wl, wc, wr)), dlam, None, None,
+                None)
 
 
 class _ScanPair(torch.autograd.Function):
@@ -188,7 +190,8 @@ def gspn_scan(x, wl, wc, wr, lam, *, spec: ScanSpec | None = None,
     """
     resolved = _resolve(spec, impl, x)
     chunk = _pk.chunk_arg(x.shape[1], chunk) or None
-    return _Scan.apply(x, wl, wc, wr, lam, chunk, resolved)
+    boundary = spec.boundary if spec is not None else "one_shot"
+    return _Scan.apply(x, wl, wc, wr, lam, chunk, resolved, boundary)
 
 
 def gspn_scan_pair(x, wl2, wc2, wr2, lam2, *, spec: ScanSpec | None = None,

@@ -47,6 +47,17 @@ BOUNDARIES = ("one_shot", "chunk_resume")
 IMPLS = ("auto", "cuda", "torch", "per_step")
 
 
+def canonical_key(direction: str, impl: str, stream_dtype: str,
+                  carry_dtype: str, channel_shared: bool,
+                  boundary: str) -> str:
+    """The policy leg of the schema-3 tuning-cache key, in the reference
+    package's format ``direction|impl|stream|carry-C|csN|bnd-B``: shared
+    by :meth:`ScanSpec.canonical` and ``autotune.ScanKey.encode``, so a
+    key ends with its spec's canonical string."""
+    return (f"{direction}|{impl}|{stream_dtype}|carry-{carry_dtype}"
+            f"|cs{int(channel_shared)}|bnd-{boundary}")
+
+
 def dtype_name(dtype) -> str:
     """Canonical name of a dtype given as a ``torch.dtype`` or a string
     (``"float32"``, ``"bfloat16"``, ``"float"``, ``"torch.float32"``)."""
@@ -123,11 +134,10 @@ class ScanSpec:
         return self.channels_per_weight > 1
 
     def canonical(self) -> str:
-        """The policy serialization, in the reference package's format:
-        ``direction|impl|stream|carry-C|csN|bnd-B``."""
-        return (f"{self.direction}|{self.impl}|{self.stream_dtype}"
-                f"|carry-{self.carry_dtype}|cs{int(self.channel_shared)}"
-                f"|bnd-{self.boundary}")
+        """The policy serialization (:func:`canonical_key`)."""
+        return canonical_key(self.direction, self.impl, self.stream_dtype,
+                             self.carry_dtype, self.channel_shared,
+                             self.boundary)
 
     def with_(self, **changes) -> "ScanSpec":
         """``dataclasses.replace`` with re-validation (frozen update)."""

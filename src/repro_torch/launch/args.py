@@ -1,10 +1,9 @@
-"""Launcher flags shared by the entry points, the port's copy of the
-groups of ``repro.launch.args`` that its serving and training paths use:
-the kernel impl, the precision policy with the pooled state's dtype, the
-device, and the trace and metrics outputs.  The reference's router,
-tuning-cache, sequence-parallel and multi-host flags come with the parts
-of the port that use them (ROADMAP.md §1 items 2, 4 and 6); until then
-they do not parse.
+"""Launcher flags shared by the entry points, the port's copy of
+``repro.launch.args``: the kernel impl, the precision policy with the
+pooled state's dtype, the device, the tuning cache, the serving tier's
+router flags, and the trace and metrics outputs.  The reference's
+sequence-parallel and multi-host flags come with ROADMAP.md §1 item 6;
+until then they do not parse.
 """
 
 from __future__ import annotations
@@ -21,6 +20,35 @@ def add_observability_args(ap):
     ap.add_argument("--metrics-out", default="",
                     help="write the metrics-registry snapshot here "
                          "(.prom => Prometheus text, else JSON)")
+
+
+def add_tuning_args(ap):
+    """``--tune-cache`` (DESIGN.md §11)."""
+    ap.add_argument("--tune-cache", default="",
+                    help="kernel tuning cache JSON (DESIGN.md §11), "
+                         "layered over the seed cache measured on the "
+                         "H100; every scan launch then takes its launch "
+                         "shape from it where it holds a valid entry")
+
+
+def add_router_args(ap):
+    """The serving tier's ``--replicas``, ``--router``, ``--prefix-cache``
+    and ``--slo-ttft`` (DESIGN.md §15), with the reference's defaults."""
+    ap.add_argument("--replicas", type=int, default=1,
+                    help="engine replicas behind the router (1 = a bare "
+                         "engine, no router tier); on one card they share "
+                         "the model's weights")
+    ap.add_argument("--router", default="least_loaded",
+                    choices=["least_loaded", "ttft"],
+                    help="admission policy: fewest in-flight requests, or "
+                         "TTFT-predictive (work ahead x measured per-chunk "
+                         "latency)")
+    ap.add_argument("--prefix-cache", type=int, default=0,
+                    help="capacity (entries) of the shared prefix-state "
+                         "cache; 0 disables prefix reuse")
+    ap.add_argument("--slo-ttft", type=float, default=0.5,
+                    help="TTFT SLO in seconds; admissions predicted to "
+                         "miss it count router_slo_at_risk_total")
 
 
 def add_impl_arg(ap):
@@ -64,3 +92,12 @@ def finish_observability(args, tag: str):
               f"({len(obs.records())} events)")
     if args.metrics_out:
         print(f"[{tag}] metrics: {obs.save_metrics(args.metrics_out)}")
+
+
+def load_tune_cache(args, tag: str):
+    """Layer ``--tune-cache`` over the global tuning cache (no-op when
+    unset)."""
+    if args.tune_cache:
+        from repro_torch.kernels.autotune import load_cache
+        n = load_cache(args.tune_cache)
+        print(f"[{tag}] tuning cache: {n} entries from {args.tune_cache}")

@@ -14,9 +14,11 @@ rewrites the dtype policy (DESIGN.md §10), and a low-precision parameter
 dtype turns on the f32 master copy and dynamic loss scaling, as in the
 reference.  ``--ckpt-dir`` holds the checkpoints (the run resumes from
 the latest there), ``--ckpt-every`` sets their interval and
-``--grad-accum`` the microbatches per step.  The reference launcher's
-multi-pod, production-mesh, distributed, gradient-compression and tuning
-flags are not ported yet (ROADMAP.md §1 items 2 and 6) and do not parse.
+``--grad-accum`` the microbatches per step, and ``--tune-cache`` layers a
+tuning cache over the seed cache (DESIGN.md §11).  The reference
+launcher's multi-pod, production-mesh, distributed and
+gradient-compression flags are not ported yet (ROADMAP.md §1 item 6) and
+do not parse.
 """
 
 from __future__ import annotations
@@ -55,12 +57,14 @@ def main(argv=None) -> Trainer:
     ap.add_argument("--ckpt-every", type=int, default=50)
     ap.add_argument("--grad-accum", type=int, default=1)
     largs.add_precision_args(ap)
+    largs.add_tuning_args(ap)
     largs.add_device_arg(ap)
     largs.add_observability_args(ap)
     args = ap.parse_args(argv)
     logging.basicConfig(level=logging.INFO, format="%(asctime)s %(message)s")
 
     largs.setup_observability(args)
+    largs.load_tune_cache(args, "train")
     entry = get_arch(args.arch)
     cfg = entry.reduced() if args.reduced else entry.full()
     mp_kwargs = {}

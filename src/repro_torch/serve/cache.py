@@ -1,6 +1,5 @@
-"""Paged per-request propagation-state pool for the serving engine, the
-port's ``repro.serve.cache`` without the prefix cache (ROADMAP.md §1
-item 4).
+"""Paged per-request propagation-state pool for the serving engine, and
+the shared prefix-state cache: the port of ``repro.serve.cache``.
 
 Slot/cache lifecycle contract (DESIGN.md §9): the pool owns one batched
 cache (``init_lm_cache(cfg, n_slots, max_len)``) whose batch axis is the
@@ -17,12 +16,22 @@ positions of a KV cache included, so a reused slot never sees its
 previous occupant's state.  The GSPN leaves are O(W) per request
 whatever the sequence length, so paging a request in or out moves a
 compact recurrent state; an attention layer's K/V pages are O(max_len).
+
+:class:`PrefixStateCache` keeps the batch-1 cache of a chunked prefill at
+chunk-aligned offsets, so a later prompt that shares that prefix resumes
+there (DESIGN.md §15).
 """
 
 from __future__ import annotations
 
+import collections
+import hashlib
+import threading
+
+import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.models import lm as lm_mod
 
 
@@ -64,6 +73,110 @@ def update_cache_slots(cfg, caches, new_caches, slots):
             new = new_caches[key][name]
             big.movedim(axis, 0)[idx] = new.movedim(axis, 0).to(big.dtype)
     return caches
+
+
+def _prefix_metrics():
+    """Prefix-cache counters in the process-global registry, under the
+    reference's names."""
+    return {
+        "hits": obs.counter("serve_prefix_hits_total",
+                            "prefill admissions resumed from a cached "
+                            "prefix state"),
+        "misses": obs.counter("serve_prefix_misses_total",
+                              "prefill admissions with no usable prefix"),
+        "reused": obs.counter("serve_prefix_tokens_reused_total",
+                              "prompt tokens served from cached state "
+                              "instead of recomputed"),
+        "evicted": obs.counter("serve_prefix_evictions_total",
+                               "prefix entries dropped by the LRU bound"),
+    }
+
+
+class PrefixStateCache:
+    """Token prefix -> boundary-state cache for chunked prefill
+    (DESIGN.md §15).
+
+    The GSPN propagation state at a fold-row boundary is O(W) and
+    resumable (a chunk chain equals the one-shot prefill), and an
+    attention layer's KV cache holds every position so far: so the
+    engine's batch-1 cache after exactly ``k`` prompt tokens, ``k`` a
+    multiple of the prefill chunk (snapped to the fold width), lets a
+    later prompt that shares those ``k`` tokens re-enter
+    ``lm_prefill_chunk`` at offset ``k``, the path a cold chain takes.
+
+    Keys are the SHA-1 of the prefix's int32 token bytes; the tokens are
+    stored beside the state and compared on lookup, so a hash collision is
+    a miss, never wrong state.  A bounded LRU of ``capacity`` entries: an
+    entry of ``qwen2-1.5b-gspn`` is 28 layers' O(W) rows, of ``qwen2-1.5b``
+    a whole batch-1 KV cache of ``max_len`` positions (118 MB at 4112).
+    Safe for threads: a router's replicas share one instance.
+
+    Entries share their tensors with the engine's in-flight prefill, not
+    copies: no path writes a cache tensor in place once it is built
+    (``lm_prefill_chunk`` returns new tensors and ``StateCachePool.commit``
+    reads its argument), and
+    ``tests/test_torch_serve_tier.py::test_stored_entry_is_unchanged_after_two_resumes``
+    holds a stored entry bit for bit after two requests resumed from it.
+    ``lookup`` returns a fresh dict over the stored tensors, so the
+    engine's bookkeeping never aliases the entry itself.
+    """
+
+    def __init__(self, capacity: int = 8):
+        self.capacity = capacity
+        self._entries: collections.OrderedDict = collections.OrderedDict()
+        self._lock = threading.Lock()
+
+    @staticmethod
+    def _key(tokens: np.ndarray) -> str:
+        return hashlib.sha1(
+            np.ascontiguousarray(tokens, np.int32).tobytes()).hexdigest()
+
+    def __len__(self) -> int:
+        return len(self._entries)
+
+    @property
+    def nbytes(self) -> int:
+        """Bytes of every cached state (capacity planning)."""
+        with self._lock:
+            return sum(a.numel() * a.element_size()
+                       for _toks, tree in self._entries.values()
+                       for a in _leaves(tree))
+
+    def insert(self, prefix_tokens, cache_tree):
+        """Store ``cache_tree``, the engine's batch-1 prefill cache after
+        consuming exactly ``prefix_tokens`` (the caller keeps the offset
+        chunk-aligned); an existing prefix only moves to the LRU's end."""
+        toks = np.ascontiguousarray(prefix_tokens, np.int32)
+        key = self._key(toks)
+        with self._lock:
+            if key in self._entries:
+                self._entries.move_to_end(key)
+                return
+            self._entries[key] = (toks, cache_tree)
+            while len(self._entries) > self.capacity:
+                self._entries.popitem(last=False)
+                _prefix_metrics()["evicted"].inc()
+
+    def lookup(self, prompt, chunk: int):
+        """The longest cached chunk-aligned proper prefix of ``prompt``:
+        ``(k, cache)`` or None.  ``k`` is at most ``len(prompt) - 1``, so at
+        least one prompt token is left to prefill: the last chunk gives
+        the first token's logits."""
+        prompt = np.ascontiguousarray(prompt, np.int32)
+        m = _prefix_metrics()
+        k = ((len(prompt) - 1) // chunk) * chunk
+        while k >= chunk:
+            key = self._key(prompt[:k])
+            with self._lock:
+                ent = self._entries.get(key)
+                if ent is not None and np.array_equal(ent[0], prompt[:k]):
+                    self._entries.move_to_end(key)
+                    m["hits"].inc()
+                    m["reused"].inc(k)
+                    return k, _tree_map(lambda a: a, ent[1])
+            k -= chunk
+        m["misses"].inc()
+        return None
 
 
 class StateCachePool:

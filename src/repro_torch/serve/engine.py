@@ -25,24 +25,44 @@ and with tracing on the request lifecycle as spans (an async ``request``
 span per uid around the ``serve.tick`` / ``serve.prefill`` /
 ``serve.prefill_chunk`` / ``serve.decode_step`` spans).
 
-Not ported yet (ROADMAP.md §1 item 4): the shared prefix-state cache, the
-replica/router tier (``drain``, ``pending_chunks``, the finish hook) and a
-device mesh; ``prefix_cache`` and a ``ctx`` raise.
+The serving tier (DESIGN.md §15): a shared ``prefix_cache``
+(:class:`~repro_torch.serve.cache.PrefixStateCache`) lets a chunked
+prefill resume from a cached chunk-aligned state instead of recomputing a
+shared prompt prefix; ``submit(req, handle=...)``, ``pending_chunks``,
+``drain()`` and the finish hook serve the router
+(:mod:`repro_torch.serve.router`).  ``submit`` returns a
+:class:`RequestHandle`; the pre-handle ``on_finish`` callback survives as
+a deprecated shim.
+
+Streams.  On a card the engine runs every tick on a CUDA stream of its
+own (``cuda_stream``, made in ``__init__``), so replicas
+that share one card and one model overlap instead of queueing on one
+stream; the chunk timer waits on that stream, never on the device.  The
+constructor waits once for the device, so the weights and whatever else
+the default stream made are finished before the engine's stream reads
+them; a prefix entry made on another engine's stream is finished before
+it is stored, and a resumed request marks its tensors as in use on this
+stream (``record_stream``) so the allocator cannot hand their memory out
+while this stream still reads it.  A ``ctx`` (device mesh) raises until
+ROADMAP.md §1 item 6.
 """
 
 from __future__ import annotations
 
 import collections
+import contextlib
 import dataclasses
 import time
+import warnings
 from typing import Callable, Optional
 
 import numpy as np
 import torch
 
 from repro_torch import obs
+from repro_torch.kernels import autotune
 from repro_torch.models import lm as lm_mod
-from repro_torch.serve.cache import StateCachePool
+from repro_torch.serve.cache import StateCachePool, _leaves
 
 
 @dataclasses.dataclass
@@ -131,16 +151,22 @@ class Result:
     finish_reason: str = ""         # "eos" | "length"
     t_submit: float = 0.0           # obs.monotonic() at submit
     t_finish: float = 0.0           # obs.monotonic() at retirement
+    cached_tokens: int = 0          # prompt tokens resumed from the
+    #                                 prefix cache instead of recomputed
 
 
 @dataclasses.dataclass
 class RequestHandle:
     """What :meth:`ServeEngine.submit` returns: the caller's view of one
     request.  ``status`` moves queued → running → finished; ``result()``
-    returns the finished :class:`Result` and raises before."""
+    returns the finished :class:`Result` and raises before.  The routing
+    tier re-submits a drained request under the handle the caller already
+    holds, so a handle stays valid wherever the request lands;
+    ``replica`` records its placement."""
 
     uid: int
     status: str = "queued"          # "queued" | "running" | "finished"
+    replica: Optional[int] = None   # owning replica id (router tier)
     _result: Optional[Result] = dataclasses.field(default=None, repr=False)
 
     @property
@@ -158,9 +184,8 @@ class RequestHandle:
         self.status = "finished"
 
 
-def _sync(device: torch.device) -> None:
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
+# Warn-once latch for the deprecated ``on_finish`` callback.
+_on_finish_warned = False
 
 
 class ServeEngine:
@@ -169,7 +194,9 @@ class ServeEngine:
     generator; ``max_len`` bounds prompt plus generated tokens per
     request; ``prefill_chunk`` > 0 chunks prompts longer than it (snapped
     to the GSPN fold width); ``state_dtype`` narrows the pooled state at
-    rest."""
+    rest; ``prefix_cache`` is a shared
+    :class:`~repro_torch.serve.cache.PrefixStateCache`; ``stream`` is the
+    per-token callback (the engine's CUDA stream is ``cuda_stream``)."""
 
     def __init__(self, model, *, batch_size: int = 4, max_len: int = 512,
                  temperature: float = 0.0, top_k: int = 0,
@@ -177,13 +204,10 @@ class ServeEngine:
                  prefill_chunk: int = 0, scheduler: str = "fcfs",
                  state_dtype=None,
                  stream: Optional[Callable[[int, int], None]] = None,
+                 on_finish: Optional[Callable[[Result], None]] = None,
                  ctx=None, prefix_cache=None):
         if scheduler not in ("fcfs", "sjf"):
             raise ValueError(f"unknown scheduler {scheduler!r}")
-        if prefix_cache is not None:
-            raise NotImplementedError(
-                "the prefix-state cache is not in the port yet; ROADMAP.md "
-                "§1 item 4.1 brings it")
         if ctx is not None:
             raise NotImplementedError(
                 "the engine runs on one device; a ctx (device mesh) comes "
@@ -199,7 +223,20 @@ class ServeEngine:
         self.scheduler = scheduler
         self.state_dtype = state_dtype
         self.stream = stream
-        self.generator = torch.Generator(device=self.device).manual_seed(seed)
+        # The routing tier's finish hook (a Replica installs it), apart
+        # from the deprecated user-facing ``on_finish``.
+        self._finish_hook: Optional[Callable[[Result], None]] = None
+        self._on_finish = None
+        self.on_finish = on_finish       # property: warns once if not None
+        self.prefix_cache = prefix_cache
+        self._seed = seed
+        if self.device.type == "cuda":
+            self.cuda_stream = torch.cuda.Stream(self.device)
+            # The weights (and all else the default stream made) are
+            # finished before this engine's stream reads them.
+            torch.cuda.synchronize(self.device)
+        else:
+            self.cuda_stream = None
 
         # Chunks snap to the GSPN fold width, so each starts on a grid-row
         # boundary (the gspn_seq_prefill_chunk contract); attention alone
@@ -210,18 +247,40 @@ class ServeEngine:
         else:
             self.prefill_chunk = 0
 
-        self.pool = StateCachePool(cfg, batch_size, max_len,
-                                   device=self.device,
-                                   state_dtype=state_dtype)
+        self.reset()
+
+    def _on_stream(self):
+        """The engine's CUDA stream as the current stream (a no-op off the
+        card): every tensor the engine makes is made there."""
+        if self.cuda_stream is None:
+            return contextlib.nullcontext()
+        return torch.cuda.stream(self.cuda_stream)
+
+    def _sync(self) -> None:
+        """Wait for the engine's own stream (not the whole device, which
+        would serialise the replicas that share it)."""
+        if self.cuda_stream is not None:
+            self.cuda_stream.synchronize()
+
+    def reset(self):
+        """Clear all scheduling state: a fresh pool, an empty queue, the
+        sampling generator re-seeded."""
+        bs = self.bs
+        with self._on_stream():
+            self.generator = torch.Generator(
+                device=self.device).manual_seed(self._seed)
+            self.pool = StateCachePool(self.cfg, bs, self.max_len,
+                                       device=self.device,
+                                       state_dtype=self.state_dtype)
+            self.last_token = torch.zeros((bs, 1), dtype=torch.long,
+                                          device=self.device)
         self.waiting: list = []              # [(Request, t_submit)]
         self._handles: dict = {}             # uid -> unfinished handle
         self._inflight = None                # chunked prefill in progress
-        self.slot_req = [None] * batch_size
-        self._slot_res: list = [None] * batch_size
-        self._slot_t_last = [0.0] * batch_size
-        self.last_token = torch.zeros((batch_size, 1), dtype=torch.long,
-                                      device=self.device)
-        self.active = np.zeros((batch_size,), bool)
+        self.slot_req = [None] * bs
+        self._slot_res: list = [None] * bs
+        self._slot_t_last = [0.0] * bs
+        self.active = np.zeros((bs,), bool)
         self.results: dict = {}
         self._m = {"ticks": 0, "decode_steps": 0, "prefill_chunks": 0,
                    "prefills": 0, "queue_depth_max": 0, "queue_depth_sum": 0,
@@ -229,6 +288,24 @@ class ServeEngine:
                    # bounded: a long-running server must not grow a list
                    # per request without limit
                    "admission_order": collections.deque(maxlen=1024)}
+
+    @property
+    def on_finish(self):
+        """DEPRECATED result delivery: ``submit`` returns a
+        :class:`RequestHandle`; read results through it.  Kept as a shim
+        that warns once per process."""
+        return self._on_finish
+
+    @on_finish.setter
+    def on_finish(self, fn):
+        global _on_finish_warned
+        if fn is not None and not _on_finish_warned:
+            _on_finish_warned = True
+            warnings.warn(
+                "ServeEngine(on_finish=...) is deprecated; submit() "
+                "returns a RequestHandle: read results through it",
+                DeprecationWarning, stacklevel=3)
+        self._on_finish = fn
 
     @property
     def metrics(self) -> dict:
@@ -251,10 +328,15 @@ class ServeEngine:
                 f"({req.max_new_tokens}) needs {need} positions, exceeding "
                 f"max_len={self.max_len}")
 
-    def submit(self, req: Request) -> RequestHandle:
-        """Queue a request; returns its :class:`RequestHandle`."""
+    def submit(self, req: Request, *,
+               handle: Optional[RequestHandle] = None) -> RequestHandle:
+        """Queue a request; returns its :class:`RequestHandle`.  ``handle``
+        re-submits a drained request under the handle its caller holds
+        (the router's failure path)."""
         self.check_fits(req)
-        handle = RequestHandle(uid=req.uid)
+        if handle is None:
+            handle = RequestHandle(uid=req.uid)
+        handle.status = "queued"
         self._handles[req.uid] = handle
         self.waiting.append((req, obs.monotonic()))
         _serve_metrics()["submitted"].inc()
@@ -289,6 +371,47 @@ class ServeEngine:
         already admitted and not counted)."""
         return len(self.waiting)
 
+    @property
+    def pending_chunks(self) -> int:
+        """Prefill chunks of work ahead of a new arrival: the in-flight
+        request's remaining chunks and an estimate for every waiting
+        prompt.  The TTFT-predictive router policy multiplies this by the
+        measured per-chunk latency (DESIGN.md §15)."""
+        n = 0
+        if self._inflight is not None:
+            st = self._inflight
+            n += -(-(len(st["toks"]) - st["off"]) // self.prefill_chunk)
+        if self.prefill_chunk:
+            for req, _t in self.waiting:
+                n += max(-(-len(req.prompt) // self.prefill_chunk), 1)
+        else:
+            n += len(self.waiting)
+        return n
+
+    def drain(self) -> list:
+        """Evacuate every unfinished request (the replica-failure path):
+        ``[(Request, RequestHandle), ...]``, the admitted requests first,
+        then the in-flight prefill, then the waiting queue, each handle
+        reset to ``queued`` so the router can re-submit it to a survivor
+        under the same handle.  Decode progress is discarded (restart
+        semantics); the scheduling state is reset."""
+        reqs = [self.slot_req[s] for s in range(self.bs) if self.active[s]]
+        if self._inflight is not None:
+            reqs.append(self._inflight["req"])
+        reqs.extend(r for r, _t in self.waiting)
+        out = []
+        for req in reqs:
+            h = self._handles.pop(req.uid, None)
+            if h is None:
+                h = RequestHandle(uid=req.uid)
+            h.status = "queued"
+            h._result = None
+            obs.async_end("request", req.uid, finish_reason="evacuated")
+            out.append((req, h))
+        self._sync()
+        self.reset()
+        return out
+
     def _tokens(self, toks) -> torch.Tensor:
         return torch.as_tensor(np.asarray(toks), dtype=torch.long,
                                device=self.device)[None]
@@ -306,14 +429,29 @@ class ServeEngine:
             self._m["admission_order"].append(req.uid)
             obs.event("request.admitted", uid=req.uid, slot=slot)
             if self.prefill_chunk and len(req.prompt) > self.prefill_chunk:
-                # A fresh zeroed batch-1 cache per admission: a stale
-                # prev_row would corrupt the seeded scan, and a stale K/V
-                # page would outlive its request.
+                toks = np.asarray(req.prompt)
+                # The prefix probe (DESIGN.md §15): a hit is the whole
+                # batch-1 cache at a chunk-aligned offset, resumed through
+                # the same lm_prefill_chunk a cold chain runs.
+                off, cache = 0, None
+                if self.prefix_cache is not None:
+                    hit = self.prefix_cache.lookup(toks, self.prefill_chunk)
+                    if hit is not None:
+                        off, cache = hit
+                        if self.cuda_stream is not None:
+                            for leaf in _leaves(cache):
+                                leaf.record_stream(self.cuda_stream)
+                        obs.event("request.prefix_hit", uid=req.uid,
+                                  cached_tokens=off)
+                if cache is None:
+                    # A fresh zeroed batch-1 cache per admission: a stale
+                    # prev_row would corrupt the seeded scan, and a stale
+                    # K/V page would outlive its request.
+                    cache = lm_mod.init_lm_cache(self.cfg, 1, self.max_len,
+                                                 device=self.device)
                 self._inflight = {
-                    "req": req, "slot": slot, "off": 0, "chunks": 0,
-                    "toks": np.asarray(req.prompt),
-                    "cache": lm_mod.init_lm_cache(self.cfg, 1, self.max_len,
-                                                  device=self.device),
+                    "req": req, "slot": slot, "off": off, "chunks": 0,
+                    "cached": off, "toks": toks, "cache": cache,
                     "t_submit": t_submit, "t_admit": t_admit,
                 }
             else:
@@ -344,27 +482,38 @@ class ServeEngine:
             logits, st["cache"] = lm_mod.lm_prefill_chunk(
                 self.model, self._tokens(st["toks"][off:end]), st["cache"],
                 off, with_logits=last)
-            # Wait for the card, so the chunk histogram measures the
-            # chunk's device time rather than its dispatch.
-            _sync(self.device)
+            # Wait for the engine's stream, so the chunk histogram (the
+            # TTFT predictor's cost model) measures the chunk's device
+            # time rather than its dispatch, and a prefix entry is
+            # finished before another engine's stream can read it.
+            self._sync()
         _serve_metrics()["chunk_s"].observe(obs.monotonic() - t0)
         st["off"] = end
         st["chunks"] += 1
         self._m["prefill_chunks"] += 1
         _serve_metrics()["chunks"].inc()
+        if (self.prefix_cache is not None
+                and end % self.prefill_chunk == 0 and end > st["cached"]):
+            # Every freshly computed chunk boundary is a reusable prefix
+            # state: chunks are snapped to the fold width, so ``end`` sits
+            # on a grid-row boundary (the resumable-state contract).
+            self.prefix_cache.insert(st["toks"][:end], st["cache"])
         if last:
             first = self._sample_first(logits[0, -1])
             self.pool.commit(st["slot"], st["cache"])
             self._activate(st["req"], st["slot"], first, st["t_submit"],
-                           st["t_admit"], st["chunks"])
+                           st["t_admit"], st["chunks"], cached=st["cached"])
             self._inflight = None
 
-    def _activate(self, req, slot, first, t_submit, t_admit, chunks):
+    def _activate(self, req, slot, first, t_submit, t_admit, chunks,
+                  cached: int = 0):
         now = obs.monotonic()
         res = Result(uid=req.uid, tokens=[first], ttft=now - t_submit,
                      queue_delay=t_admit - t_submit, prefill_chunks=chunks,
-                     t_submit=t_submit)
-        self._handles[req.uid].status = "running"
+                     t_submit=t_submit, cached_tokens=cached)
+        h = self._handles.get(req.uid)
+        if h is not None:
+            h.status = "running"
         sm = _serve_metrics()
         sm["ttft"].observe(res.ttft)
         sm["qdelay"].observe(res.queue_delay)
@@ -390,8 +539,17 @@ class ServeEngine:
         _serve_metrics()["finished"].inc()
         obs.async_end("request", res.uid, finish_reason=reason,
                       tokens=len(res.tokens))
-        self._handles.pop(res.uid)._finish(res)
-        self.results[res.uid] = res
+        h = self._handles.pop(res.uid, None)
+        if h is not None:
+            h._finish(res)
+        if self._finish_hook is not None:
+            # The routing tier observes the finish; the handle carries the
+            # result, so nothing is kept here.
+            self._finish_hook(res)
+        elif self.on_finish is not None:
+            self.on_finish(res)       # the deprecated callback
+        else:
+            self.results[res.uid] = res
         self.slot_req[slot] = None
         self._slot_res[slot] = None
         self.active[slot] = False
@@ -402,7 +560,7 @@ class ServeEngine:
         rows compute on stale state and are never read)."""
         sm = _serve_metrics()
         with torch.no_grad(), obs.trace(
-                "serve.decode_step", batch=int(self.active.sum())):
+                "serve.decode_step", batch=int(self.active.sum())) as sp:
             logits, new_caches = lm_mod.lm_decode_step(
                 self.model, self.last_token, self.pool.caches)
             self.pool.update(new_caches)
@@ -411,6 +569,9 @@ class ServeEngine:
             self._m["decode_steps"] += 1
             sm["decode"].inc()
             nxt_host = nxt.cpu().numpy()
+            if obs.enabled():
+                # the launch shapes the tuner resolved so far
+                sp.set(plan=autotune.plans_summary())
             self.last_token = nxt[:, None]
             now = obs.monotonic()
             for slot in range(self.bs):
@@ -434,7 +595,7 @@ class ServeEngine:
     def tick(self):
         """One scheduling quantum: admit, one prefill chunk, one decode
         step.  Drivers interleave ``submit``/``tick`` to model arrivals."""
-        with obs.trace("serve.tick"):
+        with self._on_stream(), obs.trace("serve.tick"):
             sm = _serve_metrics()
             self._m["ticks"] += 1
             sm["ticks"].inc()

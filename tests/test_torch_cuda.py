@@ -593,6 +593,80 @@ def test_reduced_lm_on_card_matches_cpu(card):
         assert _err_ok(g, w, 1e-4)
 
 
+def test_threaded_replicas_on_their_own_streams_give_the_engine_tokens(card):
+    """Two replicas on worker threads share one reduced LM on the card,
+    each engine on its own CUDA stream, with a shared prefix cache: every
+    request's greedy tokens equal the single engine's, and the kernel
+    launches add up to the single engine's."""
+    import numpy as np
+
+    from repro_torch.serve.cache import PrefixStateCache
+    from repro_torch.serve.engine import Request, ServeEngine, drive
+    from repro_torch.serve.router import Router
+
+    cfg = with_precision(reduced_lm(), "f32")
+    model = lm.LM(cfg, device="cuda",
+                  generator=torch.Generator(device="cuda").manual_seed(3))
+    rng = np.random.default_rng(5)
+    head = rng.integers(0, cfg.vocab, 24)
+    prompts = [np.concatenate([head, rng.integers(0, cfg.vocab, n)])
+               for n in (9, 2, 14, 5, 30, 7, 1, 11)]
+
+    def reqs():
+        return [Request(uid=i, prompt=p, max_new_tokens=6)
+                for i, p in enumerate(prompts)]
+
+    def engine(seed=0, cache=None):
+        return ServeEngine(model, batch_size=2, max_len=96, prefill_chunk=8,
+                           seed=seed, prefix_cache=cache)
+
+    single = engine()
+    assert single.cuda_stream is not None
+    assert single.cuda_stream != torch.cuda.current_stream()
+    cuda_lib.clear_counts()
+    for r in reqs():
+        single.submit(r)
+    want = {u: r.tokens for u, r in single.run().items()}
+    launches = dict(cuda_lib.launch_counts)
+    cache = PrefixStateCache()
+    router = Router([engine(i, cache) for i in range(2)], threaded=True)
+    assert router.replicas[0].engine.cuda_stream != \
+        router.replicas[1].engine.cuda_stream
+    cuda_lib.clear_counts()
+    router.start()
+    try:
+        _dt, handles = drive(router, reqs(), [0.0] * len(prompts))
+    finally:
+        router.stop()
+    torch.cuda.synchronize()
+    assert {h.uid: h.result().tokens for h in handles} == want
+    assert {h.replica for h in handles} == {0, 1}
+    assert sum(h.result().cached_tokens for h in handles) > 0
+    assert sum(cuda_lib.launch_counts.values()) <= sum(launches.values())
+    assert not cuda_lib.plain_calls
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("direction", ["fwd", "bwd", "pair_fwd", "pair_bwd",
+                                       "quad"])
+def test_every_tuner_candidate_matches_plain(card, dtype, direction):
+    """Every launch shape the tuner may emit at one small shape of each
+    kernel (G = 16, cpw 4, 24 rows of 24 columns, and the single adjoint
+    at 12 rows of 300 columns: bands and windows) against the plain
+    version: 1e-5 of the largest magnitude, 1e-2 for a bfloat16
+    forward."""
+    from repro_torch.kernels import autotune
+
+    h, w = (12, 300) if direction == "bwd" else (24, 24)
+    key = autotune.ScanKey(autotune.device_kind("cuda"), 16, h, w, 4,
+                           direction, str(dtype)[6:])
+    cands = autotune.enumerate_candidates(key)
+    assert len(cands) > 4
+    checked = autotune.check_candidates(key, cands)
+    bad = [(c.label(), e, tol) for c, e, tol in checked if not e <= tol]
+    assert not bad
+
+
 # ---------------------------------------------------------------------------
 # LM training on the card: a narrow LM with the full model's 1024-wide rows.
 # ---------------------------------------------------------------------------

@@ -28,7 +28,8 @@ from repro_torch.kernels import cuda_lib
 from repro_torch.launch import serve as launch_serve
 from repro_torch.models import lm
 from repro_torch.models.convert import lm_state_from_jax
-from repro_torch.serve.cache import StateCachePool, update_cache_slots
+from repro_torch.serve.cache import (PrefixStateCache, StateCachePool,
+                                     update_cache_slots)
 from repro_torch.serve.engine import (Request, ServeEngine, drive,
                                       sample_tokens)
 
@@ -245,8 +246,8 @@ def test_chunk_snapping_capacity_and_unported_arguments(model):
     with pytest.raises(ValueError):          # prompt + generated must fit
         eng.submit(Request(uid=0, prompt=np.arange(60) % 512,
                            max_new_tokens=10))
-    with pytest.raises(NotImplementedError, match="item 4.1"):
-        _engine(model, prefix_cache=object())
+    pfx = PrefixStateCache()                 # the tier's cache is ported
+    assert _engine(model, prefix_cache=pfx).prefix_cache is pfx
     with pytest.raises(NotImplementedError, match="item 6"):
         _engine(model, ctx=lm.Ctx())
     free_fold = lm.LM(_cfg(gspn_row_width=0), device="cpu")
@@ -410,10 +411,14 @@ def test_launcher_serves_the_attention_arch_with_no_code_of_its_own(capsys):
 
 
 @pytest.mark.parametrize("flag", [
-    ["--replicas", "2"], ["--router", "ttft"], ["--prefix-cache", "4"],
-    ["--slo-ttft", "0.5"], ["--seq-parallel", "2"], ["--ckpt-dir", "x"],
-    ["--tune-cache", "x.json"], ["--impl", "pallas"]])
+    ["--replicas", "two"], ["--router", "round_robin"],
+    ["--prefix-cache", "x"], ["--slo-ttft", "soon"], ["--seq-parallel", "2"],
+    ["--ckpt-dir"], ["--tune-cache"], ["--impl", "pallas"]])
 def test_launcher_refuses_flags_of_later_slices(flag):
+    """A flag of a later slice (``--seq-parallel``, ROADMAP.md §1 item 6;
+    the reference's ``pallas`` impl) does not parse, and neither does a
+    malformed value of the tier's, tuning and checkpoint flags, which
+    parse since the serving tier came."""
     with pytest.raises(SystemExit):
         launch_serve.main(["--arch", "qwen2-1.5b-gspn", "--device", "cpu",
                            *flag])

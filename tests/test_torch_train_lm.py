@@ -754,7 +754,7 @@ def test_entry_points_need_a_card_or_cpu(tmp_path):
 
 @pytest.mark.parametrize("flag", [
     ["--multi-pod"], ["--production-mesh"], ["--distributed"],
-    ["--grad-compression", "int8_ef"], ["--tune-cache", "x.json"],
+    ["--grad-compression", "int8_ef"], ["--grad-compression", "none"],
 ])
 def test_unported_launcher_flags_do_not_parse(flag, tmp_path):
     with pytest.raises(SystemExit):
