@@ -125,7 +125,32 @@ Phases, each of which fails the run on any error:
    the median of 5 steps, tokens/s, loss and gradients alone, peak
    memory, a profiled step and attention's share of its device time
    (the kernels under the ``attention.*`` spans of that profile); (d) ``granite-3-2b`` ``full()`` under the f32 policy: a
-   prefill of 1024 and 4 decode steps against ``apply_lm`` (1e-4).
+   prefill of 1024 and 4 decode steps against ``apply_lm`` (1e-4);
+12. the serving tier (``lm tier ...`` lines): the prefix cache cold and
+   warm on both LMs, threaded replicas under each router policy, a
+   replica's failure, and the tuner's seed cache;
+13. sequence parallelism of the scan (``sp ...`` lines,
+   ``parallel/gspn_sp.py``): (a) one rank over NCCL in this process,
+   where ``gspn_scan_sp`` and ``gspn_scan_sp_pair`` at G = 128, N = 56,
+   cpw 2 equal the kernel call bit for bit on #1 and #3; (b) 2 and then 4
+   ranks in processes of their own that share the card over gloo (the
+   exchange staged through host memory): all four directions at N = 56
+   and 7 under each strategy, the fused pair under each exchange mode
+   and the LM's two passes (16 x 4 x 1024, 16 x 1024 x 4), float32 and
+   bfloat16, forward and gradients against the unsharded kernel call
+   (1e-5 of the largest magnitude, 1e-2 in bfloat16), the exchange
+   collectives of each counted, #1 to #4 launched under
+   ``sp_block_local`` and no plain scan; the host-clock µs of the
+   sharded and unsharded forward and of the block-local operators alone;
+   (c) 2 ranks at full width: GSPN-2-T at batch 64 (logits 1e-4, loss
+   1e-5 relative, gradients 1e-4, then an AdamW step), the first
+   prefill of 4096 tokens of ``qwen2-1.5b-gspn`` (under the f32 policy
+   logits 1e-4 of the largest with the policy's f32 wire and 1e-2
+   relative L2 with a bf16 wire; under the config's own policy both
+   measured beside a control, the unsharded plain scans against the
+   unsharded kernels), and the serve launcher with ``--seq-parallel 2``
+   under the f32 policy, whose tokens and #1 launches must equal the
+   unsharded launcher's.
 
 It prints a ``{"kernels": [...]}`` line and, last, the ``{"ok": true, ...}``
 line.
@@ -137,9 +162,13 @@ import collections
 import contextlib
 import dataclasses
 import importlib.util
+import io
 import json
 import math
+import os
 import pathlib
+import re
+import socket
 import statistics
 import subprocess
 import sys
@@ -1880,6 +1909,508 @@ def tier_phase():
     return shapes
 
 
+# ---------------------------------------------------------------------------
+# Sequence parallelism of the scan (parallel/gspn_sp.py).
+# ---------------------------------------------------------------------------
+
+# Kernel level: the blocks of each run, GSPN-2-T's widths at batch 64 (G =
+# 128, cpw 2; N = 56 and 7) and the LM mixer's two passes at one chip's
+# share of train_4k (G = 16, cpw 8: 4 rows of 1024, 1024 rows of 4).
+SP_KS = (2, 4)
+SP_WIDTHS = (56, 7)
+SP_LM_SHAPES = ((16, 4, 1024, 8), (16, 1024, 4, 8))
+# The kernels of the sharded path, each launched under sp_block_local.
+SP_KERNELS = ("gspn_scan_fwd", "gspn_scan_bwd", "gspn_pair_fwd",
+              "gspn_pair_bwd")
+# Full width: the serve launcher's own request stream at these sizes.
+SP_SERVE_ARGS = ("--arch", "qwen2-1.5b-gspn", "--requests", "6",
+                 "--prefill-chunk", "1024", "--max-len", "4112",
+                 "--max-new", "16")
+SP_WORKER_S = 600
+
+
+def _free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _rel_err(got, want) -> float:
+    """Largest error over the largest magnitude of ``want``."""
+    got, want = got.float(), want.float()
+    return ((got - want).abs().max()
+            / want.abs().max().clamp_min(1e-30)).item()
+
+
+def _sync_us(fn, n: int = 10) -> float:
+    """Median host-clock µs of ``fn`` between two synchronisations: the
+    sharded scan's gloo exchange runs on the host, so CUDA events alone
+    would leave it out."""
+    fn()
+    times = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e6)
+    return statistics.median(times)
+
+
+def _sp_single_rank():
+    """(a) World size 1 over NCCL in this process: the sharded entry
+    points are the unsharded kernel call, bit for bit, on #1 and #3."""
+    import torch.distributed as dist
+    from repro_torch.kernels import cuda_lib, ops
+    from repro_torch.launch import mesh as lmesh
+    from repro_torch.parallel import gspn_sp as sp
+
+    backend = lmesh.backend_for(torch.device("cuda"), 1)
+    torch.cuda.set_device(0)
+    dist.init_process_group(backend, rank=0, world_size=1,
+                            init_method=f"tcp://127.0.0.1:{_free_port()}")
+    try:
+        mesh = lmesh.make_sp_mesh(1)
+        gen = torch.Generator(device="cuda").manual_seed(7)
+        a = _scan_inputs(gen, 128, 56, 56, 2, torch.float32, False)
+        p = _scan_inputs(gen, 128, 56, 56, 2, torch.float32, True)
+        torch.cuda.synchronize()
+        cuda_lib.clear_counts()
+        got = (sp.gspn_scan_sp(*a, mesh=mesh),
+               sp.gspn_scan_sp_pair(*p, mesh=mesh))
+        torch.cuda.synchronize()
+        launches = dict(cuda_lib.launch_counts)
+        plain = sum(cuda_lib.plain_calls.values())
+        want = (ops.gspn_scan(*a), ops.gspn_scan_pair(*p))
+        equal = [torch.equal(g, w) for g, w in zip(got, want)]
+    finally:
+        dist.destroy_process_group()
+    print(f"sp (a) world size 1 over {backend}: gspn_scan_sp and "
+          f"gspn_scan_sp_pair at G=128 N=56 cpw 2 f32 bit-equal to the "
+          f"unsharded call {equal}; launches {launches}, plain scan calls "
+          f"{plain}", flush=True)
+    if not all(equal) or plain or launches != {"gspn_scan_fwd": 1,
+                                               "gspn_pair_fwd": 1}:
+        raise AssertionError("sp (a): world size 1 is not the kernel call")
+
+
+def _spawn_ranks(mode: str, k: int, out: pathlib.Path, env=None) -> dict:
+    """Run ``sp_worker(mode, out)`` in ``k`` processes started as torchrun
+    starts ranks; print rank 0's output; every rank must exit 0.  Returns
+    what rank 0 wrote."""
+    base = dict(os.environ, WORLD_SIZE=str(k), MASTER_ADDR="127.0.0.1",
+                MASTER_PORT=str(_free_port()),
+                PYTHONPATH=str(ROOT / "src"), **(env or {}))
+    code = f"import chip_smoke; chip_smoke.sp_worker({mode!r}, {str(out)!r})"
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", code], cwd=ROOT,
+        env=dict(base, RANK=str(r), LOCAL_RANK=str(r)),
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for r in range(k)]
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=SP_WORKER_S)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    print("\n".join(line for line in logs[0].splitlines()
+                    if "socket.cpp" not in line), flush=True)
+    bad = [(r, p.returncode) for r, p in enumerate(procs) if p.returncode]
+    for r, _ in bad[:2]:
+        print(f"sp rank {r} of {k}:\n{logs[r][-4000:]}", flush=True)
+    if bad:
+        raise AssertionError(f"sp {mode} K={k}: ranks failed {bad}")
+    return json.loads(out.read_text())
+
+
+def _sp_case(name, fn, ref, args, dtype, dy_gen, expect):
+    """One sharded call against the unsharded kernel call: the forward,
+    the gradients under a random cotangent, and the exchange collectives
+    of the forward alone and of forward and backward, which must count
+    ``expect`` (two dicts, kind -> calls)."""
+    from repro_torch.parallel import gspn_sp as sp
+    tol = 1e-5 if dtype == torch.float32 else 1e-2
+    with torch.no_grad():
+        out, fwd_tape = sp.collectives(fn, *args)
+    want = ref(*args)
+    dy = torch.randn(want.shape, generator=dy_gen, device="cuda").to(dtype)
+    args = [a.detach().requires_grad_() for a in args]
+    grads, grad_tape = sp.collectives(
+        lambda: torch.autograd.grad(fn(*args), args, dy))
+    want_grads = torch.autograd.grad(ref(*args), args, dy)
+    errs = [_rel_err(out, want)] + [_rel_err(g, w)
+                                     for g, w in zip(grads, want_grads)]
+    tapes = [dict(collections.Counter(c[0] for c in tape
+                                      if c[0] != "assemble"))
+             for tape in (fwd_tape, grad_tape)]
+    finite = all(bool(torch.isfinite(t).all()) for t in (out, *grads))
+    return {"case": name, "dtype": str(dtype).removeprefix("torch."),
+            "err_fwd": errs[0], "err_grad": max(errs[1:]), "fwd": tapes[0],
+            "grad": tapes[1],
+            "ok": max(errs) <= tol and finite and tapes == list(expect)}
+
+
+def _sp_kernel_cases(k: int) -> dict:
+    """(b) The kernel level on K ranks: every case against the unsharded
+    kernel call, the collectives, the launches' boundary label, and the
+    µs of the sharded and unsharded scans with the operators' share."""
+    from repro_torch.core.gspn import DIRECTIONS, directional_scan
+    from repro_torch.kernels import cuda_lib, ops
+    from repro_torch.launch.mesh import make_sp_mesh
+    from repro_torch.parallel import gspn_sp as sp
+
+    mesh = make_sp_mesh(k)
+    ag, pp = "all_gather", "ppermute"
+    # Exchange collectives forward, and forward with backward: a fused
+    # pair gathers once each way; a direction's chain makes K-1 hops each
+    # way and one fetch of the neighbour's tap row; a direction's gather
+    # takes operator and boundary.
+    expect = {"auto": ({ag: 2}, {ag: 4}),
+              "ppermute": ({pp: 4 * (k - 1)}, {pp: 4 * (2 * k - 1)}),
+              "allgather": ({ag: 8}, {ag: 16, pp: 4}),
+              "pair": ({ag: 1}, {ag: 2}),
+              "single auto": ({pp: k - 1}, {pp: 2 * k - 1}),
+              "single allgather": ({ag: 2}, {ag: 4, pp: 1})}
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    dy_gen = torch.Generator(device="cuda").manual_seed(12)
+    rows = []
+    torch.cuda.synchronize()
+    cuda_lib.clear_counts()
+    for dtype in (torch.float32, torch.bfloat16):
+        for n in SP_WIDTHS:
+            a = _scan_inputs(gen, 128, n, n, 2, dtype, False, ndir=4)
+            for s in ("auto", "ppermute", "allgather"):
+                rows.append(_sp_case(
+                    f"4 directions N={n} {s}",
+                    lambda *x, s=s: directional_scan(
+                        *x, DIRECTIONS, impl="sp", mesh=mesh,
+                        sp_strategy=s),
+                    lambda *x: directional_scan(*x, DIRECTIONS), a, dtype,
+                    dy_gen, expect[s]))
+        p = _scan_inputs(gen, 128, 56, 56, 2, dtype, True)
+        for m in ("overlap", "serial"):
+            rows.append(_sp_case(
+                f"pair N=56 {m}", lambda *x, m=m: sp.gspn_scan_sp_pair(
+                    *x, mesh=mesh, exchange_mode=m),
+                ops.gspn_scan_pair, p, dtype, dy_gen, expect["pair"]))
+        with torch.no_grad():
+            skip, tape = sp.collectives(sp.gspn_scan_sp_pair, *p, mesh=mesh,
+                                        exchange_mode="skip")
+        if [c for c in tape if c[0] != "assemble"] or \
+                _rel_err(skip, ops.gspn_scan_pair(*p)) < 1e-3:
+            raise AssertionError("sp skip: an exchange, or no error")
+        for g, h, w, cpw in SP_LM_SHAPES:
+            a = _scan_inputs(gen, g, h, w, cpw, dtype, False)
+            for s in ("auto", "allgather"):
+                rows.append(_sp_case(
+                    f"single G={g} H={h} W={w} {s}",
+                    lambda *x, s=s: sp.gspn_scan_sp(*x, mesh=mesh,
+                                                    strategy=s),
+                    ops.gspn_scan, a, dtype, dy_gen, expect["single " + s]))
+    torch.cuda.synchronize()
+    bnd = {name: cuda_lib.launch_boundaries[(name, sp.BOUNDARY)]
+           for name in SP_KERNELS}
+    plain = sum(cuda_lib.plain_calls.values())
+    times = _sp_times(mesh, k, gen)
+    return {"rows": rows, "sp_block_local": bnd, "plain_calls": plain,
+            "times": times}
+
+
+def _sp_times(mesh, k: int, gen) -> list:
+    """µs of one forward, sharded and unsharded, and of the block-local
+    operators alone on this rank's block (their share of the sharded
+    call), f32: the fused pair at N = 56 and N = 7 (boundary states and
+    corrections of both directions) and the LM passes (transfer operator
+    and correction of the chain)."""
+    from repro_torch.kernels import ops
+    from repro_torch.parallel import gspn_sp as sp
+
+    def block(a, lead):
+        hb = -(-a.shape[lead + 1] // k)
+        return a.narrow(lead + 1, 0, hb).contiguous()
+
+    out = []
+    with torch.no_grad():
+        for n in SP_WIDTHS:
+            x, wl2, wc2, wr2, lam2 = p = _scan_inputs(
+                gen, 128, n, n, 2, torch.float32, True)
+            bl = [block(x, 0)] + [block(t, 1) for t in (wl2, wc2, wr2, lam2)]
+
+            def ops_pair():
+                xb, wlb, wcb, wrb, lb = bl
+                for d in (0, 1):
+                    sp.block_boundary_states(xb, wlb[d], wcb[d], wrb[d],
+                                             lb[d], reverse=d == 1)
+                    sp.propagate_boundary(xb[:, 0], wlb[d], wcb[d], wrb[d],
+                                          reverse=d == 1)
+            out.append(("pair", (128, n, n), _sync_us(
+                lambda: sp.gspn_scan_sp_pair(*p, mesh=mesh)),
+                _sync_us(lambda: ops.gspn_scan_pair(*p)),
+                _sync_us(ops_pair)))
+        for g, h, w, cpw in SP_LM_SHAPES:
+            a = _scan_inputs(gen, g, h, w, cpw, torch.float32, False)
+            bl = [block(t, 0) for t in a]
+
+            def ops_single():
+                sp.block_transfer_operator(*bl[1:4])
+                sp.propagate_boundary(bl[0][:, 0], *bl[1:4])
+            out.append(("single", (g, h, w), _sync_us(
+                lambda: sp.gspn_scan_sp(*a, mesh=mesh)),
+                _sync_us(lambda: ops.gspn_scan(*a)), _sync_us(ops_single)))
+    return out
+
+
+def _sp_full() -> dict:
+    """(c) K = 2 at full width: GSPN-2-T's forward and one AdamW step, and
+    the qwen2-1.5b-gspn first prefill over a bf16 wire, each against the
+    unsharded model on the same weights; then the serve launcher with
+    --seq-parallel 2 on a fresh group."""
+    import torch.distributed as dist
+    from repro_torch.configs.base import with_precision
+    from repro_torch.configs.gspn2_vision import GSPN2_T
+    from repro_torch.configs.qwen2_1_5b_gspn import full
+    from repro_torch.data.pipeline import DataConfig, synth_images
+    from repro_torch.kernels import cuda_lib
+    from repro_torch.launch import serve
+    from repro_torch.launch.mesh import make_sp_mesh
+    from repro_torch.models import lm
+    from repro_torch.models.vision import (GSPNVision, apply_vision,
+                                           vision_loss)
+    from repro_torch.optim.adamw import AdamWConfig, adamw_init, adamw_update
+    from repro_torch.parallel import gspn_sp as sp
+
+    res = {}
+    ctx = lm.Ctx(mesh=make_sp_mesh(2))
+    cfg = dataclasses.replace(GSPN2_T, impl="sp")
+    model = GSPNVision(cfg, device="cuda",
+                       generator=torch.Generator().manual_seed(0))
+    plain = GSPNVision(GSPN2_T, device="meta")
+    plain.load_state_dict(model.state_dict(), assign=True)
+    batch = {k: torch.from_numpy(v).cuda() for k, v in synth_images(
+        DataConfig(1, 1, BATCH, seed=0), 0, cfg.img_size,
+        cfg.n_classes).items()}
+    torch.cuda.synchronize()
+    cuda_lib.clear_counts()
+    logits, tape = sp.collectives(apply_vision, model, batch["images"],
+                                  ctx=ctx)
+    torch.cuda.synchronize()
+    res["vision_fwd_launches"] = dict(cuda_lib.launch_counts)
+    res["vision_fwd_gathers"] = sum(c[0] == "all_gather" for c in tape)
+    res["vision_logits_err"] = _rel_err(logits,
+                                        apply_vision(plain, batch["images"]))
+    params = dict(model.named_parameters())
+
+    def loss_and_grads(m, c):
+        loss, _ = vision_loss(m, batch, ctx=c)
+        return loss, torch.autograd.grad(loss, list(m.parameters()))
+    loss, grads = loss_and_grads(model, ctx)
+    want_loss, want = loss_and_grads(plain, None)
+    res["vision_loss"] = [loss.item(), want_loss.item()]
+    errs = {n: _rel_err(g, w) for n, g, w in zip(params, grads, want)}
+    res["vision_grad_worst"] = max(errs.items(), key=lambda kv: kv[1])
+    del want
+    ocfg = AdamWConfig(lr=1e-3, warmup_steps=5, total_steps=60,
+                       weight_decay=0.01)
+    opt = adamw_init(ocfg, params)
+
+    def step():
+        loss, grads = loss_and_grads(model, ctx)
+        adamw_update(ocfg, dict(zip(params, grads)), opt, params)
+        return loss
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    after = step()
+    torch.cuda.synchronize()
+    res["vision_step_ms"] = (time.perf_counter() - t0) * 1e3
+    res["vision_step_loss"] = after.item()
+    res["vision_peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    res["vision_plain_step_ms"] = _sync_us(
+        lambda: loss_and_grads(plain, None), n=3) / 1e3
+    del model, plain, grads, opt, params, logits
+    torch.cuda.empty_cache()
+
+    # The first prefill of a 4096-token prompt, sharded against unsharded
+    # on the same weights: under the f32 policy and under the config's
+    # own (bf16 products), each with the policy's wire (the mixer's f32
+    # compute dtype) and a bf16 wire; under the own policy also the
+    # unsharded plain scans against the unsharded kernels, a control of
+    # what any other f32 rounding order does through 28 bf16 blocks.
+    own = full()
+    base = lm.LM(own, device="cuda",
+                 generator=torch.Generator(device="cuda").manual_seed(0))
+    state = base.state_dict()
+    prompt = torch.randint(0, own.vocab, (1, SERVE_PROMPTS[0]),
+                           generator=torch.Generator().manual_seed(1)).cuda()
+
+    def prefill(cfg, wire=None, sharded=True):
+        m = lm.LM(cfg, device="meta")
+        m.load_state_dict(state, assign=True)
+        if wire is not None:
+            for _, _, blk in m.walk():
+                blk.mix.cfg = dataclasses.replace(blk.mix.cfg,
+                                                  boundary_dtype=wire)
+        with torch.no_grad():
+            return lm.lm_prefill(m, prompt, SERVE_PROMPTS[0],
+                                 ctx=ctx if sharded else None)[0].float()
+
+    def rel_l2(got, want):
+        return ((got - want).norm() / want.norm()).item()
+
+    for policy, cfg in (("f32", with_precision(own, "f32")), ("own", own)):
+        want = prefill(cfg, sharded=False)
+        sp_cfg = dataclasses.replace(cfg, gspn_impl="sp")
+        got = prefill(sp_cfg)
+        res[f"lm_{policy}"] = {"f32_wire": rel_l2(got, want),
+                               "f32_wire_max": _rel_err(got, want)}
+        del got
+        res[f"lm_{policy}"]["bf16_wire"] = rel_l2(
+            prefill(sp_cfg, wire=torch.bfloat16), want)
+        if policy == "own":
+            res["lm_own"]["plain_control"] = rel_l2(prefill(
+                dataclasses.replace(cfg, gspn_impl="torch"), sharded=False),
+                want)
+        del want
+    del base, state
+    torch.cuda.empty_cache()
+    dist.destroy_process_group()
+
+    # The serve launcher, as torchrun starts it, on a group of its own.
+    os.environ["MASTER_PORT"] = os.environ["SP_SERVE_PORT"]
+    torch.cuda.reset_peak_memory_stats()
+    results = serve.main([*SP_SERVE_ARGS, "--precision", "f32",
+                          "--seq-parallel", "2"])
+    res["serve_tokens"] = [[int(t) for t in r.tokens] for r in results]
+    res["serve_ttft_ms"] = [r.ttft * 1e3 for r in results]
+    res["serve_launches"] = dict(cuda_lib.launch_counts)
+    res["serve_sp_block_local"] = cuda_lib.launch_boundaries[
+        ("gspn_scan_fwd", sp.BOUNDARY)]
+    res["serve_plain_calls"] = sum(cuda_lib.plain_calls.values())
+    res["serve_peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    return res
+
+
+def sp_worker(mode: str, out: str) -> None:
+    """One rank of the sp phase, started by :func:`_spawn_ranks`: joins the
+    group torchrun's environment describes (gloo, the ranks sharing one
+    card), runs ``mode`` ("kernels" or "full") and on rank 0 writes the
+    result to ``out``."""
+    sys.path.insert(0, str(ROOT / "src"))
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import init_distributed
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    init_distributed(torch.device("cuda"))
+    rank, k = dist.get_rank(), dist.get_world_size()
+    res = _sp_kernel_cases(k) if mode == "kernels" else _sp_full()
+    if dist.is_initialized():
+        dist.destroy_process_group()
+    if rank == 0:
+        pathlib.Path(out).write_text(json.dumps(res))
+
+
+def sp_phase():
+    """Sequence parallelism of the scan: (a) world size 1 over NCCL; (b)
+    the kernel level on K = 2 and 4 ranks sharing the card over gloo; (c)
+    K = 2 at full width, vision and LM serving."""
+    from repro_torch.configs.gspn2_vision import GSPN2_T
+    from repro_torch.kernels import cuda_lib
+    from repro_torch.launch import serve
+
+    _sp_single_rank()
+    torch.cuda.empty_cache()
+    out_dir = ROOT / "build" / "sp"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    for k in SP_KS:
+        t0 = time.perf_counter()
+        res = _spawn_ranks("kernels", k, out_dir / f"kernels{k}.json")
+        for r in res["rows"]:
+            print(f"sp (b) K={k} {r['case']} {r['dtype']}: forward "
+                  f"{r['err_fwd']:.3e}, gradients {r['err_grad']:.3e} of the "
+                  f"largest magnitude; exchange collectives forward "
+                  f"{r['fwd']}, with the gradient {r['grad']}", flush=True)
+        for kind, shape, sharded, unsharded, opus in res["times"]:
+            print(f"sp (b) K={k} {kind} {tuple(shape)} f32 forward: sharded "
+                  f"{sharded:.1f} us, unsharded {unsharded:.1f} us, the "
+                  f"block-local operators alone {opus:.1f} us "
+                  f"({opus / sharded:.2f} of the sharded call)", flush=True)
+        print(f"sp (b) K={k}: sp_block_local launches {res['sp_block_local']}"
+              f", plain scan calls {res['plain_calls']}; "
+              f"{time.perf_counter() - t0:.3f} s", flush=True)
+        bad = [r["case"] + " " + r["dtype"] for r in res["rows"]
+               if not r["ok"]]
+        if bad or res["plain_calls"] or \
+                not all(res["sp_block_local"].values()):
+            raise AssertionError(f"sp (b) K={k}: {bad}")
+
+    # (c): the unsharded launcher here, then two ranks.
+    torch.cuda.reset_peak_memory_stats()
+    cuda_lib.clear_counts()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        want = serve.main([*SP_SERVE_ARGS, "--precision", "f32"])
+    report = buf.getvalue()
+    print(report, end="", flush=True)
+    want_launches = dict(cuda_lib.launch_counts)
+    want_tokens = [[int(t) for t in r.tokens] for r in want]
+    want_ttft = [r.ttft * 1e3 for r in want]
+    del want
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    res = _spawn_ranks("full", 2, out_dir / "full.json",
+                       env={"SP_SERVE_PORT": str(_free_port())})
+    loss, want_loss = res["vision_loss"]
+    rel = abs(loss - want_loss) / abs(want_loss)
+    worst, worst_err = res["vision_grad_worst"]
+    print(f"sp (c) GSPN-2-T batch {BATCH} at 224^2 f32 over 2 ranks: "
+          f"logits {res['vision_logits_err']:.3e} of the largest (tol "
+          f"1e-4), {res['vision_fwd_gathers']} exchange gathers and "
+          f"launches {res['vision_fwd_launches']} in the forward; loss "
+          f"{loss} vs {want_loss} (relative {rel:.3e}, tol 1e-5); worst "
+          f"gradient {worst} at {worst_err:.3e} of its largest (tol 1e-4); "
+          f"one AdamW step {res['vision_step_ms']:.1f} ms (loss after "
+          f"{res['vision_step_loss']}), unsharded loss and gradients "
+          f"{res['vision_plain_step_ms']:.1f} ms, peak memory "
+          f"{res['vision_peak_gib']:.2f} GiB a rank", flush=True)
+    f32, own = res["lm_f32"], res["lm_own"]
+    print(f"sp (c) qwen2-1.5b-gspn first prefill of {SERVE_PROMPTS[0]} "
+          f"tokens, sharded against unsharded logits: f32 policy, f32 "
+          f"wire {f32['f32_wire_max']:.3e} of the largest (tol 1e-4), "
+          f"relative L2 {f32['f32_wire']:.3e}; f32 policy, bf16 wire "
+          f"relative L2 {f32['bf16_wire']:.3e} (tol 1e-2); own policy "
+          f"(measured, not held): f32 wire {own['f32_wire']:.3e}, bf16 "
+          f"wire {own['bf16_wire']:.3e}, and the unsharded plain scans "
+          f"against the unsharded kernels {own['plain_control']:.3e}",
+          flush=True)
+    rate = re.findall(r"([0-9.]+) tok/s", report)
+    print(f"sp (c) serve --seq-parallel 2 (f32): tokens equal the unsharded "
+          f"launcher's {res['serve_tokens'] == want_tokens}; TTFT ms "
+          f"{[round(t, 1) for t in res['serve_ttft_ms']]} vs unsharded "
+          f"{[round(t, 1) for t in want_ttft]}; unsharded {rate} tok/s; "
+          f"#1 launches a rank {res['serve_launches']} "
+          f"({res['serve_sp_block_local']} under sp_block_local) vs "
+          f"unsharded {want_launches}, plain scan calls "
+          f"{res['serve_plain_calls']}, peak memory "
+          f"{res['serve_peak_gib']:.2f} GiB a rank; "
+          f"{time.perf_counter() - t0:.3f} s", flush=True)
+    if not (res["vision_logits_err"] <= 1e-4 and rel <= 1e-5
+            and worst_err <= 1e-4
+            and res["vision_fwd_gathers"] == 2 * sum(GSPN2_T.depths)
+            and math.isfinite(res["vision_step_loss"])):
+        raise AssertionError("sp (c): the sharded GSPN-2-T disagrees")
+    if not (f32["f32_wire_max"] <= 1e-4 and f32["bf16_wire"] <= 1e-2
+            and all(map(math.isfinite, own.values()))):
+        raise AssertionError("sp (c): the sharded prefill disagrees")
+    if res["serve_tokens"] != want_tokens or res["serve_plain_calls"] or \
+            res["serve_launches"] != want_launches or \
+            res["serve_sp_block_local"] != want_launches["gspn_scan_fwd"]:
+        raise AssertionError("sp (c): sharded serving differs")
+
+
 def main() -> int:
     print(f"torch {torch.__version__} cuda {torch.version.cuda} python "
           f"{sys.version.split()[0]}", flush=True)
@@ -1936,6 +2467,9 @@ def main() -> int:
     # The tier's launches are read in its own checks; the kernels line
     # keeps the serving phase's.
     phase("tier", tier_phase)
+    # The sharded path's launches (in its ranks' processes) are read in
+    # its own checks.
+    phase("sp", sp_phase)
 
     entries = []
     for row in rows:

@@ -123,7 +123,9 @@ def directional_scan(x, wl, wc, wr, lam, direction, **scan_kwargs):
 
     Tap logits must already be produced for the oriented geometry (see
     :func:`_normalize_taps_oriented`).  ``scan_kwargs`` (``spec``,
-    ``chunk``, ``impl``) go to the ops.
+    ``chunk``, ``impl``, and for ``impl="sp"`` the routing legs ``mesh``,
+    ``seq_axis``, ``sp_strategy``, ``sp_boundary_dtype``) go to the ops;
+    under sp the pairs stay fused, sharing one boundary collective.
     """
     if not isinstance(direction, str):
         return _multi_directional_scan(x, wl, wc, wr, lam,
@@ -184,12 +186,26 @@ class GSPNAttentionConfig:
     chunk: int | None = None       # GSPN-local segment length (rows)
     norm_mode: str = "softmax"
     impl: str = "auto"             # kernel selection, see kernels.ops
+    seq_axis: str = "seq"          # mesh axis for impl="sp" (DESIGN.md §8)
+    sp_strategy: str = "auto"      # boundary-exchange strategy for "sp"
     param_dtype: torch.dtype = torch.float32
     # Mixed-precision policy (DESIGN.md §10): projections and streamed scan
     # operands run in compute_dtype; the tap softmax, the scan carry and
-    # the directional merge stay f32.
+    # the directional merge stay f32.  boundary_dtype is the sp exchange's
+    # wire dtype (None: compute_dtype).
     compute_dtype: torch.dtype = torch.float32
     carry_dtype: torch.dtype = torch.float32
+    boundary_dtype: torch.dtype | None = None
+
+
+def _scan_kwargs(cfg, spec: ScanSpec, mesh) -> dict:
+    """The ``scan_kwargs`` of the attention module, the sequence mixer and
+    chunked prefill: the launch's spec, plus the sp routing legs (where
+    the scan runs and the wire dtype), which only ``impl="sp"`` reads."""
+    bd = cfg.boundary_dtype if cfg.boundary_dtype is not None \
+        else cfg.compute_dtype
+    return dict(spec=spec, mesh=mesh, seq_axis=cfg.seq_axis,
+                sp_strategy=cfg.sp_strategy, sp_boundary_dtype=bd)
 
 
 def _normalize_taps_oriented(logits, direction: str, mode: str):
@@ -244,7 +260,9 @@ class GSPNAttention(nn.Module):
                              stream_dtype=dtype_name(cfg.compute_dtype),
                              carry_dtype=dtype_name(cfg.carry_dtype))
 
-    def forward(self, x):
+    def forward(self, x, mesh=None):
+        """``mesh`` is read by ``impl="sp"`` only, which shards each
+        direction's scan dimension over ``cfg.seq_axis``."""
         cfg = self.cfg
         b, h, w, _ = x.shape
         cp = cfg.proxy_dim
@@ -281,7 +299,7 @@ class GSPNAttention(nn.Module):
         h_all = directional_scan(
             x_scan, torch.stack(wls), torch.stack(wcs), torch.stack(wrs),
             torch.stack(lams), cfg.directions, chunk=cfg.chunk,
-            spec=self.spec)                                # (D, B·Cp, H, W)
+            **_scan_kwargs(cfg, self.spec, mesh))          # (D, B·Cp, H, W)
 
         # The directional merge accumulates in f32 whatever the stream dtype.
         out = torch.zeros((b, h, w, cp), dtype=torch.float32, device=x.device)
@@ -316,12 +334,16 @@ class GSPNSeqConfig:
     row_width: int = 0             # 0 => the fold derives from L per call
     norm_mode: str = "softmax"
     impl: str = "auto"
+    seq_axis: str = "seq"          # mesh axis for impl="sp" (DESIGN.md §8)
+    sp_strategy: str = "auto"
     param_dtype: torch.dtype = torch.float32
     # Mixed-precision policy (DESIGN.md §10): projections and streamed
     # scan operands in compute_dtype; tap softmax, carries and the decode
-    # cache in f32.
+    # cache in f32; the sp exchange's wire in boundary_dtype (None:
+    # compute_dtype).
     compute_dtype: torch.dtype = torch.float32
     carry_dtype: torch.dtype = torch.float32
+    boundary_dtype: torch.dtype | None = None
 
 
 class GSPNSeqMixer(nn.Module):
@@ -357,8 +379,8 @@ class GSPNSeqMixer(nn.Module):
         self.spec = spec
         self.resume_spec = spec.with_(boundary="chunk_resume")
 
-    def forward(self, x, return_cache: bool = False):
-        return apply_gspn_seq_mixer(self, x, return_cache)
+    def forward(self, x, return_cache: bool = False, mesh=None):
+        return apply_gspn_seq_mixer(self, x, return_cache, mesh=mesh)
 
 
 def _fold_len(l: int, row_width: int) -> tuple[int, int]:
@@ -408,7 +430,7 @@ def _tb_taps(taps, fold, b, h, w, mode, dtype):
     return wl.to(dtype), wc.to(dtype), wr.to(dtype)
 
 
-def _within_row_pass(x_p, row_g, lam_hi, fold, spec):
+def _within_row_pass(x_p, row_g, lam_hi, fold, scan_kwargs):
     """Pass 2: the causal within-row recurrence h[j] = g·h[j-1] + λ·x[j],
     a centre-tap-only scan in the 'lr' orientation (wl = wr = 0), each
     grid row independent.  Every row resets its carry at column 0, so the
@@ -417,7 +439,7 @@ def _within_row_pass(x_p, row_g, lam_hi, fold, spec):
     gate = _to_canonical(fold(row_g), "lr")
     zeros = torch.zeros_like(gate)
     h_row = gspn_scan(x_lr, zeros, gate, zeros,
-                      _to_canonical(fold(lam_hi), "lr"), spec=spec)
+                      _to_canonical(fold(lam_hi), "lr"), **scan_kwargs)
     return _from_canonical(h_row, "lr")
 
 
@@ -445,7 +467,8 @@ def _slice_boundary_cache(grid_tb, grid_row, l, w, prev_fallback):
     }
 
 
-def apply_gspn_seq_mixer(mixer: GSPNSeqMixer, x, return_cache: bool = False):
+def apply_gspn_seq_mixer(mixer: GSPNSeqMixer, x, return_cache: bool = False,
+                         *, mesh=None):
     """The causal mixer over x: (B, L, D) -> (B, L, D).
 
     The sequence folds row-major into (H, W); causality holds because the
@@ -453,6 +476,9 @@ def apply_gspn_seq_mixer(mixer: GSPNSeqMixer, x, return_cache: bool = False):
     the within-row pass is a left-to-right recurrence.
     ``return_cache=True`` also returns the O(W) decode cache (previous
     grid row, current row, within-row state, position) for streaming.
+    With ``impl="sp"`` and a mesh carrying ``cfg.seq_axis``, both folded
+    passes shard their scan dimension (DESIGN.md §8): grid rows for the
+    T→B pass, grid columns for the within-row pass.
     """
     cfg = mixer.cfg
     b, l, _ = x.shape
@@ -463,14 +489,15 @@ def apply_gspn_seq_mixer(mixer: GSPNSeqMixer, x, return_cache: bool = False):
 
     x_p, taps, row_g, lam, u = _seq_mixer_projections(mixer, xf)
     fold, unfold = _fold_ops(b, h, w, l)
+    scan_kwargs = _scan_kwargs(cfg, mixer.spec, mesh)
 
     # Pass 1: causal T->B 2D scan in proxy space, channel-shared taps.
     wl, wc, wr = _tb_taps(taps, fold, b, h, w, cfg.norm_mode, cd)
     h_tb = gspn_scan(fold(x_p), wl, wc, wr, fold(lam[..., :cp]),
-                     spec=mixer.spec)
+                     **scan_kwargs)
 
     # Pass 2: causal within-row scan.
-    h_row = _within_row_pass(x_p, row_g, lam[..., cp:], fold, mixer.spec)
+    h_row = _within_row_pass(x_p, row_g, lam[..., cp:], fold, scan_kwargs)
 
     y = unfold(h_tb, cp) * u[..., :cp] + unfold(h_row, cp) * u[..., cp:]
     y = (y @ mixer.up.to(cd)).to(x.dtype)
@@ -484,7 +511,7 @@ def apply_gspn_seq_mixer(mixer: GSPNSeqMixer, x, return_cache: bool = False):
 
 
 def gspn_seq_prefill_chunk(mixer: GSPNSeqMixer, x, cache, *,
-                           pos: int | None = None):
+                           pos: int | None = None, mesh=None):
     """Resume the folded causal scans from a streaming cache (DESIGN.md §9).
 
     x: (B, T, D), the next T prompt tokens; ``cache``: the O(W) decode
@@ -504,7 +531,8 @@ def gspn_seq_prefill_chunk(mixer: GSPNSeqMixer, x, cache, *,
     ``cache['pos'] % row_width == 0``, and ``row_width`` is fixed; a
     ValueError otherwise.  ``pos`` is the chunk's offset when the caller
     knows it on the host (the LM passes it), which spares reading the
-    cache's positions back from the device.
+    cache's positions back from the device.  ``mesh`` shards both passes
+    under ``impl="sp"``, as in :func:`apply_gspn_seq_mixer`.
     """
     cfg = mixer.cfg
     b, t, _ = x.shape
@@ -526,6 +554,7 @@ def gspn_seq_prefill_chunk(mixer: GSPNSeqMixer, x, cache, *,
 
     x_p, taps, row_g, lam, u = _seq_mixer_projections(mixer, xf)
     fold, unfold = _fold_ops(b, hc, w, t)
+    scan_kwargs = _scan_kwargs(cfg, mixer.resume_spec, mesh)
 
     # Pass 1: T->B scan seeded with the incoming boundary row (λ = 1,
     # taps 0 at row 0).  The f32 cached row is rounded to the stream dtype
@@ -540,11 +569,10 @@ def gspn_seq_prefill_chunk(mixer: GSPNSeqMixer, x, cache, *,
     h_tb = gspn_scan(x_tb, torch.cat([ztap, wl], dim=1),
                      torch.cat([ztap, wc], dim=1),
                      torch.cat([ztap, wr], dim=1), lam_tb,
-                     spec=mixer.resume_spec)[:, 1:]
+                     **scan_kwargs)[:, 1:]
 
     # Pass 2: within-row scan, chunk-local.
-    h_row = _within_row_pass(x_p, row_g, lam[..., cp:], fold,
-                             mixer.resume_spec)
+    h_row = _within_row_pass(x_p, row_g, lam[..., cp:], fold, scan_kwargs)
 
     y = unfold(h_tb, cp) * u[..., :cp] + unfold(h_row, cp) * u[..., cp:]
     y = (y @ mixer.up.to(cd)).to(x.dtype)

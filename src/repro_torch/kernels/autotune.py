@@ -121,7 +121,7 @@ class ScanKey:
     dtype: str = "float32"       # streamed operands
     impl: str = "cuda"
     carry_dtype: str = "float32"
-    boundary: str = "one_shot"   # one_shot | chunk_resume
+    boundary: str = "one_shot"   # one_shot | chunk_resume | sp_block_local
 
     def __post_init__(self):
         if self.direction not in GEOMETRY:

@@ -57,8 +57,10 @@ _SIGNATURES = {
 }
 
 launch_counts: collections.Counter = collections.Counter()
-# The same launches by (kernel name, G, H, W, dtype name).
+# The same launches by (kernel name, G, H, W, dtype name), and by (kernel
+# name, boundary label of the launch's spec).
 launch_shapes: collections.Counter = collections.Counter()
+launch_boundaries: collections.Counter = collections.Counter()
 plain_calls: collections.Counter = collections.Counter()
 
 
@@ -75,7 +77,8 @@ def count(counter: collections.Counter, key, n: int = 1) -> None:
 
 def clear_counts() -> None:
     with _COUNT_LOCK:
-        for c in (launch_counts, launch_shapes, plain_calls):
+        for c in (launch_counts, launch_shapes, launch_boundaries,
+                  plain_calls):
             c.clear()
 
 

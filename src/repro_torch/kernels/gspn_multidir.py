@@ -55,18 +55,21 @@ KERNEL_BWD = "gspn_pair_bwd"
 KERNEL_QUAD = "gspn_quad_fwd"
 
 
-def gspn_scan_bidir(x, wl2, wc2, wr2, lam2, *, chunk: int | None = None):
+def gspn_scan_bidir(x, wl2, wc2, wr2, lam2, *, chunk: int | None = None,
+                    boundary: str = "one_shot"):
     """Fused pair scan.  x: (G, H, W), shared by both directions;
     wl2/wc2/wr2: (2, G_w, H, W); lam2: (2, G, H, W).  Returns
     (2, G, H, W) in x.dtype: entry 0 top to bottom, entry 1 bottom to top,
     both unflipped.  ``chunk`` resets each direction's carry every
-    ``chunk`` rows of its walk.
+    ``chunk`` rows of its walk; ``boundary`` names the scan's segment for
+    the tuning cache.
 
     CUDA tensors launch the kernel (or raise); CPU tensors take
     :func:`gspn_scan_bidir_torch`."""
     if not x.is_cuda:
         return gspn_scan_bidir_torch(x, wl2, wc2, wr2, lam2, chunk=chunk)
-    return launch(2, KERNEL, x, wl2, wc2, wr2, lam2, chunk)
+    return launch(2, KERNEL, x, wl2, wc2, wr2, lam2, chunk,
+                  boundary=boundary)
 
 
 def gspn_scan_bidir_torch(x, wl2, wc2, wr2, lam2, *,
@@ -88,7 +91,8 @@ def gspn_scan_bidir_torch(x, wl2, wc2, wr2, lam2, *,
     return torch.stack(outs).to(x.dtype)
 
 
-def gspn_scan_bidir_bwd(dy2, wl2, wc2, wr2, *, chunk: int | None = None):
+def gspn_scan_bidir_bwd(dy2, wl2, wc2, wr2, *, chunk: int | None = None,
+                        boundary: str = "one_shot"):
     """Fused adjoint of :func:`gspn_scan_bidir`: g2 = dL/dh from dy2
     (2, G, H, W) and the forward's taps (2, G_w, H, W), all unflipped.
     Entry 0 walks rows H-1..0, entry 1 rows 0..H-1, each with its carry
@@ -99,7 +103,8 @@ def gspn_scan_bidir_bwd(dy2, wl2, wc2, wr2, *, chunk: int | None = None):
     :func:`gspn_scan_bidir_bwd_torch`."""
     if not dy2.is_cuda:
         return gspn_scan_bidir_bwd_torch(dy2, wl2, wc2, wr2, chunk=chunk)
-    return launch_bwd(2, KERNEL_BWD, dy2, wl2, wc2, wr2, chunk)
+    return launch_bwd(2, KERNEL_BWD, dy2, wl2, wc2, wr2, chunk,
+                      boundary=boundary)
 
 
 def gspn_scan_bidir_bwd_torch(dy2, wl2, wc2, wr2, *,

@@ -336,11 +336,13 @@ def _check(ndir: int, planes, taps, chunk) -> tuple[int, int]:
     return g // gw, chunk_arg(h, chunk)
 
 
-def _count(name: str, g: int, h: int, w: int, dtype: torch.dtype) -> None:
+def _count(name: str, g: int, h: int, w: int, dtype: torch.dtype,
+           boundary: str = "one_shot") -> None:
     with cuda_lib._COUNT_LOCK:
         cuda_lib.launch_counts[name] += 1
         cuda_lib.launch_shapes[(name, g, h, w,
                                 str(dtype).removeprefix("torch."))] += 1
+        cuda_lib.launch_boundaries[(name, boundary)] += 1
 
 
 def _span(name: str, g: int, h: int, w: int, dtype: torch.dtype):
@@ -409,7 +411,7 @@ def launch(ndir: int, name: str, x, wl, wc, wr, lam, chunk, *,
             s.nbuf, s.xpitch, s.smem_bytes,
             torch.cuda.current_stream().cuda_stream)
     cuda_lib.check(lib, err, name)
-    _count(name, g, h, w, x.dtype)
+    _count(name, g, h, w, x.dtype, boundary)
     return out
 
 
@@ -440,7 +442,7 @@ def launch_bwd(ndir: int, name: str, dy, wl, wc, wr, chunk, *,
             s.bands, int(s.direct), s.smem_bytes,
             torch.cuda.current_stream().cuda_stream)
     cuda_lib.check(lib, err, name)
-    _count(name, g, h, w, dy.dtype)
+    _count(name, g, h, w, dy.dtype, boundary)
     return out
 
 

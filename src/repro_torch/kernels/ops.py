@@ -12,7 +12,9 @@ one from ``impl``) and resolves its implementation: ``cuda`` (the hand
 kernels) for CUDA tensors under ``auto``, ``torch`` (the plain versions)
 for CPU tensors or on request, and for ``gspn_scan`` only ``per_step``, the
 GSPN-1 emulation of one dispatch per row (``ref.gspn_scan_per_step``, on
-any device; its backward is the plain walk).  Every forward and backward
+any device; its backward is the plain walk); ``impl="sp"`` hands the call
+to :mod:`repro_torch.parallel.gspn_sp`, which shards the rows over a
+device mesh.  Every forward and backward
 dispatch enters the ``kernel.dispatch`` span of DESIGN.md §13 with the
 reference's ``op`` names and the resolved ``impl``, ``dtype`` and
 ``shape``.
@@ -179,15 +181,31 @@ class _ScanPair(torch.autograd.Function):
                 None)
 
 
+def _is_sp(spec: ScanSpec | None, impl: str) -> bool:
+    return (spec.impl if spec is not None else impl) == "sp"
+
+
 def gspn_scan(x, wl, wc, wr, lam, *, spec: ScanSpec | None = None,
-              chunk: int | None = None, impl: str = "auto"):
+              chunk: int | None = None, impl: str = "auto", mesh=None,
+              seq_axis: str = "seq", sp_strategy: str = "auto",
+              sp_boundary_dtype=None):
     """GSPN line scan with optional GSPN-local chunking.
 
     x, lam: (G, H, W); wl/wc/wr: (G_w, H, W), G_w divides G.  Returns
     h: (G, H, W) in x.dtype, differentiable in every tensor.  ``impl``
     builds the spec when ``spec`` is not given and is ignored when it is;
-    ``per_step`` takes no ``chunk``.
+    ``per_step`` takes no ``chunk``.  ``impl="sp"`` shards the rows over
+    the ``seq_axis`` of ``mesh`` (``parallel.gspn_sp.gspn_scan_sp``, with
+    ``sp_strategy`` and the wire dtype ``sp_boundary_dtype``); those
+    routing legs are ignored by every other impl.
     """
+    if _is_sp(spec, impl):
+        from repro_torch.parallel.gspn_sp import gspn_scan_sp
+        return gspn_scan_sp(x, wl, wc, wr, lam,
+                            spec=spec if spec is not None else ScanSpec(),
+                            mesh=mesh, axis_name=seq_axis,
+                            strategy=sp_strategy, chunk=chunk,
+                            boundary_dtype=sp_boundary_dtype)
     resolved = _resolve(spec, impl, x)
     chunk = _pk.chunk_arg(x.shape[1], chunk) or None
     boundary = spec.boundary if spec is not None else "one_shot"
@@ -195,15 +213,27 @@ def gspn_scan(x, wl, wc, wr, lam, *, spec: ScanSpec | None = None,
 
 
 def gspn_scan_pair(x, wl2, wc2, wr2, lam2, *, spec: ScanSpec | None = None,
-                   chunk: int | None = None, impl: str = "auto"):
+                   chunk: int | None = None, impl: str = "auto", mesh=None,
+                   seq_axis: str = "seq", sp_strategy: str = "auto",
+                   sp_boundary_dtype=None):
     """Fused opposite-direction pair scan with optional GSPN-local chunking.
 
     x: (G, H, W), shared by both directions; wl2/wc2/wr2: (2, G_w, H, W)
     with G_w dividing G; lam2: (2, G, H, W).  Entry 0 scans top to bottom
     over axis -2, entry 1 bottom to top; operands and outputs stay in the
     unflipped layout of x.  Returns (2, G, H, W) in x.dtype,
-    differentiable in every tensor.
+    differentiable in every tensor.  ``impl="sp"`` shards the pair over
+    the ``seq_axis`` of ``mesh`` with one shared boundary collective
+    (``parallel.gspn_sp.gspn_scan_sp_pair``), as :func:`gspn_scan` does.
     """
+    if _is_sp(spec, impl):
+        from repro_torch.parallel.gspn_sp import gspn_scan_sp_pair
+        return gspn_scan_sp_pair(
+            x, wl2, wc2, wr2, lam2,
+            spec=(spec if spec is not None else ScanSpec()).with_(
+                direction="pair_fwd"),
+            mesh=mesh, axis_name=seq_axis, strategy=sp_strategy,
+            chunk=chunk, boundary_dtype=sp_boundary_dtype)
     resolved = _resolve(spec, impl, x)
     if resolved == "per_step":
         raise ValueError("impl='per_step' is not supported for the fused "

@@ -17,7 +17,10 @@ Implementations:
   so that narrowing is refused rather than imitated;
 * ``torch`` is the plain PyTorch version, on any device;
 * ``per_step`` is the GSPN-1 emulation, one dispatch per row
-  (``ref.gspn_scan_per_step``), for the single ``fwd`` direction only.
+  (``ref.gspn_scan_per_step``), for the single ``fwd`` direction only;
+* ``sp`` shards the scan's rows over the ``seq`` axis of a device mesh
+  (:mod:`repro_torch.parallel.gspn_sp`); its block-local launches
+  resolve as ``auto`` does, under the ``sp_block_local`` boundary.
 
 The reference names the kernel legs ``pallas`` (single scan) and
 ``multidir`` (pair and quad) and the plain leg ``xla``; here they are
@@ -39,12 +42,15 @@ import torch
 DIRECTIONS = ("fwd", "bwd", "pair_fwd", "pair_bwd", "quad")
 _ADJOINT = {"fwd": "bwd", "pair_fwd": "pair_bwd"}
 # How a scan segment relates to state outside itself (DESIGN.md §14):
-#   one_shot      the whole sequence in one launch from a zero carry;
-#   chunk_resume  serve chunked prefill: the carry enters as a synthetic
-#                 resumed row 0 (core.gspn.gspn_seq_prefill_chunk).
+#   one_shot        the whole sequence in one launch from a zero carry;
+#   chunk_resume    serve chunked prefill: the carry enters as a synthetic
+#                   resumed row 0 (core.gspn.gspn_seq_prefill_chunk);
+#   sp_block_local  one block of a sequence-parallel scan from a zero
+#                   carry; the true incoming boundary is folded in after
+#                   the exchange (parallel.gspn_sp).
 # The label changes no number; it names the launch (canonical()).
-BOUNDARIES = ("one_shot", "chunk_resume")
-IMPLS = ("auto", "cuda", "torch", "per_step")
+BOUNDARIES = ("one_shot", "chunk_resume", "sp_block_local")
+IMPLS = ("auto", "cuda", "torch", "per_step", "sp")
 
 
 def canonical_key(direction: str, impl: str, stream_dtype: str,

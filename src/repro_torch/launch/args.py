@@ -1,9 +1,10 @@
 """Launcher flags shared by the entry points, the port's copy of
 ``repro.launch.args``: the kernel impl, the precision policy with the
 pooled state's dtype, the device, the tuning cache, the serving tier's
-router flags, and the trace and metrics outputs.  The reference's
-sequence-parallel and multi-host flags come with ROADMAP.md §1 item 6;
-until then they do not parse.
+router flags, and the trace and metrics outputs.  The serve launcher
+defines ``--seq-parallel`` itself, as the reference's does; the
+reference's multi-host flags come with ROADMAP.md §1 item 6.2 and do not
+parse until then.
 """
 
 from __future__ import annotations
@@ -53,10 +54,13 @@ def add_router_args(ap):
 
 def add_impl_arg(ap):
     """``--impl``: the GSPN scan's implementation."""
-    ap.add_argument("--impl", default="", choices=["", "auto", "cuda", "torch"],
+    ap.add_argument("--impl", default="",
+                    choices=["", "auto", "cuda", "torch", "sp"],
                     help="the GSPN scan's implementation: auto (the CUDA "
                          "kernel on the card, the plain scan on the CPU), "
-                         "cuda, or torch (the plain scan)")
+                         "cuda, torch (the plain scan), or sp (rows "
+                         "sharded over the seq mesh, block-local scans as "
+                         "auto)")
 
 
 def add_precision_args(ap, *, state_dtype: bool = False):

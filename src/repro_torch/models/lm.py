@@ -99,7 +99,9 @@ class LMConfig:
     # GSPN mixer.
     gspn_proxy_dim: int = 8
     gspn_row_width: int = 64
-    gspn_impl: str = "auto"
+    gspn_impl: str = "auto"        # "sp" shards the folded-grid scans over
+    gspn_seq_axis: str = "seq"     # the mesh's seq axis (DESIGN.md §8)
+    gspn_sp_strategy: str = "auto"
     # Streamed dtype of the mixer's scans: f32 independently of
     # compute_dtype, so chunked ≡ one-shot stays exact unless a precision
     # preset (configs.base.with_precision) narrows it.
@@ -135,23 +137,29 @@ class LMConfig:
 
 @dataclasses.dataclass
 class Ctx:
-    """Per-call execution context, the ``ctx`` of every entry point.  The
-    reference's carries the device mesh of a sharded run; the port runs
-    on one device, and a mesh raises until parallelism is ported
-    (ROADMAP.md §1 item 6), so a Ctx changes nothing yet."""
+    """Per-call execution context, the ``ctx`` of every entry point: the
+    device mesh (a ``DeviceMesh``, ``launch.mesh.make_sp_mesh``) that
+    ``gspn_impl="sp"`` shards the mixer's scans over.  Every rank holds
+    the whole model; only the scans' rows are sharded.  The reference also
+    shards weights and activations over its data and ``model`` axes; that
+    waits for ROADMAP.md §1 item 6.2: here a data axis shards only the
+    scans' G (``parallel.gspn_sp``), and a ``model`` axis raises."""
     mesh: Any = None
 
     def __post_init__(self):
-        if self.mesh is not None:
+        names = tuple(self.mesh.mesh_dim_names or ()) \
+            if self.mesh is not None else ()
+        if "model" in names and self.mesh.size(names.index("model")) > 1:
             raise NotImplementedError(
-                "a device mesh is not supported by the port yet; "
-                "parallelism comes with ROADMAP.md §1 item 6")
+                "sharding weights over the mesh's 'model' axis is not in the "
+                "port yet; ROADMAP.md §1 item 6.2 brings it")
 
 
 def gspn_config(cfg: LMConfig) -> GSPNSeqConfig:
     return GSPNSeqConfig(
         dim=cfg.d_model, proxy_dim=cfg.gspn_proxy_dim,
         row_width=cfg.gspn_row_width, impl=cfg.gspn_impl,
+        seq_axis=cfg.gspn_seq_axis, sp_strategy=cfg.gspn_sp_strategy,
         param_dtype=cfg.param_dtype, compute_dtype=cfg.gspn_compute_dtype,
         carry_dtype=cfg.carry_dtype)
 
@@ -171,7 +179,8 @@ class GSPNBlock(nn.Module):
     """Pre-norm GSPN-2 sequence mixer + pre-norm SwiGLU FFN, with the
     reference's four paths: ``forward`` (training/scoring), ``prefill``
     (also returns the O(W) cache), ``prefill_chunk`` (resumes from it)
-    and ``decode`` (one token)."""
+    and ``decode`` (one token).  ``mesh`` reaches the mixer's scans in the
+    first three; the decode step is O(W) and unsharded."""
 
     def __init__(self, cfg: LMConfig, *, generator, device):
         super().__init__()
@@ -186,18 +195,18 @@ class GSPNBlock(nn.Module):
     def _ffn(self, x):
         return x + self.ffn(self.ln2(x))
 
-    def forward(self, x):
-        return self._ffn(x + self.mix(self.ln1(x)))
+    def forward(self, x, mesh=None):
+        return self._ffn(x + self.mix(self.ln1(x), mesh=mesh))
 
-    def prefill(self, x, max_len: int):
+    def prefill(self, x, max_len: int, mesh=None):
         """``max_len`` sizes an attn block's cache; the O(W) state here
         does not depend on it."""
-        y, cache = self.mix(self.ln1(x), return_cache=True)
+        y, cache = self.mix(self.ln1(x), return_cache=True, mesh=mesh)
         return self._ffn(x + y), cache
 
-    def prefill_chunk(self, x, cache, off: int):
+    def prefill_chunk(self, x, cache, off: int, mesh=None):
         y, new = gspn_seq_prefill_chunk(self.mix, self.ln1(x), cache,
-                                        pos=off)
+                                        pos=off, mesh=mesh)
         return self._ffn(x + y), new
 
     def decode(self, x, cache):
@@ -220,7 +229,8 @@ class AttnBlock(nn.Module):
     ``arange(S)`` in ``forward`` and ``prefill``, ``off + arange(T)`` in a
     chunk and each sequence's cache length in ``decode``.  The cache is
     k (after rope) and v (B, max_len, Hkv, D) in the compute dtype and the
-    int32 ``length`` (B,)."""
+    int32 ``length`` (B,).  A ``mesh`` is accepted and unused: the
+    reference shards no attention over the seq axis."""
 
     def __init__(self, cfg: LMConfig, *, generator, device):
         super().__init__()
@@ -236,12 +246,12 @@ class AttnBlock(nn.Module):
     def _ffn(self, x):
         return x + self.ffn(self.ln2(x))
 
-    def forward(self, x):
+    def forward(self, x, mesh=None):
         b, s, _ = x.shape
         return self._ffn(x + self.attn(self.ln1(x),
                                        _positions(b, s, x.device)))
 
-    def prefill(self, x, max_len: int):
+    def prefill(self, x, max_len: int, mesh=None):
         """The forward, and the cache of the prompt's k and v padded to
         ``max_len`` positions.  A prompt longer than ``max_len`` raises
         (the reference's pad width would go negative)."""
@@ -259,7 +269,7 @@ class AttnBlock(nn.Module):
         cache["length"].fill_(s)
         return self._ffn(x), cache
 
-    def prefill_chunk(self, x, cache, off: int):
+    def prefill_chunk(self, x, cache, off: int, mesh=None):
         """The (B, T) chunk at offset ``off``: its k and v written into a
         copy of the cache, attention over the cache with the offset causal
         mask.  A chunk past the cache's end raises (the reference clamps
@@ -464,11 +474,17 @@ def _maybe_remat(cfg: LMConfig, block):
                              use_reentrant=False)
 
 
+def _mesh(ctx: Ctx | None):
+    return ctx.mesh if ctx is not None else None
+
+
 def apply_lm(model: LM, tokens, *, ctx: Ctx | None = None):
-    """Logits (B, S, V) of tokens (B, S) int."""
+    """Logits (B, S, V) of tokens (B, S) int.  ``ctx.mesh`` shards the
+    mixers' scans under ``gspn_impl="sp"``."""
     x = model.embed_tokens(tokens)
+    mesh = _mesh(ctx)
     for _, _, block in model.walk():
-        x = _maybe_remat(model.cfg, block)(x)
+        x = _maybe_remat(model.cfg, functools.partial(block, mesh=mesh))(x)
     return model.logits(x)
 
 
@@ -516,7 +532,7 @@ def lm_prefill(model: LM, tokens, max_len: int, *, ctx: Ctx | None = None):
     caches = init_lm_cache(model.cfg, tokens.shape[0], max_len,
                            device=x.device)
     for key, idx, block in model.walk():
-        x, layer_cache = block.prefill(x, max_len)
+        x, layer_cache = block.prefill(x, max_len, mesh=_mesh(ctx))
         _store(caches, key, idx, layer_cache)
     return model.logits(x), caches
 
@@ -553,13 +569,15 @@ def lm_prefill_chunk(model: LM, tokens, caches, off: int, *,
            for k, sub in caches.items()}
     for key, idx, block in model.walk():
         layer = {n: v[idx] for n, v in caches[key].items()}
-        x, layer_cache = block.prefill_chunk(x, layer, off)
+        x, layer_cache = block.prefill_chunk(x, layer, off,
+                                             mesh=_mesh(ctx))
         _store(new, key, idx, layer_cache)
     return (model.logits(x) if with_logits else None), new
 
 
 def lm_decode_step(model: LM, token, caches, *, ctx: Ctx | None = None):
-    """token: (B, 1) int.  Returns (logits (B, 1, V), new_caches)."""
+    """token: (B, 1) int.  Returns (logits (B, 1, V), new_caches).  The
+    step is O(W) per gspn layer and runs unsharded under any ``ctx``."""
     x = model.embed_tokens(token)
     new = {k: {n: torch.empty_like(v) for n, v in sub.items()}
            for k, sub in caches.items()}

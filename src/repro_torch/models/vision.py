@@ -6,7 +6,8 @@ downsampling between stages → pooled classifier head.  Each block is LPU
 proxy, paper §4.2) → LPU → FFN, pre-norm with residuals.  The attention's
 four directional scans run as two fused pair launches per block
 (DESIGN.md §2); ``GSPNVisionConfig.impl`` selects the kernel path
-(``auto``/``cuda``/``torch``, see :mod:`repro_torch.kernels.ops`).
+(``auto``/``cuda``/``torch``, see :mod:`repro_torch.kernels.ops`; ``sp``
+shards the scans over the mesh that a ``ctx`` carries).
 
 Images are NHWC, as in the reference package.  :func:`apply_vision` is the
 serving entry point (no autograd); :func:`vision_loss` is the training
@@ -42,7 +43,7 @@ class GSPNVisionConfig:
     mlp_ratio: float = 4.0
     channel_shared: bool = True        # GSPN-2 compact channel propagation
     chunk: int | None = None           # GSPN-local
-    impl: str = "auto"
+    impl: str = "auto"                 # "sp": scans sharded over a mesh
     param_dtype: torch.dtype = torch.float32
 
 
@@ -84,9 +85,11 @@ class Block(nn.Module):
         self.ln2 = LayerNorm(dim, device=device, dtype=dt)
         self.mlp = GeluMLP(dim, int(dim * cfg.mlp_ratio), **kw)
 
-    def forward(self, x):
+    def forward(self, x, mesh=None):
         x = x + self.lpu(x)                                   # LPU
-        x = x + self.gspn(self.ln1(x))
+        # impl="sp" shards every directional scan over the mesh's seq axis
+        # (one boundary exchange per scan, DESIGN.md §8).
+        x = x + self.gspn(self.ln1(x), mesh=mesh)
         x = x + self.lpu2(x)                                  # LPU before FFN
         return x + self.mlp(self.ln2(x))
 
@@ -103,9 +106,9 @@ class Stage(nn.Module):
             self.down = Conv(2, dim, cfg.dims[si + 1], 2, generator=generator,
                              device=device, dtype=cfg.param_dtype)
 
-    def forward(self, x):
+    def forward(self, x, mesh=None):
         for block in self.blocks:
-            x = block(x)
+            x = block(x, mesh=mesh)
         return x if self.down is None else self.down(x)
 
 
@@ -136,27 +139,33 @@ class GSPNVision(nn.Module):
         self.head = dense_init(cfg.dims[-1], cfg.n_classes, generator, device,
                                dt)
 
-    def forward(self, x):
+    def forward(self, x, mesh=None):
         x = self.stem(x)
         for stage in self.stages:
-            x = stage(x)
+            x = stage(x, mesh=mesh)
         x = self.ln_f(x).mean(dim=(1, 2))
         # The head runs in f32 after the spatial mean.
         return x.float() @ self.head.float()
 
 
-def apply_vision(model: GSPNVision, x) -> torch.Tensor:
+def _mesh(ctx):
+    return ctx.mesh if ctx is not None else None
+
+
+def apply_vision(model: GSPNVision, x, *, ctx=None) -> torch.Tensor:
     """Serving: x (B, H, W, 3) -> logits (B, n_classes), under
-    ``torch.inference_mode()``, so no autograd graph is built."""
+    ``torch.inference_mode()``, so no autograd graph is built.  ``ctx``
+    (``models.lm.Ctx``) carries the mesh that ``impl="sp"`` shards the
+    scans over."""
     with torch.inference_mode():
-        return model(x)
+        return model(x, mesh=_mesh(ctx))
 
 
-def vision_loss(model: GSPNVision, batch: dict):
+def vision_loss(model: GSPNVision, batch: dict, *, ctx=None):
     """Mean cross-entropy of ``batch`` ({"images", "labels"} tensors) under
     the caller's grad mode, so ``backward()`` reaches every parameter.
-    Returns (nll, {"ce": nll})."""
-    logits = model(batch["images"])
+    Returns (nll, {"ce": nll}).  ``ctx`` as in :func:`apply_vision`."""
+    logits = model(batch["images"], mesh=_mesh(ctx))
     nll = F.cross_entropy(logits, batch["labels"].long())
     return nll, {"ce": nll}
 

@@ -4,8 +4,10 @@ and record formats; enabled spans enter ``torch.profiler.record_function``
 (see :mod:`repro_torch.obs.tracing`).
 
 One import surface for every instrumented layer; in the port those are
-the kernel layer, whose dispatches and launches enter spans, and the
-serving engine (``serve.*`` spans, ``serve_*`` metrics)::
+the kernel layer, whose dispatches and launches enter spans, the serving
+engine (``serve.*`` spans, ``serve_*`` metrics) and the sequence-parallel
+scan (``sp.*`` spans, the ``sp.exchange`` event, ``sp_*`` counters; see
+:mod:`repro_torch.parallel.gspn_sp`)::
 
     from repro_torch import obs
 

@@ -43,8 +43,13 @@ the default stream made are finished before the engine's stream reads
 them; a prefix entry made on another engine's stream is finished before
 it is stored, and a resumed request marks its tensors as in use on this
 stream (``record_stream``) so the allocator cannot hand their memory out
-while this stream still reads it.  A ``ctx`` (device mesh) raises until
-ROADMAP.md §1 item 6.
+while this stream still reads it.
+
+Sequence parallelism.  A ``ctx`` (``models.lm.Ctx``) carries the mesh that
+a ``gspn_impl="sp"`` model shards its prefills' and chunks' scans over
+(DESIGN.md §8); the decode step is O(W) and unsharded.  Every rank runs
+the same engine over the same requests, so its collectives come in one
+order on all of them.
 """
 
 from __future__ import annotations
@@ -196,7 +201,8 @@ class ServeEngine:
     to the GSPN fold width); ``state_dtype`` narrows the pooled state at
     rest; ``prefix_cache`` is a shared
     :class:`~repro_torch.serve.cache.PrefixStateCache`; ``stream`` is the
-    per-token callback (the engine's CUDA stream is ``cuda_stream``)."""
+    per-token callback (the engine's CUDA stream is ``cuda_stream``);
+    ``ctx`` reaches the prefills and chunks."""
 
     def __init__(self, model, *, batch_size: int = 4, max_len: int = 512,
                  temperature: float = 0.0, top_k: int = 0,
@@ -208,10 +214,7 @@ class ServeEngine:
                  ctx=None, prefix_cache=None):
         if scheduler not in ("fcfs", "sjf"):
             raise ValueError(f"unknown scheduler {scheduler!r}")
-        if ctx is not None:
-            raise NotImplementedError(
-                "the engine runs on one device; a ctx (device mesh) comes "
-                "with ROADMAP.md §1 item 6")
+        self.ctx = ctx
         self.model = model
         self.cfg = cfg = model.cfg
         self.device = model.embed.device
@@ -459,7 +462,8 @@ class ServeEngine:
                         "serve.prefill", uid=req.uid,
                         prompt_tokens=len(req.prompt)):
                     logits, new_caches = lm_mod.lm_prefill(
-                        self.model, self._tokens(req.prompt), self.max_len)
+                        self.model, self._tokens(req.prompt), self.max_len,
+                        ctx=self.ctx)
                     first = self._sample_first(logits[0, -1])
                     self.pool.commit(slot, new_caches)
                 self._m["prefills"] += 1
@@ -481,7 +485,7 @@ class ServeEngine:
             # the vocabulary head.
             logits, st["cache"] = lm_mod.lm_prefill_chunk(
                 self.model, self._tokens(st["toks"][off:end]), st["cache"],
-                off, with_logits=last)
+                off, ctx=self.ctx, with_logits=last)
             # Wait for the engine's stream, so the chunk histogram (the
             # TTFT predictor's cost model) measures the chunk's device
             # time rather than its dispatch, and a prefix entry is

@@ -162,6 +162,24 @@ def test_resolution_order_explicit_then_cache_then_heuristic():
                                   cache=cache) == heur
 
 
+@pytest.mark.parametrize("direction,g,h,w,cpw", [
+    ("fwd", 16, 1024, 4, 8), ("bwd", 16, 1024, 4, 8),
+    ("pair_fwd", 128, 28, 56, 2), ("pair_bwd", 128, 28, 56, 2)])
+def test_sp_block_local_keys_plan_the_heuristic(fresh_cache, direction, g, h,
+                                                w, cpw):
+    """A block-local launch of the sequence-parallel scan has a key of its
+    own (``bnd-sp_block_local``) that the seed does not hold: it plans the
+    heuristic's shape, as a key without a boundary leg does."""
+    spec = _spec(direction, cpw, torch.float32, "sp_block_local")
+    dev = "nvidia-h100-80gb-hbm3"
+    key = autotune.ScanKey.from_spec(spec, g, h, w, dev)
+    assert key.encode().endswith("|bnd-sp_block_local")
+    assert autotune.ScanKey.decode(key.encode()) == key
+    assert autotune.get_cache().lookup(key) is None
+    assert autotune.plan_for_spec(spec, g, h, w, device=dev) == \
+        autotune.heuristic(key)
+
+
 def test_global_cache_hit_is_remembered_until_the_cache_changes(
         tmp_path, fresh_cache):
     spec = _spec("fwd", 8, torch.float32)

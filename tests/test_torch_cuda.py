@@ -863,3 +863,108 @@ def test_chunked_attention_is_within_f32_rounding_of_exact(card):
     apart = errs("chunked", "full")
     assert max(apart) <= 2e-5
     assert errs("full", "exact")[3] >= 0.5 * apart[3]
+
+
+# ---------------------------------------------------------------------------
+# Sequence parallelism of the scan (parallel/gspn_sp.py).
+# ---------------------------------------------------------------------------
+
+def _free_port():
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def test_sp_world_size_one_over_nccl_is_the_kernel_call(card):
+    """One rank over NCCL: both sharded entry points are the unsharded
+    kernel call, bit for bit, launching #1 and #3 and no plain scan."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import backend_for, make_sp_mesh
+    from repro_torch.parallel import gspn_sp as sp
+    assert backend_for(card, 1) == "nccl"
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", rank=0, world_size=1,
+                            init_method=f"tcp://127.0.0.1:{_free_port()}")
+    try:
+        mesh = make_sp_mesh(1)
+        a = _inputs(20, 16, 12, 40, 2, torch.float32)
+        p = _inputs(21, 16, 12, 40, 2, torch.float32, pair=True)
+        cuda_lib.clear_counts()
+        got = sp.gspn_scan_sp(*a, mesh=mesh)
+        got2 = sp.gspn_scan_sp_pair(*p, mesh=mesh)
+        torch.cuda.synchronize()
+        assert cuda_lib.launch_counts == {"gspn_scan_fwd": 1,
+                                          "gspn_pair_fwd": 1}
+        assert not cuda_lib.plain_calls
+        assert torch.equal(got, ops.gspn_scan(*a))
+        assert torch.equal(got2, ops.gspn_scan_pair(*p))
+    finally:
+        dist.destroy_process_group()
+
+
+# One rank of a gloo group on the card: the fused pair and one direction,
+# forward and gradients, against the unsharded kernel call; the block-local
+# launches carry sp_block_local.
+_SP_RANK = """
+import sys
+import torch
+from repro_torch.kernels import cuda_lib, ops
+from repro_torch.launch.mesh import init_distributed, make_sp_mesh
+from repro_torch.parallel import gspn_sp as sp
+init_distributed(torch.device("cuda"))
+mesh = make_sp_mesh()
+gen = torch.Generator(device="cuda").manual_seed(3)
+
+def inputs(lead):
+    x = torch.randn((16, 19, 24), generator=gen, device="cuda")
+    taps = torch.softmax(torch.randn(lead + (8, 19, 24, 3), generator=gen,
+                                     device="cuda"), dim=-1)
+    lam = torch.rand(lead + (16, 19, 24), generator=gen, device="cuda")
+    return [t.contiguous().requires_grad_() for t in
+            (x, taps[..., 0], taps[..., 1], taps[..., 2], lam)]
+
+cuda_lib.clear_counts()
+for fn, ref, lead in ((sp.gspn_scan_sp_pair, ops.gspn_scan_pair, (2,)),
+                      (sp.gspn_scan_sp, ops.gspn_scan, ())):
+    a = inputs(lead)
+    out = fn(*a, mesh=mesh)
+    want = ref(*a)
+    dy = torch.randn(want.shape, generator=gen, device="cuda")
+    for got, exp in zip((out, *torch.autograd.grad(out, a, dy)),
+                        (want, *torch.autograd.grad(want, a, dy))):
+        err = (got - exp).abs().max() / exp.abs().max()
+        assert err <= 1e-5, err.item()
+torch.cuda.synchronize()
+for name in ("gspn_scan_fwd", "gspn_scan_bwd", "gspn_pair_fwd",
+             "gspn_pair_bwd"):
+    assert cuda_lib.launch_boundaries[(name, "sp_block_local")] == 1, name
+assert not cuda_lib.plain_calls
+"""
+
+
+def test_sp_two_ranks_over_gloo_match_the_kernel(card):
+    """Two ranks sharing the card over gloo (the exchange staged through
+    host memory) hold the fused pair and one direction, forward and
+    gradients, to the unsharded kernel call at 1e-5."""
+    import os
+    import pathlib
+    import subprocess
+    import sys
+    env = dict(os.environ, WORLD_SIZE="2", MASTER_ADDR="127.0.0.1",
+               MASTER_PORT=str(_free_port()),
+               PYTHONPATH=str(pathlib.Path(__file__).resolve().parents[1]
+                              / "src"))
+    procs = [subprocess.Popen([sys.executable, "-c", _SP_RANK],
+                              env=dict(env, RANK=str(r), LOCAL_RANK=str(r)),
+                              stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for r in range(2)]
+    try:
+        logs = [p.communicate(timeout=300)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    assert [p.returncode for p in procs] == [0, 0], logs

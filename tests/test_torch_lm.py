@@ -221,8 +221,12 @@ def test_spec_grid_with_chunk_resume_is_the_reference_grid_mapped():
     assert s.canonical() == jspec.ScanSpec(
         impl="pallas", boundary="chunk_resume").canonical().replace(
             "|pallas|", "|cuda|")
+    s = spec.ScanSpec(impl="cuda", boundary="sp_block_local")
+    assert s.canonical() == jspec.ScanSpec(
+        impl="pallas", boundary="sp_block_local").canonical().replace(
+            "|pallas|", "|cuda|")
     with pytest.raises(ValueError):
-        spec.ScanSpec(boundary="sp_block_local")
+        spec.ScanSpec(boundary="resumed")
 
 
 # ---------------------------------------------------------------------------
@@ -358,8 +362,22 @@ def test_registry_runs_only_what_the_port_runs():
     with pytest.raises(ValueError, match="unknown block kind"):
         lm.LM(dataclasses.replace(tq.reduced(), unit=(("conv", 2),)),
               device="meta")
-    with pytest.raises(NotImplementedError, match="item 6"):
-        lm.Ctx(mesh=object())
+    # A seq mesh is accepted (the scans shard over it under impl="sp");
+    # sharding weights over a model axis waits for item 6.2.
+    seq = _Mesh(("data", "seq"), (2, 2))
+    assert lm.Ctx(mesh=seq).mesh is seq
+    with pytest.raises(NotImplementedError, match="item 6.2"):
+        lm.Ctx(mesh=_Mesh(("seq", "model"), (2, 2)))
+
+
+class _Mesh:
+    """The two attributes of a ``DeviceMesh`` that ``Ctx`` reads."""
+
+    def __init__(self, names, shape):
+        self.mesh_dim_names, self.shape = names, shape
+
+    def size(self, dim):
+        return self.shape[dim]
 
 
 # ---------------------------------------------------------------------------

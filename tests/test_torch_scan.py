@@ -162,10 +162,13 @@ def test_spec_validation_and_canonical():
     assert s.with_(channels_per_weight=2).canonical() == \
         "fwd|auto|bfloat16|carry-float32|cs1|bnd-one_shot"
     for bad in (dict(impl="pallas"), dict(direction="quad", impl="per_step"),
-                dict(boundary="sp_block_local"), dict(channels_per_weight=0),
+                dict(boundary="bnd"), dict(channels_per_weight=0),
                 dict(stream_dtype="nope")):
         with pytest.raises(ValueError):
             ScanSpec(**bad)
+    # The sequence-parallel block-local launch has a label of its own.
+    assert ScanSpec(impl="sp", boundary="sp_block_local").canonical() == \
+        "fwd|sp|float32|carry-float32|cs0|bnd-sp_block_local"
     # The quad is accepted and forward-only.
     quad = ScanSpec(direction="quad", impl="cuda", channels_per_weight=2)
     assert quad.canonical() == "quad|cuda|float32|carry-float32|cs1|bnd-one_shot"

@@ -248,10 +248,34 @@ def test_chunk_snapping_capacity_and_unported_arguments(model):
                            max_new_tokens=10))
     pfx = PrefixStateCache()                 # the tier's cache is ported
     assert _engine(model, prefix_cache=pfx).prefix_cache is pfx
-    with pytest.raises(NotImplementedError, match="item 6"):
-        _engine(model, ctx=lm.Ctx())
+    # A ctx reaches prefill and chunks: over a seq axis of one block the
+    # sharded model is the unsharded one; a model axis waits for item 6.2.
+    sp_model = lm.LM(_cfg(gspn_impl="sp"), device="meta")
+    sp_model.load_state_dict(model.state_dict(), assign=True)
+    toks = []
+    for m, ctx in ((model, None), (sp_model, lm.Ctx(mesh=_Mesh(("seq",),
+                                                               (1,))))):
+        eng = _engine(m, ctx=ctx)
+        assert eng.ctx is ctx
+        h = eng.submit(Request(uid=0, prompt=_prompt(40), max_new_tokens=3))
+        eng.run()
+        toks.append(h.result().tokens)
+    assert toks[0] == toks[1]
+    with pytest.raises(NotImplementedError, match="item 6.2"):
+        lm.Ctx(mesh=_Mesh(("seq", "model"), (1, 2)))
     free_fold = lm.LM(_cfg(gspn_row_width=0), device="cpu")
     assert ServeEngine(free_fold, prefill_chunk=16).prefill_chunk == 0
+
+
+class _Mesh:
+    """The two attributes of a ``DeviceMesh`` that ``Ctx`` and the sp
+    path read before any collective."""
+
+    def __init__(self, names, shape):
+        self.mesh_dim_names, self.shape = names, shape
+
+    def size(self, dim):
+        return self.shape[dim]
 
 
 def test_sample_tokens():
@@ -412,16 +436,71 @@ def test_launcher_serves_the_attention_arch_with_no_code_of_its_own(capsys):
 
 @pytest.mark.parametrize("flag", [
     ["--replicas", "two"], ["--router", "round_robin"],
-    ["--prefix-cache", "x"], ["--slo-ttft", "soon"], ["--seq-parallel", "2"],
-    ["--ckpt-dir"], ["--tune-cache"], ["--impl", "pallas"]])
+    ["--prefix-cache", "x"], ["--slo-ttft", "soon"],
+    ["--seq-parallel", "two"], ["--ckpt-dir"], ["--tune-cache"],
+    ["--impl", "pallas"]])
 def test_launcher_refuses_flags_of_later_slices(flag):
-    """A flag of a later slice (``--seq-parallel``, ROADMAP.md §1 item 6;
-    the reference's ``pallas`` impl) does not parse, and neither does a
-    malformed value of the tier's, tuning and checkpoint flags, which
-    parse since the serving tier came."""
+    """The reference's ``pallas`` impl does not parse, and neither does a
+    malformed value of the tier's, tuning, checkpoint and sequence-
+    parallel flags."""
     with pytest.raises(SystemExit):
         launch_serve.main(["--arch", "qwen2-1.5b-gspn", "--device", "cpu",
                            *flag])
+
+
+# One rank of the launcher, started as torchrun starts it; rank 0 writes
+# the tokens of every request to the file named first.
+_SERVE_RANK = """
+import json, os, sys
+import torch
+torch.set_num_threads(1)
+from repro_torch.launch import serve
+results = serve.main(sys.argv[2:])
+if os.environ["RANK"] == "0":
+    with open(sys.argv[1], "w") as f:
+        json.dump([[int(t) for t in r.tokens] for r in results], f)
+"""
+
+
+def test_launcher_serves_with_seq_parallel_over_gloo(tmp_path, capsys):
+    """``--seq-parallel 2`` in two ranks on a gloo group serves the same
+    tokens as the unsharded launcher; only rank 0 reports."""
+    import json
+    import os
+    import pathlib
+    import socket
+    import subprocess
+    import sys
+    argv = ["--arch", "qwen2-1.5b-gspn", "--reduced", "--device", "cpu",
+            "--precision", "f32", "--requests", "4", "--prefill-chunk",
+            "16", "--max-len", "64", "--max-new", "4"]
+    want = [[int(t) for t in r.tokens] for r in launch_serve.main(argv)]
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    src = str(pathlib.Path(__file__).resolve().parents[1] / "src")
+    env = dict(os.environ, WORLD_SIZE="2", MASTER_ADDR="127.0.0.1",
+               MASTER_PORT=str(port), OMP_NUM_THREADS="1",
+               PYTHONPATH=os.pathsep.join(
+                   [src] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+    out = tmp_path / "tokens.json"
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", _SERVE_RANK, str(out), *argv,
+         "--seq-parallel", "2"], env=dict(env, RANK=str(r)),
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for r in range(2)]
+    try:
+        logs = [p.communicate(timeout=240)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    assert [p.returncode for p in procs] == [0, 0], logs
+    assert json.loads(out.read_text()) == want
+    assert "[serve] mesh axes {'seq': 2} over gloo (gspn impl=sp)" in logs[0]
+    assert "4 requests, 16 tokens" in logs[0]
+    assert "[serve]" not in logs[1]
 
 
 def test_launcher_needs_the_card_unless_asked():

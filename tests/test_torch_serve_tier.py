@@ -581,12 +581,18 @@ def test_train_then_serve_from_its_checkpoint_with_a_tune_cache(
 
 
 def test_serve_launcher_still_refuses_seq_parallel(capsys):
-    with pytest.raises(SystemExit):
-        launch_serve.main(["--arch", "qwen2-1.5b-gspn", "--device", "cpu",
-                           "--seq-parallel", "2"])
+    """``--seq-parallel N`` runs as N ranks started as torchrun starts
+    them: without WORLD_SIZE = N it refuses, and so it does with
+    replicas; ``--help`` documents it."""
+    for extra in ([], ["--replicas", "2"]):
+        with pytest.raises(SystemExit):
+            launch_serve.main(["--arch", "qwen2-1.5b-gspn", "--device",
+                               "cpu", "--seq-parallel", "2", *extra])
     with pytest.raises(SystemExit):
         launch_serve.main(["--help"])
-    assert "ROADMAP.md §1 item 6" in capsys.readouterr().out
+    out = capsys.readouterr()
+    assert "--seq-parallel SEQ_PARALLEL" in out.out
+    assert "one process a rank" in out.err
 
 
 def test_example_serves_a_shared_prefix_through_replicas(capsys):
