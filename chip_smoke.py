@@ -152,6 +152,30 @@ Phases, each of which fails the run on any error:
    under the f32 policy, whose tokens and #1 launches must equal the
    unsharded launcher's.
 
+14. the SSM and xLSTM families (``ssm ...`` lines, phase ``lm ssm``; no
+   kernel of the port and no scan runs on them, so #1–#5 launch 0 times):
+   (a) ``chunked_gla`` against a loop of ``gla_decode_step`` over the
+   same tokens at zamba2's heads (80 of 64 x 64, Mamba-2 decays) and
+   xlstm's (4 of 1024 x 1025, mLSTM decays), 1024 and 1023 tokens (the
+   latter as 1023 chunks of one), f32, 1e-4 of the largest magnitude;
+   the causal conv streamed against its full pass, bit for bit; then for
+   ``zamba2-2.7b`` and ``xlstm-1.3b`` at full width and depth with
+   seeded weights: (b) under the f32 policy a prefill of 2048 and 16
+   decode steps against ``apply_lm`` over the 2064 tokens, at 1e-4 of
+   the largest logit or four times the model's own f32 rounding noise
+   measured in the run (``apply_lm`` over two copies of the tokens
+   against one), whichever is larger; (c) the engine under the config's
+   own policy over the serving phase's requests plus one of 1023 tokens
+   (4 slots, greedy, ``max_len`` 4112, asked for chunks of 1024 and
+   prefilling in one shot): per-request TTFT, tok/s, TTFT p50 / p90, the
+   median decode step, the idle share of a decode step and of a
+   1024-token prefill, the 1023-token prefill beside the 1024-token one,
+   the state bytes a slot, peak memory; (d) training under
+   ``remat="unit"`` with AdamW (zamba2 at 2 x 4096, xlstm at 2 x 1024):
+   the median of 3 steps after one warm-up, tokens/s, peak memory, the
+   loss finite and every gradient finite and nonzero (the shared attn
+   block's too), a profiled step (xlstm's at 2 x 256).
+
 It prints a ``{"kernels": [...]}`` line and, last, the ``{"ok": true, ...}``
 line.
 """
@@ -927,13 +951,13 @@ def _counted(fn, what, expect):
     return out
 
 
-def _logits_check(what, got, want, tol=1e-4):
+def _logits_check(what, got, want, tol=1e-4, tag="lm"):
     err = (got.float() - want.float()).abs().max().item()
     scale = want.float().abs().max().item()
-    print(f"lm {what}: logits max_abs_err={err} max_abs={scale} "
+    print(f"{tag} {what}: logits max_abs_err={err} max_abs={scale} "
           f"tol={tol * scale}", flush=True)
     if not (torch.isfinite(got).all() and err <= tol * scale):
-        raise AssertionError(f"lm {what}: logits disagree")
+        raise AssertionError(f"{tag} {what}: logits disagree")
 
 
 def lm_serve_phase():
@@ -1290,17 +1314,17 @@ def lm_train_phase():
     return shapes
 
 
-def _no_scans(fn, what):
+def _no_scans(fn, what, tag="lm attn"):
     """Run ``fn`` with the counters at 0; fail if any GSPN scan ran (the
-    attention path launches no kernel of its own and no scan).  Returns
-    fn's result."""
+    attention, SSM and xLSTM paths launch no kernel of their own and no
+    scan).  Returns fn's result."""
     from repro_torch.kernels import cuda_lib
 
     cuda_lib.clear_counts()
     out = fn()
     torch.cuda.synchronize()
     if cuda_lib.launch_counts or cuda_lib.plain_calls:
-        raise AssertionError(f"lm attn {what}: a scan ran: "
+        raise AssertionError(f"{tag} {what}: a scan ran: "
                              f"{dict(cuda_lib.launch_counts)}, "
                              f"{dict(cuda_lib.plain_calls)}")
     return out
@@ -2411,6 +2435,386 @@ def sp_phase():
         raise AssertionError("sp (c): sharded serving differs")
 
 
+# The SSM and xLSTM families (``ssm ...`` lines).
+SSM_ARCHS = ("zamba2-2.7b", "xlstm-1.3b")
+SSM_CORE = {"zamba2": (80, 64, 64), "xlstm": (4, 1024, 1025)}
+SSM_CORE_LENS = (1024, 1023)
+SSM_PROMPTS = SERVE_PROMPTS + (1023,)
+SSM_MAX_LEN = 4112
+SSM_DECODE = 16
+# xlstm-1.3b trains at 2 x 1024, the longest power of two that keeps the
+# phase near its 300 s: its six sLSTM layers run token by token, about 40
+# launches a token and layer forward, again under remat and in the
+# backward, so a step takes 14.9-16.4 s at 2 x 1024, 28.6-31.0 s at
+# 2 x 2048 and 51.4-66.1 s at 2 x 4096 on the H100
+# (tools/ssm_train_lengths.py, PERF.md).
+SSM_TRAIN = {"zamba2-2.7b": (2, 4096), "xlstm-1.3b": (2, 1024)}
+SSM_TRAIN_STEPS = 3
+# xlstm's profiled step runs at this length, with kernel records alone: a
+# step of 2 x 256 already records about 650 000 operator events.
+SSM_PROFILE_SEQ = 256
+
+
+def _busy_profile(fn, wall_s, what):
+    """The card's busy time in one call of ``fn`` (the union of its kernel,
+    memcpy and memset records, ``_busy_ms``) and its idle share of an eager
+    call that took ``wall_s``, from a profile of device activity alone."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    busy = _busy_ms(prof)
+    if busy is None:
+        print(f"profile {what}: no device record; device time not measured",
+              flush=True)
+        return
+    print(f"profile {what}: device busy {busy:.3f} ms, eager "
+          f"{wall_s * 1e3:.3f} ms, device idle share "
+          f"{1 - busy / 1e3 / wall_s:.3f}", flush=True)
+
+
+def _ssm_core():
+    """(a) ``chunked_gla`` against a loop of ``gla_decode_step`` over the
+    same tokens at both families' head shapes and decays, S = 1024 and
+    1023 (which runs as 1023 chunks of one), f32 (TF32 off): outputs and
+    final state within 1e-4 of the largest magnitude; ``CausalConv1d``
+    streamed token by token against its full pass, bit for bit."""
+    from repro_torch.models.layers import CausalConv1d
+    from repro_torch.models.ssm import (chunked_gla, gla_chunk_len,
+                                        gla_decode_step)
+
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    for fam, (h, dk, dv) in SSM_CORE.items():
+        for s in SSM_CORE_LENS:
+            torch.cuda.reset_peak_memory_stats()
+            q, k = (torch.randn((1, s, h, dk), generator=gen, device="cuda")
+                    / math.sqrt(dk) for _ in range(2))
+            v = torch.randn((1, s, h, dv), generator=gen, device="cuda")
+            raw = torch.randn((1, s, h), generator=gen, device="cuda")
+            # Each family's decays: Mamba-2's -a * softplus(dt), a in
+            # 1..16 over the heads, or the mLSTM's log_sigmoid(forget).
+            ld = (-torch.linspace(1.0, 16.0, h, device="cuda")
+                  * torch.nn.functional.softplus(raw) if fam == "zamba2"
+                  else torch.nn.functional.logsigmoid(raw))
+            t0 = time.perf_counter()
+            y, st = chunked_gla(q, k, v, ld, chunk=256)
+            torch.cuda.synchronize()
+            t_chunked = time.perf_counter() - t0
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            state = torch.zeros((1, h, dk, dv), device="cuda")
+            ys = []
+            t0 = time.perf_counter()
+            for t in range(s):
+                yt, state = gla_decode_step(state, q[:, t], k[:, t], v[:, t],
+                                            ld[:, t])
+                ys.append(yt)
+            torch.cuda.synchronize()
+            t_loop = time.perf_counter() - t0
+            e_y, e_s = _rel_err(y, torch.stack(ys, 1)), _rel_err(st, state)
+            print(f"ssm core {fam} {h} heads {dk} x {dv}, S {s} (chunks of "
+                  f"{gla_chunk_len(s, 256)}): chunked_gla "
+                  f"{t_chunked * 1e3:.3f} ms, peak memory {peak:.3f} GiB; "
+                  f"recurrence "
+                  f"{t_loop * 1e3:.3f} ms; error / largest magnitude y "
+                  f"{e_y:.3e}, state {e_s:.3e} (tol 1e-4)", flush=True)
+            if not (e_y <= 1e-4 and e_s <= 1e-4):
+                raise AssertionError(f"ssm core {fam} S {s}: chunked_gla "
+                                     f"disagrees with its recurrence")
+            del q, k, v, ld, y, st, state, ys
+            torch.cuda.empty_cache()
+    conv = CausalConv1d(5248, 4, generator=torch.Generator().manual_seed(0),
+                        device="cuda")
+    x = torch.randn((2, 64, 5248), generator=gen, device="cuda")
+    with torch.no_grad():
+        full, _ = conv(x)
+        state = torch.zeros((2, 3, 5248), device="cuda")
+        steps = []
+        for t in range(x.shape[1]):
+            yt, state = conv(x[:, t:t + 1], state)
+            steps.append(yt)
+    equal = torch.equal(torch.cat(steps, 1), full)
+    print(f"ssm core causal conv (2 x 64 x 5248, k 4) streamed vs full: "
+          f"bit-equal {equal}", flush=True)
+    if not equal:
+        raise AssertionError("ssm core: the streamed causal conv differs")
+
+
+def _ssm_model(arch, precision=None, seed=0):
+    from repro_torch.configs.base import get_arch, with_precision
+    from repro_torch.models import lm
+
+    cfg = get_arch(arch).full()
+    if precision:
+        cfg = with_precision(cfg, precision)
+    t0 = time.perf_counter()
+    model = lm.LM(cfg, device="cuda",
+                  generator=torch.Generator(device="cuda").manual_seed(seed))
+    torch.cuda.synchronize()
+    print(f"ssm {arch}: {lm.count_params(model)} parameters "
+          f"({cfg.layer_count()} blocks applied, d_model {cfg.d_model}, "
+          f"units {cfg.unit} x {cfg.n_units}, shared attn "
+          f"{cfg.shared_attn}, vocab {cfg.vocab}), "
+          f"{precision or 'its own'} policy, set-up "
+          f"{time.perf_counter() - t0:.3f} s", flush=True)
+    return cfg, model
+
+
+def _ssm_whole(arch):
+    """(b) Under the f32 policy at full width and depth: ``lm_prefill`` of
+    1 x CHECK_LEN and SSM_DECODE ``lm_decode_step``s against ``apply_lm``
+    over the same tokens.  The bar is 1e-4 of the largest logit, or four
+    times the model's own f32 rounding noise where that is larger: the
+    same ``apply_lm`` over a batch of two copies of the tokens (other
+    matrix-product shapes, the same function), measured in this run.
+    Seeded zamba2 and xlstm at full depth amplify one f32 rounding of
+    their input to about 2e-4 of the largest logit."""
+    from repro_torch.models import lm
+
+    cfg, model = _ssm_model(arch, "f32", seed=1)
+    n = CHECK_LEN + SSM_DECODE
+    toks = torch.randint(0, cfg.vocab, (1, n), device="cuda",
+                         generator=torch.Generator(device="cuda")
+                         .manual_seed(2))
+    tag = f"ssm {arch} f32"
+    with torch.no_grad():
+        t0 = time.perf_counter()
+        logits, caches = _no_scans(
+            lambda: lm.lm_prefill(model, toks[:, :CHECK_LEN], n),
+            f"prefill of {CHECK_LEN}", tag)
+        t_prefill = time.perf_counter() - t0
+        steps = []
+        for i in range(CHECK_LEN, n):
+            step, caches = _no_scans(
+                lambda: lm.lm_decode_step(model, toks[:, i:i + 1], caches),
+                f"decode step at {i}", tag)
+            steps.append(step)
+        del caches
+        t0 = time.perf_counter()
+        full = _no_scans(lambda: lm.apply_lm(model, toks),
+                         f"apply_lm of {n}", tag)
+        t_full = time.perf_counter() - t0
+        twin = _no_scans(lambda: lm.apply_lm(model, toks.expand(2, n)),
+                         f"apply_lm of 2 x {n}", tag)[:1]
+    noise = _rel_err(twin, full)
+    bar = max(1e-4, 4 * noise)
+    print(f"{tag}: prefill of {CHECK_LEN} {t_prefill * 1e3:.3f} ms, "
+          f"apply_lm of {n} {t_full * 1e3:.3f} ms; peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB; rounding "
+          f"noise (apply_lm, batch 2 vs 1) {noise:.3e} of the largest "
+          f"logit, bar {bar:.3e}", flush=True)
+    _logits_check(f"prefill of {CHECK_LEN} vs apply_lm", logits,
+                  full[:, :CHECK_LEN], tol=bar, tag=tag)
+    _logits_check(f"{SSM_DECODE} decode steps vs apply_lm",
+                  torch.cat(steps, 1), full[:, CHECK_LEN:], tol=bar, tag=tag)
+    del model, logits, steps, full, twin
+    torch.cuda.empty_cache()
+
+
+def _state_bytes(caches, n_slots):
+    """Pooled state bytes a slot, by family: the mamba stages' conv tail
+    and SSM state, the mLSTM's matrix memory, the sLSTM's four vectors
+    and the shared attn block's KV cache."""
+    groups = {"mamba": "conv + SSM", "mlstm": "mLSTM", "slstm": "sLSTM",
+              "shared_attn": "shared KV"}
+    out = collections.Counter()
+    for key, sub in caches.items():
+        name = next(v for k, v in groups.items() if key.endswith(k))
+        out[name] += sum(a.numel() * a.element_size()
+                         for a in sub.values()) // n_slots
+    return dict(out)
+
+
+def _ssm_serve(arch):
+    """(c) The engine under the config's own policy over SSM_PROMPTS, 4
+    slots, greedy, asked for chunks of SERVE_CHUNK (one-shot prefill
+    follows): TTFT, tok/s, the median decode step, the idle share of a
+    decode step and of a 1024-token prefill, the 1023-token prefill beside
+    the 1024-token one, peak memory and the state bytes a slot."""
+    from repro_torch import obs
+    from repro_torch.models import lm
+    from repro_torch.models.ssm import gla_chunk_len
+    from repro_torch.serve.engine import Request, ServeEngine
+
+    cfg, model = _ssm_model(arch)
+    tag = f"ssm {arch} serve"
+    even, odd = SERVE_CHUNK, SERVE_CHUNK - 1
+    toks = torch.randint(0, cfg.vocab, (1, even), device="cuda",
+                         generator=torch.Generator(device="cuda")
+                         .manual_seed(3))
+    with torch.no_grad():
+        times = {}
+        for n in (even, odd):
+            times[n] = _wall_s(lambda: _no_scans(
+                lambda: lm.lm_prefill(model, toks[:, :n], SSM_MAX_LEN),
+                f"prefill of {n}", tag), n=1)
+    print(f"{tag}: one-shot prefill of {even} tokens "
+          f"{times[even] * 1e3:.3f} ms (chunks of "
+          f"{gla_chunk_len(even, cfg.gla_chunk)}), of {odd} tokens "
+          f"{times[odd] * 1e3:.3f} ms (chunks of "
+          f"{gla_chunk_len(odd, cfg.gla_chunk)}: the chunk-halving quirk), "
+          f"ratio {times[odd] / times[even]:.3f}", flush=True)
+
+    # The engine runs on a stream of its own, which cannot reuse the
+    # blocks the timed prefills cached on this one.
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    eng = ServeEngine(model, batch_size=4, max_len=SSM_MAX_LEN,
+                      prefill_chunk=SERVE_CHUNK)
+    if eng.prefill_chunk != 0:
+        raise AssertionError(f"{tag}: the engine chunks a model with no "
+                             f"chunked prefill")
+    rng = torch.Generator().manual_seed(1)
+    reqs = [Request(uid=i, prompt=torch.randint(0, cfg.vocab, (n,),
+                                                generator=rng).numpy(),
+                    max_new_tokens=SERVE_NEW)
+            for i, n in enumerate(SSM_PROMPTS)]
+    handles = [eng.submit(r) for r in reqs]
+    torch.cuda.synchronize()
+    obs.clear()
+    obs.enable()
+    try:
+        t0 = time.perf_counter()
+        _no_scans(eng.run, "engine run", tag)
+        dt = time.perf_counter() - t0
+    finally:
+        obs.disable()
+    m = eng.metrics
+    results = [h.result() for h in handles]
+    total = sum(len(r.tokens) for r in results)
+    for r, n in zip(results, SSM_PROMPTS):
+        print(f"{tag} request {r.uid}: prompt {n}, ttft "
+              f"{r.ttft * 1e3:.3f} ms, queue {r.queue_delay * 1e3:.3f} ms, "
+              f"{len(r.tokens)} tokens {r.tokens}", flush=True)
+    ttft = sorted(r.ttft * 1e3 for r in results)
+    step_ms = [sp.dur / 1e6 for sp in obs.spans("serve.decode_step")]
+    prefill_ms = [sp.dur / 1e6 for sp in obs.spans("serve.prefill")]
+    per_slot = _state_bytes(eng.pool.caches, eng.bs)
+    print(f"{tag}: {len(results)} requests, {total} tokens in {dt:.3f} s "
+          f"({total / dt:.3f} tok/s); TTFT p50 "
+          f"{statistics.median(ttft):.3f} ms, p90 "
+          f"{ttft[math.ceil(0.9 * len(ttft)) - 1]:.3f} ms; {m['prefills']} "
+          f"one-shot prefills (median {statistics.median(prefill_ms):.3f} "
+          f"ms), {m['prefill_chunks']} chunks, {m['decode_steps']} decode "
+          f"steps, median {statistics.median(step_ms):.3f} ms (of "
+          f"{len(step_ms)}); state a slot {per_slot} bytes, pool "
+          f"{eng.pool.nbytes} bytes ({eng.bs} slots); peak memory of the run "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB", flush=True)
+    if m["prefills"] != len(SSM_PROMPTS) or m["prefill_chunks"] or \
+            [len(r.tokens) for r in results] != [SERVE_NEW] * len(reqs) or \
+            not all(0 <= t < cfg.vocab for r in results for t in r.tokens):
+        raise AssertionError(f"{tag}: wrong prefills or tokens")
+    last, pooled = eng.last_token, eng.pool.caches
+    with torch.no_grad():
+        def decode():
+            return lm.lm_decode_step(model, last, pooled)
+
+        def prefill():
+            return lm.lm_prefill(model, toks, SSM_MAX_LEN)
+
+        _profile(decode, _wall_s(decode), f"{tag} decode step (4 slots)")
+        _profile(prefill, times[even], f"{tag} prefill of {even}")
+    del eng, last, pooled, model
+    torch.cuda.empty_cache()
+
+
+def _ssm_train(arch):
+    """(d) Training under the config's own policy, ``remat="unit"``, AdamW
+    at SSM_TRAIN[arch]: one warm-up step, the median of SSM_TRAIN_STEPS
+    timed steps, tokens/s, peak memory; the loss finite and every
+    parameter's gradient finite and nonzero (the shared attn block's,
+    summed over its applications, included); a profiled step."""
+    from repro_torch.data.pipeline import DataConfig, host_batch, to_device
+    from repro_torch.models import lm
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.train.step import build_train_step, init_train_state
+
+    cfg, model = _ssm_model(arch, seed=4)
+    if cfg.remat != "unit":
+        raise AssertionError(f"{arch} full() rematerialises {cfg.remat!r}")
+    n, seq = SSM_TRAIN[arch]
+    tag = f"ssm {arch} train"
+
+    def batch_of(seq, step):
+        return to_device(host_batch(DataConfig(vocab=cfg.vocab, seq_len=seq,
+                                               global_batch=n), step),
+                         "cuda")
+
+    ocfg = AdamWConfig(lr=3e-4, warmup_steps=5, total_steps=100)
+    state = init_train_state(model, ocfg)
+    step = build_train_step(model, ocfg)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state, metrics = _no_scans(lambda: step(state, batch_of(seq, 0)),
+                               "warm-up step", tag)
+    print(f"{tag} warm-up step {n} x {seq}: "
+          f"{(time.perf_counter() - t0) * 1e3:.3f} ms; " + ", ".join(
+              f"{k} {float(v):.6g}" for k, v in metrics.items()), flush=True)
+    times, losses = [], []
+    for i in range(SSM_TRAIN_STEPS):
+        b = batch_of(seq, 1 + i)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, metrics = step(state, b)
+        losses.append(float(metrics["loss"]))
+        times.append(time.perf_counter() - t0)
+    dt = statistics.median(times)
+    print(f"{tag} {n} x {seq} tokens, its own policy, remat unit, AdamW: "
+          f"median {dt * 1e3:.3f} ms of {SSM_TRAIN_STEPS} steps "
+          f"({[round(t * 1e3, 3) for t in times]}), {n * seq / dt:.1f} "
+          f"tokens/s; peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB; losses "
+          f"{losses}", flush=True)
+    if not all(map(math.isfinite, losses)):
+        raise AssertionError(f"{tag}: non-finite loss")
+    # The gradients are checked at xlstm's profiled length, where its
+    # sLSTM loop is a quarter as long.
+    gseq = SSM_PROFILE_SEQ if "xlstm" in arch else seq
+    loss, _ = lm.lm_loss(model, batch_of(gseq, 9))
+    names = [nm for nm, _ in model.named_parameters()]
+    grads = torch.autograd.grad(loss, list(model.parameters()))
+    bad = [nm for nm, g in zip(names, grads)
+           if not (torch.isfinite(g).all() and g.abs().max() > 0)]
+    shared = [nm for nm in names if nm.startswith("shared_attn.")]
+    print(f"{tag}: {n} x {gseq} tokens, loss {loss.item():.6g}; "
+          f"{len(names)} gradients, "
+          f"{len(bad)} not finite and nonzero {bad[:5]}; shared attn "
+          f"gradients {len(shared)}", flush=True)
+    if bad or not math.isfinite(loss.item()) or \
+            (cfg.shared_attn and not shared):
+        raise AssertionError(f"{tag}: gradients not finite and nonzero")
+    del grads, loss
+    if "xlstm" in arch:
+        # Kernel records only, their busy time read from the raw records:
+        # the operator-level breakdown of a step that runs the sLSTM loop
+        # holds millions of profiler events.
+        pb = batch_of(SSM_PROFILE_SEQ, 10)
+        _busy_profile(lambda: step(state, pb),
+                      _wall_s(lambda: step(state, pb), n=1),
+                      f"{tag} step {n} x {SSM_PROFILE_SEQ}")
+    else:
+        b = batch_of(seq, 10)
+        _profile(lambda: step(state, b), dt, f"{tag} step {n} x {seq}")
+    del state, step, model, metrics
+    torch.cuda.empty_cache()
+
+
+def ssm_phase():
+    """The SSM and xLSTM families (``ssm ...`` lines): (a) the GLA core
+    and the causal conv; then for each of ``zamba2-2.7b`` and
+    ``xlstm-1.3b`` at full width and depth with seeded weights, (b) the
+    f32 prefill and decode chain against ``apply_lm``, (c) the engine,
+    (d) training.  No GSPN scan runs anywhere on these paths."""
+    t0 = time.perf_counter()
+    _ssm_core()
+    for arch in SSM_ARCHS:
+        _ssm_whole(arch)
+        _ssm_serve(arch)
+        _ssm_train(arch)
+        print(f"ssm {arch}: done at {time.perf_counter() - t0:.3f} s of the "
+              f"phase", flush=True)
+
+
 def main() -> int:
     print(f"torch {torch.__version__} cuda {torch.version.cuda} python "
           f"{sys.version.split()[0]}", flush=True)
@@ -2470,6 +2874,8 @@ def main() -> int:
     # The sharded path's launches (in its ranks' processes) are read in
     # its own checks.
     phase("sp", sp_phase)
+    # The SSM and xLSTM families launch no kernel: no launches to add.
+    phase("lm ssm", ssm_phase)
 
     entries = []
     for row in rows:

@@ -7,9 +7,12 @@ products and streamed scan operands) and ``carry_dtype`` (scan carries and
 accumulators).  ``with_precision`` rewrites an LMConfig to a preset of
 :data:`PRECISIONS`; launchers accept the preset names.
 
-The registry holds the architectures the port runs; ``get_arch`` of any
-other architecture of the reference raises and names the ROADMAP.md item
-that brings it.  ``input_specs`` (the dry run's shape stand-ins) waits for
+The registry holds the architectures the port runs: the GSPN-2 LM
+(``qwen2-1.5b-gspn``), the attention LMs (``qwen2-1.5b``, ``qwen2.5-3b``,
+``granite-3-2b``, ``qwen1.5-32b``), the hybrid ``zamba2-2.7b`` (Mamba-2
+and a shared attention block) and ``xlstm-1.3b`` (mLSTM and sLSTM);
+``get_arch`` of any other architecture of the reference raises and names
+the ROADMAP.md item that brings it (:data:`NOT_PORTED`).  ``input_specs`` (the dry run's shape stand-ins) waits for
 ROADMAP.md §1 item 8.
 """
 
@@ -118,10 +121,8 @@ REGISTRY: Dict[str, ArchEntry] = {}
 NOT_PORTED = {
     "qwen2-vl-72b": "item 3.6 (the other families: M-RoPE and vision "
                     "embeddings)",
-    "kimi-k2-1t-a32b": "item 3.6 (the other families: MoE)",
-    "grok-1-314b": "item 3.6 (the other families: MoE)",
-    "zamba2-2.7b": "item 3.6 (the other families: SSM)",
-    "xlstm-1.3b": "item 3.6 (the other families: xLSTM)",
+    "kimi-k2-1t-a32b": "item 3.6.3 (the other families: MoE)",
+    "grok-1-314b": "item 3.6.3 (the other families: MoE)",
     "whisper-base": "item 3.6 (the other families: encoder-decoder)",
 }
 
@@ -143,6 +144,8 @@ def _populate():
     import repro_torch.configs.qwen2_1_5b  # noqa: F401
     import repro_torch.configs.qwen2_1_5b_gspn  # noqa: F401
     import repro_torch.configs.qwen2_5_3b  # noqa: F401
+    import repro_torch.configs.xlstm_1_3b  # noqa: F401
+    import repro_torch.configs.zamba2_2_7b  # noqa: F401
 
 
 def get_arch(name: str) -> ArchEntry:

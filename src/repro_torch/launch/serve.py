@@ -6,6 +6,8 @@ synthetic request stream through the continuous-batching engine
         --requests 8 --prefill-chunk 1024 --max-len 4096
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-1.5b \\
         --requests 8 --prefill-chunk 1024 --max-len 4112
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-2.7b \\
+        --requests 8 --prefill-chunk 1024 --max-len 4112
 
 Engine knobs: ``--max-batch`` (decode slots), ``--max-len`` (prompt plus
 generated tokens per request, and the positions of each slot's KV cache
@@ -24,8 +26,10 @@ sharing the model (one copy of the weights on the card), each with its
 own pool, sampling generator (seed = its index) and CUDA stream;
 ``--router least_loaded|ttft``; ``--prefix-cache N`` entries of one
 shared prefix-state cache, so prompts that share a chunk-aligned prefix
-resume prefill from its cached state; ``--slo-ttft`` seconds, past which
-predicted admissions are counted.
+resume prefill from its cached state (refused for an architecture that
+prefills in one shot, ``zamba2-2.7b`` and ``xlstm-1.3b``, and with
+``--prefill-chunk 0``); ``--slo-ttft`` seconds, past which predicted
+admissions are counted.
 
 Sequence parallelism (DESIGN.md §8): ``--seq-parallel N`` runs as N
 processes, one per rank, as ``torchrun`` starts them (``RANK``,
@@ -62,7 +66,8 @@ from repro_torch.device import resolve_device
 from repro_torch.kernels import cuda_lib
 from repro_torch.launch import args as largs
 from repro_torch.launch import mesh as lmesh
-from repro_torch.models.lm import LM, Ctx, count_params
+from repro_torch.models.lm import (LM, Ctx, count_params,
+                                   supports_chunked_prefill)
 from repro_torch.serve.cache import PrefixStateCache
 from repro_torch.serve.engine import Request, ServeEngine
 from repro_torch.serve.router import Router
@@ -97,6 +102,16 @@ def main(argv=None):
     largs.add_device_arg(ap)
     largs.add_observability_args(ap)
     args = ap.parse_args(argv)
+    if args.prefix_cache > 0:
+        entry = get_arch(args.arch)
+        cfg = entry.reduced() if args.reduced else entry.full()
+        if not supports_chunked_prefill(cfg):
+            ap.error(f"--prefix-cache needs chunked prefill, which "
+                     f"{args.arch} has not: its recurrent mixers prefill "
+                     f"in one shot")
+        if args.prefill_chunk <= 0:
+            ap.error("--prefix-cache needs chunked prefill: give "
+                     "--prefill-chunk")
 
     device = resolve_device(args.device)
     ctx, say = None, print

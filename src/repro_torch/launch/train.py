@@ -8,6 +8,8 @@ unless ``--device`` names another device.
         --reduced --device cpu --steps 4 --batch 2 --seq 32
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-1.5b \\
         --steps 20 --batch 2 --seq 4096
+    PYTHONPATH=src python -m repro_torch.launch.train --arch xlstm-1.3b \\
+        --reduced --device cpu --steps 2 --batch 2 --seq 32
 
 ``--reduced`` trains the architecture's small config; ``--precision``
 rewrites the dtype policy (DESIGN.md §10), and a low-precision parameter

@@ -1,11 +1,13 @@
 """Carry the reference package's parameters into the port's modules: the
-vision backbone (``GSPNVision``) and the language model (``LM``).
+vision backbone (``GSPNVision``) and the language model (``LM``, its
+gspn, attn, mamba, mlstm and slstm kinds and the shared attn block).
 
 The reference keeps its parameters as a pytree: per-block leaves stacked
 along leading depth axes (its blocks are initialised under ``vmap`` and
 walked by ``scan``) and convolution weights in HWIO.  The port keeps one
 module per block and OIHW weights (a depthwise ``(3,3,1,C)`` becomes
-``(C,1,3,3)`` for ``groups=C``).  The pytree arrives as numpy arrays, so
+``(C,1,3,3)`` for ``groups=C``; the LM's causal conv ``(k,1,C)`` becomes
+``(C,1,k)``).  The pytree arrives as numpy arrays, so
 this module needs no JAX.
 """
 
@@ -24,23 +26,22 @@ _BLOCK_LEAVES = {
     "mlp": ("fc1", "b1", "fc2", "b2"),
 }
 _CONV_MODULES = ("lpu", "lpu2")
-# Leaves of one LM block, by kind.  The attn kind's qkv biases exist only
-# under ``qkv_bias``: present as a group or not at all.
+# Leaves of one LM block, by kind, as paths inside the block.  The attn
+# kind's qkv biases exist only under ``qkv_bias``: present as a group or
+# not at all.
 _LM_BLOCK_LEAVES = {
-    "gspn": {
-        "ln1": ("scale",),
-        "mix": ("down", "w_taps", "w_row", "w_lam", "w_u", "up"),
-        "ln2": ("scale",),
-        "ffn": ("gate", "up", "down"),
-    },
-    "attn": {
-        "ln1": ("scale",),
-        "attn": ("wq", "wk", "wv", "wo"),
-        "ln2": ("scale",),
-        "ffn": ("gate", "up", "down"),
-    },
+    "gspn": ("ln1/scale", "mix/down", "mix/w_taps", "mix/w_row",
+             "mix/w_lam", "mix/w_u", "mix/up", "ln2/scale", "ffn/gate",
+             "ffn/up", "ffn/down"),
+    "attn": ("ln1/scale", "attn/wq", "attn/wk", "attn/wv", "attn/wo",
+             "ln2/scale", "ffn/gate", "ffn/up", "ffn/down"),
+    "mamba": ("ln1/scale", "mix/in_proj", "mix/conv/w", "mix/conv/b",
+              "mix/a_log", "mix/dt_bias", "mix/d_skip", "mix/norm/scale",
+              "mix/out_proj"),
+    "mlstm": ("ln1/scale", "mix/in_proj", "mix/norm/scale", "mix/out_proj"),
+    "slstm": ("ln1/scale", "mix/w_in", "mix/r", "mix/b", "mix/out_proj"),
 }
-_QKV_BIAS = ("bq", "bk", "bv")
+_QKV_BIAS = ("attn/bq", "attn/bk", "attn/bv")
 
 
 def _flatten(tree, prefix=()):
@@ -116,17 +117,33 @@ def vision_state_from_jax(params_np) -> dict[str, torch.Tensor]:
     return _to_state(leaves, state)
 
 
+def _lm_block_paths(kind, leaves, prefix):
+    """The leaf paths of one ``kind`` block whose leaves sit under
+    ``prefix`` in the reference's pytree."""
+    paths = _LM_BLOCK_LEAVES[kind]
+    if prefix + ("attn", "bq") in leaves:
+        paths += _QKV_BIAS
+    return paths
+
+
+def _lm_leaf(path, a):
+    """A reference block leaf in the port's layout: the causal conv's
+    weight (k, 1, C) becomes (C, 1, k), not flipped."""
+    return a.transpose(2, 1, 0) if path == "mix/conv/w" else a
+
+
 def lm_state_from_jax(params_np) -> dict[str, torch.Tensor]:
     """``state_dict`` of an ``LM`` from the reference's ``init_lm`` pytree
     given as numpy arrays.
 
-    Each stage ``stages/s{i}_{kind}`` (kind ``gspn`` or ``attn``) stacks
-    its blocks' leaves along leading axes: (n,) for a prelude stage,
-    (n_units, n) for a unit stage, told apart by the rank of
-    ``ln1/scale``.  They unstack into ``stages.s{i}_{kind}.{i}`` or
-    ``stages.s{i}_{kind}.{u}.{i}``.  Every leaf maps to exactly one entry;
-    a missing leaf raises ``KeyError`` and a leaf left over raises
-    ``ValueError``.
+    Each stage ``stages/s{i}_{kind}`` (kind ``gspn``, ``attn``, ``mamba``,
+    ``mlstm`` or ``slstm``) stacks its blocks' leaves along leading axes:
+    (n,) for a prelude stage, (n_units, n) for a unit stage, told apart by
+    the rank of ``ln1/scale``.  They unstack into ``stages.s{i}_{kind}.{i}``
+    or ``stages.s{i}_{kind}.{u}.{i}``.  ``shared_attn``, one attn block
+    with no stacking, maps to ``shared_attn``.  Every leaf maps to exactly
+    one entry; a missing leaf raises ``KeyError`` and a leaf left over
+    raises ``ValueError``.
     """
     leaves = dict(_flatten(params_np))
     state: dict[str, np.ndarray] = {}
@@ -135,25 +152,24 @@ def lm_state_from_jax(params_np) -> dict[str, torch.Tensor]:
     state["ln_f.scale"] = take("ln_f", "scale")
     if ("head",) in leaves:
         state["head"] = take("head")
+    if ("shared_attn", "ln1", "scale") in leaves:
+        for path in _lm_block_paths("attn", leaves, ("shared_attn",)):
+            state["shared_attn." + path.replace("/", ".")] = take(
+                "shared_attn", *path.split("/"))
     keys = sorted({p[1] for p in leaves if p[0] == "stages"})
     for key in keys:
         kind = key.split("_", 1)[1]
         if kind not in _LM_BLOCK_LEAVES:
             raise ValueError(f"stage {key}: the {kind} kind is not ported")
         lead = np.asarray(leaves[("stages", key, "ln1", "scale")]).shape[:-1]
-        modules = dict(_LM_BLOCK_LEAVES[kind])
-        if ("stages", key, "attn", "bq") in leaves:
-            modules["attn"] += _QKV_BIAS
-        for mod, names in modules.items():
-            for name in names:
-                stacked = take("stages", key, mod, name)
-                if stacked.shape[:len(lead)] != lead:
-                    raise ValueError(
-                        f"stage {key}: {mod}/{name} stacks "
-                        f"{stacked.shape[:len(lead)]} blocks, expected "
-                        f"{lead}")
-                for idx in np.ndindex(*lead):
-                    where = ".".join(map(str, idx))
-                    state[f"stages.{key}.{where}.{mod}.{name}"] = \
-                        stacked[idx]
+        for path in _lm_block_paths(kind, leaves, ("stages", key)):
+            stacked = take("stages", key, *path.split("/"))
+            if stacked.shape[:len(lead)] != lead:
+                raise ValueError(
+                    f"stage {key}: {path} stacks "
+                    f"{stacked.shape[:len(lead)]} blocks, expected {lead}")
+            for idx in np.ndindex(*lead):
+                where = ".".join(map(str, idx))
+                state[f"stages.{key}.{where}.{path.replace('/', '.')}"] = \
+                    _lm_leaf(path, stacked[idx])
     return _to_state(leaves, state)

@@ -1,7 +1,7 @@
 """Common layers: the vision backbone's, channels-last (NHWC) like the
 reference package, and the language model's (``DTypePolicy``,
 ``RMSNorm`` with the reference's hand VJP, ``SwiGLU``,
-``cross_entropy_loss``).
+``cross_entropy_loss``, rope, and the Mamba-2 mixer's ``CausalConv1d``).
 
 Parameters keep the reference's names and, for dense weights, its
 ``(d_in, d_out)`` layout, so converted parameters map 1:1; convolution
@@ -268,3 +268,43 @@ class DWConv2d(nn.Module):
 
     def forward(self, x):
         return conv2d_same(x, self.w, self.b, 1, groups=x.shape[-1])
+
+
+class CausalConv1d(nn.Module):
+    """The reference's depthwise causal 1-d convolution over (B, S, C),
+    in f32, cast back to the input dtype.  ``w`` is (C, 1, k), the
+    reference's (k, 1, C) transposed with no flip: tap 0 multiplies the
+    oldest input, as in a cross-correlation; ``b`` is (C,).
+
+    The taps are summed one after another, oldest first, so a streamed
+    token (``state`` (B, k-1, C), the last k-1 raw inputs) gives the bits
+    of the same position in a full pass."""
+
+    def __init__(self, dim: int, k: int = 4, *, generator, device,
+                 dtype=torch.float32):
+        super().__init__()
+
+        def init(shape, gen):
+            return torch.randn(shape, generator=gen,
+                               device=gen.device) * (1.0 / math.sqrt(k))
+
+        self.w = new_param((dim, 1, k), init, generator, device, dtype)
+        self.b = new_param((dim,), zeros, None, device, dtype)
+
+    def forward(self, x, state=None):
+        """(y (B, S, C), the new state (B, k-1, C) when ``state`` is given,
+        else None)."""
+        k = self.w.shape[-1]
+        w = self.w.float()[:, 0]                       # (C, k)
+        xf = x.float()
+        if state is not None:
+            xa = torch.cat([state.float(), xf], dim=1)
+            new_state = xa[:, xa.shape[1] - (k - 1):]
+        else:
+            xa = F.pad(xf, (0, 0, k - 1, 0))
+            new_state = None
+        s = x.shape[1]
+        y = xa[:, 0:s] * w[:, 0]
+        for j in range(1, k):
+            y = y + xa[:, j:j + s] * w[:, j]
+        return (y + self.b.float()).to(x.dtype), new_state

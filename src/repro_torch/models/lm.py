@@ -1,29 +1,44 @@
-"""The causal language model: the GSPN-2 sequence mixer and GQA
-attention.
+"""The causal language model: the GSPN-2 sequence mixer, GQA attention,
+the Mamba-2 mixer and the xLSTM's two mixers.
 
 A model is described by :class:`LMConfig`, the reference's
 (``repro.models.lm.LMConfig``) with torch dtypes: ``prelude``, a list of
 ``(kind, n)`` stages applied once, then ``unit``, a list of ``(kind, n)``
-stages repeated ``n_units`` times.  The port runs two block kinds of
-:data:`KINDS`: ``gspn`` (pre-norm GSPN-2 sequence mixer + pre-norm SwiGLU
-FFN, ``qwen2-1.5b-gspn``) and ``attn`` (pre-norm GQA attention with rope +
-pre-norm SwiGLU FFN, ``qwen2-1.5b`` and its kin); any other kind raises
-and names the ROADMAP item that brings it.
+stages repeated ``n_units`` times, and with ``shared_attn`` one
+weight-shared attn block applied at the end of every unit (Zamba2).  The
+port runs five block kinds of :data:`KINDS`:
+
+  gspn    pre-norm GSPN-2 sequence mixer + pre-norm SwiGLU FFN
+          (``qwen2-1.5b-gspn``)
+  attn    pre-norm GQA attention with rope + pre-norm SwiGLU FFN
+          (``qwen2-1.5b`` and its kin, and the shared block)
+  mamba   pre-norm Mamba-2 mixer, no FFN (``zamba2-2.7b``)
+  mlstm   pre-norm mLSTM mixer, no FFN (``xlstm-1.3b``)
+  slstm   pre-norm sLSTM mixer, no FFN (``xlstm-1.3b``)
+
+Any other kind raises and names the ROADMAP item that brings it
+(:data:`NOT_PORTED_KINDS`).
 
 Entry points, each the reference's twin over an :class:`LM` module:
 :func:`apply_lm` (logits of a whole sequence), :func:`lm_loss` (the
 training loss and its parts), :func:`lm_prefill` (logits
 and the decode caches), :func:`lm_prefill_chunk` (one prompt chunk against
-live caches, DESIGN.md §9), :func:`init_lm_cache` and
+live caches, DESIGN.md §9; the gspn and attn kinds only, as in the
+reference: the recurrent mixers' prefill starts from a zero state, so a
+model with one prefills in one shot), :func:`init_lm_cache` and
 :func:`lm_decode_step` (one token per sequence: O(W) state per gspn
-layer, a KV cache of ``max_len`` positions per attn layer).
+layer, a KV cache of ``max_len`` positions per attn layer, the conv tail
+and the SSM state per mamba layer, the (hd, hd + 1) matrix memory per
+mlstm layer and (h, c, n, m) per slstm layer).
 
 Caches keep the reference's layout: a dict per stage key ``s{i}_{kind}``
 whose leaves carry leading ``(n,)`` axes for a prelude stage and
 ``(n_units, n)`` for a unit stage before the batch axis, so
 :mod:`repro_torch.serve.cache` scatters a slot along the same axis.  An
 attn stage's leaves (``k``, ``v``, ``length``) sit directly under its
-key, where the reference nests them one level deeper, under ``"attn"``.
+key, where the reference nests them one level deeper, under ``"attn"``;
+the shared attn block's caches sit under ``"shared_attn"`` with a
+leading ``(n_units,)`` axis, one per application.
 
 Dtypes follow the reference's cast points (DESIGN.md §10): the embedding
 is gathered in the compute dtype, the residual stream stays in it, the
@@ -31,7 +46,9 @@ mixer computes in ``gspn_compute_dtype`` (f32 unless a precision preset
 narrows it), attention's projections in the compute dtype and its
 products and softmax in f32, the FFN in the compute dtype, and the head
 is ``x.to(cd) @ embed.T.to(cd)``; the decode step's mixer runs in f32,
-and the KV cache holds k (after rope) and v in the compute dtype.
+and the KV cache holds k (after rope) and v in the compute dtype.  The
+recurrent mixers cast their input and output projections to the compute
+dtype and run everything between them in f32.
 
 :func:`apply_lm` and :func:`lm_loss` run under the caller's grad mode;
 with gradients on, each block is rematerialised as ``LMConfig.remat``
@@ -62,22 +79,24 @@ from repro_torch.models.attention import (Attention, AttentionConfig,
 from repro_torch.models.layers import (DTypePolicy, RMSNorm, SwiGLU,
                                        cross_entropy_loss, dense_init,
                                        embed_init)
+from repro_torch.models.ssm import Mamba2, Mamba2Config, init_mamba2_cache
+from repro_torch.models.xlstm import (MLSTM, SLSTM, MLSTMConfig, SLSTMConfig,
+                                      init_mlstm_cache, init_slstm_cache)
 
 # Block kinds of the reference that the port does not run yet, and the
 # ROADMAP.md §1 item that brings each.
 NOT_PORTED_KINDS = {
-    "attn_moe": "item 3.6 (the other families: MoE)",
+    "attn_moe": "item 3.6.3 (the other families: MoE)",
     "xattn": "item 3.6 (the other families: encoder-decoder)",
-    "mamba": "item 3.6 (the other families: SSM)",
-    "mlstm": "item 3.6 (the other families: xLSTM)",
-    "slstm": "item 3.6 (the other families: xLSTM)",
 }
 
 
 @dataclasses.dataclass(frozen=True)
 class LMConfig:
     """The reference's ``LMConfig`` with torch dtypes, less the fields of
-    the kinds the port does not run yet.  ``gspn_impl`` defaults to
+    the kinds the port does not run yet (MoE, M-RoPE, the encoder, the
+    norm and MLP variants).  It carries the gspn, attn, mamba, mlstm and
+    slstm kinds' fields and ``shared_attn``.  ``gspn_impl`` defaults to
     ``"auto"``, which resolves to the CUDA kernel #1 on the card and to
     the plain scan on the CPU; the reference's defaults to ``"xla"``, its
     plain path."""
@@ -96,6 +115,11 @@ class LMConfig:
     prelude: tuple = ()            # ((kind, n), ...), applied once
     unit: tuple = ()               # ((kind, n), ...), repeated n_units times
     n_units: int = 1
+    shared_attn: bool = False      # one attn block after every unit
+    # The mamba, mlstm and slstm kinds.
+    ssm_state: int = 64
+    ssm_head_dim: int = 64
+    gla_chunk: int = 256
     # GSPN mixer.
     gspn_proxy_dim: int = 8
     gspn_row_width: int = 64
@@ -131,8 +155,11 @@ class LMConfig:
                [("unit", k, n) for k, n in self.unit]
 
     def layer_count(self) -> int:
+        """Blocks applied, counting each application of the shared attn
+        block (one weight set)."""
         return sum(n for _, n in self.prelude) + \
-            self.n_units * sum(n for _, n in self.unit)
+            self.n_units * (sum(n for _, n in self.unit)
+                            + int(self.shared_attn))
 
 
 @dataclasses.dataclass
@@ -169,6 +196,20 @@ def attn_config(cfg: LMConfig) -> AttentionConfig:
         dim=cfg.d_model, n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
         head_dim=cfg.head_dim, qkv_bias=cfg.qkv_bias,
         rope_theta=cfg.rope_theta, block_k=cfg.attn_block_k)
+
+
+def mamba_config(cfg: LMConfig) -> Mamba2Config:
+    return Mamba2Config(dim=cfg.d_model, d_state=cfg.ssm_state,
+                        head_dim=cfg.ssm_head_dim, chunk=cfg.gla_chunk)
+
+
+def mlstm_config(cfg: LMConfig) -> MLSTMConfig:
+    return MLSTMConfig(dim=cfg.d_model, n_heads=cfg.n_heads,
+                       chunk=cfg.gla_chunk)
+
+
+def slstm_config(cfg: LMConfig) -> SLSTMConfig:
+    return SLSTMConfig(dim=cfg.d_model, n_heads=cfg.n_heads)
 
 
 # ---------------------------------------------------------------------------
@@ -212,6 +253,10 @@ class GSPNBlock(nn.Module):
     def decode(self, x, cache):
         y, new = gspn_decode_step(self.mix, self.ln1(x), cache)
         return self._ffn(x + y), new
+
+    @staticmethod
+    def init_cache(cfg: LMConfig, batch: int, max_len: int, *, device):
+        return init_gspn_decode_cache(batch, gspn_config(cfg), device=device)
 
 
 # ---------------------------------------------------------------------------
@@ -295,9 +340,77 @@ class AttnBlock(nn.Module):
         y, new = self.attn.decode(self.ln1(x), cache)
         return self._ffn(x + y), new
 
+    @staticmethod
+    def init_cache(cfg: LMConfig, batch: int, max_len: int, *, device):
+        return init_kv_cache(batch, max_len, attn_config(cfg),
+                             cfg.compute_dtype, device=device)
+
+
+# ---------------------------------------------------------------------------
+# The recurrent mixer kinds: mamba, mlstm, slstm.
+# ---------------------------------------------------------------------------
+
+class _MixerBlock(nn.Module):
+    """Pre-norm recurrent mixer with no FFN and no ``ln2`` (the reference's
+    ``_mk_mixer_kind``): ``forward``, ``prefill`` (the forward and the
+    mixer's cache) and ``decode``.  There is no ``prefill_chunk``: the
+    reference's prefill of these mixers starts from a zero state, so a
+    model with one prefills in one shot (:func:`supports_chunked_prefill`).
+    A ``mesh`` is accepted and unused."""
+
+    def __init__(self, cfg: LMConfig, mixer, *, device):
+        super().__init__()
+        self.ln1 = RMSNorm(cfg.d_model, device=device, dtype=cfg.param_dtype)
+        self.mix = mixer
+
+    def forward(self, x, mesh=None):
+        return x + self.mix(self.ln1(x))
+
+    def prefill(self, x, max_len: int, mesh=None):
+        y, cache = self.mix.prefill(self.ln1(x))
+        return x + y, cache
+
+    def decode(self, x, cache):
+        y, new = self.mix.decode(self.ln1(x), cache)
+        return x + y, new
+
+
+class MambaBlock(_MixerBlock):
+    def __init__(self, cfg: LMConfig, *, generator, device):
+        super().__init__(cfg, Mamba2(mamba_config(cfg), cfg.policy,
+                                     generator=generator, device=device),
+                         device=device)
+
+    @staticmethod
+    def init_cache(cfg: LMConfig, batch: int, max_len: int, *, device):
+        return init_mamba2_cache(batch, mamba_config(cfg), device=device)
+
+
+class MLSTMBlock(_MixerBlock):
+    def __init__(self, cfg: LMConfig, *, generator, device):
+        super().__init__(cfg, MLSTM(mlstm_config(cfg), cfg.policy,
+                                    generator=generator, device=device),
+                         device=device)
+
+    @staticmethod
+    def init_cache(cfg: LMConfig, batch: int, max_len: int, *, device):
+        return init_mlstm_cache(batch, mlstm_config(cfg), device=device)
+
+
+class SLSTMBlock(_MixerBlock):
+    def __init__(self, cfg: LMConfig, *, generator, device):
+        super().__init__(cfg, SLSTM(slstm_config(cfg), cfg.policy,
+                                    generator=generator, device=device),
+                         device=device)
+
+    @staticmethod
+    def init_cache(cfg: LMConfig, batch: int, max_len: int, *, device):
+        return init_slstm_cache(batch, slstm_config(cfg), device=device)
+
 
 # The block kinds the port runs.
-KINDS = {"gspn": GSPNBlock, "attn": AttnBlock}
+KINDS = {"gspn": GSPNBlock, "attn": AttnBlock, "mamba": MambaBlock,
+         "mlstm": MLSTMBlock, "slstm": SLSTMBlock}
 
 
 def _check_kind(kind: str) -> None:
@@ -393,10 +506,12 @@ class LM(nn.Module):
     embedding's transpose when ``tie_embeddings``).
 
     ``stages[key]`` holds a prelude stage's n blocks, or a unit stage's
-    n_units lists of n blocks.  Weights are drawn from ``generator``
-    (seed 0 when not given) in the order embedding, head, blocks; on the
-    ``meta`` device nothing is drawn (a twin to load a ``state_dict``
-    into with ``assign=True``).  ``device=None`` is the card.
+    n_units lists of n blocks; ``shared_attn``, under
+    ``cfg.shared_attn``, the one attn block applied after every unit.
+    Weights are drawn from ``generator`` (seed 0 when not given) in the
+    order embedding, head, blocks, shared block; on the ``meta`` device
+    nothing is drawn (a twin to load a ``state_dict`` into with
+    ``assign=True``).  ``device=None`` is the card.
     """
 
     def __init__(self, cfg: LMConfig, *, device=None,
@@ -423,11 +538,15 @@ class LM(nn.Module):
             self.stages[_stage_key(si, kind)] = (
                 blocks() if where == "prelude" else
                 nn.ModuleList([blocks() for _ in range(cfg.n_units)]))
+        if cfg.shared_attn:
+            self.shared_attn = AttnBlock(cfg, **kw)
 
     def walk(self):
         """(stage key, cache index, block) for every block in execution
-        order: the prelude stages, then each unit's stages.  The cache
-        index selects the block's slice of its stage's cache leaves."""
+        order: the prelude stages, then each unit's stages and, under
+        ``shared_attn``, the shared block as (``"shared_attn"``, (u,)).
+        The cache index selects the block's slice of its stage's cache
+        leaves."""
         stages = self.cfg.stages()
         for si, (where, kind, n) in enumerate(stages):
             if where == "prelude":
@@ -440,6 +559,8 @@ class LM(nn.Module):
                     key = _stage_key(si, kind)
                     for i in range(n):
                         yield key, (u, i), self.stages[key][u][i]
+            if self.cfg.shared_attn:
+                yield "shared_attn", (u,), self.shared_attn
 
     def embed_tokens(self, tokens):
         """Token embeddings (B, S, D) in the compute dtype."""
@@ -490,9 +611,8 @@ def apply_lm(model: LM, tokens, *, ctx: Ctx | None = None):
 
 def lm_loss(model: LM, batch, *, ctx: Ctx | None = None):
     """batch: dict(tokens (B, S), labels (B, S), [mask]).  Returns
-    (ce + aux, {"ce", "aux"}); ``aux`` is 0, neither the gspn nor the
-    attn kind having an auxiliary loss (the reference adds the MoE
-    kinds' here)."""
+    (ce + aux, {"ce", "aux"}); ``aux`` is 0, no ported kind having an
+    auxiliary loss (the reference adds the MoE kinds' here)."""
     logits = apply_lm(model, batch["tokens"], ctx=ctx)
     ce = cross_entropy_loss(logits, batch["labels"], batch.get("mask"))
     aux = torch.zeros((), dtype=torch.float32, device=ce.device)
@@ -501,21 +621,21 @@ def lm_loss(model: LM, batch, *, ctx: Ctx | None = None):
 
 def init_lm_cache(cfg: LMConfig, batch: int, max_len: int, *, device):
     """Zeroed decode caches of ``batch`` sequences, in the reference's
-    layout (per stage key, leading (n,) or (n_units, n) axes); an attn
-    stage's KV cache holds ``max_len`` positions, a gspn stage's state
-    does not depend on it."""
+    layout (per stage key, leading (n,) or (n_units, n) axes, and
+    ``shared_attn`` with (n_units,)); an attn stage's KV cache holds
+    ``max_len`` positions, the other kinds' state does not depend on
+    it."""
+    def stacked(kind, lead):
+        one = KINDS[kind].init_cache(cfg, batch, max_len, device=device)
+        return {k: v.expand(lead + v.shape).clone() for k, v in one.items()}
+
     caches = {}
     for si, (where, kind, n) in enumerate(cfg.stages()):
         _check_kind(kind)
-        lead = (n,) if where == "prelude" else (cfg.n_units, n)
-        if kind == "attn":
-            one = init_kv_cache(batch, max_len, attn_config(cfg),
-                                cfg.compute_dtype, device=device)
-        else:
-            one = init_gspn_decode_cache(batch, gspn_config(cfg),
-                                         device=device)
-        caches[_stage_key(si, kind)] = {
-            k: v.expand(lead + v.shape).clone() for k, v in one.items()}
+        caches[_stage_key(si, kind)] = stacked(
+            kind, (n,) if where == "prelude" else (cfg.n_units, n))
+    if cfg.shared_attn:
+        caches["shared_attn"] = stacked("attn", (cfg.n_units,))
     return caches
 
 
@@ -538,11 +658,14 @@ def lm_prefill(model: LM, tokens, max_len: int, *, ctx: Ctx | None = None):
 
 
 def supports_chunked_prefill(cfg: LMConfig) -> bool:
-    """True iff every stage kind resumes from its cache (the gspn and attn
-    kinds do) and, with a gspn stage, the fold width is fixed (row_width
-    > 0)."""
+    """True iff every block kind, the shared block's ``attn`` included,
+    resumes from its cache (the gspn and attn kinds do; mamba, mlstm and
+    slstm do not, as in the reference) and, with a gspn stage, the fold
+    width is fixed (row_width > 0)."""
     kinds = {kind for _, kind, _ in cfg.stages()}
-    if not kinds <= KINDS.keys():
+    if cfg.shared_attn:
+        kinds.add("attn")
+    if not all(hasattr(KINDS.get(k), "prefill_chunk") for k in kinds):
         return False
     return "gspn" not in kinds or cfg.gspn_row_width > 0
 
@@ -563,7 +686,13 @@ def lm_prefill_chunk(model: LM, tokens, caches, off: int, *,
     (B, T, V), new_caches); a chain of chunks and then decoding equals
     :func:`lm_prefill` over the whole prompt.  ``with_logits=False``
     returns (None, new_caches) without the final norm and the vocabulary
-    head: only the last chunk's logits feed sampling."""
+    head: only the last chunk's logits feed sampling.  A model with a
+    kind that has no chunked prefill (mamba, mlstm, slstm) raises."""
+    missing = sorted({kind for _, kind, _ in model.cfg.stages()
+                      if not hasattr(KINDS[kind], "prefill_chunk")})
+    if missing:
+        raise ValueError(f"{model.cfg.name}: the {', '.join(missing)} "
+                         f"kind has no chunked prefill; use lm_prefill")
     x = model.embed_tokens(tokens)
     new = {k: {n: torch.empty_like(v) for n, v in sub.items()}
            for k, sub in caches.items()}
@@ -590,3 +719,39 @@ def lm_decode_step(model: LM, token, caches, *, ctx: Ctx | None = None):
 
 def count_params(model: nn.Module) -> int:
     return sum(p.numel() for p in model.parameters())
+
+
+def count_active_params(cfg: LMConfig) -> int:
+    """The reference's ``count_active_params`` (the 6·N·D convention's N,
+    from the config alone): each block's projection weights, the shared
+    attn block once, the embedding and an untied head.  Norm scales,
+    biases, the conv and the mixers' small vectors are left out, as the
+    reference leaves them out."""
+    d = cfg.d_model
+    attn_p = 2 * d * cfg.n_heads * cfg.hd + 2 * d * cfg.n_kv_heads * cfg.hd
+    ffn_p = 3 * d * cfg.d_ff
+    total = 0
+    for where, kind, n in cfg.stages():
+        _check_kind(kind)
+        reps = n if where == "prelude" else n * cfg.n_units
+        if kind == "attn":
+            total += reps * (attn_p + ffn_p)
+        elif kind == "mamba":
+            mc = mamba_config(cfg)
+            total += reps * (d * (2 * mc.d_inner + 2 * mc.d_state
+                                  + mc.n_heads) + mc.d_inner * d)
+        elif kind == "mlstm":
+            mc = mlstm_config(cfg)
+            total += reps * (d * (4 * mc.d_inner + 2 * mc.n_heads)
+                             + mc.d_inner * d)
+        elif kind == "slstm":
+            total += reps * (5 * d * d + 4 * d * slstm_config(cfg).head_dim)
+        elif kind == "gspn":
+            cp = cfg.gspn_proxy_dim
+            total += reps * (d * cp + 3 * d + d + 4 * d * cp + cp * d + ffn_p)
+    if cfg.shared_attn:
+        total += attn_p + ffn_p
+    total += cfg.vocab * d
+    if not cfg.tie_embeddings:
+        total += cfg.vocab * d
+    return total

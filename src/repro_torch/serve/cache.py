@@ -62,12 +62,13 @@ def narrow_state(tree, state_dtype):
 def update_cache_slots(cfg, caches, new_caches, slots):
     """Write ``new_caches`` (batch = len(slots)) into ``caches`` at the
     given slot indices, in place, and return ``caches``.  The batch axis
-    follows the leading stage axes: 1 for a prelude stage (n, B, ...), 2
-    for a unit stage (n_units, n, B, ...)."""
+    follows the leading stage axes: 1 for a prelude stage (n, B, ...) and
+    for the shared attn block's caches (n_units, B, ...), 2 for a unit
+    stage (n_units, n, B, ...)."""
     prelude_keys = {f"s{si}_{kind}" for si, (w, kind, n)
                     in enumerate(cfg.stages()) if w == "prelude"}
     for key, sub in caches.items():
-        axis = 1 if key in prelude_keys else 2
+        axis = 1 if key in prelude_keys or key == "shared_attn" else 2
         for name, big in sub.items():
             idx = torch.as_tensor(slots, dtype=torch.long, device=big.device)
             new = new_caches[key][name]

@@ -13,7 +13,9 @@ active slot, so a long prompt never stalls the decode batch by more than
 one ``prefill_chunk`` of work.  Chunks run through ``lm_prefill_chunk``
 (the boundary-seeded GSPN grid resume, or an attention chunk written
 into the KV cache at its offset); prompts no longer than one chunk take
-the one-shot ``lm_prefill`` inside the admission tick.  Every cache holds
+the one-shot ``lm_prefill`` inside the admission tick, and so do all
+prompts of a model whose kinds have no chunked prefill (mamba, mlstm,
+slstm: ``lm.supports_chunked_prefill``).  Every cache holds
 ``max_len`` positions a slot.  On the card every scan of both goes
 through kernel #1; the decode step is plain PyTorch and launches no
 scan.
@@ -30,7 +32,9 @@ The serving tier (DESIGN.md §15): a shared ``prefix_cache``
 prefill resume from a cached chunk-aligned state instead of recomputing a
 shared prompt prefix; ``submit(req, handle=...)``, ``pending_chunks``,
 ``drain()`` and the finish hook serve the router
-(:mod:`repro_torch.serve.router`).  ``submit`` returns a
+(:mod:`repro_torch.serve.router`).  A prefix cache needs chunked prefill:
+given to an engine that prefills in one shot it raises ``ValueError``.
+``submit`` returns a
 :class:`RequestHandle`; the pre-handle ``on_finish`` callback survives as
 a deprecated shim.
 
@@ -249,6 +253,15 @@ class ServeEngine:
             self.prefill_chunk = max(align, (prefill_chunk // align) * align)
         else:
             self.prefill_chunk = 0
+        if prefix_cache is not None and not self.prefill_chunk:
+            # Prefix states are chunk boundaries: with no chunk there is
+            # none to store, and the lookup's offsets would divide by 0.
+            raise ValueError(
+                f"a prefix cache needs chunked prefill, and {cfg.name} "
+                + ("prefills in one shot (prefill_chunk=0)" if
+                   lm_mod.supports_chunked_prefill(cfg) else
+                   "has no chunked prefill (its recurrent mixers' prefill "
+                   "starts from a zero state): it prefills in one shot"))
 
         self.reset()
 

@@ -968,3 +968,79 @@ def test_sp_two_ranks_over_gloo_match_the_kernel(card):
                 p.kill()
                 p.wait()
     assert [p.returncode for p in procs] == [0, 0], logs
+
+
+# ---------------------------------------------------------------------------
+# The SSM and xLSTM families (plain PyTorch on the card: no kernel of their
+# own, and no scan).
+# ---------------------------------------------------------------------------
+
+def test_chunked_gla_on_card_equals_its_recurrence(card):
+    """chunked_gla against a loop of gla_decode_step over the same tokens,
+    f32, TF32 off: 64 tokens in chunks of 16 and 63 (chunks of one),
+    outputs and final state within 1e-5 of the largest magnitude."""
+    from repro_torch.models.ssm import chunked_gla, gla_decode_step
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    for s in (64, 63):
+        q, k = (torch.randn((2, s, 3, 8), generator=gen, device="cuda")
+                for _ in range(2))
+        v = torch.randn((2, s, 3, 9), generator=gen, device="cuda")
+        ld = -torch.rand((2, s, 3), generator=gen, device="cuda")
+        y, st = chunked_gla(q, k, v, ld, chunk=16)
+        state = torch.zeros((2, 3, 8, 9), device="cuda")
+        ys = []
+        for t in range(s):
+            yt, state = gla_decode_step(state, q[:, t], k[:, t], v[:, t],
+                                        ld[:, t])
+            ys.append(yt)
+        assert _err_ok(torch.stack(ys, 1), y, 1e-5), s
+        assert _err_ok(state, st, 1e-5), s
+
+
+def test_causal_conv_stream_equals_full_on_card(card):
+    from repro_torch.models.layers import CausalConv1d
+
+    conv = CausalConv1d(40, 4, generator=torch.Generator().manual_seed(0),
+                        device="cuda")
+    x = torch.randn((2, 11, 40), device="cuda")
+    with torch.no_grad():
+        full, _ = conv(x)
+        state = torch.zeros((2, 3, 40), device="cuda")
+        steps = []
+        for t in range(11):
+            y, state = conv(x[:, t:t + 1], state)
+            steps.append(y)
+    assert torch.equal(torch.cat(steps, 1), full)
+
+
+@pytest.mark.parametrize("arch", ["zamba2-2.7b", "xlstm-1.3b"])
+def test_recurrent_lm_on_card_matches_cpu(card, arch):
+    """The reduced zamba2 (mamba + the shared attn block) and xlstm (mlstm
+    + slstm) under the f32 policy: apply_lm, lm_prefill and 3 decode steps
+    on the card against the same weights on the CPU (logits 1e-4), with
+    no scan launched."""
+    from repro_torch.configs.base import get_arch
+
+    cfg = with_precision(get_arch(arch).reduced(), "f32")
+    cpu = lm.LM(cfg, device="cpu", generator=torch.Generator().manual_seed(3))
+    gpu = lm.LM(cfg, device="meta")
+    gpu.load_state_dict({k: v.cuda() for k, v in cpu.state_dict().items()},
+                        assign=True)
+    toks = torch.randint(0, cfg.vocab, (2, 21),
+                         generator=torch.Generator().manual_seed(4))
+    outs = {}
+    cuda_lib.clear_counts()
+    for name, model, t in (("cpu", cpu, toks), ("cuda", gpu, toks.cuda())):
+        with torch.no_grad():
+            full = lm.apply_lm(model, t)
+            logits, caches = lm.lm_prefill(model, t[:, :18], 32)
+            steps = []
+            for i in range(18, 21):
+                lg, caches = lm.lm_decode_step(model, t[:, i:i + 1], caches)
+                steps.append(lg)
+        outs[name] = (full, logits, torch.cat(steps, 1))
+    assert not cuda_lib.launch_counts and not cuda_lib.plain_calls
+    for got, want in zip(outs["cuda"], outs["cpu"]):
+        assert _err_ok(got.cpu(), want, 1e-4)
+    assert _err_ok(outs["cuda"][2].cpu(), outs["cpu"][0][:, 18:], 1e-4)
