@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's main paths (vision serving and training, the
 four-direction launch ladder, LM serving and LM training on the GSPN-2
-mixer and on attention) on one CUDA card and hold every CUDA kernel
-against its plain PyTorch version.
+mixer, on attention, on the SSM and xLSTM mixers and on the mixture of
+experts) on one CUDA card and hold every CUDA kernel against its plain
+PyTorch version.
 
 Run from the root of a checkout, with no arguments:
 
@@ -127,8 +128,9 @@ Phases, each of which fails the run on any error:
    (the kernels under the ``attention.*`` spans of that profile); (d) ``granite-3-2b`` ``full()`` under the f32 policy: a
    prefill of 1024 and 4 decode steps against ``apply_lm`` (1e-4);
 12. the serving tier (``lm tier ...`` lines): the prefix cache cold and
-   warm on both LMs, threaded replicas under each router policy, a
-   replica's failure, and the tuner's seed cache;
+   warm on both LMs, threaded replicas under each router policy and a
+   replica's failure (``qwen2-1.5b-gspn`` at 7 of its 28 layers), and
+   the tuner's seed cache;
 13. sequence parallelism of the scan (``sp ...`` lines,
    ``parallel/gspn_sp.py``): (a) one rank over NCCL in this process,
    where ``gspn_scan_sp`` and ``gspn_scan_sp_pair`` at G = 128, N = 56,
@@ -159,9 +161,10 @@ Phases, each of which fails the run on any error:
    xlstm's (4 of 1024 x 1025, mLSTM decays), 1024 and 1023 tokens (the
    latter as 1023 chunks of one), f32, 1e-4 of the largest magnitude;
    the causal conv streamed against its full pass, bit for bit; then for
-   ``zamba2-2.7b`` and ``xlstm-1.3b`` at full width and depth with
-   seeded weights: (b) under the f32 policy a prefill of 2048 and 16
-   decode steps against ``apply_lm`` over the 2064 tokens, at 1e-4 of
+   ``zamba2-2.7b`` and ``xlstm-1.3b`` at full width and a third of their
+   depth (3 of zamba2's 9 units, 2 of xlstm's 6) with seeded weights: (b)
+   under the f32 policy a prefill of 2048 and 16 decode steps against
+   ``apply_lm`` over the 2064 tokens, at 1e-4 of
    the largest logit or four times the model's own f32 rounding noise
    measured in the run (``apply_lm`` over two copies of the tokens
    against one), whichever is larger; (c) the engine under the config's
@@ -175,6 +178,31 @@ Phases, each of which fails the run on any error:
    the median of 3 steps after one warm-up, tokens/s, peak memory, the
    loss finite and every gradient finite and nonzero (the shared attn
    block's too), a profiled step (xlstm's at 2 x 256).
+15. the MoE family (``moe ...`` lines, phase ``lm moe``; no kernel of the
+   port and no scan runs on it): ``kimi-k2-1t-a32b`` and ``grok-1-314b``
+   at full width with the depth cut to what one card holds (kimi's dense
+   layer and 1 of its 60 attn_moe layers under ``bf16``, grok 2 of its 64
+   layers in f32), seeded weights: (a) the MoE layer alone at 1 x 1024
+   and 1 x 4 tokens against ``moe_per_expert``, a loop over the experts
+   (1e-5 of the largest magnitude in f32, 1e-2 under bf16), with the
+   share of dropped pairs (> 0 in a kimi case); (b) ``lm_prefill`` of
+   2048 tokens against ``apply_lm`` at the config's capacity factor, the
+   drop shares of a 1024-token chunk, that prefill and a 4-slot decode
+   step, then on a twin at capacity factor E/k (cap >= t, nothing drops)
+   the chunk chain of 2 x 1024 against the one-shot prefill and 16 decode
+   steps against ``apply_lm`` over 2064 tokens, at 1e-4 of the largest
+   logit in f32 or 1e-2 relative L2 under bf16, or four times the model's
+   own rounding noise measured in the run where that is larger; (c) the
+   engine over the serving phase's requests (4 slots, chunks of 1024,
+   ``max_len`` 4112, greedy; grok under its own policy over the same
+   weights): TTFT, tok/s, the median decode step and chunk, their device
+   time, idle share and top kernels, KV bytes a slot, peak memory; (d)
+   grok at 1 layer under ``bf16`` (``remat="unit"``, 1 x 4096): the
+   median of 3 ``lm_loss`` and gradients after a warm-up, tokens/s, peak
+   memory, the loss and aux finite, aux > 0, every gradient finite and
+   nonzero (the router's and each expert's rows of every slab), a
+   profiled call; then two AdamW steps through ``launch/train.py
+   --reduced`` on the card (a whole step at full width does not fit).
 
 It prints a ``{"kernels": [...]}`` line and, last, the ``{"ok": true, ...}``
 line.
@@ -257,6 +285,7 @@ TWIN_STEPS = 60
 TIER_PREFIX = 3072
 TIER_SUFFIXES = (1024, 256, 512, 768, 384, 640)
 TIER_CAPACITY = {"gspn": 8, "attn": 4}
+TIER_LAYERS = 7
 # The two shapes at which every candidate launch shape is held against the
 # plain version: #3 at N = 56 and #1's within-row pass of a chunk.
 TIER_CHECKED = (("pair_fwd", 128, 56, 56, 2, "one_shot"),
@@ -1914,9 +1943,17 @@ def tier_phase():
                   generator=torch.Generator(device="cuda").manual_seed(0))
     _tier_prefix("gspn", model, cfg, TIER_PREFIX + SERVE_CHUNK + SERVE_NEW)
     print(f"lm tier (a) gspn {time.perf_counter() - t0:.3f} s", flush=True)
+    del model
     t0 = time.perf_counter()
+    # (b), (c) run a quarter of the depth: the replicas' runs are host-bound
+    # and took 110-168 s at 28 layers (PERF.md §4).
+    cfg = dataclasses.replace(cfg, unit=(("gspn", TIER_LAYERS),),
+                              n_layers=TIER_LAYERS)
+    model = lm.LM(cfg, device="cuda",
+                  generator=torch.Generator(device="cuda").manual_seed(0))
     shapes = _tier_replicas(model, cfg)
-    print(f"lm tier (b), (c) {time.perf_counter() - t0:.3f} s", flush=True)
+    print(f"lm tier (b), (c) at {TIER_LAYERS} of 28 layers "
+          f"{time.perf_counter() - t0:.3f} s", flush=True)
     del model
     t0 = time.perf_counter()
     cfg = qwen2_1_5b.full()
@@ -2437,6 +2474,10 @@ def sp_phase():
 
 # The SSM and xLSTM families (``ssm ...`` lines).
 SSM_ARCHS = ("zamba2-2.7b", "xlstm-1.3b")
+# Each family runs at full width and a third of its depth (3 of zamba2's
+# 9 units, 2 of xlstm's 6): at full depth the phase took 317-436 s of the
+# smoke's 1200 s (PERF.md §4), with the MoE phase still to come.
+SSM_UNITS = {"zamba2-2.7b": 3, "xlstm-1.3b": 2}
 SSM_CORE = {"zamba2": (80, 64, 64), "xlstm": (4, 1024, 1025)}
 SSM_CORE_LENS = (1024, 1023)
 SSM_PROMPTS = SERVE_PROMPTS + (1023,)
@@ -2545,6 +2586,9 @@ def _ssm_model(arch, precision=None, seed=0):
     from repro_torch.models import lm
 
     cfg = get_arch(arch).full()
+    units = SSM_UNITS[arch]
+    cfg = dataclasses.replace(cfg, n_units=units,
+                              n_layers=cfg.n_layers // cfg.n_units * units)
     if precision:
         cfg = with_precision(cfg, precision)
     t0 = time.perf_counter()
@@ -2561,7 +2605,7 @@ def _ssm_model(arch, precision=None, seed=0):
 
 
 def _ssm_whole(arch):
-    """(b) Under the f32 policy at full width and depth: ``lm_prefill`` of
+    """(b) Under the f32 policy at full width: ``lm_prefill`` of
     1 x CHECK_LEN and SSM_DECODE ``lm_decode_step``s against ``apply_lm``
     over the same tokens.  The bar is 1e-4 of the largest logit, or four
     times the model's own f32 rounding noise where that is larger: the
@@ -2802,9 +2846,10 @@ def _ssm_train(arch):
 def ssm_phase():
     """The SSM and xLSTM families (``ssm ...`` lines): (a) the GLA core
     and the causal conv; then for each of ``zamba2-2.7b`` and
-    ``xlstm-1.3b`` at full width and depth with seeded weights, (b) the
-    f32 prefill and decode chain against ``apply_lm``, (c) the engine,
-    (d) training.  No GSPN scan runs anywhere on these paths."""
+    ``xlstm-1.3b`` at full width and the depth of SSM_UNITS, seeded
+    weights, (b) the f32 prefill and decode chain against ``apply_lm``,
+    (c) the engine, (d) training.  No GSPN scan runs anywhere on these
+    paths."""
     t0 = time.perf_counter()
     _ssm_core()
     for arch in SSM_ARCHS:
@@ -2813,6 +2858,447 @@ def ssm_phase():
         _ssm_train(arch)
         print(f"ssm {arch}: done at {time.perf_counter() - t0:.3f} s of the "
               f"phase", flush=True)
+
+
+# The MoE family (``moe ...`` lines, phase ``lm moe``): full width, the
+# depth cut to what one card holds (PERF.md §4).  kimi runs its dense first
+# layer and 1 of its 60 attn_moe layers under bf16 (19 934 645 248
+# parameters, 39.9 GB; 79.7 GB in f32), grok 2 of its 64 layers in f32
+# (11 450 578 944, 45.8 GB) and 1 under bf16 for training (6 530 598 912,
+# 13.1 GB).
+MOE_CUTS = {"kimi-k2-1t-a32b": (1, "bf16"), "grok-1-314b": (2, "f32")}
+MOE_LAYER_TOKENS = (1024, 4)
+MOE_SLOTS = 4
+MOE_MAX_LEN = 4112
+MOE_DECODE = 16
+# The rounding-noise control runs apply_lm over 2 x 1024 tokens against
+# 1 x 1024: at cap = t kimi's dense (E, cap, D) buffer holds 11.4 GB at
+# 2064 tokens, and twice that would not fit beside its weights.
+MOE_NOISE_LEN = 1024
+MOE_TRAIN = ("grok-1-314b", 1, "bf16", 4096)
+MOE_TRAIN_STEPS = 3
+
+
+def _moe_model(arch, n_moe, precision, seed=0):
+    """``arch``'s full width with ``n_moe`` attn_moe layers after its
+    prelude, weights from a seeded generator on the card."""
+    from repro_torch.configs.base import get_arch, with_precision
+    from repro_torch.models import lm
+
+    cfg = get_arch(arch).full()
+    cfg = with_precision(dataclasses.replace(
+        cfg, unit=(("attn_moe", n_moe),),
+        n_layers=sum(n for _, n in cfg.prelude) + n_moe), precision)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = lm.LM(cfg, device="cuda",
+                  generator=torch.Generator(device="cuda").manual_seed(seed))
+    torch.cuda.synchronize()
+    nbytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    print(f"moe {arch}: {lm.count_params(model)} parameters ({nbytes} "
+          f"bytes; {cfg.layer_count()} of {get_arch(arch).full().n_layers} "
+          f"layers: prelude {cfg.prelude}, unit {cfg.unit}; d_model "
+          f"{cfg.d_model}, {cfg.n_experts} experts top-{cfg.top_k} of hidden "
+          f"{cfg.moe_d_ff}, shared expert {cfg.shared_expert_ff}, capacity "
+          f"factor {cfg.capacity_factor}, vocab {cfg.vocab}), {precision} "
+          f"policy, set-up {time.perf_counter() - t0:.3f} s, peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB", flush=True)
+    return cfg, model
+
+
+def _moe_twin(model, **changes):
+    """A model over ``model``'s weights (assigned, not copied) under a
+    config with ``changes``."""
+    from repro_torch.models import lm
+
+    twin = lm.LM(dataclasses.replace(model.cfg, **changes), device="meta")
+    twin.load_state_dict(model.state_dict(), assign=True)
+    return twin
+
+
+@contextlib.contextmanager
+def _moe_drops():
+    """(dropped pairs, pairs, experts (t, k)) of every MoE call inside the
+    block, read from a wrapper around the dispatch (one host sync a call:
+    never inside a timed run)."""
+    from repro_torch.models import moe
+
+    seen, real = [], moe.dispatch
+
+    def spy(experts, cap, n_experts):
+        row, kept = real(experts, cap, n_experts)
+        seen.append((int((~kept).sum()), kept.numel(), experts))
+        return row, kept
+
+    moe.dispatch = spy
+    try:
+        yield seen
+    finally:
+        moe.dispatch = real
+
+
+def _drop_share(seen) -> float:
+    return sum(c[0] for c in seen) / max(sum(c[1] for c in seen), 1)
+
+
+def _rerouted(one, chain, n_moe) -> int:
+    """Tokens whose set of experts in some MoE layer differs between a
+    one-shot call (``n_moe`` calls, one a layer) and a chain of chunks
+    (``n_moe`` calls a chunk), from ``_moe_drops`` records."""
+    flips = 0
+    for i in range(n_moe):
+        a = one[i][2].sort(-1).values
+        b = torch.cat([c[2] for c in chain[i::n_moe]]).sort(-1).values
+        flips += int((a != b).any(-1).sum())
+    return flips
+
+
+def _moe_err(got, want, bf16: bool) -> float:
+    """Relative L2 under bf16 products, else the largest error over the
+    largest magnitude."""
+    if not bf16:
+        return _rel_err(got, want)
+    got, want = got.float(), want.float()
+    return ((got - want).norm() / want.norm().clamp_min(1e-30)).item()
+
+
+def _moe_layer(arch, model):
+    """(a) The first attn_moe block's MoE alone at 1 x 1024 and 1 x 4
+    tokens of random input against ``moe_per_expert`` (a loop over the
+    experts): 1e-5 of the largest magnitude in f32, 1e-2 under bf16; its
+    ms and the loop's, the share of dropped pairs.  Returns the shares."""
+    from repro_torch.models.moe import capacity, moe_per_expert
+
+    layer = next(b.moe for _, _, b in model.walk() if hasattr(b, "moe"))
+    cfg, cd = layer.cfg, layer.policy.compute_dtype
+    tol = 1e-5 if cd == torch.float32 else 1e-2
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    shares = []
+    for t in MOE_LAYER_TOKENS:
+        x = torch.randn((1, t, cfg.dim), generator=gen, device="cuda").to(cd)
+        with torch.no_grad():
+            with _moe_drops() as seen:
+                y, aux = layer(x)
+            plain, dropped, pairs = moe_per_expert(layer, x)
+            ms = _wall_s(lambda: layer(x), n=3) * 1e3
+            plain_ms = _wall_s(lambda: moe_per_expert(layer, x), n=3) * 1e3
+        err = _rel_err(y, plain)
+        shares.append(dropped / pairs)
+        print(f"moe {arch} layer {str(cd).split('.')[-1]} 1 x {t}: cap "
+              f"{capacity(cfg, t)}, dropped {dropped} of {pairs} pairs "
+              f"(share {dropped / pairs:.4f}); max_abs_err / largest vs the "
+              f"per-expert loop {err:.3e} (tol {tol}); aux {aux.item():.6g}; "
+              f"layer {ms:.3f} ms, loop {plain_ms:.3f} ms", flush=True)
+        if not (torch.isfinite(y).all() and err <= tol
+                and [c[:2] for c in seen] == [(dropped, pairs)]):
+            raise AssertionError(f"moe {arch} layer 1 x {t}: the layer "
+                                 f"disagrees with the per-expert loop")
+    return shares
+
+
+def _moe_whole(arch, model):
+    """(b) Prefill against apply_lm at the config's capacity factor (the
+    same call shape, so the same drops) and the drop shares of a chunk of
+    SERVE_CHUNK, the CHECK_LEN one-shot prefill and a 4-slot decode step;
+    then, on a twin at capacity factor E/k (cap >= t: nothing drops, the
+    attention dense), the chunk chain against the one-shot prefill and
+    MOE_DECODE decode steps against apply_lm.  The twin isolates the KV
+    cache and chunk logic from the per-call capacity, which a chain or a
+    decode step does not share with a one-shot call.  Bars: 1e-4 of the
+    largest logit in f32, 1e-2 relative L2 under bf16, or four times the
+    model's own rounding noise where that is larger, the larger of two
+    controls measured here: apply_lm over two copies of MOE_NOISE_LEN
+    tokens against one (other product shapes; under bf16 the card's
+    products give the same bits at both batches, so it reads 0), and the
+    one-shot prefill with attention in key blocks of ``attn_block_k``
+    against dense (the attention's f32 sums in another order, rounded
+    to the compute dtype: what a chunk's attention changes).  Top-k
+    routing turns such a rounding into another choice of experts for the
+    tokens near a tie; the line counts them."""
+    from repro_torch.models import lm
+
+    cfg = model.cfg
+    bf16 = cfg.compute_dtype != torch.float32
+    n = CHECK_LEN + MOE_DECODE
+    n_moe = sum(k for _, kind, k in cfg.stages() if kind == "attn_moe")
+    tag = f"moe {arch} {'bf16' if bf16 else 'f32'}"
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    toks = torch.randint(0, cfg.vocab, (MOE_SLOTS, n), device="cuda",
+                         generator=gen)
+    one = toks[:1]
+    with torch.no_grad():
+        with _moe_drops() as d_prefill:
+            logits, _ = _no_scans(lambda: lm.lm_prefill(
+                model, one[:, :CHECK_LEN], CHECK_LEN), "prefill", tag)
+        full = lm.apply_lm(model, one[:, :CHECK_LEN])
+        e_same = _moe_err(logits, full, bf16)
+        del logits, full
+        c = lm.init_lm_cache(cfg, 1, SERVE_CHUNK, device="cuda")
+        with _moe_drops() as d_chunk:
+            lm.lm_prefill_chunk(model, one[:, :SERVE_CHUNK], c, 0,
+                                with_logits=False)
+        _, c = lm.lm_prefill(model, toks[:, :16], 32)
+        with _moe_drops() as d_decode:
+            lm.lm_decode_step(model, toks[:, 16:17], c)
+        del c
+        print(f"{tag} at capacity factor {cfg.capacity_factor}: dropped "
+              f"share of a chunk of {SERVE_CHUNK} "
+              f"{_drop_share(d_chunk):.4f}, of the one-shot prefill of "
+              f"{CHECK_LEN} {_drop_share(d_prefill):.4f}, of a "
+              f"{MOE_SLOTS}-slot decode step {_drop_share(d_decode):.4f}",
+              flush=True)
+
+        cf = cfg.n_experts / cfg.top_k
+        nodrop = _moe_twin(model, capacity_factor=cf, attn_block_k=n)
+        # At cap = t kimi's buffers take 11.4 GB each: return the blocks
+        # the earlier calls cached, so that one allocation can hold them.
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        with _moe_drops() as d_one:
+            pre, caches = lm.lm_prefill(nodrop, one[:, :CHECK_LEN], n)
+        with _moe_drops() as d_chain:
+            c = lm.init_lm_cache(nodrop.cfg, 1, n, device="cuda")
+            parts = []
+            for lo in range(0, CHECK_LEN, SERVE_CHUNK):
+                part, c = lm.lm_prefill_chunk(
+                    nodrop, one[:, lo:lo + SERVE_CHUNK], c, lo)
+                parts.append(part)
+            chain = torch.cat(parts, 1)
+            del parts, c
+        with _moe_drops() as d_rest:
+            steps = []
+            for i in range(CHECK_LEN, n):
+                step, caches = lm.lm_decode_step(nodrop, one[:, i:i + 1],
+                                                 caches)
+                steps.append(step)
+            del caches
+            full = lm.apply_lm(nodrop, one)[:, CHECK_LEN:]
+            half = one[:, :MOE_NOISE_LEN]
+            batch2 = _moe_err(lm.apply_lm(nodrop, half.expand(2, -1))[:1],
+                              lm.apply_lm(nodrop, half), bf16)
+            blocks = _moe_twin(model, capacity_factor=cf)
+            order = _moe_err(lm.lm_prefill(blocks, one[:, :CHECK_LEN],
+                                           n)[0], pre, bf16)
+            del blocks
+        t_twin = time.perf_counter() - t0
+    noise = max(batch2, order)
+    bar = max(1e-2 if bf16 else 1e-4, 4 * noise)
+    e_chain = _moe_err(chain, pre, bf16)
+    e_decode = _moe_err(torch.cat(steps, 1), full, bf16)
+    dropped = _drop_share(d_one + d_chain + d_rest)
+    what = "relative L2" if bf16 else "max_abs_err / largest"
+    print(f"{tag}: {what}: prefill vs apply_lm at capacity factor "
+          f"{cfg.capacity_factor} {e_same:.3e}; at capacity factor {cf} "
+          f"(cap >= t, {dropped} dropped; isolates the cache and chunk "
+          f"logic from the per-call capacity): chunk chain "
+          f"{CHECK_LEN // SERVE_CHUNK} x {SERVE_CHUNK} vs one-shot "
+          f"{e_chain:.3e} ({_rerouted(d_one, d_chain, n_moe)} of "
+          f"{CHECK_LEN} tokens routed to another expert set in some "
+          f"layer), {MOE_DECODE} decode steps vs apply_lm of {n} "
+          f"{e_decode:.3e}; rounding noise: apply_lm 2 x {MOE_NOISE_LEN} vs "
+          f"1 {batch2:.3e}, prefill with attention blocks of "
+          f"{cfg.attn_block_k} vs dense {order:.3e}; bar {bar:.3e}; "
+          f"{t_twin:.3f} s; peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB", flush=True)
+    if not (e_same <= bar and e_chain <= bar and e_decode <= bar
+            and dropped == 0 and torch.isfinite(chain).all()
+            and torch.isfinite(full).all()):
+        raise AssertionError(f"{tag}: the cache paths disagree")
+    del nodrop, pre, chain, steps, full
+    torch.cuda.empty_cache()
+
+
+def _moe_serve(arch, model):
+    """(c) The engine (MOE_SLOTS slots, chunks of SERVE_CHUNK, greedy,
+    max_len MOE_MAX_LEN) over SERVE_PROMPTS, SERVE_NEW new tokens each:
+    TTFT, tok/s, the median decode step and chunk, their device time, idle
+    share and top kernels (profiler), peak memory, KV bytes a slot."""
+    from repro_torch import obs
+    from repro_torch.models import lm
+    from repro_torch.serve.engine import Request, ServeEngine
+
+    cfg = model.cfg
+    tag = f"moe {arch} serve"
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    eng = ServeEngine(model, batch_size=MOE_SLOTS, max_len=MOE_MAX_LEN,
+                      prefill_chunk=SERVE_CHUNK)
+    if eng.prefill_chunk != SERVE_CHUNK:
+        raise AssertionError(f"{tag}: the engine does not chunk")
+    rng = torch.Generator().manual_seed(1)
+    reqs = [Request(uid=i, prompt=torch.randint(0, cfg.vocab, (n,),
+                                                generator=rng).numpy(),
+                    max_new_tokens=SERVE_NEW)
+            for i, n in enumerate(SERVE_PROMPTS)]
+    handles = [eng.submit(r) for r in reqs]
+    torch.cuda.synchronize()
+    obs.clear()
+    obs.enable()
+    try:
+        t0 = time.perf_counter()
+        _no_scans(eng.run, "engine run", tag)
+        dt = time.perf_counter() - t0
+    finally:
+        obs.disable()
+    m = eng.metrics
+    results = [h.result() for h in handles]
+    total = sum(len(r.tokens) for r in results)
+    for r, n in zip(results, SERVE_PROMPTS):
+        print(f"{tag} request {r.uid}: prompt {n}, ttft "
+              f"{r.ttft * 1e3:.3f} ms, queue {r.queue_delay * 1e3:.3f} ms, "
+              f"chunks {r.prefill_chunks}, {len(r.tokens)} tokens "
+              f"{r.tokens}", flush=True)
+    ttft = sorted(r.ttft * 1e3 for r in results)
+    step_ms = [sp.dur / 1e6 for sp in obs.spans("serve.decode_step")]
+    chunk_ms = [sp.dur / 1e6 for sp in obs.spans("serve.prefill_chunk")]
+    print(f"{tag} (parameters {str(cfg.param_dtype)[6:]}, products "
+          f"{str(cfg.compute_dtype)[6:]}): {len(results)} requests, {total} "
+          f"tokens in {dt:.3f} s ({total / dt:.3f} tok/s); TTFT p50 "
+          f"{statistics.median(ttft):.3f} ms, p90 "
+          f"{ttft[math.ceil(0.9 * len(ttft)) - 1]:.3f} ms; "
+          f"{m['prefills']} one-shot prefills, {m['prefill_chunks']} chunks "
+          f"(median {statistics.median(chunk_ms):.3f} ms), "
+          f"{m['decode_steps']} decode steps (median "
+          f"{statistics.median(step_ms):.3f} ms of {len(step_ms)}); KV "
+          f"{eng.pool.nbytes // eng.bs} bytes a slot, pool "
+          f"{eng.pool.nbytes} bytes; peak memory of the run "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB", flush=True)
+    if [len(r.tokens) for r in results] != [SERVE_NEW] * len(reqs) or \
+            not all(0 <= t < cfg.vocab for r in results for t in r.tokens):
+        raise AssertionError(f"{tag}: wrong tokens")
+    last, pooled = eng.last_token, eng.pool.caches
+    c = lm.init_lm_cache(cfg, 1, MOE_MAX_LEN, device="cuda")
+    ctoks = torch.from_numpy(reqs[0].prompt[:SERVE_CHUNK]).cuda()[None]
+    with torch.no_grad():
+        def decode():
+            return lm.lm_decode_step(model, last, pooled)
+
+        def chunk():
+            return lm.lm_prefill_chunk(model, ctoks, c, SERVE_CHUNK,
+                                       with_logits=False)
+
+        _profile(decode, _wall_s(decode), f"{tag} decode step "
+                 f"({MOE_SLOTS} slots)")
+        _profile(chunk, _wall_s(chunk), f"{tag} chunk of {SERVE_CHUNK}")
+    del eng, last, pooled, c
+    torch.cuda.empty_cache()
+
+
+def _moe_train():
+    """(d) grok at MOE_TRAIN's cut under bf16, ``remat="unit"``: one
+    warm-up, then MOE_TRAIN_STEPS timed ``lm_loss`` and gradients at
+    1 x seq: ms, tokens/s, peak memory; the loss and aux finite, aux > 0;
+    every gradient finite and nonzero, the router's and each expert's
+    rows of every slab included; a profiled call."""
+    from repro_torch.data.pipeline import DataConfig, host_batch, to_device
+    from repro_torch.models import lm
+
+    arch, n_moe, precision, seq = MOE_TRAIN
+    cfg, model = _moe_model(arch, n_moe, precision, seed=4)
+    if cfg.remat != "unit":
+        raise AssertionError(f"{arch} full() rematerialises {cfg.remat!r}")
+    tag = f"moe {arch} train"
+    params = list(model.parameters())
+    names = [nm for nm, _ in model.named_parameters()]
+
+    def batch(step):
+        return to_device(host_batch(DataConfig(vocab=cfg.vocab, seq_len=seq,
+                                               global_batch=1), step), "cuda")
+
+    def loss_and_grads(b):
+        loss, parts = lm.lm_loss(model, b)
+        return loss, parts, torch.autograd.grad(loss, params)
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    _no_scans(lambda: loss_and_grads(batch(0)), "warm-up", tag)
+    print(f"{tag} warm-up 1 x {seq}: "
+          f"{(time.perf_counter() - t0) * 1e3:.3f} ms", flush=True)
+    times = []
+    for i in range(MOE_TRAIN_STEPS):
+        b = batch(1 + i)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss, parts, grads = loss_and_grads(b)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        if i + 1 < MOE_TRAIN_STEPS:
+            del grads
+    dt = statistics.median(times)
+    bad = [nm for nm, g in zip(names, grads)
+           if not (torch.isfinite(g).all() and g.abs().max() > 0)]
+    for nm, g in zip(names, grads):
+        if nm.endswith("_slab"):
+            bad += [f"{nm}[expert {e}]" for e in range(g.shape[1])
+                    if not g[0, e].abs().max() > 0]
+    router = sum(nm.endswith("moe.router") for nm in names)
+    print(f"{tag} 1 x {seq} tokens, {precision}, remat unit, lm_loss and "
+          f"gradients: median {dt * 1e3:.3f} ms of {MOE_TRAIN_STEPS} "
+          f"({[round(t * 1e3, 3) for t in times]}), {seq / dt:.1f} tokens/s; "
+          f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB; "
+          f"loss {loss.item():.6g}, ce {parts['ce'].item():.6g}, aux "
+          f"{parts['aux'].item():.6g}; {len(names)} gradients ({router} "
+          f"routers), {len(bad)} not finite and nonzero {bad[:5]}",
+          flush=True)
+    if bad or not router or not math.isfinite(loss.item()) or \
+            not parts["aux"].item() > 0:
+        raise AssertionError(f"{tag}: loss, aux or gradients wrong")
+    del grads, loss, parts
+    b = batch(9)
+    _profile(lambda: loss_and_grads(b), dt, f"{tag} lm_loss and gradients "
+             f"1 x {seq}")
+    del model, params, b
+    torch.cuda.empty_cache()
+
+    # A whole AdamW step at this cut does not fit one card: with bf16
+    # moments it ran out of memory at 72.9 GiB (PERF.md §7).  The step
+    # runs through the train launcher on the reduced config, on the card.
+    import shutil
+
+    from repro_torch.launch import train as launch_train
+
+    ckpt = ROOT / "build" / "moe_ckpt"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    tr = launch_train.main(["--arch", arch, "--reduced", "--steps", "2",
+                            "--batch", "2", "--seq", "64", "--ckpt-dir",
+                            str(ckpt)])
+    print(f"{tag} launch/train.py --reduced on {tr.device}: {tr.step} AdamW "
+          f"steps, losses {tr.history}, "
+          f"{(time.perf_counter() - t0) * 1e3:.3f} ms; peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB", flush=True)
+    if tr.step != 2 or tr.device.type != "cuda" or \
+            not all(map(math.isfinite, tr.history)):
+        raise AssertionError(f"{tag}: the launcher's AdamW steps failed")
+
+
+def moe_phase():
+    """The MoE family (``moe ...`` lines): for ``kimi-k2-1t-a32b`` and
+    ``grok-1-314b`` at full width and cut depth with seeded weights, (a)
+    the layer against a per-expert loop, (b) the cache paths, (c) the
+    engine (grok under its own policy over the f32 weights), then (d)
+    grok's loss and gradients.  No GSPN scan runs on these paths."""
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    kimi_shares = []
+    for arch, (n_moe, precision) in MOE_CUTS.items():
+        cfg, model = _moe_model(arch, n_moe, precision)
+        shares = _moe_layer(arch, model)
+        if arch.startswith("kimi"):
+            kimi_shares = shares
+        _moe_whole(arch, model)
+        # grok serves under its own policy: its f32 weights, bf16 products.
+        served = model if precision != "f32" else _moe_twin(
+            model, compute_dtype=torch.bfloat16)
+        _moe_serve(arch, served)
+        del model, served
+        torch.cuda.empty_cache()
+        print(f"moe {arch}: done at {time.perf_counter() - t0:.3f} s of the "
+              f"phase", flush=True)
+    if not any(kimi_shares):
+        raise AssertionError("moe kimi: no case of the layer dropped a pair")
+    _moe_train()
 
 
 def main() -> int:
@@ -2876,6 +3362,8 @@ def main() -> int:
     phase("sp", sp_phase)
     # The SSM and xLSTM families launch no kernel: no launches to add.
     phase("lm ssm", ssm_phase)
+    # Nor does the MoE family.
+    phase("lm moe", moe_phase)
 
     entries = []
     for row in rows:

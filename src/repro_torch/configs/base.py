@@ -10,10 +10,12 @@ accumulators).  ``with_precision`` rewrites an LMConfig to a preset of
 The registry holds the architectures the port runs: the GSPN-2 LM
 (``qwen2-1.5b-gspn``), the attention LMs (``qwen2-1.5b``, ``qwen2.5-3b``,
 ``granite-3-2b``, ``qwen1.5-32b``), the hybrid ``zamba2-2.7b`` (Mamba-2
-and a shared attention block) and ``xlstm-1.3b`` (mLSTM and sLSTM);
-``get_arch`` of any other architecture of the reference raises and names
-the ROADMAP.md item that brings it (:data:`NOT_PORTED`).  ``input_specs`` (the dry run's shape stand-ins) waits for
-ROADMAP.md §1 item 8.
+and a shared attention block), ``xlstm-1.3b`` (mLSTM and sLSTM) and the
+MoE LMs ``kimi-k2-1t-a32b`` and ``grok-1-314b`` (their full configs on
+``meta`` only: neither fits one card); ``get_arch`` of any other
+architecture of the reference raises and names the ROADMAP.md item that
+brings it (:data:`NOT_PORTED`).  ``input_specs`` (the dry run's shape
+stand-ins) waits for ROADMAP.md §1 item 8.
 """
 
 from __future__ import annotations
@@ -121,8 +123,6 @@ REGISTRY: Dict[str, ArchEntry] = {}
 NOT_PORTED = {
     "qwen2-vl-72b": "item 3.6 (the other families: M-RoPE and vision "
                     "embeddings)",
-    "kimi-k2-1t-a32b": "item 3.6.3 (the other families: MoE)",
-    "grok-1-314b": "item 3.6.3 (the other families: MoE)",
     "whisper-base": "item 3.6 (the other families: encoder-decoder)",
 }
 
@@ -140,6 +140,8 @@ def register(entry: ArchEntry):
 
 def _populate():
     import repro_torch.configs.granite_3_2b  # noqa: F401
+    import repro_torch.configs.grok_1_314b  # noqa: F401
+    import repro_torch.configs.kimi_k2_1t_a32b  # noqa: F401
     import repro_torch.configs.qwen1_5_32b  # noqa: F401
     import repro_torch.configs.qwen2_1_5b  # noqa: F401
     import repro_torch.configs.qwen2_1_5b_gspn  # noqa: F401

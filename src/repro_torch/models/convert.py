@@ -1,6 +1,7 @@
 """Carry the reference package's parameters into the port's modules: the
 vision backbone (``GSPNVision``) and the language model (``LM``, its
-gspn, attn, mamba, mlstm and slstm kinds and the shared attn block).
+gspn, attn, attn_moe, mamba, mlstm and slstm kinds and the shared attn
+block).
 
 The reference keeps its parameters as a pytree: per-block leaves stacked
 along leading depth axes (its blocks are initialised under ``vmap`` and
@@ -27,14 +28,18 @@ _BLOCK_LEAVES = {
 }
 _CONV_MODULES = ("lpu", "lpu2")
 # Leaves of one LM block, by kind, as paths inside the block.  The attn
-# kind's qkv biases exist only under ``qkv_bias``: present as a group or
-# not at all.
+# kinds' qkv biases exist only under ``qkv_bias``, and the MoE's shared
+# expert only under ``shared_expert_ff``: each present as a group or not
+# at all.  The MoE's slabs keep their (M, E_loc, ...) shape.
 _LM_BLOCK_LEAVES = {
     "gspn": ("ln1/scale", "mix/down", "mix/w_taps", "mix/w_row",
              "mix/w_lam", "mix/w_u", "mix/up", "ln2/scale", "ffn/gate",
              "ffn/up", "ffn/down"),
     "attn": ("ln1/scale", "attn/wq", "attn/wk", "attn/wv", "attn/wo",
              "ln2/scale", "ffn/gate", "ffn/up", "ffn/down"),
+    "attn_moe": ("ln1/scale", "attn/wq", "attn/wk", "attn/wv", "attn/wo",
+                 "ln2/scale", "moe/router", "moe/gate_slab", "moe/up_slab",
+                 "moe/down_slab"),
     "mamba": ("ln1/scale", "mix/in_proj", "mix/conv/w", "mix/conv/b",
               "mix/a_log", "mix/dt_bias", "mix/d_skip", "mix/norm/scale",
               "mix/out_proj"),
@@ -42,6 +47,7 @@ _LM_BLOCK_LEAVES = {
     "slstm": ("ln1/scale", "mix/w_in", "mix/r", "mix/b", "mix/out_proj"),
 }
 _QKV_BIAS = ("attn/bq", "attn/bk", "attn/bv")
+_SHARED_EXPERT = ("moe/shared/gate", "moe/shared/up", "moe/shared/down")
 
 
 def _flatten(tree, prefix=()):
@@ -123,6 +129,8 @@ def _lm_block_paths(kind, leaves, prefix):
     paths = _LM_BLOCK_LEAVES[kind]
     if prefix + ("attn", "bq") in leaves:
         paths += _QKV_BIAS
+    if prefix + ("moe", "shared", "gate") in leaves:
+        paths += _SHARED_EXPERT
     return paths
 
 
@@ -136,8 +144,8 @@ def lm_state_from_jax(params_np) -> dict[str, torch.Tensor]:
     """``state_dict`` of an ``LM`` from the reference's ``init_lm`` pytree
     given as numpy arrays.
 
-    Each stage ``stages/s{i}_{kind}`` (kind ``gspn``, ``attn``, ``mamba``,
-    ``mlstm`` or ``slstm``) stacks its blocks' leaves along leading axes:
+    Each stage ``stages/s{i}_{kind}`` (kind ``gspn``, ``attn``,
+    ``attn_moe``, ``mamba``, ``mlstm`` or ``slstm``) stacks its blocks' leaves along leading axes:
     (n,) for a prelude stage, (n_units, n) for a unit stage, told apart by
     the rank of ``ln1/scale``.  They unstack into ``stages.s{i}_{kind}.{i}``
     or ``stages.s{i}_{kind}.{u}.{i}``.  ``shared_attn``, one attn block

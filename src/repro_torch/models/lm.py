@@ -1,42 +1,52 @@
 """The causal language model: the GSPN-2 sequence mixer, GQA attention,
-the Mamba-2 mixer and the xLSTM's two mixers.
+the mixture of experts, the Mamba-2 mixer and the xLSTM's two mixers.
 
 A model is described by :class:`LMConfig`, the reference's
 (``repro.models.lm.LMConfig``) with torch dtypes: ``prelude``, a list of
 ``(kind, n)`` stages applied once, then ``unit``, a list of ``(kind, n)``
 stages repeated ``n_units`` times, and with ``shared_attn`` one
 weight-shared attn block applied at the end of every unit (Zamba2).  The
-port runs five block kinds of :data:`KINDS`:
+port runs six block kinds of :data:`KINDS`:
 
-  gspn    pre-norm GSPN-2 sequence mixer + pre-norm SwiGLU FFN
-          (``qwen2-1.5b-gspn``)
-  attn    pre-norm GQA attention with rope + pre-norm SwiGLU FFN
-          (``qwen2-1.5b`` and its kin, and the shared block)
-  mamba   pre-norm Mamba-2 mixer, no FFN (``zamba2-2.7b``)
-  mlstm   pre-norm mLSTM mixer, no FFN (``xlstm-1.3b``)
-  slstm   pre-norm sLSTM mixer, no FFN (``xlstm-1.3b``)
+  gspn      pre-norm GSPN-2 sequence mixer + pre-norm SwiGLU FFN
+            (``qwen2-1.5b-gspn``)
+  attn      pre-norm GQA attention with rope + pre-norm SwiGLU FFN
+            (``qwen2-1.5b`` and its kin, the shared block, kimi's first
+            layer)
+  attn_moe  pre-norm GQA attention with rope + pre-norm MoE, no dense
+            FFN; its aux loss is summed over the blocks
+            (``kimi-k2-1t-a32b``, ``grok-1-314b``)
+  mamba     pre-norm Mamba-2 mixer, no FFN (``zamba2-2.7b``)
+  mlstm     pre-norm mLSTM mixer, no FFN (``xlstm-1.3b``)
+  slstm     pre-norm sLSTM mixer, no FFN (``xlstm-1.3b``)
 
 Any other kind raises and names the ROADMAP item that brings it
 (:data:`NOT_PORTED_KINDS`).
 
 Entry points, each the reference's twin over an :class:`LM` module:
 :func:`apply_lm` (logits of a whole sequence), :func:`lm_loss` (the
-training loss and its parts), :func:`lm_prefill` (logits
-and the decode caches), :func:`lm_prefill_chunk` (one prompt chunk against
-live caches, DESIGN.md §9; the gspn and attn kinds only, as in the
+training loss and its parts, the MoE's aux loss among them),
+:func:`lm_prefill` (logits and the decode caches),
+:func:`lm_prefill_chunk` (one prompt chunk against live caches,
+DESIGN.md §9; the gspn, attn and attn_moe kinds only, as in the
 reference: the recurrent mixers' prefill starts from a zero state, so a
 model with one prefills in one shot), :func:`init_lm_cache` and
 :func:`lm_decode_step` (one token per sequence: O(W) state per gspn
-layer, a KV cache of ``max_len`` positions per attn layer, the conv tail
-and the SSM state per mamba layer, the (hd, hd + 1) matrix memory per
-mlstm layer and (h, c, n, m) per slstm layer).
+layer, a KV cache of ``max_len`` positions per attn or attn_moe layer,
+the conv tail and the SSM state per mamba layer, the (hd, hd + 1) matrix
+memory per mlstm layer and (h, c, n, m) per slstm layer).  An attn_moe
+block's expert capacity is counted over the tokens of each call (B · S,
+B · T of a chunk, B of a decode step, the engine's free slots included),
+as in the reference: where slots drop, a chunk chain differs from a
+one-shot prefill and decode from :func:`apply_lm`.
 
 Caches keep the reference's layout: a dict per stage key ``s{i}_{kind}``
 whose leaves carry leading ``(n,)`` axes for a prelude stage and
 ``(n_units, n)`` for a unit stage before the batch axis, so
 :mod:`repro_torch.serve.cache` scatters a slot along the same axis.  An
-attn stage's leaves (``k``, ``v``, ``length``) sit directly under its
-key, where the reference nests them one level deeper, under ``"attn"``;
+attn or attn_moe stage's leaves (``k``, ``v``, ``length``) sit directly
+under its key, where the reference nests them one level deeper, under
+``"attn"``;
 the shared attn block's caches sit under ``"shared_attn"`` with a
 leading ``(n_units,)`` axis, one per application.
 
@@ -79,6 +89,7 @@ from repro_torch.models.attention import (Attention, AttentionConfig,
 from repro_torch.models.layers import (DTypePolicy, RMSNorm, SwiGLU,
                                        cross_entropy_loss, dense_init,
                                        embed_init)
+from repro_torch.models.moe import MoE, MoEConfig, moe_active_param_count
 from repro_torch.models.ssm import Mamba2, Mamba2Config, init_mamba2_cache
 from repro_torch.models.xlstm import (MLSTM, SLSTM, MLSTMConfig, SLSTMConfig,
                                       init_mlstm_cache, init_slstm_cache)
@@ -86,7 +97,6 @@ from repro_torch.models.xlstm import (MLSTM, SLSTM, MLSTMConfig, SLSTMConfig,
 # Block kinds of the reference that the port does not run yet, and the
 # ROADMAP.md §1 item that brings each.
 NOT_PORTED_KINDS = {
-    "attn_moe": "item 3.6.3 (the other families: MoE)",
     "xattn": "item 3.6 (the other families: encoder-decoder)",
 }
 
@@ -94,8 +104,8 @@ NOT_PORTED_KINDS = {
 @dataclasses.dataclass(frozen=True)
 class LMConfig:
     """The reference's ``LMConfig`` with torch dtypes, less the fields of
-    the kinds the port does not run yet (MoE, M-RoPE, the encoder, the
-    norm and MLP variants).  It carries the gspn, attn, mamba, mlstm and
+    the kinds the port does not run yet (M-RoPE, the encoder, the norm and
+    MLP variants).  It carries the gspn, attn, attn_moe, mamba, mlstm and
     slstm kinds' fields and ``shared_attn``.  ``gspn_impl`` defaults to
     ``"auto"``, which resolves to the CUDA kernel #1 on the card and to
     the plain scan on the CPU; the reference's defaults to ``"xla"``, its
@@ -116,6 +126,13 @@ class LMConfig:
     unit: tuple = ()               # ((kind, n), ...), repeated n_units times
     n_units: int = 1
     shared_attn: bool = False      # one attn block after every unit
+    # The attn_moe kind: experts, top-k, each expert's hidden width (0 =>
+    # d_ff), the shared expert's (0 = none) and the capacity factor.
+    n_experts: int = 0
+    top_k: int = 0
+    moe_d_ff: int = 0
+    shared_expert_ff: int = 0
+    capacity_factor: float = 1.25
     # The mamba, mlstm and slstm kinds.
     ssm_state: int = 64
     ssm_head_dim: int = 64
@@ -130,9 +147,9 @@ class LMConfig:
     # compute_dtype, so chunked ≡ one-shot stays exact unless a precision
     # preset (configs.base.with_precision) narrows it.
     gspn_compute_dtype: torch.dtype = torch.float32
-    # The reference's sharding knob, which the configs set and nothing
-    # reads yet, and the rematerialisation of each block under gradients:
-    # "none" or "unit".
+    # The reference's sharding knob, which the MoE reads (its slabs'
+    # layout; more than 1 raises until ROADMAP.md §1 item 6.2), and the
+    # rematerialisation of each block under gradients: "none" or "unit".
     n_model_shards: int = 1
     remat: str = "unit"
     attn_block_k: int = 512        # key block of the blockwise attention
@@ -196,6 +213,14 @@ def attn_config(cfg: LMConfig) -> AttentionConfig:
         dim=cfg.d_model, n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
         head_dim=cfg.head_dim, qkv_bias=cfg.qkv_bias,
         rope_theta=cfg.rope_theta, block_k=cfg.attn_block_k)
+
+
+def moe_config(cfg: LMConfig) -> MoEConfig:
+    return MoEConfig(
+        dim=cfg.d_model, n_experts=cfg.n_experts, top_k=cfg.top_k,
+        d_ff=cfg.moe_d_ff or cfg.d_ff, n_shards=cfg.n_model_shards,
+        capacity_factor=cfg.capacity_factor,
+        shared_expert_ff=cfg.shared_expert_ff)
 
 
 def mamba_config(cfg: LMConfig) -> Mamba2Config:
@@ -279,22 +304,28 @@ class AttnBlock(nn.Module):
 
     def __init__(self, cfg: LMConfig, *, generator, device):
         super().__init__()
+        self._attention(cfg, generator=generator, device=device)
+        self.ffn = SwiGLU(cfg.d_model, cfg.d_ff, cfg.policy,
+                          generator=generator, device=device)
+
+    def _attention(self, cfg: LMConfig, *, generator, device):
+        """``ln1``, the attention layer and ``ln2``."""
         d, pd = cfg.d_model, cfg.param_dtype
         self.cd = cfg.compute_dtype
         self.ln1 = RMSNorm(d, device=device, dtype=pd)
         self.attn = Attention(attn_config(cfg), cfg.policy,
                               generator=generator, device=device)
         self.ln2 = RMSNorm(d, device=device, dtype=pd)
-        self.ffn = SwiGLU(d, cfg.d_ff, cfg.policy, generator=generator,
-                          device=device)
 
     def _ffn(self, x):
         return x + self.ffn(self.ln2(x))
 
-    def forward(self, x, mesh=None):
+    def _attend(self, x):
         b, s, _ = x.shape
-        return self._ffn(x + self.attn(self.ln1(x),
-                                       _positions(b, s, x.device)))
+        return x + self.attn(self.ln1(x), _positions(b, s, x.device))
+
+    def forward(self, x, mesh=None):
+        return self._ffn(self._attend(x))
 
     def prefill(self, x, max_len: int, mesh=None):
         """The forward, and the cache of the prompt's k and v padded to
@@ -344,6 +375,32 @@ class AttnBlock(nn.Module):
     def init_cache(cfg: LMConfig, batch: int, max_len: int, *, device):
         return init_kv_cache(batch, max_len, attn_config(cfg),
                              cfg.compute_dtype, device=device)
+
+
+class AttnMoEBlock(AttnBlock):
+    """The attn kind with the pre-norm MoE (``moe``, :class:`MoE`) in
+    place of the dense FFN: the same four paths and KV cache.  Each call's
+    MoE routes the tokens of that call (capacity per call);
+    :meth:`forward_aux` also returns the layer's aux loss (times
+    ``aux_loss_coef``), which :func:`lm_loss` sums over the blocks and the
+    other paths drop, as the reference's do."""
+
+    def __init__(self, cfg: LMConfig, *, generator, device):
+        nn.Module.__init__(self)
+        self._attention(cfg, generator=generator, device=device)
+        self.moe = MoE(moe_config(cfg), cfg.policy, generator=generator,
+                       device=device)
+
+    def _moe(self, x):
+        """(x + the MoE of ln2(x), the layer's aux loss)."""
+        y, aux = self.moe(self.ln2(x))
+        return x + y, aux
+
+    def _ffn(self, x):
+        return self._moe(x)[0]
+
+    def forward_aux(self, x, mesh=None):
+        return self._moe(self._attend(x))
 
 
 # ---------------------------------------------------------------------------
@@ -409,8 +466,8 @@ class SLSTMBlock(_MixerBlock):
 
 
 # The block kinds the port runs.
-KINDS = {"gspn": GSPNBlock, "attn": AttnBlock, "mamba": MambaBlock,
-         "mlstm": MLSTMBlock, "slstm": SLSTMBlock}
+KINDS = {"gspn": GSPNBlock, "attn": AttnBlock, "attn_moe": AttnMoEBlock,
+         "mamba": MambaBlock, "mlstm": MLSTMBlock, "slstm": SLSTMBlock}
 
 
 def _check_kind(kind: str) -> None:
@@ -599,23 +656,36 @@ def _mesh(ctx: Ctx | None):
     return ctx.mesh if ctx is not None else None
 
 
+def _forward(model: LM, tokens, ctx: Ctx | None):
+    """(logits, the f32 sum of the attn_moe blocks' aux losses in walk
+    order).  Each block runs under ``remat`` as one unit, its aux loss an
+    output of that unit, so a recompute in the backward adds nothing."""
+    x = model.embed_tokens(tokens)
+    mesh = _mesh(ctx)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for _, _, block in model.walk():
+        if isinstance(block, AttnMoEBlock):
+            x, a = _maybe_remat(model.cfg, functools.partial(
+                block.forward_aux, mesh=mesh))(x)
+            aux = aux + a
+        else:
+            x = _maybe_remat(model.cfg, functools.partial(block,
+                                                          mesh=mesh))(x)
+    return model.logits(x), aux
+
+
 def apply_lm(model: LM, tokens, *, ctx: Ctx | None = None):
     """Logits (B, S, V) of tokens (B, S) int.  ``ctx.mesh`` shards the
     mixers' scans under ``gspn_impl="sp"``."""
-    x = model.embed_tokens(tokens)
-    mesh = _mesh(ctx)
-    for _, _, block in model.walk():
-        x = _maybe_remat(model.cfg, functools.partial(block, mesh=mesh))(x)
-    return model.logits(x)
+    return _forward(model, tokens, ctx)[0]
 
 
 def lm_loss(model: LM, batch, *, ctx: Ctx | None = None):
     """batch: dict(tokens (B, S), labels (B, S), [mask]).  Returns
-    (ce + aux, {"ce", "aux"}); ``aux`` is 0, no ported kind having an
-    auxiliary loss (the reference adds the MoE kinds' here)."""
-    logits = apply_lm(model, batch["tokens"], ctx=ctx)
+    (ce + aux, {"ce", "aux"}): ``aux`` is the attn_moe blocks' summed aux
+    loss (0 for a model without them), as in the reference."""
+    logits, aux = _forward(model, batch["tokens"], ctx)
     ce = cross_entropy_loss(logits, batch["labels"], batch.get("mask"))
-    aux = torch.zeros((), dtype=torch.float32, device=ce.device)
     return ce + aux, {"ce": ce, "aux": aux}
 
 
@@ -723,8 +793,9 @@ def count_params(model: nn.Module) -> int:
 
 def count_active_params(cfg: LMConfig) -> int:
     """The reference's ``count_active_params`` (the 6·N·D convention's N,
-    from the config alone): each block's projection weights, the shared
-    attn block once, the embedding and an untied head.  Norm scales,
+    from the config alone): each block's projection weights (an attn_moe
+    block's router, top-k experts and shared expert), the shared attn
+    block once, the embedding and an untied head.  Norm scales,
     biases, the conv and the mixers' small vectors are left out, as the
     reference leaves them out."""
     d = cfg.d_model
@@ -736,6 +807,8 @@ def count_active_params(cfg: LMConfig) -> int:
         reps = n if where == "prelude" else n * cfg.n_units
         if kind == "attn":
             total += reps * (attn_p + ffn_p)
+        elif kind == "attn_moe":
+            total += reps * (attn_p + moe_active_param_count(moe_config(cfg)))
         elif kind == "mamba":
             mc = mamba_config(cfg)
             total += reps * (d * (2 * mc.d_inner + 2 * mc.d_state

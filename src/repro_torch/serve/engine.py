@@ -573,8 +573,14 @@ class ServeEngine:
         self.pool.free(slot)
 
     def _decode_step(self):
-        """One decode step for the whole batch (free slots included: their
-        rows compute on stale state and are never read)."""
+        """One decode step for the whole batch, free slots included, as in
+        the reference: a free slot decodes its stale ``last_token`` on its
+        stale cache and its token is never read.  Its row still changes
+        what the active slots compute under an attn_moe block, whose
+        expert capacity counts every row of the call (at kimi's widths and
+        4 slots, one place an expert): a stale token can take an expert's
+        place and drop an active slot's choice.  So the free slots' tokens
+        and caches follow the reference's exactly."""
         sm = _serve_metrics()
         with torch.no_grad(), obs.trace(
                 "serve.decode_step", batch=int(self.active.sum())) as sp:

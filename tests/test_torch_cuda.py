@@ -1044,3 +1044,78 @@ def test_recurrent_lm_on_card_matches_cpu(card, arch):
     for got, want in zip(outs["cuda"], outs["cpu"]):
         assert _err_ok(got.cpu(), want, 1e-4)
     assert _err_ok(outs["cuda"][2].cpu(), outs["cpu"][0][:, 18:], 1e-4)
+
+
+@pytest.mark.parametrize("cf", [1.25, 0.25])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_moe_layer_on_card_matches_the_per_expert_loop(card, dtype, cf):
+    """The MoE layer (D 256, 16 experts, top-4, hidden 128, a shared
+    expert) on the card at 1 x 512 and 1 x 4 tokens against
+    ``moe_per_expert``, the loop over the experts: 1e-5 of the largest
+    magnitude in float32, 1e-2 in bfloat16; at capacity factor 0.25 the
+    512-token call drops pairs, and the loop counts as many as the
+    layer's dispatch keeps out."""
+    from repro_torch.models.layers import DTypePolicy
+    from repro_torch.models.moe import (MoE, MoEConfig, capacity, dispatch,
+                                        moe_per_expert, route)
+
+    cfg = MoEConfig(dim=256, n_experts=16, top_k=4, d_ff=128,
+                    capacity_factor=cf, shared_expert_ff=64)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    layer = MoE(cfg, DTypePolicy(dtype, dtype, torch.float32),
+                generator=gen, device="cuda")
+    tol = 1e-5 if dtype == torch.float32 else 1e-2
+    for t in (512, 4):
+        x = torch.randn((1, t, 256), generator=gen, device="cuda").to(dtype)
+        with torch.no_grad():
+            y, aux = layer(x)
+            plain, dropped, pairs = moe_per_expert(layer, x)
+            _, experts, _ = route(x[0], layer.router, cfg)
+            _, kept = dispatch(experts, capacity(cfg, t), 16)
+        assert y.dtype == dtype and torch.isfinite(aux)
+        assert _err_ok(y, plain, tol)
+        assert (dropped, pairs) == (int((~kept).sum()), t * 4)
+        if t == 512:
+            assert (dropped > 0) == (cf < 1)
+
+
+@pytest.mark.parametrize("arch", ["kimi-k2-1t-a32b", "grok-1-314b"])
+def test_moe_lm_on_card_matches_cpu(card, arch):
+    """The reduced kimi (a dense attn layer, then attn_moe with a shared
+    expert) and grok under the f32 policy: apply_lm, lm_prefill, a chain
+    of chunks and 3 decode steps on the card against the same weights on
+    the CPU (logits 1e-4), with no scan launched; the loss and its aux
+    within 1e-5 relative."""
+    from repro_torch.configs.base import get_arch
+
+    cfg = with_precision(get_arch(arch).reduced(), "f32")
+    cpu = lm.LM(cfg, device="cpu", generator=torch.Generator().manual_seed(3))
+    gpu = lm.LM(cfg, device="meta")
+    gpu.load_state_dict({k: v.cuda() for k, v in cpu.state_dict().items()},
+                        assign=True)
+    toks = torch.randint(0, cfg.vocab, (2, 21),
+                         generator=torch.Generator().manual_seed(4))
+    outs = {}
+    cuda_lib.clear_counts()
+    for name, model, t in (("cpu", cpu, toks), ("cuda", gpu, toks.cuda())):
+        with torch.no_grad():
+            full = lm.apply_lm(model, t)
+            logits, caches = lm.lm_prefill(model, t[:, :18], 32)
+            c, parts = lm.init_lm_cache(cfg, 2, 32, device=t.device), []
+            for lo in (0, 6, 12):
+                part, c = lm.lm_prefill_chunk(model, t[:, lo:lo + 6], c, lo)
+                parts.append(part)
+            steps = []
+            for i in range(18, 21):
+                lg, caches = lm.lm_decode_step(model, t[:, i:i + 1], caches)
+                steps.append(lg)
+            loss, parts_ = lm.lm_loss(model, {"tokens": t[:, :-1],
+                                              "labels": t[:, 1:]})
+        outs[name] = (full, logits, torch.cat(parts, 1), torch.cat(steps, 1),
+                      torch.stack([loss, parts_["aux"]]))
+    assert not cuda_lib.launch_counts and not cuda_lib.plain_calls
+    for got, want in zip(outs["cuda"][:4], outs["cpu"][:4]):
+        assert _err_ok(got.cpu(), want, 1e-4)
+    torch.testing.assert_close(outs["cuda"][4].cpu(), outs["cpu"][4],
+                               rtol=1e-5, atol=0)
+    assert outs["cpu"][4][1] > 0

@@ -342,28 +342,32 @@ def test_configs_match_the_reference():
 
 
 def test_registry_runs_only_what_the_port_runs():
-    """The archs still to port (the MoE, VL and whisper configs) and the
-    kinds still to port (attn_moe, xattn) raise, each naming its item."""
-    ported = ["granite-3-2b", "qwen1.5-32b", "qwen2-1.5b", "qwen2-1.5b-gspn",
-              "qwen2.5-3b", "xlstm-1.3b", "zamba2-2.7b"]
+    """The archs still to port (the VL and whisper configs) and the kind
+    still to port (xattn) raise, each naming its item; the MoE archs and
+    the attn_moe kind are registered."""
+    ported = ["granite-3-2b", "grok-1-314b", "kimi-k2-1t-a32b", "qwen1.5-32b",
+              "qwen2-1.5b", "qwen2-1.5b-gspn", "qwen2.5-3b", "xlstm-1.3b",
+              "zamba2-2.7b"]
     assert tbase.list_archs() == ported
     assert tbase.get_arch("qwen2-1.5b-gspn").full().n_layers == 28
-    remaining = {"kimi-k2-1t-a32b": "item 3.6.3", "grok-1-314b": "item 3.6.3",
-                 "qwen2-vl-72b": "item 3.6", "whisper-base": "item 3.6"}
+    for name in ("kimi-k2-1t-a32b", "grok-1-314b"):
+        assert tbase.get_arch(name).family == "moe"
+    remaining = {"qwen2-vl-72b": "item 3.6", "whisper-base": "item 3.6"}
     assert sorted(set(jbase.list_archs()) - set(ported)) == sorted(remaining)
     for name, item in remaining.items():
-        with pytest.raises(NotImplementedError, match=f"ROADMAP.md §1 {item}"):
+        with pytest.raises(NotImplementedError,
+                           match=f"ROADMAP.md §1 {item}"):
             tbase.get_arch(name)
     with pytest.raises(KeyError):
         tbase.get_arch("no-such-arch")
-    assert sorted(lm.NOT_PORTED_KINDS) == ["attn_moe", "xattn"]
-    for kind, item in (("attn_moe", "item 3.6.3"), ("xattn", "item 3.6")):
-        cfg = dataclasses.replace(tq.reduced(), unit=((kind, 2),))
-        with pytest.raises(NotImplementedError, match=item):
-            lm.LM(cfg, device="meta")
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            lm.init_lm_cache(cfg, 1, 8, device="cpu")
-        assert not lm.supports_chunked_prefill(cfg)
+    assert sorted(lm.NOT_PORTED_KINDS) == ["xattn"]
+    assert "attn_moe" in lm.KINDS
+    cfg = dataclasses.replace(tq.reduced(), unit=(("xattn", 2),))
+    with pytest.raises(NotImplementedError, match="item 3.6"):
+        lm.LM(cfg, device="meta")
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        lm.init_lm_cache(cfg, 1, 8, device="cpu")
+    assert not lm.supports_chunked_prefill(cfg)
     with pytest.raises(ValueError, match="unknown block kind"):
         lm.LM(dataclasses.replace(tq.reduced(), unit=(("conv", 2),)),
               device="meta")
