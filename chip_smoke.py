@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's main paths (vision serving and training, the
 four-direction launch ladder, LM serving and LM training on the GSPN-2
-mixer, on attention, on the SSM and xLSTM mixers and on the mixture of
-experts) on one CUDA card and hold every CUDA kernel against its plain
-PyTorch version.
+mixer, on attention, on the SSM and xLSTM mixers, on the mixture of
+experts, on M-RoPE with vision embeddings and on whisper's encoder and
+cross-attention) on one CUDA card and hold every CUDA kernel against its
+plain PyTorch version.
 
 Run from the root of a checkout, with no arguments:
 
@@ -161,8 +162,8 @@ Phases, each of which fails the run on any error:
    xlstm's (4 of 1024 x 1025, mLSTM decays), 1024 and 1023 tokens (the
    latter as 1023 chunks of one), f32, 1e-4 of the largest magnitude;
    the causal conv streamed against its full pass, bit for bit; then for
-   ``zamba2-2.7b`` and ``xlstm-1.3b`` at full width and a third of their
-   depth (3 of zamba2's 9 units, 2 of xlstm's 6) with seeded weights: (b)
+   ``zamba2-2.7b`` and ``xlstm-1.3b`` at full width and a fraction of their
+   depth (2 of zamba2's 9 units, 1 of xlstm's 6) with seeded weights: (b)
    under the f32 policy a prefill of 2048 and 16 decode steps against
    ``apply_lm`` over the 2064 tokens, at 1e-4 of
    the largest logit or four times the model's own f32 rounding noise
@@ -203,6 +204,44 @@ Phases, each of which fails the run on any error:
    nonzero (the router's and each expert's rows of every slab), a
    profiled call; then two AdamW steps through ``launch/train.py
    --reduced`` on the card (a whole step at full width does not fit).
+16. the VL family (``vl ...`` lines, phase ``lm vl``; no kernel of the
+   port and no scan runs on it): (a) ``apply_mrope`` at qwen2-vl's head
+   shape, (1, 2048, 64, 128), sections 16/24/24, three distinct planes
+   (a patch grid, then text) against an f64 evaluation of the f32
+   angles, 1e-5 of the largest magnitude, and three equal planes bit for
+   bit ``apply_rope``; then ``qwen2-vl-72b`` at full width and 2 of its
+   80 layers with seeded weights: (b) under the f32 policy
+   ``lm_prefill`` of 2048 tokens, the first 1024 vision embeddings,
+   against ``apply_lm``, 4 decode steps against ``apply_lm`` over 2052
+   tokens, the text chain of 2 x 1024 chunks against the one-shot
+   prefill, at 1e-4 of the largest logit or four times the noise control
+   (``apply_lm`` over two copies against one), and ``apply_lm`` at
+   (3, B, S) ids of three equal planes bit for bit the (B, S) call; (c)
+   under its own policy (f32 weights, bf16 products) the engine over the
+   serving phase's requests (4 slots, chunks of 1024, ``max_len`` 4112),
+   then one image request (2048 prompt positions, 1024 of them vision
+   embeddings, 16 greedy tokens): TTFT, tok/s, decode step and chunk ms,
+   device time, idle share; (d) ``lm_loss`` and gradients at 1 x 4096
+   with 2048 vision positions, ``remat="unit"``: the median of 2 after a
+   warm-up, tokens/s, peak memory, every gradient finite and nonzero;
+   then two AdamW steps through ``launch/train.py --reduced``.
+17. the encoder-decoder family (``audio ...`` lines, phase ``lm audio``;
+   no kernel of the port and no scan runs on it): (a) the encoder's
+   non-causal self-attention at 1 x 1500 frames (375 key blocks of 4)
+   against the dense non-causal path, forward and gradients, 1e-5 of the
+   largest magnitude; then ``whisper-base`` whole with seeded weights:
+   (b) under the f32 policy, 4 clips with prompts of 4, 16, 40 and 64
+   tokens, ``lm_encode`` and ``lm_prefill(enc_kv=)`` against
+   ``apply_lm(enc_frames=)`` and 8 decode steps against ``apply_lm``,
+   ``max_len`` 448, at 1e-4 of the largest logit or four times the noise
+   control; (c) under its own policy 4 clips batched, a prompt of 4
+   tokens and 32 greedy tokens each: the encoder's, the prefill's and a
+   decode step's ms, tok/s, the idle share and the share of a decode
+   step's device time under the ``lm.cross_attention`` spans, and the
+   engine's refusal of the model; (d) two AdamW steps of the whole model
+   through ``launch/train.py`` at 4 x 448 tokens and 1500 frames: step
+   seconds, every moment finite, the encoder's nonzero, and
+   ``xattn.wk`` and ``xattn.wv``'s exactly 0 (their gradients were).
 
 It prints a ``{"kernels": [...]}`` line and, last, the ``{"ok": true, ...}``
 line.
@@ -2474,10 +2513,11 @@ def sp_phase():
 
 # The SSM and xLSTM families (``ssm ...`` lines).
 SSM_ARCHS = ("zamba2-2.7b", "xlstm-1.3b")
-# Each family runs at full width and a third of its depth (3 of zamba2's
-# 9 units, 2 of xlstm's 6): at full depth the phase took 317-436 s of the
-# smoke's 1200 s (PERF.md §4), with the MoE phase still to come.
-SSM_UNITS = {"zamba2-2.7b": 3, "xlstm-1.3b": 2}
+# Each family runs at full width and a fraction of its depth (2 of
+# zamba2's 9 units, 1 of xlstm's 6): at full depth the phase took 317-436
+# s of the smoke's 1200 s, and at 3 and 2 units 145 s, which with the VL
+# and audio phases put the smoke past 1000 s (PERF.md §4).
+SSM_UNITS = {"zamba2-2.7b": 2, "xlstm-1.3b": 1}
 SSM_CORE = {"zamba2": (80, 64, 64), "xlstm": (4, 1024, 1025)}
 SSM_CORE_LENS = (1024, 1023)
 SSM_PROMPTS = SERVE_PROMPTS + (1023,)
@@ -3108,17 +3148,18 @@ def _moe_whole(arch, model):
     torch.cuda.empty_cache()
 
 
-def _moe_serve(arch, model):
+def _moe_serve(arch, model, tag=None):
     """(c) The engine (MOE_SLOTS slots, chunks of SERVE_CHUNK, greedy,
     max_len MOE_MAX_LEN) over SERVE_PROMPTS, SERVE_NEW new tokens each:
     TTFT, tok/s, the median decode step and chunk, their device time, idle
-    share and top kernels (profiler), peak memory, KV bytes a slot."""
+    share and top kernels (profiler), peak memory, KV bytes a slot.  The
+    lines start with ``tag`` (``moe <arch> serve`` by default)."""
     from repro_torch import obs
     from repro_torch.models import lm
     from repro_torch.serve.engine import Request, ServeEngine
 
     cfg = model.cfg
-    tag = f"moe {arch} serve"
+    tag = tag or f"moe {arch} serve"
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     eng = ServeEngine(model, batch_size=MOE_SLOTS, max_len=MOE_MAX_LEN,
@@ -3253,24 +3294,8 @@ def _moe_train():
     # A whole AdamW step at this cut does not fit one card: with bf16
     # moments it ran out of memory at 72.9 GiB (PERF.md §7).  The step
     # runs through the train launcher on the reduced config, on the card.
-    import shutil
-
-    from repro_torch.launch import train as launch_train
-
-    ckpt = ROOT / "build" / "moe_ckpt"
-    shutil.rmtree(ckpt, ignore_errors=True)
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    tr = launch_train.main(["--arch", arch, "--reduced", "--steps", "2",
-                            "--batch", "2", "--seq", "64", "--ckpt-dir",
-                            str(ckpt)])
-    print(f"{tag} launch/train.py --reduced on {tr.device}: {tr.step} AdamW "
-          f"steps, losses {tr.history}, "
-          f"{(time.perf_counter() - t0) * 1e3:.3f} ms; peak memory "
-          f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB", flush=True)
-    if tr.step != 2 or tr.device.type != "cuda" or \
-            not all(map(math.isfinite, tr.history)):
-        raise AssertionError(f"{tag}: the launcher's AdamW steps failed")
+    _launch_train(tag, ["--arch", arch, "--reduced", "--steps", "2",
+                        "--batch", "2", "--seq", "64"], "moe_ckpt")
 
 
 def moe_phase():
@@ -3299,6 +3324,565 @@ def moe_phase():
     if not any(kimi_shares):
         raise AssertionError("moe kimi: no case of the layer dropped a pair")
     _moe_train()
+
+
+# The VL family (``vl ...`` lines, phase ``lm vl``): qwen2-vl-72b at full
+# width, its depth cut to VL_LAYERS of 80 (4 246 794 240 parameters, 17.0
+# GB in f32; at 4 layers the smoke ran past 1000 s, PERF.md §4), seeded
+# weights; the vision frontend is the reference's stub: random
+# embeddings in place of the first positions.
+VL_ARCH = "qwen2-vl-72b"
+VL_LAYERS = 2
+VL_VISION = 1024
+VL_DECODE = 4
+VL_IMAGE_DECODE = 16
+VL_TRAIN = (4096, 2048)          # tokens, vision positions
+VL_TRAIN_STEPS = 2
+
+
+def _vl_model():
+    """The cut model in f32 on the card, weights from a seeded generator."""
+    from repro_torch.configs.base import get_arch, with_precision
+    from repro_torch.models import lm
+
+    full = get_arch(VL_ARCH).full()
+    cfg = with_precision(dataclasses.replace(
+        full, unit=(("attn", VL_LAYERS),), n_layers=VL_LAYERS), "f32")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = lm.LM(cfg, device="cuda",
+                  generator=torch.Generator(device="cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    nbytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    print(f"vl {VL_ARCH}: {lm.count_params(model)} parameters ({nbytes} "
+          f"bytes; {VL_LAYERS} of {full.n_layers} layers; d_model "
+          f"{cfg.d_model}, {cfg.n_heads} heads over {cfg.n_kv_heads}, head "
+          f"dim {cfg.hd}, d_ff {cfg.d_ff}, vocab {cfg.vocab}, M-RoPE "
+          f"{cfg.mrope_sections}, theta {cfg.rope_theta}), set-up "
+          f"{time.perf_counter() - t0:.3f} s, peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB", flush=True)
+    return cfg, model
+
+
+def _grid_positions(b, s, sv, device):
+    """(3, b, s) ids as Qwen2-VL gives an image: frame 0, a row and a
+    column of a sqrt(sv)-wide patch grid, then text at max + 1 on."""
+    side = math.isqrt(sv)
+    i = torch.arange(sv, device=device)
+    grid = torch.stack([torch.zeros_like(i), i // side, i % side])
+    text = torch.arange(s - sv, device=device) + side
+    pos = torch.cat([grid, text.expand(3, -1)], dim=1)
+    return pos[:, None].expand(3, b, s).contiguous()
+
+
+def _vl_mrope():
+    """(a) apply_mrope at the model's head shape, (1, 2048, 64, 128), with
+    three distinct planes against an f64 evaluation (1e-5 of the largest
+    magnitude), and with three equal planes bit for bit apply_rope.  The
+    f64 evaluation takes the angles as f32 rounds them (position times
+    frequency, as the reference and rope compute them): at text position
+    1 000 an f32 angle is off by up to 3e-5 rad, a rounding of rope
+    itself, which the line prints beside the bar."""
+    from repro_torch.models.layers import apply_mrope, apply_rope, rope_freqs
+
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    x = torch.randn((1, CHECK_LEN, 64, 128), generator=gen, device="cuda")
+    pos = _grid_positions(1, CHECK_LEN, VL_VISION, "cuda")
+    sections, theta = (16, 24, 24), 1e6
+    got = apply_mrope(x, pos, sections, theta)
+    freqs = 1.0 / (theta ** (torch.arange(0, 128, 2, device="cuda",
+                                          dtype=torch.float64) / 128))
+    plane = torch.repeat_interleave(torch.arange(3, device="cuda"),
+                                    torch.tensor(sections, device="cuda"))
+    sel = pos.permute(1, 2, 0)[..., plane]
+
+    def rotated(ang):
+        cos, sin = torch.cos(ang)[:, :, None], torch.sin(ang)[:, :, None]
+        x1, x2 = x.double().chunk(2, dim=-1)
+        return torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+
+    f32 = rope_freqs(128, theta, device="cuda")
+    err = _rel_err(got, rotated((sel.float() * f32).double()))
+    err_exact = _rel_err(got, rotated(sel.double() * freqs))
+    flat = pos[1]
+    same = torch.equal(apply_mrope(x, flat[None].expand(3, -1, -1),
+                                   sections, theta),
+                       apply_rope(x, flat, theta))
+    ms = _wall_s(lambda: apply_mrope(x, pos, sections, theta)) * 1e3
+    rope_ms = _wall_s(lambda: apply_rope(x, flat, theta)) * 1e3
+    print(f"vl mrope (1, {CHECK_LEN}, 64, 128) sections {sections}: "
+          f"max_abs_err / largest vs f64 of the f32 angles {err:.3e} (tol "
+          f"1e-5), vs f64 angles {err_exact:.3e}; equal planes "
+          f"bit-equal to rope {same}; {ms:.3f} ms, rope {rope_ms:.3f} ms",
+          flush=True)
+    if not (err <= 1e-5 and same):
+        raise AssertionError("vl mrope: disagrees")
+
+
+def _vl_f32(model):
+    """(b) Under f32: lm_prefill of 1 x CHECK_LEN tokens, the first
+    VL_VISION of them vision embeddings, against apply_lm; VL_DECODE
+    decode steps against apply_lm over the extended tokens; a chain of
+    text chunks of SERVE_CHUNK against the one-shot prefill; apply_lm at
+    (3, B, S) ids of three equal planes bit for bit the 2-D call.  Bar
+    1e-4 of the largest logit, or four times the model's own rounding
+    noise (apply_lm over 2 copies against 1) where that is larger."""
+    from repro_torch.models import lm
+
+    cfg = model.cfg
+    n = CHECK_LEN + VL_DECODE
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    toks = torch.randint(0, cfg.vocab, (1, n), device="cuda", generator=gen)
+    ve = torch.randn((1, VL_VISION, cfg.d_model), generator=gen,
+                     device="cuda")
+    one = toks[:, :CHECK_LEN]
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        pre, caches = lm.lm_prefill(model, one, n, vision_embeds=ve)
+        full = lm.apply_lm(model, toks, vision_embeds=ve)
+        e_pre = _rel_err(pre, full[:, :CHECK_LEN])
+        steps = []
+        for i in range(CHECK_LEN, n):
+            step, caches = lm.lm_decode_step(model, toks[:, i:i + 1], caches)
+            steps.append(step)
+        e_dec = _rel_err(torch.cat(steps, 1), full[:, CHECK_LEN:])
+        del caches, steps
+        twice = lm.apply_lm(model, one.expand(2, -1),
+                            vision_embeds=ve.expand(2, -1, -1))[:1]
+        flat = lm.apply_lm(model, one, vision_embeds=ve)
+        noise = _rel_err(twice, flat)
+        del twice
+        planes = lm.apply_lm(model, one, vision_embeds=ve,
+                             positions=torch.arange(
+                                 CHECK_LEN, device="cuda")[None, None]
+                             .expand(3, 1, -1))
+        same = torch.equal(planes, flat)
+        grid = lm.apply_lm(model, one, vision_embeds=ve,
+                           positions=_grid_positions(1, CHECK_LEN, VL_VISION,
+                                                     "cuda"))
+        grid_ok = bool(torch.isfinite(grid).all()) and not torch.equal(
+            grid, flat)
+        del planes, grid, flat
+        text, _ = lm.lm_prefill(model, one, n)
+        c = lm.init_lm_cache(cfg, 1, n, device="cuda")
+        parts = []
+        for lo in range(0, CHECK_LEN, SERVE_CHUNK):
+            part, c = lm.lm_prefill_chunk(model, one[:, lo:lo + SERVE_CHUNK],
+                                          c, lo)
+            parts.append(part)
+        e_chain = _rel_err(torch.cat(parts, 1), text)
+        del parts, c, text
+    bar = max(1e-4, 4 * noise)
+    print(f"vl f32: max_abs_err / largest logit: prefill of {CHECK_LEN} "
+          f"({VL_VISION} vision) vs apply_lm {e_pre:.3e}, {VL_DECODE} decode "
+          f"steps vs apply_lm of {n} {e_dec:.3e}, chain "
+          f"{CHECK_LEN // SERVE_CHUNK} x {SERVE_CHUNK} vs one-shot "
+          f"{e_chain:.3e}; noise control (2 copies vs 1) {noise:.3e}, bar "
+          f"{bar:.3e}; (3, B, S) equal planes bit-equal to (B, S) {same}; "
+          f"patch-grid ids finite and other than text ids {grid_ok}; "
+          f"{time.perf_counter() - t0:.3f} s", flush=True)
+    if not (e_pre <= bar and e_dec <= bar and e_chain <= bar and same
+            and grid_ok and torch.isfinite(full).all()):
+        raise AssertionError("vl f32: the paths disagree")
+    del full, pre
+    torch.cuda.empty_cache()
+
+
+def _vl_image(model):
+    """(c) One image request under the model's own policy: lm_prefill of a
+    CHECK_LEN-token prompt whose first VL_VISION positions are vision
+    embeddings, then VL_IMAGE_DECODE greedy decode steps: TTFT, the
+    median step, tok/s, the idle share of a step."""
+    from repro_torch.models import lm
+
+    cfg = model.cfg
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    toks = torch.randint(0, cfg.vocab, (1, CHECK_LEN), device="cuda",
+                         generator=gen)
+    ve = torch.randn((1, VL_VISION, cfg.d_model), generator=gen,
+                     device="cuda")
+    with torch.no_grad():
+        lm.lm_prefill(model, toks, MOE_MAX_LEN, vision_embeds=ve)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, caches = lm.lm_prefill(model, toks, MOE_MAX_LEN,
+                                       vision_embeds=ve)
+        tok = logits[:, -1:].argmax(-1)
+        torch.cuda.synchronize()
+        ttft = time.perf_counter() - t0
+        times, out = [], [int(tok)]
+        for _ in range(VL_IMAGE_DECODE - 1):
+            t1 = time.perf_counter()
+            logits, caches = lm.lm_decode_step(model, tok, caches)
+            tok = logits[:, -1:].argmax(-1)
+            out.append(int(tok))
+            times.append(time.perf_counter() - t1)
+        total = time.perf_counter() - t0
+
+        def step():
+            return lm.lm_decode_step(model, tok, caches)
+
+        print(f"vl image request (own policy): prompt {CHECK_LEN} "
+              f"({VL_VISION} vision), TTFT {ttft * 1e3:.3f} ms, "
+              f"{VL_IMAGE_DECODE} tokens in {total:.3f} s "
+              f"({VL_IMAGE_DECODE / total:.3f} tok/s), decode step median "
+              f"{statistics.median(times) * 1e3:.3f} ms; tokens {out}",
+              flush=True)
+        _profile(step, _wall_s(step), "vl image decode step (1 slot)")
+    if not all(0 <= t < cfg.vocab for t in out):
+        raise AssertionError("vl image request: wrong tokens")
+    del caches, logits
+    torch.cuda.empty_cache()
+
+
+def _vl_train(model):
+    """(d) lm_loss and its gradients at 1 x VL_TRAIN[0] tokens, the first
+    VL_TRAIN[1] of them vision embeddings, remat "unit", the model's own
+    policy: one warm-up, VL_TRAIN_STEPS timed calls: ms, tokens/s, peak
+    memory; every gradient finite and nonzero.  Then two AdamW steps of
+    the reduced config through launch/train.py (at this cut AdamW's f32
+    moments would add 48 GB to the 48 GB of weights and gradients)."""
+    from repro_torch.data.pipeline import DataConfig, host_batch, to_device
+    from repro_torch.models import lm
+
+    cfg = model.cfg
+    seq, sv = VL_TRAIN
+    if cfg.remat != "unit":
+        raise AssertionError(f"{VL_ARCH} full() rematerialises {cfg.remat!r}")
+    tag = "vl train"
+    params = list(model.parameters())
+    names = [nm for nm, _ in model.named_parameters()]
+    dcfg = DataConfig(vocab=cfg.vocab, seq_len=seq, global_batch=1,
+                      vision_len=sv, d_model=cfg.d_model)
+
+    def loss_and_grads(b):
+        loss, _ = lm.lm_loss(model, b)
+        return loss, torch.autograd.grad(loss, params)
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    b = to_device(host_batch(dcfg, 0), "cuda")
+    t0 = time.perf_counter()
+    loss_and_grads(b)
+    torch.cuda.synchronize()
+    print(f"{tag} warm-up 1 x {seq}: "
+          f"{(time.perf_counter() - t0) * 1e3:.3f} ms", flush=True)
+    times = []
+    for i in range(VL_TRAIN_STEPS):
+        b = to_device(host_batch(dcfg, 1 + i), "cuda")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss, grads = loss_and_grads(b)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        if i + 1 < VL_TRAIN_STEPS:
+            del grads
+    dt = statistics.median(times)
+    bad = [nm for nm, g in zip(names, grads)
+           if not (torch.isfinite(g).all() and g.abs().max() > 0)]
+    print(f"{tag} 1 x {seq} tokens ({sv} vision), own policy, remat unit, "
+          f"lm_loss and gradients: median {dt * 1e3:.3f} ms of "
+          f"{VL_TRAIN_STEPS} ({[round(t * 1e3, 3) for t in times]}), "
+          f"{seq / dt:.1f} tokens/s; peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB; loss "
+          f"{loss.item():.6g}; {len(names)} gradients, {len(bad)} not "
+          f"finite and nonzero {bad[:5]}", flush=True)
+    if bad or not math.isfinite(loss.item()):
+        raise AssertionError(f"{tag}: loss or gradients wrong")
+    del grads, loss, b, params
+    torch.cuda.empty_cache()
+    _launch_train(tag, ["--arch", VL_ARCH, "--reduced", "--steps", "2",
+                        "--batch", "2", "--seq", "64"], "vl_ckpt")
+
+
+def _scans_ran(tag):
+    """Fail if a GSPN scan ran since the counters were last set to 0."""
+    from repro_torch.kernels import cuda_lib
+
+    if cuda_lib.launch_counts or cuda_lib.plain_calls:
+        raise AssertionError(f"{tag}: a scan ran: "
+                             f"{dict(cuda_lib.launch_counts)}, "
+                             f"{dict(cuda_lib.plain_calls)}")
+
+
+def _launch_train(tag, argv, ckpt_name):
+    """Two AdamW steps through launch/train.py on the card with tracing
+    on: the steps' seconds (its ``train.step`` spans) and losses.  The
+    launcher sets the counters to 0, so those of the phase so far are read
+    first.  Returns the Trainer."""
+    import shutil
+
+    from repro_torch import obs
+    from repro_torch.launch import train as launch_train
+
+    _scans_ran(tag)
+    ckpt = ROOT / "build" / ckpt_name
+    shutil.rmtree(ckpt, ignore_errors=True)
+    torch.cuda.reset_peak_memory_stats()
+    obs.clear()
+    obs.enable()
+    try:
+        t0 = time.perf_counter()
+        tr = launch_train.main(argv + ["--ckpt-dir", str(ckpt)])
+        dt = time.perf_counter() - t0
+        steps = [round(sp.dur / 1e9, 3) for sp in obs.spans("train.step")]
+    finally:
+        obs.disable()
+    print(f"{tag} launch/train.py {' '.join(argv)} on {tr.device}: "
+          f"{tr.step} AdamW steps of {steps} s, losses {tr.history}, "
+          f"{dt:.3f} s with set-up; peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB", flush=True)
+    if tr.step != 2 or tr.device.type != "cuda" or \
+            not all(map(math.isfinite, tr.history)):
+        raise AssertionError(f"{tag}: the launcher's AdamW steps failed")
+    return tr
+
+
+def vl_phase():
+    """qwen2-vl-72b (``vl ...`` lines): (a) M-RoPE, (b) the f32 cache
+    paths with vision embeddings, (c) the engine on text requests and one
+    image request under the model's own policy (f32 weights, bf16
+    products), (d) loss and gradients, then AdamW through the launcher.
+    No GSPN scan and no kernel of the port runs on these paths."""
+    from repro_torch.kernels import cuda_lib
+
+    torch.cuda.empty_cache()
+    cuda_lib.clear_counts()
+    _vl_mrope()
+    cfg, model = _vl_model()
+    _vl_f32(model)
+    own = _moe_twin(model, compute_dtype=torch.bfloat16)
+    del model
+    # The engine's run sets the counters to 0: read those of the phase.
+    _scans_ran("vl")
+    _moe_serve(VL_ARCH, own, tag="vl serve")
+    _vl_image(own)
+    _vl_train(own)
+    del own
+    torch.cuda.empty_cache()
+    _scans_ran("vl")
+    print("vl: #1-#5 launched 0 times in the phase", flush=True)
+
+
+# The encoder-decoder family (``audio ...`` lines, phase ``lm audio``):
+# whisper-base whole (6 + 6 layers, 98 505 728 parameters), seeded
+# weights; the conv frontend is the reference's stub: random frames.
+AUDIO_ARCH = "whisper-base"
+AUDIO_CLIPS = 4
+AUDIO_PROMPTS = (4, 16, 40, 64)
+AUDIO_CHECK_DECODE = 8
+AUDIO_MAX_LEN = 448              # Whisper's trained context
+AUDIO_PROMPT = 4                 # the start-of-transcript tokens
+AUDIO_NEW = 32
+
+
+def _audio_attention():
+    """(a) The encoder's self-attention at 1 x 1500 frames, 8 heads of 64:
+    blockwise non-causal (block_k 512 halves to 4: 375 blocks) against the
+    dense non-causal path, forward and gradients within 1e-5 of the
+    largest magnitude; ms of each forward."""
+    from repro_torch.models import attention
+
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    q, k, v, ct = (torch.randn((1, 1500, 8, 64), generator=gen,
+                               device="cuda") for _ in range(4))
+    fns = {"blockwise": lambda *a: attention.chunked_attention(
+               *a, causal=False, block_k=512),
+           "dense": lambda *a: attention.full_attention(*a, causal=False)}
+    outs, ms = {}, {}
+    for name, fn in fns.items():
+        ins = [t.clone().requires_grad_() for t in (q, k, v)]
+        out = fn(*ins)
+        outs[name] = (out, *torch.autograd.grad(out, ins, ct))
+        with torch.no_grad():
+            ms[name] = _wall_s(lambda: fn(q, k, v), n=3) * 1e3
+    errs = [_rel_err(g, w) for g, w in zip(outs["blockwise"], outs["dense"])]
+    print(f"audio attention 1 x 1500 non-causal, 375 blocks of 4: "
+          f"max_abs_err / largest vs dense (out, dq, dk, dv) "
+          f"{[f'{e:.3e}' for e in errs]} (tol 1e-5); forward blockwise "
+          f"{ms['blockwise']:.3f} ms, dense {ms['dense']:.3f} ms", flush=True)
+    if max(errs) > 1e-5:
+        raise AssertionError("audio attention: blockwise disagrees")
+
+
+def _audio_model():
+    from repro_torch.configs.base import get_arch, with_precision
+    from repro_torch.models import lm
+
+    cfg = with_precision(get_arch(AUDIO_ARCH).full(), "f32")
+    t0 = time.perf_counter()
+    model = lm.LM(cfg, device="cuda",
+                  generator=torch.Generator(device="cuda").manual_seed(1))
+    torch.cuda.synchronize()
+    print(f"audio {AUDIO_ARCH}: {lm.count_params(model)} parameters "
+          f"({cfg.encoder_layers} encoder + {cfg.n_layers} decoder layers, "
+          f"d_model {cfg.d_model}, {cfg.enc_len} frames, vocab {cfg.vocab}), "
+          f"set-up {time.perf_counter() - t0:.3f} s", flush=True)
+    return cfg, model
+
+
+def _audio_f32(model, frames):
+    """(b) Under f32, each clip with its own prompt (AUDIO_PROMPTS
+    tokens): lm_encode of the clips, each clip's lm_prefill(enc_kv=)
+    against apply_lm(enc_frames=); then AUDIO_CHECK_DECODE decode steps
+    of the clips together, their caches stacked (each row at its own
+    length, as in the engine), against apply_lm over the extended
+    tokens, with max_len AUDIO_MAX_LEN.  apply_lm runs the clips in one
+    batch, each row's tokens followed by padding, which no earlier
+    position reads.  Bar 1e-4 of the largest logit, or four times the
+    noise control (apply_lm over 2 copies of a clip against 1) where that
+    is larger."""
+    from repro_torch.models import lm
+
+    cfg = model.cfg
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    width = max(AUDIO_PROMPTS) + AUDIO_CHECK_DECODE
+    toks = torch.randint(0, cfg.vocab, (len(AUDIO_PROMPTS), width),
+                         device="cuda", generator=gen)
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        kv = lm.lm_encode(model, frames)
+        full = lm.apply_lm(model, toks, enc_frames=frames)
+        pres, caches = [], []
+        for i, n in enumerate(AUDIO_PROMPTS):
+            pre, c = lm.lm_prefill(model, toks[i:i + 1, :n], AUDIO_MAX_LEN,
+                                   enc_kv=tuple(t[i:i + 1] for t in kv))
+            pres.append(pre)
+            caches.append(c)
+        # A stage's leaves carry (n_units, n) before the batch axis.
+        caches = {key: {name: torch.cat([c[key][name] for c in caches], 2)
+                        for name in caches[0][key]} for key in caches[0]}
+        rows = torch.arange(len(AUDIO_PROMPTS), device="cuda")
+        at = torch.tensor(AUDIO_PROMPTS, device="cuda")
+        steps = []
+        for j in range(AUDIO_CHECK_DECODE):
+            step, caches = lm.lm_decode_step(
+                model, toks[rows, at + j][:, None], caches, enc_kv=kv)
+            steps.append(step)
+        steps = torch.cat(steps, 1)
+        errs = [(_rel_err(pre, full[i:i + 1, :n]),
+                 _rel_err(steps[i], full[i, n:n + AUDIO_CHECK_DECODE]))
+                for i, (pre, n) in enumerate(zip(pres, AUDIO_PROMPTS))]
+        one = toks[:1, :AUDIO_PROMPTS[0] + AUDIO_CHECK_DECODE]
+        noise = _rel_err(lm.apply_lm(model, one.expand(2, -1),
+                                     enc_frames=frames[:1].expand(2, -1, -1))
+                         [:1], lm.apply_lm(model, one, enc_frames=frames[:1]))
+    bar = max(1e-4, 4 * noise)
+    print(f"audio f32: max_abs_err / largest logit (prefill vs apply_lm, "
+          f"{AUDIO_CHECK_DECODE} decode steps of the {len(AUDIO_PROMPTS)} "
+          f"clips together vs apply_lm) for prompts "
+          f"{AUDIO_PROMPTS}: {[(f'{a:.3e}', f'{b:.3e}') for a, b in errs]}; "
+          f"noise control {noise:.3e}, bar {bar:.3e}; "
+          f"{time.perf_counter() - t0:.3f} s", flush=True)
+    if max(max(e) for e in errs) > bar:
+        raise AssertionError("audio f32: the paths disagree")
+
+
+def _audio_serve(model, frames):
+    """(c) Under the model's own policy, AUDIO_CLIPS clips batched with a
+    prompt of AUDIO_PROMPT tokens, AUDIO_NEW greedy tokens each: the
+    encoder's, the prefill's and a decode step's ms, tok/s, the idle
+    share and the share of a decode step under the cross-attention's
+    spans; the engine refuses the model."""
+    from repro_torch.models import lm
+    from repro_torch.serve.engine import ServeEngine
+
+    cfg = model.cfg
+    tag = "audio serve"
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    toks = torch.randint(0, cfg.vocab, (AUDIO_CLIPS, AUDIO_PROMPT),
+                         device="cuda", generator=gen)
+    with torch.no_grad():
+        lm.lm_encode(model, frames)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        kv = lm.lm_encode(model, frames)
+        torch.cuda.synchronize()
+        t_enc = time.perf_counter() - t0
+        logits, caches = lm.lm_prefill(model, toks, AUDIO_MAX_LEN, enc_kv=kv)
+        tok = logits[:, -1:].argmax(-1)
+        torch.cuda.synchronize()
+        t_pre = time.perf_counter() - t0 - t_enc
+        times = []
+        for _ in range(AUDIO_NEW - 1):
+            t1 = time.perf_counter()
+            logits, caches = lm.lm_decode_step(model, tok, caches, enc_kv=kv)
+            tok = logits[:, -1:].argmax(-1)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t1)
+        total = time.perf_counter() - t0
+
+        def step():
+            return lm.lm_decode_step(model, tok, caches, enc_kv=kv)
+
+        n = AUDIO_CLIPS * AUDIO_NEW
+        print(f"{tag} (own policy) {AUDIO_CLIPS} clips x {cfg.enc_len} "
+              f"frames, prompt {AUDIO_PROMPT}, {AUDIO_NEW} new tokens each: "
+              f"encoder {t_enc * 1e3:.3f} ms, prefill {t_pre * 1e3:.3f} ms, "
+              f"decode step median {statistics.median(times) * 1e3:.3f} ms; "
+              f"{n} tokens in {total:.3f} s ({n / total:.3f} tok/s)",
+              flush=True)
+        # The idle shares read the wall times measured above: another
+        # eager run of these host-bound calls costs seconds.
+        _profile(step, statistics.median(times), f"{tag} decode step "
+                 f"({AUDIO_CLIPS} clips)", spans="lm.cross_attention")
+        _busy_profile(lambda: lm.lm_encode(model, frames), t_enc,
+                      f"{tag} encoder ({AUDIO_CLIPS} clips)")
+    try:
+        ServeEngine(model, batch_size=AUDIO_CLIPS, max_len=AUDIO_MAX_LEN)
+    except ValueError as exc:
+        print(f"{tag}: the engine refuses {AUDIO_ARCH}: {exc}", flush=True)
+    else:
+        raise AssertionError(f"{tag}: the engine took an encoder-decoder")
+
+
+def _audio_train():
+    """(d) Two AdamW steps of the whole model through launch/train.py at
+    AUDIO_CLIPS x AUDIO_MAX_LEN tokens and enc_len frames: step seconds;
+    every moment finite; the moments of the encoder's and the K/V
+    projection's leaves nonzero (their gradients were), those of every
+    xattn.wk and xattn.wv exactly 0 (their gradients were exact zeros)."""
+    tag = "audio train"
+    tr = _launch_train(tag, ["--arch", AUDIO_ARCH, "--steps", "2", "--batch",
+                             str(AUDIO_CLIPS), "--seq", str(AUDIO_MAX_LEN)],
+                       "audio_ckpt")
+    m, v = tr.state["opt"]["m"], tr.state["opt"]["v"]
+    finite = all(torch.isfinite(t).all() for t in (*m.values(),
+                                                    *v.values()))
+    enc = [n for n in m if n.startswith(("encoder.", "enc_kv_proj."))]
+    dead = [n for n in enc if not m[n].abs().max() > 0]
+    unread = [n for n in m if n.endswith(("xattn.wk", "xattn.wv"))]
+    moved = [n for n in unread if m[n].abs().max() > 0 or v[n].abs().max()]
+    print(f"{tag}: data enc_len {tr.data_cfg.enc_len}; moments finite "
+          f"{finite}; {len(enc)} encoder and K/V leaves, {len(dead)} with a "
+          f"zero moment {dead[:3]}; {len(unread)} xattn.wk/wv leaves, "
+          f"{len(moved)} with a nonzero moment", flush=True)
+    if not finite or dead or moved or len(unread) != 12 or \
+            tr.data_cfg.enc_len != 1500:
+        raise AssertionError(f"{tag}: the gradients are wrong")
+
+
+def audio_phase():
+    """whisper-base (``audio ...`` lines): (a) the encoder's non-causal
+    blockwise attention, (b) the f32 paths against apply_lm, (c) batched
+    greedy decoding under the model's own policy and the engine's
+    refusal, (d) two AdamW steps of the whole model.  No GSPN scan and no
+    kernel of the port runs on these paths."""
+    from repro_torch.kernels import cuda_lib
+
+    torch.cuda.empty_cache()
+    cuda_lib.clear_counts()
+    _audio_attention()
+    cfg, model = _audio_model()
+    frames = torch.randn((AUDIO_CLIPS, cfg.enc_len, cfg.d_model),
+                         generator=torch.Generator(device="cuda")
+                         .manual_seed(6), device="cuda")
+    _audio_f32(model, frames)
+    _audio_serve(_moe_twin(model, compute_dtype=torch.bfloat16), frames)
+    del model
+    _audio_train()
+    _scans_ran("audio")
+    print("audio: #1-#5 launched 0 times in the phase", flush=True)
 
 
 def main() -> int:
@@ -3364,6 +3948,9 @@ def main() -> int:
     phase("lm ssm", ssm_phase)
     # Nor does the MoE family.
     phase("lm moe", moe_phase)
+    # Nor do the VL and encoder-decoder families.
+    phase("lm vl", vl_phase)
+    phase("lm audio", audio_phase)
 
     entries = []
     for row in rows:

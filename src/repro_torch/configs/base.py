@@ -7,15 +7,16 @@ products and streamed scan operands) and ``carry_dtype`` (scan carries and
 accumulators).  ``with_precision`` rewrites an LMConfig to a preset of
 :data:`PRECISIONS`; launchers accept the preset names.
 
-The registry holds the architectures the port runs: the GSPN-2 LM
+The registry holds every architecture of the reference: the GSPN-2 LM
 (``qwen2-1.5b-gspn``), the attention LMs (``qwen2-1.5b``, ``qwen2.5-3b``,
 ``granite-3-2b``, ``qwen1.5-32b``), the hybrid ``zamba2-2.7b`` (Mamba-2
-and a shared attention block), ``xlstm-1.3b`` (mLSTM and sLSTM) and the
-MoE LMs ``kimi-k2-1t-a32b`` and ``grok-1-314b`` (their full configs on
-``meta`` only: neither fits one card); ``get_arch`` of any other
-architecture of the reference raises and names the ROADMAP.md item that
-brings it (:data:`NOT_PORTED`).  ``input_specs`` (the dry run's shape
-stand-ins) waits for ROADMAP.md §1 item 8.
+and a shared attention block), ``xlstm-1.3b`` (mLSTM and sLSTM), the MoE
+LMs ``kimi-k2-1t-a32b`` and ``grok-1-314b``, the vision-language
+``qwen2-vl-72b`` (M-RoPE, vision embeddings) and the encoder-decoder
+``whisper-base``.  The full configs of ``qwen1.5-32b``, the MoE LMs and
+``qwen2-vl-72b`` fit no single card and are built on ``meta`` only.
+``input_specs`` (the dry run's shape stand-ins) waits for ROADMAP.md §1
+item 8.
 """
 
 from __future__ import annotations
@@ -118,14 +119,6 @@ class ArchEntry:
 
 REGISTRY: Dict[str, ArchEntry] = {}
 
-# The reference's architectures the port does not run yet, and the
-# ROADMAP.md §1 item that brings each.
-NOT_PORTED = {
-    "qwen2-vl-72b": "item 3.6 (the other families: M-RoPE and vision "
-                    "embeddings)",
-    "whisper-base": "item 3.6 (the other families: encoder-decoder)",
-}
-
 
 FULL_ATTENTION_SKIP = (
     "full attention is quadratic in context; assignment rule: skip "
@@ -146,6 +139,8 @@ def _populate():
     import repro_torch.configs.qwen2_1_5b  # noqa: F401
     import repro_torch.configs.qwen2_1_5b_gspn  # noqa: F401
     import repro_torch.configs.qwen2_5_3b  # noqa: F401
+    import repro_torch.configs.qwen2_vl_72b  # noqa: F401
+    import repro_torch.configs.whisper_base  # noqa: F401
     import repro_torch.configs.xlstm_1_3b  # noqa: F401
     import repro_torch.configs.zamba2_2_7b  # noqa: F401
 
@@ -154,10 +149,6 @@ def get_arch(name: str) -> ArchEntry:
     _populate()
     if name in REGISTRY:
         return REGISTRY[name]
-    if name in NOT_PORTED:
-        raise NotImplementedError(
-            f"architecture {name!r} is not in the port yet; ROADMAP.md §1 "
-            f"{NOT_PORTED[name]} brings it")
     raise KeyError(f"unknown architecture {name!r}; the port runs "
                    f"{list_archs()}")
 

@@ -3,8 +3,9 @@ image batches for the vision model.
 
 Every batch derives purely from ``(seed, step)``, so a restarted job
 regenerates the same stream for any step; the numbers equal the reference
-package's bit for bit.  This port runs one process, so a host's batch is
-the global one (host sharding comes with ROADMAP.md §1 item 6).  Token
+package's bit for bit, the vision and audio stubs' embeddings included.
+This port runs one process, so a host's batch is the global one (host
+sharding comes with ROADMAP.md §1 item 6).  Token
 streams are Zipf-distributed with a Markov skeleton, so models have
 learnable structure (losses fall in the examples' training runs); the
 reference's uniform streams have no caller.
@@ -24,6 +25,9 @@ class DataConfig:
     seq_len: int
     global_batch: int
     seed: int = 0
+    vision_len: int = 0            # Qwen2-VL stub: vision positions
+    d_model: int = 0               # width of the vision and audio stubs
+    enc_len: int = 0               # whisper stub: encoder frames
 
 
 def _batch_rng(cfg: DataConfig, step: int) -> np.random.Generator:
@@ -52,9 +56,20 @@ def synth_tokens(cfg: DataConfig, step: int) -> np.ndarray:
 
 def host_batch(cfg: DataConfig, step: int) -> dict:
     """The batch of ``step`` as numpy: ``tokens`` and ``labels``
-    (global_batch, seq_len), the labels shifted one token left."""
+    (global_batch, seq_len), the labels shifted one token left; with
+    ``vision_len``, ``vision_embeds`` (global_batch, vision_len, d_model)
+    and with ``enc_len``, ``enc_frames`` (global_batch, enc_len, d_model),
+    standard normal f32 drawn in that order from a fresh generator of the
+    step, as the reference draws them."""
     toks = synth_tokens(cfg, step)
-    return {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    rng = _batch_rng(cfg, step)
+    for name, n in (("vision_embeds", cfg.vision_len),
+                    ("enc_frames", cfg.enc_len)):
+        if n:
+            batch[name] = rng.standard_normal(
+                (cfg.global_batch, n, cfg.d_model)).astype(np.float32)
+    return batch
 
 
 def to_device(batch: dict, device) -> dict:

@@ -29,7 +29,8 @@ shared prefix-state cache, so prompts that share a chunk-aligned prefix
 resume prefill from its cached state (refused for an architecture that
 prefills in one shot, ``zamba2-2.7b`` and ``xlstm-1.3b``, and with
 ``--prefill-chunk 0``); ``--slo-ttft`` seconds, past which predicted
-admissions are counted.
+admissions are counted.  An encoder-decoder ``--arch`` (``whisper-base``)
+is refused: the engine carries no audio frames.
 
 Sequence parallelism (DESIGN.md §8): ``--seq-parallel N`` runs as N
 processes, one per rank, as ``torchrun`` starts them (``RANK``,
@@ -69,7 +70,7 @@ from repro_torch.launch import mesh as lmesh
 from repro_torch.models.lm import (LM, Ctx, count_params,
                                    supports_chunked_prefill)
 from repro_torch.serve.cache import PrefixStateCache
-from repro_torch.serve.engine import Request, ServeEngine
+from repro_torch.serve.engine import Request, ServeEngine, no_audio_message
 from repro_torch.serve.router import Router
 
 
@@ -102,8 +103,10 @@ def main(argv=None):
     largs.add_device_arg(ap)
     largs.add_observability_args(ap)
     args = ap.parse_args(argv)
+    entry = get_arch(args.arch)
+    if entry.full().encoder_layers:
+        ap.error(no_audio_message(args.arch))
     if args.prefix_cache > 0:
-        entry = get_arch(args.arch)
         cfg = entry.reduced() if args.reduced else entry.full()
         if not supports_chunked_prefill(cfg):
             ap.error(f"--prefix-cache needs chunked prefill, which "

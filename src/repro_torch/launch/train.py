@@ -82,7 +82,10 @@ def main(argv=None) -> Trainer:
         AdamWConfig(lr=args.lr, warmup_steps=max(args.steps // 20, 5),
                     total_steps=args.steps),
         DataConfig(vocab=cfg.vocab, seq_len=args.seq,
-                   global_batch=args.batch),
+                   global_batch=args.batch,
+                   vision_len=args.seq // 2 if cfg.family == "vlm" else 0,
+                   enc_len=cfg.enc_len if cfg.family == "audio" else 0,
+                   d_model=cfg.d_model),
         TrainerConfig(ckpt_dir=args.ckpt_dir or str(BUILD / "ckpt" /
                                                      args.arch),
                       ckpt_every=args.ckpt_every),

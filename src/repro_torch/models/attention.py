@@ -19,10 +19,10 @@ softmax run in f32 whatever the inputs' dtype, as in the reference; the
 dense paths divide the logits by √D after the product, the blockwise,
 chunk and decode paths divide q before it.  The products are plain
 ``matmul``/``einsum``: the reference has no Pallas kernel for attention.
-The port's attention is causal self-attention from position 0: the
-reference's ``causal=False`` and ``q_offset`` options, its M-RoPE and its
-cross-attention have no caller until whisper and qwen2-vl (ROADMAP.md §1
-item 3.6) and are not ported.
+The dense and blockwise paths are causal unless ``causal=False`` (whisper's
+encoder and its cross-attention); queries start at position 0: the
+reference's ``q_offset`` has no caller outside its own module and is not
+ported.
 
 With tracing on (``obs.enable()``) each call enters an ``attention.*``
 span, which is a ``torch.profiler.record_function`` range: a profile
@@ -33,7 +33,8 @@ autograd, outside its span).
 
 :class:`Attention` is the layer (``init_attention``, ``_project_qkv``,
 ``_apply_positions``, ``apply_attention`` and ``apply_attention_decode``
-of the reference), with rope on q and k; :func:`init_kv_cache` its cache.
+of the reference), with rope or M-RoPE on q and k, and cross-attention
+over pre-projected keys and values; :func:`init_kv_cache` its cache.
 """
 
 from __future__ import annotations
@@ -44,8 +45,8 @@ import torch
 from torch import nn
 
 from repro_torch import obs
-from repro_torch.models.layers import (DTypePolicy, apply_rope, dense_init,
-                                       new_param, zeros)
+from repro_torch.models.layers import (DTypePolicy, apply_mrope, apply_rope,
+                                       dense_init, new_param, zeros)
 
 NEG_INF = -1e30
 
@@ -55,18 +56,20 @@ def _group_q(q, hkv: int):
     return q.reshape(b, s, hkv, hq // hkv, d)
 
 
-def full_attention(q, k, v):
+def full_attention(q, k, v, *, causal: bool = True):
     """Reference attention.  q (B, Sq, Hq, D), k and v (B, Sk, Hkv, D);
-    query i sees key j iff j <= i."""
+    query i sees key j iff j <= i, or every key when not ``causal``."""
     b, sq, hq, d = q.shape
     hkv = k.shape[2]
     with obs.trace("attention.dense"):
         qg = _group_q(q, hkv).float()
         logits = torch.einsum("bqhgd,bkhd->bhgqk", qg,
                               k.float()) / math.sqrt(d)
-        iq = torch.arange(sq, device=q.device)[:, None]
-        ik = torch.arange(k.shape[1], device=q.device)[None, :]
-        p = torch.softmax(torch.where(ik <= iq, logits, NEG_INF), dim=-1)
+        if causal:
+            iq = torch.arange(sq, device=q.device)[:, None]
+            ik = torch.arange(k.shape[1], device=q.device)[None, :]
+            logits = torch.where(ik <= iq, logits, NEG_INF)
+        p = torch.softmax(logits, dim=-1)
         out = torch.einsum("bhgqk,bkhd->bqhgd", p, v.float())
     return out.reshape(b, sq, hq, d).to(q.dtype)
 
@@ -90,11 +93,13 @@ def _heads_kv(k):
 def _block_logits(qh, kb, lo: int, iq):
     """Logits (B, Hkv, G, Sq, bk) of the scaled queries at positions iq
     (Sq,) against the key block kb (B, Hkv, bk, D) that starts at key
-    ``lo``, causally masked."""
+    ``lo``, causally masked; unmasked when ``iq`` is None."""
     b, hkv, g, sq, d = qh.shape
     bk = kb.shape[2]
     logits = (qh.reshape(b, hkv, g * sq, d) @ kb.transpose(-1, -2)).view(
         b, hkv, g, sq, bk)
+    if iq is None:
+        return logits
     ik = lo + torch.arange(bk, device=qh.device)
     return torch.where(ik[None, :] <= iq[:, None], logits, NEG_INF)
 
@@ -105,11 +110,16 @@ def _pv(p, vb):
     return (p.reshape(b, hkv, g * sq, bk) @ vb).view(b, hkv, g, sq, -1)
 
 
-def _fwd_blocks(qh, kh, vh, block_k: int):
+def _query_positions(sq: int, causal: bool, device):
+    """The queries' positions for the causal mask, None without one."""
+    return torch.arange(sq, device=device) if causal else None
+
+
+def _fwd_blocks(qh, kh, vh, block_k: int, causal: bool):
     """The online-softmax sweep over key blocks: (unnormalised output,
     running maximum, running sum), (B, Hkv, G, Sq, D) / (B, Hkv, G, Sq)."""
     b, hkv, g, sq, d = qh.shape
-    iq = torch.arange(sq, device=qh.device)
+    iq = _query_positions(sq, causal, qh.device)
     m = torch.full((b, hkv, g, sq), NEG_INF, device=qh.device)
     s = torch.zeros((b, hkv, g, sq), device=qh.device)
     acc = torch.zeros((b, hkv, g, sq, d), device=qh.device)
@@ -124,18 +134,18 @@ def _fwd_blocks(qh, kh, vh, block_k: int):
     return acc, m, s
 
 
-def _flash_fwd(q, k, v, block_k: int):
+def _flash_fwd(q, k, v, block_k: int, causal: bool):
     """(output (B, Sq, Hq, D) in q's dtype, log-sum-exp (B, Hkv, G, Sq))."""
     b, sq, hq, d = q.shape
     hkv = k.shape[2]
     qh = _heads_q(q, hkv) / math.sqrt(d)
-    acc, m, s = _fwd_blocks(qh, _heads_kv(k), _heads_kv(v), block_k)
+    acc, m, s = _fwd_blocks(qh, _heads_kv(k), _heads_kv(v), block_k, causal)
     out = acc / torch.clamp(s[..., None], min=1e-30)
     lse = m + torch.log(torch.clamp(s, min=1e-30))
     return out.permute(0, 3, 1, 2, 4).reshape(b, sq, hq, d).to(q.dtype), lse
 
 
-def _flash_bwd(q, k, v, lse, dout, block_k: int):
+def _flash_bwd(q, k, v, lse, dout, block_k: int, causal: bool):
     """The reference's FlashAttention-2-style adjoint: sweep 1 recomputes
     the output blockwise from (q, k, v, lse) for delta = rowsum(dout ·
     out), sweep 2 recomputes each block's probabilities and accumulates
@@ -145,7 +155,7 @@ def _flash_bwd(q, k, v, lse, dout, block_k: int):
     qh = _heads_q(q, hkv) / math.sqrt(d)
     kh, vh = _heads_kv(k), _heads_kv(v)
     do = _heads_q(dout, hkv)                              # (B,Hkv,G,Sq,D)
-    iq = torch.arange(sq, device=q.device)
+    iq = _query_positions(sq, causal, q.device)
     g = qh.shape[2]
     blocks = range(0, kh.shape[2], block_k)
 
@@ -180,32 +190,35 @@ def _flash_bwd(q, k, v, lse, dout, block_k: int):
 
 class _FlashAttention(torch.autograd.Function):
     """The reference's ``_flash_attention`` custom VJP: the forward saves
-    only (q, k, v, lse), and the backward is :func:`_flash_bwd`."""
+    only (q, k, v, lse), and the backward is :func:`_flash_bwd`; both
+    carry the ``causal`` flag."""
 
     @staticmethod
-    def forward(ctx, q, k, v, block_k):
+    def forward(ctx, q, k, v, block_k, causal):
         with obs.trace("attention.blockwise"):
-            out, lse = _flash_fwd(q, k, v, block_k)
+            out, lse = _flash_fwd(q, k, v, block_k, causal)
         ctx.save_for_backward(q, k, v, lse)
-        ctx.block_k = block_k
+        ctx.block_k, ctx.causal = block_k, causal
         return out
 
     @staticmethod
     def backward(ctx, dout):
         q, k, v, lse = ctx.saved_tensors
         with obs.trace("attention.blockwise_bwd"):
-            grads = _flash_bwd(q, k, v, lse, dout, ctx.block_k)
-        return (*grads, None)
+            grads = _flash_bwd(q, k, v, lse, dout, ctx.block_k, ctx.causal)
+        return (*grads, None, None)
 
 
-def chunked_attention(q, k, v, *, block_k: int = 512):
-    """Flash-style causal attention: the online-softmax forward over key
-    blocks and the recomputing two-sweep backward.  ``block_k`` halves
-    until it divides Sk (a 1000-token prompt runs 125 blocks of 8)."""
+def chunked_attention(q, k, v, *, causal: bool = True, block_k: int = 512):
+    """Flash-style attention, causal unless told otherwise: the
+    online-softmax forward over key blocks and the recomputing two-sweep
+    backward.  ``block_k`` halves until it divides Sk, as in the
+    reference: a 1000-token prompt runs 125 blocks of 8, and whisper's
+    1500 frames 375 blocks of 4."""
     sk = k.shape[1]
     while sk % block_k:
         block_k //= 2
-    return _FlashAttention.apply(q, k, v, block_k)
+    return _FlashAttention.apply(q, k, v, block_k, causal)
 
 
 def chunk_prefill_attention(q, k_cache, v_cache, q_offset):
@@ -249,16 +262,18 @@ def decode_attention(q, k_cache, v_cache, cache_len):
 
 @dataclasses.dataclass(frozen=True)
 class AttentionConfig:
-    """The reference's ``AttentionConfig`` for causal self-attention with
-    rope: its ``causal``, ``use_chunked`` and ``mrope_sections`` have one
-    value in the port (True, True, None; the non-causal encoder and M-RoPE
-    come with whisper and qwen2-vl, item 3.6)."""
+    """The reference's ``AttentionConfig``: rope, or M-RoPE over three
+    position planes with ``mrope_sections`` (Qwen2-VL's (16, 24, 24)), and
+    ``causal`` (False in whisper's encoder).  Its ``use_chunked`` has one
+    value in the port, True."""
     dim: int
     n_heads: int
     n_kv_heads: int
     head_dim: int = 0              # 0 => dim // n_heads
     qkv_bias: bool = False
     rope_theta: float = 10000.0
+    mrope_sections: tuple | None = None
+    causal: bool = True
     block_k: int = 512
 
     @property
@@ -267,10 +282,14 @@ class AttentionConfig:
 
 
 class Attention(nn.Module):
-    """GQA attention with rope: ``wq``, ``wk``, ``wv``, ``wo`` (d_in,
-    d_out) and, with ``qkv_bias``, ``bq``, ``bk``, ``bv``.  Parameters are
-    cast to the policy's compute dtype at use, the input too; the output
-    returns in the input's dtype."""
+    """GQA attention with rope or M-RoPE: ``wq``, ``wk``, ``wv``, ``wo``
+    (d_in, d_out) and, with ``qkv_bias``, ``bq``, ``bk``, ``bv``.
+    Parameters are cast to the policy's compute dtype at use, the input
+    too; the output returns in the input's dtype.  As cross-attention
+    (``forward``'s ``kv``) the layer reads pre-projected keys and values
+    and never uses its own ``wk``, ``wv`` (nor ``bk``, ``bv``): their
+    gradients are exact zeros, as in the reference, which projects them
+    and throws them away."""
 
     def __init__(self, cfg: AttentionConfig, policy: DTypePolicy, *,
                  generator, device):
@@ -289,29 +308,54 @@ class Attention(nn.Module):
                 setattr(self, name, new_param((n * hd,), zeros, None,
                                               device, pd))
 
+    def _project(self, xc, w, bias, heads):
+        """xc @ w (+ bias) as (B, S, heads, D), xc already cast."""
+        cast = self.policy.cast
+        y = xc @ cast(w)
+        if self.cfg.qkv_bias:
+            y = y + cast(bias)
+        return y.reshape(*xc.shape[:2], heads, self.cfg.hd)
+
+    def project_q(self, x):
+        """q (B, S, Hq, D) in the compute dtype."""
+        return self._project(self.policy.cast(x), self.wq,
+                             getattr(self, "bq", None), self.cfg.n_heads)
+
     def project_qkv(self, x):
         """q (B, S, Hq, D), k and v (B, S, Hkv, D) in the compute dtype."""
-        cfg, cast = self.cfg, self.policy.cast
-        b, s, _ = x.shape
-        xc = cast(x)
-        q, k, v = xc @ cast(self.wq), xc @ cast(self.wk), xc @ cast(self.wv)
-        if cfg.qkv_bias:
-            q, k, v = q + cast(self.bq), k + cast(self.bk), v + cast(self.bv)
-        return (q.reshape(b, s, cfg.n_heads, cfg.hd),
-                k.reshape(b, s, cfg.n_kv_heads, cfg.hd),
-                v.reshape(b, s, cfg.n_kv_heads, cfg.hd))
+        cfg = self.cfg
+        xc = self.policy.cast(x)
+        q = self._project(xc, self.wq, getattr(self, "bq", None),
+                          cfg.n_heads)
+        k = self._project(xc, self.wk, getattr(self, "bk", None),
+                          cfg.n_kv_heads)
+        v = self._project(xc, self.wv, getattr(self, "bv", None),
+                          cfg.n_kv_heads)
+        return q, k, v
 
     def apply_positions(self, q, k, positions):
-        """Rope on q and k at positions (B, S)."""
-        theta = self.cfg.rope_theta
-        return apply_rope(q, positions, theta), apply_rope(k, positions, theta)
+        """The reference's ``_apply_positions``: nothing without positions;
+        with ``mrope_sections``, M-RoPE at positions (3, B, S), where ids
+        (B, S) stand for three equal planes; else rope at (B, S)."""
+        cfg = self.cfg
+        if positions is None:
+            return q, k
+        if cfg.mrope_sections is not None:
+            if positions.ndim == 2:
+                positions = positions[None].expand(3, *positions.shape)
+            return tuple(apply_mrope(t, positions, cfg.mrope_sections,
+                                     cfg.rope_theta) for t in (q, k))
+        return tuple(apply_rope(t, positions, cfg.rope_theta) for t in (q, k))
 
-    def attend(self, q, k, v):
-        """Causal self-attention over the whole sequence: blockwise when
-        the keys outnumber ``block_k``, else dense."""
+    def attend(self, q, k, v, causal: bool | None = None):
+        """Attention over the whole sequence, causal as the config says
+        unless ``causal`` is given: blockwise when the keys outnumber
+        ``block_k``, else dense."""
+        causal = self.cfg.causal if causal is None else causal
         if k.shape[1] > self.cfg.block_k:
-            return chunked_attention(q, k, v, block_k=self.cfg.block_k)
-        return full_attention(q, k, v)
+            return chunked_attention(q, k, v, causal=causal,
+                                     block_k=self.cfg.block_k)
+        return full_attention(q, k, v, causal=causal)
 
     def project_out(self, out, dtype):
         """(B, S, Hq, D) -> (B, S, dim) through ``wo``, in ``dtype``."""
@@ -320,8 +364,17 @@ class Attention(nn.Module):
         out = out.reshape(b, s, self.cfg.n_heads * self.cfg.hd)
         return (cast(out) @ cast(self.wo)).to(dtype)
 
-    def forward(self, x, positions):
-        """Training / prefill forward of x (B, S, dim) at positions (B, S)."""
+    def forward(self, x, positions=None, kv=None):
+        """Training / prefill forward of x (B, S, dim) at ``positions``
+        ((B, S), or (3, B, S) under M-RoPE; None: no positions).  With
+        ``kv``, pre-projected (k, v) (B, T, Hkv, D), it is
+        cross-attention: only q is projected, nothing is rotated, and
+        every query sees every key (the reference's ``causal and kv is
+        None``)."""
+        if kv is not None:
+            k, v = kv
+            return self.project_out(self.attend(self.project_q(x), k, v,
+                                                 causal=False), x.dtype)
         q, k, v = self.project_qkv(x)
         q, k = self.apply_positions(q, k, positions)
         return self.project_out(self.attend(q, k, v), x.dtype)

@@ -1,7 +1,7 @@
 """Carry the reference package's parameters into the port's modules: the
 vision backbone (``GSPNVision``) and the language model (``LM``, its
-gspn, attn, attn_moe, mamba, mlstm and slstm kinds and the shared attn
-block).
+gspn, attn, attn_moe, xattn, mamba, mlstm and slstm kinds, the shared attn
+block, and whisper's encoder and K/V projection).
 
 The reference keeps its parameters as a pytree: per-block leaves stacked
 along leading depth axes (its blocks are initialised under ``vmap`` and
@@ -27,10 +27,14 @@ _BLOCK_LEAVES = {
     "mlp": ("fc1", "b1", "fc2", "b2"),
 }
 _CONV_MODULES = ("lpu", "lpu2")
-# Leaves of one LM block, by kind, as paths inside the block.  The attn
-# kinds' qkv biases exist only under ``qkv_bias``, and the MoE's shared
-# expert only under ``shared_expert_ff``: each present as a group or not
-# at all.  The MoE's slabs keep their (M, E_loc, ...) shape.
+# Leaves of one LM block, by kind, as paths inside the block, under an
+# rmsnorm and a SwiGLU FFN.  A layernorm adds ``bias`` beside each ``ln*``
+# scale and the GELU MLP takes the FFN's place (``_lm_block_paths``).  The
+# attn kinds' qkv biases exist only under ``qkv_bias``, and the MoE's
+# shared expert only under ``shared_expert_ff``: each present as a group
+# or not at all.  The MoE's slabs keep their (M, E_loc, ...) shape.  The
+# xattn kind's ``xattn/wk`` and ``xattn/wv`` are carried though nothing
+# reads them (the reference keeps them too).
 _LM_BLOCK_LEAVES = {
     "gspn": ("ln1/scale", "mix/down", "mix/w_taps", "mix/w_row",
              "mix/w_lam", "mix/w_u", "mix/up", "ln2/scale", "ffn/gate",
@@ -40,6 +44,9 @@ _LM_BLOCK_LEAVES = {
     "attn_moe": ("ln1/scale", "attn/wq", "attn/wk", "attn/wv", "attn/wo",
                  "ln2/scale", "moe/router", "moe/gate_slab", "moe/up_slab",
                  "moe/down_slab"),
+    "xattn": ("ln1/scale", "attn/wq", "attn/wk", "attn/wv", "attn/wo",
+              "ln_x/scale", "xattn/wq", "xattn/wk", "xattn/wv", "xattn/wo",
+              "ln2/scale", "ffn/gate", "ffn/up", "ffn/down"),
     "mamba": ("ln1/scale", "mix/in_proj", "mix/conv/w", "mix/conv/b",
               "mix/a_log", "mix/dt_bias", "mix/d_skip", "mix/norm/scale",
               "mix/out_proj"),
@@ -47,7 +54,9 @@ _LM_BLOCK_LEAVES = {
     "slstm": ("ln1/scale", "mix/w_in", "mix/r", "mix/b", "mix/out_proj"),
 }
 _QKV_BIAS = ("attn/bq", "attn/bk", "attn/bv")
+_XATTN_BIAS = ("xattn/bq", "xattn/bk", "xattn/bv")
 _SHARED_EXPERT = ("moe/shared/gate", "moe/shared/up", "moe/shared/down")
+_GELU_MLP = ("ffn/fc1", "ffn/b1", "ffn/fc2", "ffn/b2")
 
 
 def _flatten(tree, prefix=()):
@@ -126,12 +135,47 @@ def vision_state_from_jax(params_np) -> dict[str, torch.Tensor]:
 def _lm_block_paths(kind, leaves, prefix):
     """The leaf paths of one ``kind`` block whose leaves sit under
     ``prefix`` in the reference's pytree."""
-    paths = _LM_BLOCK_LEAVES[kind]
-    if prefix + ("attn", "bq") in leaves:
-        paths += _QKV_BIAS
+    layernorm = prefix + ("ln1", "bias") in leaves
+    gelu = prefix + ("ffn", "fc1") in leaves
+    paths = ()
+    for path in _LM_BLOCK_LEAVES[kind]:
+        if gelu and path.startswith("ffn/"):
+            continue
+        paths += (path,)
+        if layernorm and path.startswith("ln"):
+            paths += (path.replace("/scale", "/bias"),)
+    if gelu:
+        paths += _GELU_MLP
+    for head, group in (("attn", _QKV_BIAS), ("xattn", _XATTN_BIAS)):
+        if prefix + (head, "bq") in leaves:
+            paths += group
     if prefix + ("moe", "shared", "gate") in leaves:
         paths += _SHARED_EXPERT
     return paths
+
+
+def _unstack(take, leaves, state, kind, src, dst):
+    """The blocks of one stage, whose ``kind`` leaves sit under ``src`` in
+    the reference's pytree stacked along leading axes (told apart by the
+    rank of ``ln1/scale``), into ``dst.{i}`` or ``dst.{u}.{i}``."""
+    lead = np.asarray(leaves[src + ("ln1", "scale")]).shape[:-1]
+    for path in _lm_block_paths(kind, leaves, src):
+        stacked = take(*src, *path.split("/"))
+        if stacked.shape[:len(lead)] != lead:
+            raise ValueError(
+                f"{'/'.join(src)}: {path} stacks "
+                f"{stacked.shape[:len(lead)]} blocks, expected {lead}")
+        for idx in np.ndindex(*lead):
+            where = ".".join(map(str, idx))
+            state[f"{dst}.{where}.{path.replace('/', '.')}"] = \
+                _lm_leaf(path, stacked[idx])
+
+
+def _norm(take, leaves, state, src, dst):
+    """A norm's ``scale`` (and a layernorm's ``bias``)."""
+    for name in ("scale", "bias"):
+        if src + (name,) in leaves:
+            state[f"{dst}.{name}"] = take(*src, name)
 
 
 def _lm_leaf(path, a):
@@ -145,39 +189,40 @@ def lm_state_from_jax(params_np) -> dict[str, torch.Tensor]:
     given as numpy arrays.
 
     Each stage ``stages/s{i}_{kind}`` (kind ``gspn``, ``attn``,
-    ``attn_moe``, ``mamba``, ``mlstm`` or ``slstm``) stacks its blocks' leaves along leading axes:
-    (n,) for a prelude stage, (n_units, n) for a unit stage, told apart by
-    the rank of ``ln1/scale``.  They unstack into ``stages.s{i}_{kind}.{i}``
-    or ``stages.s{i}_{kind}.{u}.{i}``.  ``shared_attn``, one attn block
-    with no stacking, maps to ``shared_attn``.  Every leaf maps to exactly
-    one entry; a missing leaf raises ``KeyError`` and a leaf left over
-    raises ``ValueError``.
+    ``attn_moe``, ``xattn``, ``mamba``, ``mlstm`` or ``slstm``) stacks its
+    blocks' leaves along leading axes: (n,) for a prelude stage, (n_units,
+    n) for a unit stage, told apart by the rank of ``ln1/scale``.  They
+    unstack into ``stages.s{i}_{kind}.{i}`` or
+    ``stages.s{i}_{kind}.{u}.{i}``.  ``shared_attn``, one attn block with
+    no stacking, maps to ``shared_attn``; whisper's ``encoder/layers``
+    (attn blocks stacked (n,)) to ``encoder.layers.{i}``, with
+    ``encoder/ln_f``, ``encoder/pos_embed`` and ``enc_kv_proj/{wk,wv}``
+    beside them.  Every leaf maps to exactly one entry; a missing leaf
+    raises ``KeyError`` and a leaf left over raises ``ValueError``.
     """
     leaves = dict(_flatten(params_np))
     state: dict[str, np.ndarray] = {}
     take = _taker(leaves)
     state["embed"] = take("embed")
-    state["ln_f.scale"] = take("ln_f", "scale")
+    _norm(take, leaves, state, ("ln_f",), "ln_f")
     if ("head",) in leaves:
         state["head"] = take("head")
     if ("shared_attn", "ln1", "scale") in leaves:
         for path in _lm_block_paths("attn", leaves, ("shared_attn",)):
             state["shared_attn." + path.replace("/", ".")] = take(
                 "shared_attn", *path.split("/"))
+    if ("encoder", "pos_embed") in leaves:
+        _unstack(take, leaves, state, "attn", ("encoder", "layers"),
+                 "encoder.layers")
+        _norm(take, leaves, state, ("encoder", "ln_f"), "encoder.ln_f")
+        state["encoder.pos_embed"] = take("encoder", "pos_embed")
+        for name in ("wk", "wv"):
+            state[f"enc_kv_proj.{name}"] = take("enc_kv_proj", name)
     keys = sorted({p[1] for p in leaves if p[0] == "stages"})
     for key in keys:
         kind = key.split("_", 1)[1]
         if kind not in _LM_BLOCK_LEAVES:
-            raise ValueError(f"stage {key}: the {kind} kind is not ported")
-        lead = np.asarray(leaves[("stages", key, "ln1", "scale")]).shape[:-1]
-        for path in _lm_block_paths(kind, leaves, ("stages", key)):
-            stacked = take("stages", key, *path.split("/"))
-            if stacked.shape[:len(lead)] != lead:
-                raise ValueError(
-                    f"stage {key}: {path} stacks "
-                    f"{stacked.shape[:len(lead)]} blocks, expected {lead}")
-            for idx in np.ndindex(*lead):
-                where = ".".join(map(str, idx))
-                state[f"stages.{key}.{where}.{path.replace('/', '.')}"] = \
-                    _lm_leaf(path, stacked[idx])
+            raise ValueError(f"stage {key}: unknown block kind {kind!r}")
+        _unstack(take, leaves, state, kind, ("stages", key),
+                 f"stages.{key}")
     return _to_state(leaves, state)

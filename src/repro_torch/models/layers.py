@@ -1,7 +1,8 @@
 """Common layers: the vision backbone's, channels-last (NHWC) like the
 reference package, and the language model's (``DTypePolicy``,
-``RMSNorm`` with the reference's hand VJP, ``SwiGLU``,
-``cross_entropy_loss``, rope, and the Mamba-2 mixer's ``CausalConv1d``).
+``RMSNorm`` with the reference's hand VJP, ``SwiGLU``, ``LayerNorm`` and
+``GeluMLP`` (the vision backbone's and whisper's), ``cross_entropy_loss``,
+rope and Qwen2-VL's M-RoPE, and the Mamba-2 mixer's ``CausalConv1d``).
 
 Parameters keep the reference's names and, for dense weights, its
 ``(d_in, d_out)`` layout, so converted parameters map 1:1; convolution
@@ -167,19 +168,29 @@ class LayerNorm(nn.Module):
 
 
 class GeluMLP(nn.Module):
-    """fc1 -> GELU (tanh approximation, the reference's default) -> fc2."""
+    """fc1 -> GELU (tanh approximation, the reference's default) -> fc2,
+    with the biases ``b1`` and ``b2``: x and the parameters cast to the
+    policy's compute dtype, the bias adds and the GELU in it, the output
+    cast back to x's dtype (the reference's ``apply_gelu_mlp``).  Without a
+    ``policy`` the parameters are stored in ``dtype`` and the products run
+    in f32, the vision backbone's policy."""
 
-    def __init__(self, dim: int, hidden: int, *, generator, device,
+    def __init__(self, dim: int, hidden: int,
+                 policy: DTypePolicy | None = None, *, generator, device,
                  dtype=torch.float32):
         super().__init__()
-        self.fc1 = dense_init(dim, hidden, generator, device, dtype)
-        self.fc2 = dense_init(hidden, dim, generator, device, dtype)
-        self.b1 = new_param((hidden,), zeros, None, device, dtype)
-        self.b2 = new_param((dim,), zeros, None, device, dtype)
+        self.policy = policy or DTypePolicy(dtype, torch.float32)
+        pd = self.policy.param_dtype
+        self.fc1 = dense_init(dim, hidden, generator, device, pd)
+        self.fc2 = dense_init(hidden, dim, generator, device, pd)
+        self.b1 = new_param((hidden,), zeros, None, device, pd)
+        self.b2 = new_param((dim,), zeros, None, device, pd)
 
     def forward(self, x):
-        h = F.gelu(x @ self.fc1 + self.b1, approximate="tanh")
-        return (h @ self.fc2 + self.b2).to(x.dtype)
+        cast = self.policy.cast
+        h = F.gelu(cast(x) @ cast(self.fc1) + cast(self.b1),
+                   approximate="tanh")
+        return (h @ cast(self.fc2) + cast(self.b2)).to(x.dtype)
 
 
 def rope_freqs(head_dim: int, theta: float = 10000.0, *, device=None):
@@ -198,6 +209,32 @@ def apply_rope(x, positions, theta: float = 10000.0):
     d = x.shape[-1]
     freqs = rope_freqs(d, theta, device=x.device)             # (D/2,)
     ang = positions[..., None].float() * freqs                # (B,S,D/2)
+    cos = torch.cos(ang)[:, :, None, :]
+    sin = torch.sin(ang)[:, :, None, :]
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+def apply_mrope(x, positions_3d, sections=(16, 24, 24),
+                theta: float = 10000.0):
+    """Qwen2-VL's multimodal rotary embedding of x (B, S, H, D) at
+    positions_3d (3, B, S) int, the temporal, height and width ids:
+    ``sections`` (summing to D/2) give each plane its run of frequency
+    slots, slot i reading the plane that ``repeat(arange(3), sections)``
+    names at i.  Angles and the rotation in f32, the result cast back to
+    x's dtype, as :func:`apply_rope`; with three equal planes the angles,
+    and so the result, are :func:`apply_rope`'s bit for bit."""
+    d = x.shape[-1]
+    if sum(sections) != d // 2:
+        raise ValueError(f"M-RoPE sections {tuple(sections)} must sum to "
+                         f"head_dim / 2 = {d // 2}")
+    freqs = rope_freqs(d, theta, device=x.device)             # (D/2,)
+    plane = torch.repeat_interleave(
+        torch.arange(3, device=x.device),
+        torch.tensor(sections, device=x.device))              # (D/2,)
+    pos = positions_3d.float().permute(1, 2, 0)[..., plane]   # (B,S,D/2)
+    ang = pos * freqs
     cos = torch.cos(ang)[:, :, None, :]
     sin = torch.sin(ang)[:, :, None, :]
     x1, x2 = x.float().chunk(2, dim=-1)

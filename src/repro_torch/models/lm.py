@@ -1,31 +1,42 @@
 """The causal language model: the GSPN-2 sequence mixer, GQA attention,
-the mixture of experts, the Mamba-2 mixer and the xLSTM's two mixers.
+the mixture of experts, the Mamba-2 mixer, the xLSTM's two mixers, and
+the vision-language and encoder-decoder variants.
 
 A model is described by :class:`LMConfig`, the reference's
 (``repro.models.lm.LMConfig``) with torch dtypes: ``prelude``, a list of
 ``(kind, n)`` stages applied once, then ``unit``, a list of ``(kind, n)``
 stages repeated ``n_units`` times, and with ``shared_attn`` one
 weight-shared attn block applied at the end of every unit (Zamba2).  The
-port runs six block kinds of :data:`KINDS`:
+port runs the reference's seven block kinds, :data:`KINDS`:
 
-  gspn      pre-norm GSPN-2 sequence mixer + pre-norm SwiGLU FFN
+  gspn      pre-norm GSPN-2 sequence mixer + pre-norm FFN
             (``qwen2-1.5b-gspn``)
-  attn      pre-norm GQA attention with rope + pre-norm SwiGLU FFN
-            (``qwen2-1.5b`` and its kin, the shared block, kimi's first
-            layer)
+  attn      pre-norm GQA attention with rope (M-RoPE under
+            ``mrope_sections``) + pre-norm FFN (``qwen2-1.5b`` and its
+            kin, ``qwen2-vl-72b``, the shared block, kimi's first layer)
   attn_moe  pre-norm GQA attention with rope + pre-norm MoE, no dense
             FFN; its aux loss is summed over the blocks
             (``kimi-k2-1t-a32b``, ``grok-1-314b``)
+  xattn     pre-norm self-attention, pre-norm cross-attention on the
+            encoder's keys and values, pre-norm FFN (``whisper-base``)
   mamba     pre-norm Mamba-2 mixer, no FFN (``zamba2-2.7b``)
   mlstm     pre-norm mLSTM mixer, no FFN (``xlstm-1.3b``)
   slstm     pre-norm sLSTM mixer, no FFN (``xlstm-1.3b``)
 
-Any other kind raises and names the ROADMAP item that brings it
-(:data:`NOT_PORTED_KINDS`).
+The norms are rmsnorm or layernorm (``norm``) and the FFN SwiGLU or a
+GELU MLP with biases (``mlp``), as the config says.  With
+``encoder_layers`` the model has whisper's encoder: learned positions
+added to the frames, non-causal self-attention blocks without rotary
+positions, a final norm, and one K/V projection (``enc_kv_proj``) that
+every xattn block reads.  The reference's vision and audio frontends are
+stubs, and so are the port's: ``vision_embeds`` (B, S_vis, D) replace the
+first S_vis token embeddings, ``enc_frames`` (B, T, D) are the encoder's
+input.
 
 Entry points, each the reference's twin over an :class:`LM` module:
 :func:`apply_lm` (logits of a whole sequence), :func:`lm_loss` (the
 training loss and its parts, the MoE's aux loss among them),
+:func:`lm_encode` (the encoder and its keys and values),
 :func:`lm_prefill` (logits and the decode caches),
 :func:`lm_prefill_chunk` (one prompt chunk against live caches,
 DESIGN.md §9; the gspn, attn and attn_moe kinds only, as in the
@@ -34,7 +45,10 @@ model with one prefills in one shot), :func:`init_lm_cache` and
 :func:`lm_decode_step` (one token per sequence: O(W) state per gspn
 layer, a KV cache of ``max_len`` positions per attn or attn_moe layer,
 the conv tail and the SSM state per mamba layer, the (hd, hd + 1) matrix
-memory per mlstm layer and (h, c, n, m) per slstm layer).  An attn_moe
+memory per mlstm layer and (h, c, n, m) per slstm layer).  The xattn kind
+has no chunk path, and an encoder-decoder model prefills in one shot
+(:func:`supports_chunked_prefill`); its prefill and decode steps take the
+encoder's ``enc_kv`` from :func:`lm_encode`.  An attn_moe
 block's expert capacity is counted over the tokens of each call (B · S,
 B · T of a chunk, B of a decode step, the engine's free slots included),
 as in the reference: where slots drop, a chunk chain differs from a
@@ -80,34 +94,26 @@ import torch
 from torch import nn
 from torch.utils import checkpoint
 
+from repro_torch import obs
 from repro_torch.core.gspn import (GSPNSeqConfig, GSPNSeqMixer,
                                    gspn_seq_prefill_chunk)
 from repro_torch.device import resolve_device
 from repro_torch.models.attention import (Attention, AttentionConfig,
                                           chunk_prefill_attention,
                                           init_kv_cache)
-from repro_torch.models.layers import (DTypePolicy, RMSNorm, SwiGLU,
-                                       cross_entropy_loss, dense_init,
-                                       embed_init)
+from repro_torch.models.layers import (DTypePolicy, GeluMLP, LayerNorm,
+                                       RMSNorm, SwiGLU, cross_entropy_loss,
+                                       dense_init, embed_init)
 from repro_torch.models.moe import MoE, MoEConfig, moe_active_param_count
 from repro_torch.models.ssm import Mamba2, Mamba2Config, init_mamba2_cache
 from repro_torch.models.xlstm import (MLSTM, SLSTM, MLSTMConfig, SLSTMConfig,
                                       init_mlstm_cache, init_slstm_cache)
 
-# Block kinds of the reference that the port does not run yet, and the
-# ROADMAP.md §1 item that brings each.
-NOT_PORTED_KINDS = {
-    "xattn": "item 3.6 (the other families: encoder-decoder)",
-}
-
-
 @dataclasses.dataclass(frozen=True)
 class LMConfig:
-    """The reference's ``LMConfig`` with torch dtypes, less the fields of
-    the kinds the port does not run yet (M-RoPE, the encoder, the norm and
-    MLP variants).  It carries the gspn, attn, attn_moe, mamba, mlstm and
-    slstm kinds' fields and ``shared_attn``.  ``gspn_impl`` defaults to
-    ``"auto"``, which resolves to the CUDA kernel #1 on the card and to
+    """The reference's ``LMConfig`` with torch dtypes, less its
+    ``max_seq``, which nothing of the port reads.  ``gspn_impl`` defaults
+    to ``"auto"``, which resolves to the CUDA kernel #1 on the card and to
     the plain scan on the CPU; the reference's defaults to ``"xla"``, its
     plain path."""
     name: str
@@ -121,6 +127,9 @@ class LMConfig:
     head_dim: int = 0              # 0 => d_model // n_heads
     qkv_bias: bool = False
     rope_theta: float = 1e6
+    mrope_sections: tuple | None = None   # M-RoPE's slots a plane
+    norm: str = "rmsnorm"          # rmsnorm|layernorm
+    mlp: str = "swiglu"            # swiglu|gelu
     tie_embeddings: bool = False
     prelude: tuple = ()            # ((kind, n), ...), applied once
     unit: tuple = ()               # ((kind, n), ...), repeated n_units times
@@ -147,6 +156,9 @@ class LMConfig:
     # compute_dtype, so chunked ≡ one-shot stays exact unless a precision
     # preset (configs.base.with_precision) narrows it.
     gspn_compute_dtype: torch.dtype = torch.float32
+    # The encoder (whisper): its layers and its number of frames.
+    encoder_layers: int = 0
+    enc_len: int = 1500
     # The reference's sharding knob, which the MoE reads (its slabs'
     # layout; more than 1 raises until ROADMAP.md §1 item 6.2), and the
     # rematerialisation of each block under gradients: "none" or "unit".
@@ -208,11 +220,38 @@ def gspn_config(cfg: LMConfig) -> GSPNSeqConfig:
         carry_dtype=cfg.carry_dtype)
 
 
-def attn_config(cfg: LMConfig) -> AttentionConfig:
+def attn_config(cfg: LMConfig, *, causal: bool = True,
+                cross: bool = False) -> AttentionConfig:
+    """The reference's ``_attn_cfg``: a cross-attention has no M-RoPE."""
     return AttentionConfig(
         dim=cfg.d_model, n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
         head_dim=cfg.head_dim, qkv_bias=cfg.qkv_bias,
-        rope_theta=cfg.rope_theta, block_k=cfg.attn_block_k)
+        rope_theta=cfg.rope_theta,
+        mrope_sections=None if cross else cfg.mrope_sections,
+        causal=causal, block_k=cfg.attn_block_k)
+
+
+NORMS = {"rmsnorm": RMSNorm, "layernorm": LayerNorm}
+MLPS = ("swiglu", "gelu")
+
+
+def make_norm(cfg: LMConfig, *, device) -> nn.Module:
+    """The config's norm (the reference's ``_norm_init``): rmsnorm (eps
+    1e-6) or layernorm (eps 1e-5), parameters in ``param_dtype``."""
+    if cfg.norm not in NORMS:
+        raise ValueError(f"norm must be one of {sorted(NORMS)}, got "
+                         f"{cfg.norm!r}")
+    return NORMS[cfg.norm](cfg.d_model, device=device, dtype=cfg.param_dtype)
+
+
+def make_ffn(cfg: LMConfig, *, generator, device) -> nn.Module:
+    """The config's FFN (the reference's ``_ffn_init``): SwiGLU, or the
+    GELU MLP with biases, of hidden width ``d_ff``."""
+    if cfg.mlp not in MLPS:
+        raise ValueError(f"mlp must be one of {MLPS}, got {cfg.mlp!r}")
+    cls = SwiGLU if cfg.mlp == "swiglu" else GeluMLP
+    return cls(cfg.d_model, cfg.d_ff, cfg.policy, generator=generator,
+               device=device)
 
 
 def moe_config(cfg: LMConfig) -> MoEConfig:
@@ -242,7 +281,7 @@ def slstm_config(cfg: LMConfig) -> SLSTMConfig:
 # ---------------------------------------------------------------------------
 
 class GSPNBlock(nn.Module):
-    """Pre-norm GSPN-2 sequence mixer + pre-norm SwiGLU FFN, with the
+    """Pre-norm GSPN-2 sequence mixer + pre-norm FFN, with the
     reference's four paths: ``forward`` (training/scoring), ``prefill``
     (also returns the O(W) cache), ``prefill_chunk`` (resumes from it)
     and ``decode`` (one token).  ``mesh`` reaches the mixer's scans in the
@@ -250,13 +289,11 @@ class GSPNBlock(nn.Module):
 
     def __init__(self, cfg: LMConfig, *, generator, device):
         super().__init__()
-        d, pd = cfg.d_model, cfg.param_dtype
-        self.ln1 = RMSNorm(d, device=device, dtype=pd)
+        self.ln1 = make_norm(cfg, device=device)
         self.mix = GSPNSeqMixer(gspn_config(cfg), device=device,
                                 generator=generator)
-        self.ln2 = RMSNorm(d, device=device, dtype=pd)
-        self.ffn = SwiGLU(d, cfg.d_ff, cfg.policy, generator=generator,
-                          device=device)
+        self.ln2 = make_norm(cfg, device=device)
+        self.ffn = make_ffn(cfg, generator=generator, device=device)
 
     def _ffn(self, x):
         return x + self.ffn(self.ln2(x))
@@ -294,43 +331,51 @@ def _positions(b: int, t: int, device, off: int = 0):
 
 
 class AttnBlock(nn.Module):
-    """Pre-norm GQA attention with rope + pre-norm SwiGLU FFN, with the
-    four paths of the reference's ``attn`` kind.  Positions are
-    ``arange(S)`` in ``forward`` and ``prefill``, ``off + arange(T)`` in a
-    chunk and each sequence's cache length in ``decode``.  The cache is
-    k (after rope) and v (B, max_len, Hkv, D) in the compute dtype and the
-    int32 ``length`` (B,).  A ``mesh`` is accepted and unused: the
+    """Pre-norm GQA attention with rope (M-RoPE under ``mrope_sections``)
+    + pre-norm FFN, with the four paths of the reference's ``attn`` kind.
+    ``forward`` takes the caller's positions ((B, S) or (3, B, S); None:
+    none, as in the encoder, whose blocks are this kind with
+    ``causal=False``); ``prefill`` rotates at ``arange(S)``, a chunk at
+    ``off + arange(T)`` and ``decode`` at each sequence's cache length,
+    all (B, S) ids, which M-RoPE reads as three equal planes.  The cache
+    is k (after rope) and v (B, max_len, Hkv, D) in the compute dtype and
+    the int32 ``length`` (B,).  A ``mesh`` is accepted and unused: the
     reference shards no attention over the seq axis."""
 
-    def __init__(self, cfg: LMConfig, *, generator, device):
+    def __init__(self, cfg: LMConfig, *, generator, device,
+                 causal: bool = True):
         super().__init__()
-        self._attention(cfg, generator=generator, device=device)
-        self.ffn = SwiGLU(cfg.d_model, cfg.d_ff, cfg.policy,
-                          generator=generator, device=device)
+        self._attention(cfg, generator=generator, device=device,
+                        causal=causal)
+        self.ffn = make_ffn(cfg, generator=generator, device=device)
 
-    def _attention(self, cfg: LMConfig, *, generator, device):
+    def _attention(self, cfg: LMConfig, *, generator, device,
+                   causal: bool = True):
         """``ln1``, the attention layer and ``ln2``."""
-        d, pd = cfg.d_model, cfg.param_dtype
         self.cd = cfg.compute_dtype
-        self.ln1 = RMSNorm(d, device=device, dtype=pd)
-        self.attn = Attention(attn_config(cfg), cfg.policy,
+        self.ln1 = make_norm(cfg, device=device)
+        self.attn = Attention(attn_config(cfg, causal=causal), cfg.policy,
                               generator=generator, device=device)
-        self.ln2 = RMSNorm(d, device=device, dtype=pd)
+        self.ln2 = make_norm(cfg, device=device)
 
     def _ffn(self, x):
         return x + self.ffn(self.ln2(x))
 
-    def _attend(self, x):
-        b, s, _ = x.shape
-        return x + self.attn(self.ln1(x), _positions(b, s, x.device))
+    def _attend(self, x, positions):
+        return x + self.attn(self.ln1(x), positions)
 
-    def forward(self, x, mesh=None):
-        return self._ffn(self._attend(x))
+    def forward(self, x, mesh=None, positions=None):
+        return self._ffn(self._attend(x, positions))
 
     def prefill(self, x, max_len: int, mesh=None):
         """The forward, and the cache of the prompt's k and v padded to
         ``max_len`` positions.  A prompt longer than ``max_len`` raises
         (the reference's pad width would go negative)."""
+        x, cache = self._prefill_attention(x, max_len)
+        return self._ffn(x), cache
+
+    def _prefill_attention(self, x, max_len: int):
+        """(x plus the self-attention over the prompt, its cache)."""
         b, s, _ = x.shape
         if s > max_len:
             raise ValueError(f"a prompt of {s} tokens does not fit the KV "
@@ -343,7 +388,7 @@ class AttnBlock(nn.Module):
         cache["k"][:, :s] = k
         cache["v"][:, :s] = v
         cache["length"].fill_(s)
-        return self._ffn(x), cache
+        return x, cache
 
     def prefill_chunk(self, x, cache, off: int, mesh=None):
         """The (B, T) chunk at offset ``off``: its k and v written into a
@@ -399,8 +444,47 @@ class AttnMoEBlock(AttnBlock):
     def _ffn(self, x):
         return self._moe(x)[0]
 
-    def forward_aux(self, x, mesh=None):
-        return self._moe(self._attend(x))
+    def forward_aux(self, x, mesh=None, positions=None):
+        return self._moe(self._attend(x, positions))
+
+
+class XAttnBlock(AttnBlock):
+    """The xattn kind (whisper's decoder layer): ``ln1`` and causal
+    self-attention with rope, ``ln_x`` and cross-attention (``xattn``) on
+    the encoder's pre-projected ``enc_kv``, ``ln2`` and the FFN.  Without
+    ``enc_kv`` the cross-attention is skipped, as in the reference.  It
+    has forward, prefill and decode and no chunk path.  ``xattn``'s own
+    ``wk`` and ``wv`` are parameters that nothing reads (the reference
+    keeps them): their gradients are exact zeros."""
+
+    prefill_chunk = None
+
+    def __init__(self, cfg: LMConfig, *, generator, device):
+        nn.Module.__init__(self)
+        self._attention(cfg, generator=generator, device=device)
+        self.ln_x = make_norm(cfg, device=device)
+        self.xattn = Attention(attn_config(cfg, cross=True), cfg.policy,
+                               generator=generator, device=device)
+        self.ffn = make_ffn(cfg, generator=generator, device=device)
+
+    def _cross(self, x, enc_kv):
+        """x plus the cross-attention, inside an ``lm.cross_attention``
+        span (a profile reads its share from it)."""
+        if enc_kv is None:
+            return x
+        with obs.trace("lm.cross_attention"):
+            return x + self.xattn(self.ln_x(x), kv=enc_kv)
+
+    def forward(self, x, mesh=None, positions=None, enc_kv=None):
+        return self._ffn(self._cross(self._attend(x, positions), enc_kv))
+
+    def prefill(self, x, max_len: int, mesh=None, enc_kv=None):
+        x, cache = self._prefill_attention(x, max_len)
+        return self._ffn(self._cross(x, enc_kv)), cache
+
+    def decode(self, x, cache, enc_kv=None):
+        y, new = self.attn.decode(self.ln1(x), cache)
+        return self._ffn(self._cross(x + y, enc_kv)), new
 
 
 # ---------------------------------------------------------------------------
@@ -417,7 +501,7 @@ class _MixerBlock(nn.Module):
 
     def __init__(self, cfg: LMConfig, mixer, *, device):
         super().__init__()
-        self.ln1 = RMSNorm(cfg.d_model, device=device, dtype=cfg.param_dtype)
+        self.ln1 = make_norm(cfg, device=device)
         self.mix = mixer
 
     def forward(self, x, mesh=None):
@@ -465,19 +549,19 @@ class SLSTMBlock(_MixerBlock):
         return init_slstm_cache(batch, slstm_config(cfg), device=device)
 
 
-# The block kinds the port runs.
+# The block kinds, the reference's all.
 KINDS = {"gspn": GSPNBlock, "attn": AttnBlock, "attn_moe": AttnMoEBlock,
-         "mamba": MambaBlock, "mlstm": MLSTMBlock, "slstm": SLSTMBlock}
+         "xattn": XAttnBlock, "mamba": MambaBlock, "mlstm": MLSTMBlock,
+         "slstm": SLSTMBlock}
 
 
 def _check_kind(kind: str) -> None:
-    """Raise unless the port runs block kind ``kind``."""
-    if kind in NOT_PORTED_KINDS:
-        raise NotImplementedError(
-            f"block kind {kind!r} is not in the port yet; ROADMAP.md §1 "
-            f"{NOT_PORTED_KINDS[kind]} brings it")
     if kind not in KINDS:
         raise ValueError(f"unknown block kind {kind!r}")
+
+
+def _has_chunk_path(kind: str) -> bool:
+    return getattr(KINDS[kind], "prefill_chunk", None) is not None
 
 
 # ---------------------------------------------------------------------------
@@ -558,15 +642,43 @@ def _stage_key(si: int, kind: str) -> str:
     return f"s{si}_{kind}"
 
 
+class Encoder(nn.Module):
+    """Whisper's encoder over stub frame embeddings (the reference's
+    ``_init_encoder``/``_apply_encoder``): ``pos_embed`` (enc_len, D)
+    added in the frames' dtype (so its residual stream is f32 for f32
+    frames, whatever the compute dtype), ``encoder_layers`` attn blocks
+    with non-causal self-attention and no rotary positions, then
+    ``ln_f``.  Its layers are not rematerialised, as in the reference."""
+
+    def __init__(self, cfg: LMConfig, *, generator, device):
+        super().__init__()
+        self.layers = nn.ModuleList([
+            AttnBlock(cfg, generator=generator, device=device, causal=False)
+            for _ in range(cfg.encoder_layers)])
+        self.ln_f = make_norm(cfg, device=device)
+        self.pos_embed = embed_init(cfg.enc_len, cfg.d_model, generator,
+                                    device, cfg.param_dtype)
+
+    def forward(self, frames):
+        """frames (B, T, D), T <= enc_len -> (B, T, D) in their dtype."""
+        x = frames + self.pos_embed.to(frames.dtype)[None, :frames.shape[1]]
+        for layer in self.layers:
+            x = layer(x)
+        return self.ln_f(x)
+
+
 class LM(nn.Module):
-    """Embedding, the block stages, the final rmsnorm and the head (the
+    """Embedding, the block stages, the final norm and the head (the
     embedding's transpose when ``tie_embeddings``).
 
     ``stages[key]`` holds a prelude stage's n blocks, or a unit stage's
     n_units lists of n blocks; ``shared_attn``, under
-    ``cfg.shared_attn``, the one attn block applied after every unit.
+    ``cfg.shared_attn``, the one attn block applied after every unit;
+    ``encoder`` and ``enc_kv_proj`` (``wk``, ``wv``), under
+    ``encoder_layers``, the encoder and its K/V projection.
     Weights are drawn from ``generator`` (seed 0 when not given) in the
-    order embedding, head, blocks, shared block; on the ``meta`` device
+    order embedding, head, blocks, shared block, encoder, K/V projection;
+    on the ``meta`` device
     nothing is drawn (a twin to load a ``state_dict`` into with
     ``assign=True``).  ``device=None`` is the card.
     """
@@ -580,7 +692,7 @@ class LM(nn.Module):
         self.cfg = cfg
         pd = cfg.param_dtype
         self.embed = embed_init(cfg.vocab, cfg.d_model, generator, device, pd)
-        self.ln_f = RMSNorm(cfg.d_model, device=device, dtype=pd)
+        self.ln_f = make_norm(cfg, device=device)
         if not cfg.tie_embeddings:
             self.head = dense_init(cfg.d_model, cfg.vocab, generator, device,
                                    pd)
@@ -597,6 +709,12 @@ class LM(nn.Module):
                 nn.ModuleList([blocks() for _ in range(cfg.n_units)]))
         if cfg.shared_attn:
             self.shared_attn = AttnBlock(cfg, **kw)
+        if cfg.encoder_layers:
+            self.encoder = Encoder(cfg, **kw)
+            kv = cfg.n_kv_heads * cfg.hd
+            self.enc_kv_proj = nn.ParameterDict({
+                name: dense_init(cfg.d_model, kv, generator, device, pd)
+                for name in ("wk", "wv")})
 
     def walk(self):
         """(stage key, cache index, block) for every block in execution
@@ -619,9 +737,16 @@ class LM(nn.Module):
             if self.cfg.shared_attn:
                 yield "shared_attn", (u,), self.shared_attn
 
-    def embed_tokens(self, tokens):
-        """Token embeddings (B, S, D) in the compute dtype."""
-        return self.embed[tokens].to(self.cfg.compute_dtype)
+    def embed_tokens(self, tokens, vision_embeds=None):
+        """Token embeddings (B, S, D) in the compute dtype; with
+        ``vision_embeds`` (B, S_vis, D), those (cast to the compute dtype)
+        in place of the first S_vis positions' (the reference's Qwen2-VL
+        stub frontend)."""
+        x = self.embed[tokens].to(self.cfg.compute_dtype)
+        if vision_embeds is None:
+            return x
+        sv = vision_embeds.shape[1]
+        return torch.cat([vision_embeds.to(x.dtype), x[:, sv:]], dim=1)
 
     def logits(self, x):
         cd = self.cfg.compute_dtype
@@ -656,35 +781,73 @@ def _mesh(ctx: Ctx | None):
     return ctx.mesh if ctx is not None else None
 
 
-def _forward(model: LM, tokens, ctx: Ctx | None):
+def lm_encode(model: LM, enc_frames):
+    """The encoder over ``enc_frames`` (B, T, D) and the decoder's shared
+    keys and values (the reference's ``_apply_encoder`` then
+    ``_encoder_kv``): ``enc_kv`` = (k, v), each (B, T, Hkv, D) in the
+    compute dtype, which :func:`lm_prefill` and :func:`lm_decode_step`
+    take.  Raises for a model without an encoder."""
+    cfg = model.cfg
+    if not cfg.encoder_layers:
+        raise ValueError(f"{cfg.name} has no encoder")
+    out = model.encoder(enc_frames)
+    cast = cfg.policy.cast
+    b, t, _ = out.shape
+    return tuple((cast(out) @ cast(model.enc_kv_proj[name])).reshape(
+        b, t, cfg.n_kv_heads, cfg.hd) for name in ("wk", "wv"))
+
+
+def _forward(model: LM, tokens, ctx: Ctx | None, vision_embeds=None,
+             enc_frames=None, positions=None):
     """(logits, the f32 sum of the attn_moe blocks' aux losses in walk
     order).  Each block runs under ``remat`` as one unit, its aux loss an
     output of that unit, so a recompute in the backward adds nothing."""
-    x = model.embed_tokens(tokens)
+    x = model.embed_tokens(tokens, vision_embeds)
+    b, s, _ = x.shape
+    if positions is None:
+        positions = _positions(b, s, x.device)
+    # Without frames the reference runs the decoder without
+    # cross-attention.
+    enc_kv = None
+    if model.cfg.encoder_layers and enc_frames is not None:
+        enc_kv = lm_encode(model, enc_frames)
     mesh = _mesh(ctx)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for _, _, block in model.walk():
+        kw = {"mesh": mesh}
+        if isinstance(block, AttnBlock):
+            kw["positions"] = positions
+        if isinstance(block, XAttnBlock):
+            kw["enc_kv"] = enc_kv
         if isinstance(block, AttnMoEBlock):
             x, a = _maybe_remat(model.cfg, functools.partial(
-                block.forward_aux, mesh=mesh))(x)
+                block.forward_aux, **kw))(x)
             aux = aux + a
         else:
-            x = _maybe_remat(model.cfg, functools.partial(block,
-                                                          mesh=mesh))(x)
+            x = _maybe_remat(model.cfg, functools.partial(block, **kw))(x)
     return model.logits(x), aux
 
 
-def apply_lm(model: LM, tokens, *, ctx: Ctx | None = None):
-    """Logits (B, S, V) of tokens (B, S) int.  ``ctx.mesh`` shards the
-    mixers' scans under ``gspn_impl="sp"``."""
-    return _forward(model, tokens, ctx)[0]
+def apply_lm(model: LM, tokens, *, ctx: Ctx | None = None,
+             vision_embeds=None, enc_frames=None, positions=None):
+    """Logits (B, S, V) of tokens (B, S) int.  ``vision_embeds`` (B,
+    S_vis, D) replace the first S_vis embeddings; ``enc_frames`` (B, T, D)
+    drive the encoder, whose keys and values every xattn block attends
+    to; ``positions`` ((B, S), or (3, B, S) under M-RoPE) reach every
+    attention block, ``arange(S)`` when not given.  ``ctx.mesh`` shards
+    the mixers' scans under ``gspn_impl="sp"``."""
+    return _forward(model, tokens, ctx, vision_embeds, enc_frames,
+                    positions)[0]
 
 
 def lm_loss(model: LM, batch, *, ctx: Ctx | None = None):
-    """batch: dict(tokens (B, S), labels (B, S), [mask]).  Returns
-    (ce + aux, {"ce", "aux"}): ``aux`` is the attn_moe blocks' summed aux
-    loss (0 for a model without them), as in the reference."""
-    logits, aux = _forward(model, batch["tokens"], ctx)
+    """batch: dict(tokens (B, S), labels (B, S), [mask], [vision_embeds],
+    [enc_frames]).  Returns (ce + aux, {"ce", "aux"}): ``aux`` is the
+    attn_moe blocks' summed aux loss (0 for a model without them), as in
+    the reference."""
+    logits, aux = _forward(model, batch["tokens"], ctx,
+                           batch.get("vision_embeds"),
+                           batch.get("enc_frames"))
     ce = cross_entropy_loss(logits, batch["labels"], batch.get("mask"))
     return ce + aux, {"ce": ce, "aux": aux}
 
@@ -692,9 +855,9 @@ def lm_loss(model: LM, batch, *, ctx: Ctx | None = None):
 def init_lm_cache(cfg: LMConfig, batch: int, max_len: int, *, device):
     """Zeroed decode caches of ``batch`` sequences, in the reference's
     layout (per stage key, leading (n,) or (n_units, n) axes, and
-    ``shared_attn`` with (n_units,)); an attn stage's KV cache holds
-    ``max_len`` positions, the other kinds' state does not depend on
-    it."""
+    ``shared_attn`` with (n_units,)); an attn, attn_moe or xattn stage's
+    KV cache holds ``max_len`` positions, the other kinds' state does not
+    depend on it (nor do the encoder's keys and values live here)."""
     def stacked(kind, lead):
         one = KINDS[kind].init_cache(cfg, batch, max_len, device=device)
         return {k: v.expand(lead + v.shape).clone() for k, v in one.items()}
@@ -714,28 +877,35 @@ def _store(caches, key, idx, layer_cache):
         caches[key][name][idx].copy_(v)
 
 
-def lm_prefill(model: LM, tokens, max_len: int, *, ctx: Ctx | None = None):
+def lm_prefill(model: LM, tokens, max_len: int, *, ctx: Ctx | None = None,
+               vision_embeds=None, enc_kv=None):
     """Forward over the prompt (B, S) that also fills the decode caches,
-    whose KV caches hold ``max_len`` positions.  Returns (logits (B, S,
-    V), caches)."""
-    x = model.embed_tokens(tokens)
+    whose KV caches hold ``max_len`` positions; ``vision_embeds`` replace
+    the first embeddings, as in :func:`apply_lm`, the positions stay
+    ``arange(S)``, and the xattn blocks attend to ``enc_kv`` from
+    :func:`lm_encode`.  Returns (logits (B, S, V), caches)."""
+    x = model.embed_tokens(tokens, vision_embeds)
     caches = init_lm_cache(model.cfg, tokens.shape[0], max_len,
                            device=x.device)
     for key, idx, block in model.walk():
-        x, layer_cache = block.prefill(x, max_len, mesh=_mesh(ctx))
+        kw = {"enc_kv": enc_kv} if isinstance(block, XAttnBlock) else {}
+        x, layer_cache = block.prefill(x, max_len, mesh=_mesh(ctx), **kw)
         _store(caches, key, idx, layer_cache)
     return model.logits(x), caches
 
 
 def supports_chunked_prefill(cfg: LMConfig) -> bool:
-    """True iff every block kind, the shared block's ``attn`` included,
-    resumes from its cache (the gspn and attn kinds do; mamba, mlstm and
-    slstm do not, as in the reference) and, with a gspn stage, the fold
-    width is fixed (row_width > 0)."""
+    """True iff the model has no encoder, every block kind, the shared
+    block's ``attn`` included, resumes from its cache (the gspn, attn and
+    attn_moe kinds do; xattn, mamba, mlstm and slstm do not, as in the
+    reference) and, with a gspn stage, the fold width is fixed
+    (row_width > 0)."""
+    if cfg.encoder_layers:
+        return False
     kinds = {kind for _, kind, _ in cfg.stages()}
     if cfg.shared_attn:
         kinds.add("attn")
-    if not all(hasattr(KINDS.get(k), "prefill_chunk") for k in kinds):
+    if not all(k in KINDS and _has_chunk_path(k) for k in kinds):
         return False
     return "gspn" not in kinds or cfg.gspn_row_width > 0
 
@@ -757,9 +927,10 @@ def lm_prefill_chunk(model: LM, tokens, caches, off: int, *,
     :func:`lm_prefill` over the whole prompt.  ``with_logits=False``
     returns (None, new_caches) without the final norm and the vocabulary
     head: only the last chunk's logits feed sampling.  A model with a
-    kind that has no chunked prefill (mamba, mlstm, slstm) raises."""
+    kind that has no chunked prefill (xattn, mamba, mlstm, slstm)
+    raises."""
     missing = sorted({kind for _, kind, _ in model.cfg.stages()
-                      if not hasattr(KINDS[kind], "prefill_chunk")})
+                      if not _has_chunk_path(kind)})
     if missing:
         raise ValueError(f"{model.cfg.name}: the {', '.join(missing)} "
                          f"kind has no chunked prefill; use lm_prefill")
@@ -774,15 +945,18 @@ def lm_prefill_chunk(model: LM, tokens, caches, off: int, *,
     return (model.logits(x) if with_logits else None), new
 
 
-def lm_decode_step(model: LM, token, caches, *, ctx: Ctx | None = None):
+def lm_decode_step(model: LM, token, caches, *, ctx: Ctx | None = None,
+                   enc_kv=None):
     """token: (B, 1) int.  Returns (logits (B, 1, V), new_caches).  The
-    step is O(W) per gspn layer and runs unsharded under any ``ctx``."""
+    step is O(W) per gspn layer and runs unsharded under any ``ctx``; the
+    xattn blocks attend to ``enc_kv`` from :func:`lm_encode`."""
     x = model.embed_tokens(token)
     new = {k: {n: torch.empty_like(v) for n, v in sub.items()}
            for k, sub in caches.items()}
     for key, idx, block in model.walk():
         layer = {n: v[idx] for n, v in caches[key].items()}
-        x, layer_cache = block.decode(x, layer)
+        kw = {"enc_kv": enc_kv} if isinstance(block, XAttnBlock) else {}
+        x, layer_cache = block.decode(x, layer, **kw)
         _store(new, key, idx, layer_cache)
     return model.logits(x), new
 
@@ -794,13 +968,13 @@ def count_params(model: nn.Module) -> int:
 def count_active_params(cfg: LMConfig) -> int:
     """The reference's ``count_active_params`` (the 6·N·D convention's N,
     from the config alone): each block's projection weights (an attn_moe
-    block's router, top-k experts and shared expert), the shared attn
-    block once, the embedding and an untied head.  Norm scales,
-    biases, the conv and the mixers' small vectors are left out, as the
-    reference leaves them out."""
+    block's router, top-k experts and shared expert; an xattn block's two
+    attentions), the shared attn block once, the embedding and an untied
+    head.  Norm scales, biases, the conv, the mixers' small vectors and,
+    as in the reference, the encoder are left out."""
     d = cfg.d_model
     attn_p = 2 * d * cfg.n_heads * cfg.hd + 2 * d * cfg.n_kv_heads * cfg.hd
-    ffn_p = 3 * d * cfg.d_ff
+    ffn_p = (3 if cfg.mlp == "swiglu" else 2) * d * cfg.d_ff
     total = 0
     for where, kind, n in cfg.stages():
         _check_kind(kind)
@@ -809,6 +983,8 @@ def count_active_params(cfg: LMConfig) -> int:
             total += reps * (attn_p + ffn_p)
         elif kind == "attn_moe":
             total += reps * (attn_p + moe_active_param_count(moe_config(cfg)))
+        elif kind == "xattn":
+            total += reps * (2 * attn_p + ffn_p)
         elif kind == "mamba":
             mc = mamba_config(cfg)
             total += reps * (d * (2 * mc.d_inner + 2 * mc.d_state

@@ -34,7 +34,10 @@ shared prompt prefix; ``submit(req, handle=...)``, ``pending_chunks``,
 ``drain()`` and the finish hook serve the router
 (:mod:`repro_torch.serve.router`).  A prefix cache needs chunked prefill:
 given to an engine that prefills in one shot it raises ``ValueError``.
-``submit`` returns a
+An encoder-decoder model (``whisper-base``) raises ``ValueError`` at
+construction: a request carries no audio frames, and the reference's
+engine, which passes none, decodes it without cross-attention, a wrong
+output that nothing reports.  ``submit`` returns a
 :class:`RequestHandle`; the pre-handle ``on_finish`` callback survives as
 a deprecated shim.
 
@@ -193,6 +196,13 @@ class RequestHandle:
         self.status = "finished"
 
 
+def no_audio_message(name: str) -> str:
+    return (f"{name} is an encoder-decoder model and the engine carries no "
+            f"audio frames: its requests would decode without "
+            f"cross-attention; use lm_encode, lm_prefill(enc_kv=) and "
+            f"lm_decode_step(enc_kv=)")
+
+
 # Warn-once latch for the deprecated ``on_finish`` callback.
 _on_finish_warned = False
 
@@ -218,6 +228,8 @@ class ServeEngine:
                  ctx=None, prefix_cache=None):
         if scheduler not in ("fcfs", "sjf"):
             raise ValueError(f"unknown scheduler {scheduler!r}")
+        if model.cfg.encoder_layers:
+            raise ValueError(no_audio_message(model.cfg.name))
         self.ctx = ctx
         self.model = model
         self.cfg = cfg = model.cfg

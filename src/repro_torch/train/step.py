@@ -119,10 +119,15 @@ def build_train_step(model: LM, opt_cfg: AdamWConfig, *, grad_accum: int = 1,
         raise ValueError(f"grad_accum must be at least 1, got {grad_accum}")
 
     def loss_and_grads(params, batch, scale):
-        """(unscaled loss, metrics, gradients of the scaled loss)."""
+        """(unscaled loss, metrics, gradients of the scaled loss).  A
+        parameter the loss does not read (an xattn block's ``xattn.wk``
+        and ``xattn.wv``) gets an exact zero gradient, as in the
+        reference."""
         loss, metrics = lm_loss(model, batch)
         grads = torch.autograd.grad(loss if scale is None else loss * scale,
-                                    list(params.values()))
+                                    list(params.values()), allow_unused=True)
+        grads = [torch.zeros_like(p) if g is None else g
+                 for p, g in zip(params.values(), grads)]
         return loss.detach(), {k: v.detach() for k, v in metrics.items()}, \
             dict(zip(params, grads))
 

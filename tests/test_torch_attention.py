@@ -145,9 +145,9 @@ def test_block_size_halves_until_it_divides_sk(monkeypatch, sk, block_k,
     seen = []
     real = attn._fwd_blocks
 
-    def spy(qh, kh, vh, bk):
+    def spy(qh, kh, vh, bk, *rest):
         seen.append(bk)
-        return real(qh, kh, vh, bk)
+        return real(qh, kh, vh, bk, *rest)
 
     monkeypatch.setattr(attn, "_fwd_blocks", spy)
     q, k, v, _ = _qkv(4, b=1, sq=sk, sk=sk, hkv=1, g=2, d=4)
@@ -416,13 +416,14 @@ def test_decode_write_past_the_end_writes_nothing():
 
 
 def test_attention_config_is_the_reference_causal_self_attention():
-    """The port's fields and defaults are the reference's, less the
-    options with one value in the port (causal, blockwise, no M-RoPE)."""
+    """The port's fields and defaults are the reference's (causal, no
+    M-RoPE by default), less ``use_chunked``, which has one value in the
+    port (blockwise past ``block_k``)."""
     ref = {f.name: f.default for f in dataclasses.fields(jattn.AttentionConfig)}
     port = {f.name: f.default for f in dataclasses.fields(attn.AttentionConfig)}
-    assert ref.pop("causal") is True and ref.pop("use_chunked") is True
-    assert ref.pop("mrope_sections") is None
+    assert ref.pop("use_chunked") is True
     assert port == ref
+    assert port["causal"] is True and port["mrope_sections"] is None
 
 
 @pytest.mark.parametrize("path", ["blockwise", "dense", "chunk", "decode"])

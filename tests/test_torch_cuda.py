@@ -1119,3 +1119,87 @@ def test_moe_lm_on_card_matches_cpu(card, arch):
     torch.testing.assert_close(outs["cuda"][4].cpu(), outs["cpu"][4],
                                rtol=1e-5, atol=0)
     assert outs["cpu"][4][1] > 0
+
+
+def test_mrope_on_card(card):
+    """M-RoPE at qwen2-vl's head shape (sections 16/24/24) on the card:
+    three distinct planes within 1e-5 of the largest magnitude of an f64
+    evaluation of the f32 angles (position times frequency rounded as the
+    reference and rope round it); three equal planes bit for bit
+    rope's."""
+    from repro_torch.models.layers import apply_mrope, apply_rope, rope_freqs
+
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    x = torch.randn((2, 64, 8, 128), generator=gen, device="cuda")
+    pos = torch.randint(0, 4096, (3, 2, 64), generator=gen, device="cuda")
+    got = apply_mrope(x, pos, (16, 24, 24), 1e6)
+    freqs = rope_freqs(128, 1e6, device="cuda")
+    plane = torch.repeat_interleave(torch.arange(3, device="cuda"),
+                                    torch.tensor([16, 24, 24], device="cuda"))
+    ang = (pos.permute(1, 2, 0)[..., plane].float() * freqs).double()
+    cos, sin = torch.cos(ang)[:, :, None], torch.sin(ang)[:, :, None]
+    x1, x2 = x.double().chunk(2, dim=-1)
+    exact = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    assert _err_ok(got, exact, 1e-5)
+    same = pos[:1].expand(3, -1, -1)
+    assert torch.equal(apply_mrope(x, same, (16, 24, 24), 1e6),
+                       apply_rope(x, pos[0], 1e6))
+
+
+@pytest.mark.parametrize("sq", [1500, 1])
+def test_non_causal_chunked_attention_matches_dense_on_card(card, sq):
+    """Whisper's 1500 keys in blocks of 4 (512 halved until it divides
+    1500), non-causal, forward and gradients against the dense
+    non-causal path: 1e-5 of the largest magnitude."""
+    from repro_torch.models import attention
+
+    gen = torch.Generator(device="cuda").manual_seed(10)
+    q = torch.randn((2, sq, 8, 64), generator=gen, device="cuda")
+    k, v = (torch.randn((2, 1500, 8, 64), generator=gen, device="cuda")
+            for _ in range(2))
+    ct = torch.randn((2, sq, 8, 64), generator=gen, device="cuda")
+    outs = []
+    for fn in (lambda *a: attention.chunked_attention(*a, causal=False,
+                                                      block_k=512),
+               lambda *a: attention.full_attention(*a, causal=False)):
+        ins = [t.clone().requires_grad_() for t in (q, k, v)]
+        out = fn(*ins)
+        outs.append((out, *torch.autograd.grad(out, ins, ct)))
+    for got, want in zip(*outs):
+        assert _err_ok(got, want, 1e-5)
+
+
+def test_xattn_decode_on_card_matches_the_forward(card):
+    """The reduced whisper under the f32 policy on the card: lm_encode,
+    lm_prefill(enc_kv=) and 3 decode steps against apply_lm(enc_frames=)
+    over the extended tokens (logits 1e-4), and against the same weights
+    on the CPU; no scan launched."""
+    from repro_torch.configs.base import get_arch
+
+    cfg = with_precision(get_arch("whisper-base").reduced(), "f32")
+    cpu = lm.LM(cfg, device="cpu", generator=torch.Generator().manual_seed(5))
+    gpu = lm.LM(cfg, device="meta")
+    gpu.load_state_dict({k: v.cuda() for k, v in cpu.state_dict().items()},
+                        assign=True)
+    gen = torch.Generator().manual_seed(6)
+    toks = torch.randint(0, cfg.vocab, (2, 12), generator=gen)
+    frames = torch.randn((2, cfg.enc_len, cfg.d_model), generator=gen)
+    outs = {}
+    cuda_lib.clear_counts()
+    for name, model, dev in (("cpu", cpu, "cpu"), ("cuda", gpu, "cuda")):
+        t, f = toks.to(dev), frames.to(dev)
+        with torch.no_grad():
+            full = lm.apply_lm(model, t, enc_frames=f)
+            kv = lm.lm_encode(model, f)
+            logits, caches = lm.lm_prefill(model, t[:, :9], 16, enc_kv=kv)
+            steps = []
+            for i in range(9, 12):
+                lg, caches = lm.lm_decode_step(model, t[:, i:i + 1], caches,
+                                               enc_kv=kv)
+                steps.append(lg)
+        outs[name] = (full, logits, torch.cat(steps, 1))
+        assert _err_ok(logits, full[:, :9], 1e-4)
+        assert _err_ok(outs[name][2], full[:, 9:], 1e-4)
+    assert not cuda_lib.launch_counts and not cuda_lib.plain_calls
+    for got, want in zip(outs["cuda"], outs["cpu"]):
+        assert _err_ok(got.cpu(), want, 1e-4)

@@ -342,31 +342,33 @@ def test_configs_match_the_reference():
 
 
 def test_registry_runs_only_what_the_port_runs():
-    """The archs still to port (the VL and whisper configs) and the kind
-    still to port (xattn) raise, each naming its item; the MoE archs and
-    the attn_moe kind are registered."""
-    ported = ["granite-3-2b", "grok-1-314b", "kimi-k2-1t-a32b", "qwen1.5-32b",
-              "qwen2-1.5b", "qwen2-1.5b-gspn", "qwen2.5-3b", "xlstm-1.3b",
-              "zamba2-2.7b"]
-    assert tbase.list_archs() == ported
+    """Every architecture of the reference is registered in the port, and
+    its full config, built on meta, has the reference's parameter count
+    (jax.eval_shape of init_lm: no weights drawn); every block kind of the
+    reference is a kind of the port, and nothing is left to refuse: the
+    refusal tables are gone.  An unknown architecture or kind raises."""
+    assert tbase.list_archs() == jbase.list_archs()
+    assert len(tbase.list_archs()) == 11
+    for name in jbase.list_archs():
+        want = jbase.get_arch(name).full()
+        shapes = jax.eval_shape(lambda k: jlm.init_lm(k, want),
+                                jax.random.PRNGKey(0))
+        count = sum(int(np.prod(a.shape)) for a in jax.tree.leaves(shapes))
+        entry = tbase.get_arch(name)
+        assert entry.family == jbase.get_arch(name).family, name
+        model = lm.LM(entry.full(), device="meta")
+        assert lm.count_params(model) == count, name
+        assert lm.count_active_params(entry.full()) == \
+            jlm.count_active_params(want), name
+    assert lm.count_params(lm.LM(tbase.get_arch("qwen2-vl-72b").full(),
+                                 device="meta")) == 72_706_203_648
     assert tbase.get_arch("qwen2-1.5b-gspn").full().n_layers == 28
-    for name in ("kimi-k2-1t-a32b", "grok-1-314b"):
-        assert tbase.get_arch(name).family == "moe"
-    remaining = {"qwen2-vl-72b": "item 3.6", "whisper-base": "item 3.6"}
-    assert sorted(set(jbase.list_archs()) - set(ported)) == sorted(remaining)
-    for name, item in remaining.items():
-        with pytest.raises(NotImplementedError,
-                           match=f"ROADMAP.md §1 {item}"):
-            tbase.get_arch(name)
+    assert not hasattr(tbase, "NOT_PORTED")
+    assert not hasattr(lm, "NOT_PORTED_KINDS")
+    assert sorted(lm.KINDS) == sorted(jlm.KINDS)
     with pytest.raises(KeyError):
         tbase.get_arch("no-such-arch")
-    assert sorted(lm.NOT_PORTED_KINDS) == ["xattn"]
-    assert "attn_moe" in lm.KINDS
     cfg = dataclasses.replace(tq.reduced(), unit=(("xattn", 2),))
-    with pytest.raises(NotImplementedError, match="item 3.6"):
-        lm.LM(cfg, device="meta")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        lm.init_lm_cache(cfg, 1, 8, device="cpu")
     assert not lm.supports_chunked_prefill(cfg)
     with pytest.raises(ValueError, match="unknown block kind"):
         lm.LM(dataclasses.replace(tq.reduced(), unit=(("conv", 2),)),

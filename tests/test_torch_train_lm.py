@@ -528,14 +528,17 @@ def test_token_batches_match_reference(seed, step, host, extra):
 
 
 def test_data_config_has_no_stub_or_host_fields():
-    """The vision and audio stubs (ROADMAP.md §1 item 3.6), host sharding
-    (item 6) and uniform streams wait for their callers: the fields do
-    not exist."""
-    for field in ("vision_len", "enc_len", "d_model", "n_hosts", "host_id",
-                  "structure"):
+    """Host sharding (item 6) and uniform streams wait for their callers:
+    those fields do not exist.  The vision and audio stubs' fields do
+    (tests/test_torch_vl.py and tests/test_torch_whisper.py hold their
+    draws to the reference's), and default to none."""
+    for field in ("n_hosts", "host_id", "structure"):
         with pytest.raises(TypeError):
             pipeline.DataConfig(vocab=8, seq_len=4, global_batch=2,
                                 **{field: 1})
+    cfg = pipeline.DataConfig(vocab=8, seq_len=4, global_batch=2)
+    assert (cfg.vision_len, cfg.d_model, cfg.enc_len) == (0, 0, 0)
+    assert sorted(pipeline.host_batch(cfg, 0)) == ["labels", "tokens"]
 
 
 # ---------------------------------------------------------------------------
