@@ -1,10 +1,10 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's main paths (vision serving and training, the
 four-direction launch ladder, LM serving and LM training on the GSPN-2
-mixer, on attention, on the SSM and xLSTM mixers, on the mixture of
-experts, on M-RoPE with vision embeddings and on whisper's encoder and
-cross-attention) on one CUDA card and hold every CUDA kernel against its
-plain PyTorch version.
+mixer, data-parallel on 2 ranks, on attention, on the SSM and xLSTM
+mixers, on the mixture of experts, on M-RoPE with vision embeddings and
+on whisper's encoder and cross-attention) on one CUDA card and hold
+every CUDA kernel against its plain PyTorch version.
 
 Run from the root of a checkout, with no arguments:
 
@@ -128,6 +128,36 @@ Phases, each of which fails the run on any error:
    memory, a profiled step and attention's share of its device time
    (the kernels under the ``attention.*`` spans of that profile); (d) ``granite-3-2b`` ``full()`` under the f32 policy: a
    prefill of 1024 and 4 decode steps against ``apply_lm`` (1e-4);
+11b. data parallelism (``lm dp ...`` lines, phase ``lm dp``, after LM
+   training): ``qwen2-1.5b-gspn`` ``full()`` under the f32 policy and
+   ``remat="unit"``, seeded weights, on 2 ranks in processes of their own
+   that share the card over gloo (FSDP2 over the ``data`` axis by the
+   reference's sharding rules; every collective counted, its bytes
+   through host memory and its host time), a global batch of 2 x 4096
+   (1 x 4096 a rank): this process first runs the one-rank side (the
+   seeded model's leaf sums, a counted loss and gradients at 1 x 4096,
+   one AdamW step at 2 x 4096 with a seeded sample of 64 elements of
+   every leaf and their gradients, the whole batch's and the mean of its
+   halves'); then in the ranks (a) every parameter, moment and int8
+   residual at the local shape its spec gives, and the shards' leaf sums
+   against the one-rank model's; bytes a rank against one rank; (b) the
+   first step counted: #1 and #2 by shape as the one-rank 1 x 4096
+   pass, no plain scan; (c) that step against the one-rank step: loss
+   1e-5 relative, ``grad_norm`` 1e-6, every sampled element 1e-5 of its
+   leaf's largest, except where its gradient is under 1e-5 of its leaf's
+   largest or the element is within four times the distance AdamW's
+   first step puts between the whole batch's gradient and its halves'
+   mean on the one rank (the noise control, counted); that step's ms,
+   its share in the counted collectives, the bytes through host memory
+   and peak memory a rank; (e) ``pipeline_apply`` over the 2 ranks, one
+   full-width GSPN block a stage, 4 microbatches of 1 x 1024,
+   against the blocks in sequence (1e-5), #1 launched on both; then (d)
+   ``launch/train.py --distributed`` on 2 ranks under the config's own
+   policy, 3 steps with ``--grad-compression int8_ef`` and a checkpoint
+   at step 3, then a launch of 1 step that resumes at step 3 (without
+   compression: the smoke keeps its disk writes under 45 GiB, and two
+   checkpoints of the int8 state, 22.3 GB each, do not fit beside the
+   rest of it); losses finite, no plain scan;
 12. the serving tier (``lm tier ...`` lines): the prefix cache cold and
    warm on both LMs, threaded replicas under each router policy and a
    replica's failure (``qwen2-1.5b-gspn`` at 7 of its 28 layers), and
@@ -163,7 +193,7 @@ Phases, each of which fails the run on any error:
    latter as 1023 chunks of one), f32, 1e-4 of the largest magnitude;
    the causal conv streamed against its full pass, bit for bit; then for
    ``zamba2-2.7b`` and ``xlstm-1.3b`` at full width and a fraction of their
-   depth (2 of zamba2's 9 units, 1 of xlstm's 6) with seeded weights: (b)
+   depth (1 of zamba2's 9 units, 1 of xlstm's 6) with seeded weights: (b)
    under the f32 policy a prefill of 2048 and 16 decode steps against
    ``apply_lm`` over the 2064 tokens, at 1e-4 of
    the largest logit or four times the model's own f32 rounding noise
@@ -265,6 +295,7 @@ import subprocess
 import sys
 import time
 
+import numpy as np
 import torch
 
 ROOT = pathlib.Path(__file__).resolve().parent
@@ -2022,8 +2053,10 @@ SP_LM_SHAPES = ((16, 4, 1024, 8), (16, 1024, 4, 8))
 # The kernels of the sharded path, each launched under sp_block_local.
 SP_KERNELS = ("gspn_scan_fwd", "gspn_scan_bwd", "gspn_pair_fwd",
               "gspn_pair_bwd")
-# Full width: the serve launcher's own request stream at these sizes.
-SP_SERVE_ARGS = ("--arch", "qwen2-1.5b-gspn", "--requests", "6",
+# Full width: the serve launcher's own request stream at these sizes, its
+# first 3 requests (4096, 2048 and 1536 prompt tokens; 6 until the lm dp
+# phase came, which put the smoke near 1 050 s).
+SP_SERVE_ARGS = ("--arch", "qwen2-1.5b-gspn", "--requests", "3",
                  "--prefill-chunk", "1024", "--max-len", "4112",
                  "--max-new", "16")
 SP_WORKER_S = 600
@@ -2094,35 +2127,54 @@ def _sp_single_rank():
         raise AssertionError("sp (a): world size 1 is not the kernel call")
 
 
-def _spawn_ranks(mode: str, k: int, out: pathlib.Path, env=None) -> dict:
-    """Run ``sp_worker(mode, out)`` in ``k`` processes started as torchrun
-    starts ranks; print rank 0's output; every rank must exit 0.  Returns
-    what rank 0 wrote."""
+def _run_ranks(argv, k: int, tag: str, env=None) -> list:
+    """Run ``argv`` in ``k`` processes started as torchrun starts ranks;
+    print rank 0's output; every rank must exit 0.  Returns the ranks'
+    outputs."""
     base = dict(os.environ, WORLD_SIZE=str(k), MASTER_ADDR="127.0.0.1",
                 MASTER_PORT=str(_free_port()),
                 PYTHONPATH=str(ROOT / "src"), **(env or {}))
-    code = f"import chip_smoke; chip_smoke.sp_worker({mode!r}, {str(out)!r})"
+    log_dir = ROOT / "build" / "ranks"
+    log_dir.mkdir(parents=True, exist_ok=True)
+    paths = [log_dir / f"{tag.replace(' ', '_')}_{r}_of_{k}.log"
+             for r in range(k)]
+    files = [open(path, "w") for path in paths]
     procs = [subprocess.Popen(
-        [sys.executable, "-c", code], cwd=ROOT,
+        [sys.executable, *argv], cwd=ROOT,
         env=dict(base, RANK=str(r), LOCAL_RANK=str(r)),
-        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-        for r in range(k)]
-    logs = []
+        stdout=f, stderr=subprocess.STDOUT, text=True)
+        for r, f in enumerate(files)]
+    t_end = time.monotonic() + SP_WORKER_S
     try:
         for p in procs:
-            logs.append(p.communicate(timeout=SP_WORKER_S)[0])
+            try:
+                p.wait(timeout=max(t_end - time.monotonic(), 1))
+            except subprocess.TimeoutExpired:
+                break
     finally:
         for p in procs:
             if p.poll() is None:
                 p.kill()
                 p.wait()
+        for f in files:
+            f.close()
+    logs = [path.read_text() for path in paths]
     print("\n".join(line for line in logs[0].splitlines()
                     if "socket.cpp" not in line), flush=True)
     bad = [(r, p.returncode) for r, p in enumerate(procs) if p.returncode]
     for r, _ in bad[:2]:
-        print(f"sp rank {r} of {k}:\n{logs[r][-4000:]}", flush=True)
+        print(f"{tag} rank {r} of {k}:\n{logs[r][-4000:]}", flush=True)
     if bad:
-        raise AssertionError(f"sp {mode} K={k}: ranks failed {bad}")
+        raise AssertionError(f"{tag} K={k}: ranks failed {bad}")
+    return logs
+
+
+def _spawn_ranks(mode: str, k: int, out: pathlib.Path, env=None,
+                 worker: str = "sp_worker") -> dict:
+    """Run ``worker(mode, out)`` of this module in ``k`` ranks
+    (:func:`_run_ranks`).  Returns what rank 0 wrote."""
+    code = f"import chip_smoke; chip_smoke.{worker}({mode!r}, {str(out)!r})"
+    _run_ranks(["-c", code], k, f"{worker[:-7]} {mode}", env)
     return json.loads(out.read_text())
 
 
@@ -2511,13 +2563,447 @@ def sp_phase():
         raise AssertionError("sp (c): sharded serving differs")
 
 
+# Data parallelism (``lm dp ...`` lines): qwen2-1.5b-gspn full() over 2
+# gloo ranks that share the card, a global batch of 2 x 4096.
+DP_RANKS = 2
+DP_SEED = 4
+DP_SAMPLES = 64                  # sampled elements of each leaf in (c)
+DP_PIPE = (4, 1, 1024)           # microbatches of 1 x 1024 tokens
+DP_LAUNCH = ("-m", "repro_torch.launch.train", "--distributed", "--arch",
+             "qwen2-1.5b-gspn", "--batch", str(TRAIN_BATCH), "--seq",
+             str(TRAIN_SEQ))
+
+
+def _dp_cfg():
+    """The f32 policy of ``full()`` under remat "unit": (c) holds the
+    sharded step to the one-rank step with the f32 bounds."""
+    from repro_torch.configs.base import with_precision
+    from repro_torch.configs.qwen2_1_5b_gspn import full
+    return dataclasses.replace(with_precision(full(), "f32"), remat="unit")
+
+
+def _dp_opt():
+    from repro_torch.optim.adamw import AdamWConfig
+    return AdamWConfig(lr=3e-4, warmup_steps=5, total_steps=100)
+
+
+def _dp_batch(cfg, n_hosts=1, host_id=0):
+    from repro_torch.data.pipeline import DataConfig, host_batch, to_device
+    return to_device(host_batch(DataConfig(
+        vocab=cfg.vocab, seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH,
+        n_hosts=n_hosts, host_id=host_id), 0), "cuda")
+
+
+def _dp_reference(path: pathlib.Path) -> dict:
+    """The one-rank side, in this process: the seeded model's leaf sums,
+    a counted loss and gradients at 1 x 4096 (a rank's share), then one
+    AdamW step at 2 x 4096 with its loss, gradient norm and, per leaf, a
+    seeded sample of updated elements with their gradients, both of the
+    whole batch and the mean of its two halves' (the sum the two ranks
+    make: the noise control of (c)).  Saved to ``path`` for the
+    ranks."""
+    from repro_torch.kernels import cuda_lib
+    from repro_torch.models import lm
+    from repro_torch.optim.adamw import lr_at
+    from repro_torch.train.step import make_train_setup
+
+    cfg = _dp_cfg()
+    setup = make_train_setup(cfg, _dp_opt(), device="cuda", seed=DP_SEED)
+    model = setup.model
+    params = dict(model.named_parameters())
+    ref = {"sums": {n: p.double().sum().item() for n, p in params.items()},
+           "shapes": {n: list(p.shape) for n, p in params.items()}}
+    half = {k: v[:1] for k, v in _dp_batch(cfg).items()}
+    cuda_lib.clear_counts()
+    loss, _ = lm.lm_loss(model, half)
+    grads = torch.autograd.grad(loss, list(params.values()))
+    torch.cuda.synchronize()
+    ref["launches"] = {"/".join(map(str, k)): v for k, v in
+                       cuda_lib.launch_shapes.items()}
+    ref["plain"] = sum(cuda_lib.plain_calls.values())
+    del grads, loss
+    batch = _dp_batch(cfg)
+    rng = np.random.default_rng(DP_SEED)
+    idx = {n: torch.from_numpy(rng.integers(0, p.numel(), DP_SAMPLES)).cuda()
+           for n, p in params.items()}
+    ref["half_grad"] = {n: torch.zeros(DP_SAMPLES) for n in params}
+    for h in range(TRAIN_BATCH):
+        loss, _ = lm.lm_loss(model, {k: v[h:h + 1] for k, v in batch.items()})
+        for n, g in zip(params, torch.autograd.grad(loss, list(
+                params.values()))):
+            ref["half_grad"][n] += g.flatten()[idx[n]].cpu() / TRAIN_BATCH
+        del loss
+    loss, _ = lm.lm_loss(model, batch)
+    grads = dict(zip(params, torch.autograd.grad(loss, list(
+        params.values()))))
+    ref["grad"] = {n: g.flatten()[idx[n]].cpu() for n, g in grads.items()}
+    ref["grad_max"] = {n: g.abs().max().item() for n, g in grads.items()}
+    del grads, loss
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, metrics = setup.train_step(setup.state, batch)
+    torch.cuda.synchronize()
+    ref["step_ms"] = (time.perf_counter() - t0) * 1e3
+    ref["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    # The noise control of (c): AdamW's first step moves an element by
+    # lr * g / (|g| + eps) of its clipped gradient g, so the whole batch's
+    # gradient and its halves' mean move it this far apart.
+    ocfg = _dp_opt()
+    clip = min(1.0, ocfg.grad_clip / max(float(metrics["grad_norm"]), 1e-9))
+    lr = float(lr_at(ocfg, 1))
+
+    def moved(g):
+        return lr * g * clip / ((g * clip).abs() + ocfg.eps)
+
+    ref["noise"] = {n: (moved(ref["grad"][n]) - moved(ref["half_grad"][n]))
+                    .abs() for n in params}
+    ref.update(loss=float(metrics["loss"]),
+               grad_norm=float(metrics["grad_norm"]),
+               idx={n: i.cpu() for n, i in idx.items()},
+               value={n: p.detach().flatten()[idx[n]].cpu()
+                      for n, p in params.items()},
+               value_max={n: p.detach().abs().max().item()
+                          for n, p in params.items()})
+    torch.save(ref, path)
+    return ref
+
+
+def _dp_local(local, placement, idx):
+    """(which sampled flat indices of the global leaf this rank holds,
+    their flat indices in its local tensor)."""
+    shape = list(local.shape)
+    if placement is None:
+        return torch.ones_like(idx, dtype=torch.bool), idx
+    dim, parts, index = placement
+    shape[dim] *= parts
+    coords = np.unravel_index(idx.numpy(), shape)
+    lo = index * local.shape[dim]
+    mine = (coords[dim] >= lo) & (coords[dim] < lo + local.shape[dim])
+    coords = [c[mine] for c in coords]
+    coords[dim] = coords[dim] - lo
+    flat = np.ravel_multi_index(coords, local.shape) if mine.any() else \
+        np.zeros(0, np.int64)
+    return torch.from_numpy(mine), torch.from_numpy(np.asarray(flat))
+
+
+def _dp_placements(setup, ref, rank):
+    """(a): local shapes as the specs say, for parameters, moments and
+    int8 residuals; leaf sums against the one-rank model's (the shards'
+    sums over the ranks; a replicated leaf's on every rank); bytes."""
+    import torch.distributed as dist
+    from repro_torch.parallel.sharding import sharded_dim
+    from repro_torch.train.step import init_train_state
+
+    errors = init_train_state(setup.model, _dp_opt(),
+                              grad_compression="int8_ef")["errors"]
+    bad = []
+    for n, p in setup.state["params"].items():
+        want = list(ref["shapes"][n])
+        d = sharded_dim(setup.param_specs[n], "data")
+        if d is not None:
+            want[d[0]] //= DP_RANKS
+        for what, t in (("params", p), ("m", setup.state["opt"]["m"][n]),
+                        ("v", setup.state["opt"]["v"][n]),
+                        ("errors", errors[n])):
+            if list(t.shape) != want:
+                bad.append(f"{what}/{n} {list(t.shape)} != {want}")
+    names = sorted(setup.state["params"])
+    sums = torch.tensor([setup.state["params"][n].double().sum().item()
+                         for n in names], dtype=torch.float64)
+    every = [torch.empty_like(sums) for _ in range(DP_RANKS)]
+    dist.all_gather(every, sums)
+    seed_bad = []
+    for i, n in enumerate(names):
+        want = ref["sums"][n]
+        if f"params/{n}" in setup.state_placements:
+            got = sum(e[i].item() for e in every)
+        else:
+            got = every[0][i].item()
+            if any(e[i].item() != got for e in every):
+                seed_bad.append(f"{n}: replicas differ")
+        if abs(got - want) > 1e-9 * max(abs(want), 1.0):
+            seed_bad.append(f"{n}: {got} != {want}")
+
+    def nbytes(d):
+        return sum(t.numel() * t.element_size() for t in d.values())
+
+    full = sum(math.prod(s) for s in ref["shapes"].values()) * 4
+    out = {"bad": bad, "seed_bad": seed_bad,
+           "n_sharded": sum(1 for k in setup.state_placements
+                            if k.startswith("params/")),
+           "n_params": len(names),
+           "bytes": {"params": nbytes(setup.state["params"]),
+                     "moments": nbytes(setup.state["opt"]["m"])
+                     + nbytes(setup.state["opt"]["v"]),
+                     "errors": nbytes(errors)},
+           "one_rank_bytes": {"params": full, "moments": 2 * full,
+                              "errors": full}}
+    del errors
+    return out
+
+
+def _dp_step(setup, ref, rank, note):
+    """(b) and (c): the first step from the seed, counted and timed with
+    its collectives, against the one-rank step."""
+    import torch.distributed as dist
+    from repro_torch.kernels import cuda_lib
+    from repro_torch.parallel import collectives
+
+    batch = _dp_batch(_dp_cfg(), DP_RANKS, rank)
+    cuda_lib.clear_counts()
+    collectives.clear_staged()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, metrics = setup.train_step(setup.state, batch)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    out = {"step0": {
+        "ms": dt * 1e3, "loss": float(metrics["loss"]),
+        "grad_norm": float(metrics["grad_norm"]),
+        "launches": {"/".join(map(str, k)): v for k, v in
+                     cuda_lib.launch_shapes.items()},
+        "plain": sum(cuda_lib.plain_calls.values()),
+        "staged_bytes": dict(collectives.staged_bytes),
+        "collective_s": dict(collectives.staged_seconds)}}
+    note(f"step, {dt * 1e3:.1f} ms, counted collectives "
+         f"{dict(collectives.staged_seconds)} s")
+    # An element may be off where its gradient is under 1e-5 of its
+    # leaf's largest, or by up to four times the distance AdamW's first
+    # step puts between it under the whole batch's gradient and under the
+    # mean of its halves' (the ranks' sum) on the one rank itself: the
+    # noise control.  A replicated leaf is checked on rank 0.
+    counts = torch.zeros(4, dtype=torch.float64)
+    worst = []
+    for name, p in setup.state["params"].items():
+        placement = setup.state_placements.get(f"params/{name}")
+        if placement is None and rank:
+            continue
+        mine, flat = _dp_local(p, placement, ref["idx"][name])
+        got = p.detach().flatten()[flat.cuda()].cpu()
+        want = ref["value"][name][mine]
+        g = ref["grad"][name][mine]
+        off = (got - want).abs() > 1e-5 * ref["value_max"][name]
+        floor = g.abs() <= 1e-5 * ref["grad_max"][name]
+        noise = (got - want).abs() <= 1e-5 * ref["value_max"][name] \
+            + 4 * ref["noise"][name][mine]
+        bad = off & ~floor & ~noise
+        counts += torch.tensor([float(mine.sum()), float(off.sum()),
+                                float((off & ~floor & noise).sum()),
+                                float(bad.sum())], dtype=torch.float64)
+        for k in torch.nonzero(bad).flatten().tolist()[:2]:
+            worst.append((name, float(got[k] - want[k]),
+                          float(g[k]) / ref["grad_max"][name]))
+    dist.all_reduce(counts)
+    (out["sampled"], out["sample_off"], out["sample_noise"],
+     out["sample_bad"]) = map(int, counts.tolist())
+    out["sample_worst"] = worst[:6]
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    return out
+
+
+def _dp_pipe(rank):
+    """(e): GPipe over the 2 ranks, one full-width GSPN block a stage, 4
+    microbatches of 1 x 1024, against the two blocks in sequence."""
+    from repro_torch.kernels import cuda_lib
+    from repro_torch.launch.mesh import make_mesh_for_devices
+    from repro_torch.models.lm import GSPNBlock
+    from repro_torch.parallel.pipeline import pipeline_apply
+
+    cfg = _dp_cfg()
+    blocks = [GSPNBlock(cfg, device="cuda", generator=torch.Generator(
+        device="cuda").manual_seed(100 + i)) for i in range(DP_RANKS)]
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    x = torch.randn(*DP_PIPE, cfg.d_model, device="cuda", generator=gen)
+    mesh = make_mesh_for_devices(range(DP_RANKS), model_parallel=1,
+                                 device_type="cuda")
+    with torch.no_grad():
+        cuda_lib.clear_counts()
+        y = pipeline_apply(mesh, "data", lambda blk, a: blk(a), blocks[rank],
+                           x, DP_PIPE[0], via_host=True)
+        torch.cuda.synchronize()
+        launches = dict(cuda_lib.launch_counts)
+        seq = x
+        for blk in blocks:
+            seq = torch.stack([blk(m) for m in seq])
+    return {"err": _rel_err(y, seq), "launches": launches,
+            "plain": sum(cuda_lib.plain_calls.values())}
+
+
+def dp_worker(mode: str, out: str) -> None:
+    """One rank of the lm dp phase, started by :func:`_spawn_ranks`: joins
+    the gloo group the ranks share, builds the sharded setup from the
+    seed, runs (a), (b), (c) and (e), and on rank 0 writes every rank's
+    results to ``out``."""
+    sys.path.insert(0, str(ROOT / "src"))
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import init_distributed, make_mesh_for_devices
+    from repro_torch.train.step import make_train_setup
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    init_distributed(torch.device("cuda"))
+    rank = dist.get_rank()
+    t_start = time.perf_counter()
+
+    def note(what):
+        print(f"lm dp rank {rank}: {what} at {time.perf_counter() - t_start:.1f}"
+              f" s", flush=True)
+
+    ref = torch.load(pathlib.Path(out).with_name("ref.pt"))
+    mesh = make_mesh_for_devices(range(DP_RANKS), model_parallel=1,
+                                 device_type="cuda")
+    t0 = time.perf_counter()
+    setup = make_train_setup(_dp_cfg(), _dp_opt(), mesh=mesh, device="cuda",
+                             seed=DP_SEED)
+    torch.cuda.synchronize()
+    note("setup")
+    res = {"setup_s": time.perf_counter() - t0,
+           "placements": _dp_placements(setup, ref, rank)}
+    note("placements")
+    res.update(_dp_step(setup, ref, rank, note))
+    del setup
+    torch.cuda.empty_cache()
+    res["pipe"] = _dp_pipe(rank)
+    note("pipeline")
+    every = [None] * DP_RANKS
+    dist.all_gather_object(every, res)
+    dist.destroy_process_group()
+    if rank == 0:
+        pathlib.Path(out).write_text(json.dumps(every))
+
+
+def _dp_launch(extra, ckpt) -> list:
+    """The train launcher with ``--distributed`` in 2 ranks; returns
+    (rank 0's losses, its first step, every rank's launch line)."""
+    logs = _run_ranks([*DP_LAUNCH, *extra, "--ckpt-dir", str(ckpt)],
+                      DP_RANKS, "lm dp launcher")
+    start = int(re.search(r"from step (\d+)", logs[0]).group(1))
+    losses = json.loads(re.search(r"losses (\[[^\]]*\])", logs[0]).group(1))
+    lines = [re.search(r"scan launches .*", log).group(0) for log in logs]
+    return losses, start, lines
+
+
+def dp_phase():
+    """Data parallelism at full width: (a) placements and the seed, (b) a
+    counted step on each rank, (c) that step against the one-rank step,
+    (d) the launcher with --distributed --grad-compression int8_ef and its
+    resume, (e) pipeline_apply over the 2 ranks."""
+    import shutil
+
+    out_dir = ROOT / "build" / "dp"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    out_dir.mkdir(parents=True)
+    smi = _run(["nvidia-smi", "--query-gpu=name,power.limit",
+                "--format=csv,noheader"]).strip()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    ref = _dp_reference(out_dir / "ref.pt")
+    print(f"lm dp one rank ({smi}): f32 policy, remat unit, seed {DP_SEED}; "
+          f"1 x {TRAIN_SEQ} loss and gradients launch "
+          f"{ref['launches']}, plain {ref['plain']}; one AdamW step at "
+          f"{TRAIN_BATCH} x {TRAIN_SEQ}: loss {ref['loss']:.6f}, grad_norm "
+          f"{ref['grad_norm']:.6f}, {ref['step_ms']:.1f} ms, peak "
+          f"{ref['peak_gib']:.2f} GiB; {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ranks = _spawn_ranks("step", DP_RANKS, out_dir / "step.json",
+                         worker="dp_worker")
+    fails = []
+    for r, res in enumerate(ranks):
+        pl = res["placements"]
+        b, one = pl["bytes"], pl["one_rank_bytes"]
+        print(f"lm dp (a) rank {r}: setup {res['setup_s']:.1f} s; "
+              f"{pl['n_sharded']} of {pl['n_params']} parameters sharded, "
+              f"shape faults {pl['bad'][:3]}, seed faults "
+              f"{pl['seed_bad'][:3]}; bytes a rank: parameters "
+              f"{b['params']} (one rank {one['params']}), moments "
+              f"{b['moments']} ({one['moments']}), int8 residuals "
+              f"{b['errors']} ({one['errors']})", flush=True)
+        if pl["bad"] or pl["seed_bad"]:
+            fails.append(f"(a) rank {r}")
+        s0 = res["step0"]
+        print(f"lm dp (b) rank {r}: launches by shape {s0['launches']}, "
+              f"plain scan calls {s0['plain']} (one rank at 1 x "
+              f"{TRAIN_SEQ}: {ref['launches']})", flush=True)
+        if s0["launches"] != ref["launches"] or s0["plain"]:
+            fails.append(f"(b) rank {r}")
+        coll = sum(s0["collective_s"].values()) * 1e3
+        by = {k: round(v * 1e3, 1) for k, v in s0["collective_s"].items()}
+        print(f"lm dp step rank {r} ({smi}): the first step from the seed "
+              f"(FSDP's lazy set-up included) {s0['ms']:.1f} ms, of which "
+              f"the counted collectives {coll:.1f} ms "
+              f"({coll / s0['ms']:.3f}) {by}, bytes through host memory "
+              f"{sum(s0['staged_bytes'].values())} {s0['staged_bytes']}; "
+              f"peak memory {res['peak_gib']:.2f} GiB; "
+              f"{TRAIN_SEQ / s0['ms'] * 1e3:.1f} tokens/s a rank",
+              flush=True)
+    s0 = ranks[0]["step0"]
+    rel = abs(s0["loss"] - ref["loss"]) / abs(ref["loss"])
+    gn = abs(s0["grad_norm"] - ref["grad_norm"]) / ref["grad_norm"]
+    r0 = ranks[0]
+    print(f"lm dp (c) 2 ranks vs one rank at {TRAIN_BATCH} x {TRAIN_SEQ}: "
+          f"loss {s0['loss']:.7f} vs {ref['loss']:.7f} (relative {rel:.3e}, "
+          f"tol 1e-5), grad_norm {s0['grad_norm']:.7f} vs "
+          f"{ref['grad_norm']:.7f} (relative {gn:.3e}, tol 1e-6); "
+          f"of {r0['sampled']} sampled parameter elements "
+          f"{r0['sample_off']} off by more than 1e-5 of their leaf's "
+          f"largest, {r0['sample_noise']} of them with a gradient above 1e-5 "
+          f"of its leaf's largest but within 4x the distance the one "
+          f"rank's first step puts between the whole batch's gradient and "
+          f"its halves' mean (the noise control), {r0['sample_bad']} "
+          f"otherwise (tol 0) "
+          f"{r0['sample_worst'] + ranks[1]['sample_worst']}", flush=True)
+    if rel > 1e-5 or gn > 1e-6 or r0["sample_bad"] or \
+            r0["sampled"] != DP_SAMPLES * len(ref["idx"]):
+        fails.append("(c)")
+    for r, res in enumerate(ranks):
+        p = res["pipe"]
+        print(f"lm dp (e) rank {r}: pipeline_apply over {DP_RANKS} stages, "
+              f"{DP_PIPE[0]} microbatches of {DP_PIPE[1]} x {DP_PIPE[2]}, "
+              f"against the blocks in sequence {p['err']:.3e} of the "
+              f"largest (tol 1e-5); launches {p['launches']}, plain "
+              f"{p['plain']}", flush=True)
+        if p["err"] > 1e-5 or not p["launches"].get("gspn_scan_fwd") or \
+                p["plain"]:
+            fails.append(f"(e) rank {r}")
+    print(f"lm dp ranks: {time.perf_counter() - t0:.1f} s", flush=True)
+
+    # (d) The launcher, its own policy, and a resume from its checkpoint.
+    # The smoke keeps its disk writes under 45 GiB: one checkpoint of the
+    # int8_ef state (parameters, moments, residuals: 22.3 GB over the
+    # ranks) and one without residuals (16.7 GB) fit, two of the first
+    # do not with the rest of the smoke.
+    ckpt = out_dir / "ckpt"
+    t0 = time.perf_counter()
+    losses, start, lines = _dp_launch(
+        ["--steps", "3", "--ckpt-every", "3", "--grad-compression",
+         "int8_ef"], ckpt)
+    t1 = time.perf_counter()
+    again, start2, lines2 = _dp_launch(["--steps", "1"], ckpt)
+    print(f"lm dp (d) launcher --distributed --grad-compression int8_ef "
+          f"({smi}): from step {start}, losses {losses} ({t1 - t0:.1f} s, a "
+          f"checkpoint at step 3); resumed from step {start2} without "
+          f"compression, losses {again} ({time.perf_counter() - t1:.1f} "
+          f"s); {lines} {lines2}", flush=True)
+    if start != 0 or len(losses) != 3 or start2 != 3 or len(again) != 1 \
+            or not all(map(math.isfinite, losses + again)) or \
+            any("plain scan calls {}" not in ln for ln in lines + lines2):
+        fails.append("(d)")
+    shutil.rmtree(ckpt, ignore_errors=True)
+    if fails:
+        raise AssertionError(f"lm dp: {fails}")
+
+
 # The SSM and xLSTM families (``ssm ...`` lines).
 SSM_ARCHS = ("zamba2-2.7b", "xlstm-1.3b")
-# Each family runs at full width and a fraction of its depth (2 of
+# Each family runs at full width and a fraction of its depth (1 of
 # zamba2's 9 units, 1 of xlstm's 6): at full depth the phase took 317-436
 # s of the smoke's 1200 s, and at 3 and 2 units 145 s, which with the VL
-# and audio phases put the smoke past 1000 s (PERF.md §4).
-SSM_UNITS = {"zamba2-2.7b": 2, "xlstm-1.3b": 1}
+# and audio phases put the smoke past 1000 s; zamba2 went from 2 units to
+# 1 when the lm dp phase came (PERF.md §4).
+SSM_UNITS = {"zamba2-2.7b": 1, "xlstm-1.3b": 1}
 SSM_CORE = {"zamba2": (80, 64, 64), "xlstm": (4, 1024, 1025)}
 SSM_CORE_LENS = (1024, 1023)
 SSM_PROMPTS = SERVE_PROMPTS + (1023,)
@@ -3936,6 +4422,8 @@ def main() -> int:
     shapes.update(phase("lm serve", lm_serve_phase))
     # #1's and #2's at the training shapes, those of the counted step.
     shapes.update(phase("lm train", lm_train_phase))
+    # Data parallelism: its ranks' launches are read in its own checks.
+    phase("lm dp", dp_phase)
     # The attention LM launches no kernel: its phase adds no launches.
     phase("lm attn", lm_attn_phase)
     # The tier's launches are read in its own checks; the kernels line

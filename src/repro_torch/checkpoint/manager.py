@@ -1,14 +1,34 @@
-"""Checkpoint manager: atomic, asynchronous, retention-limited; the port
-of the reference's ``checkpoint/manager.py`` for states of torch tensors.
+"""Checkpoint manager: atomic, asynchronous, retention-limited and
+elastic; the port of the reference's ``checkpoint/manager.py`` for states
+of torch tensors.
 
 Layout (one directory per step), the reference's::
 
     <dir>/step_000000123/
-        meta.json            — step, flat-key manifest (shapes, dtypes)
-        host_000.npz         — the tensors by flat key (the port runs one
-                               process, so one host file)
+        meta.json            — step, flat-key manifest (global shapes,
+                               dtypes and, with several hosts, which host
+                               holds which slice of each leaf)
+        host_000.npz         — host 0's tensors by flat key
+        host_001.npz, ...    — with several hosts (data-parallel ranks),
+        host_001.json          each host's own shards and their slices
         COMMIT               — written last; a checkpoint without COMMIT is
                                ignored on restore (atomicity)
+
+**Sharded states.**  A data-parallel rank holds a slice of each sharded
+leaf (``placements``: flat key -> (dim, parts, index)) and the whole of
+each replicated one.  Each host writes its own shards, and host 0 the
+replicated leaves, into ``host_{id:03d}.npz``, with the slices in
+``host_{id:03d}.json``.  The write is asynchronous; the commit waits for
+every host: at the next :meth:`wait` (which every save starts with) the
+hosts agree that their files are written (one all-reduce of an error
+flag), then host 0 merges the slices into ``meta.json`` and writes
+``COMMIT``, and the hosts meet again, so none reads the directory before
+the commit.  The reference has every host write every leaf whole; a
+full-width state is 16.7 GB, so here each host writes its part.
+**Restore** assembles each leaf from the host files that hold it and
+copies out the slice the target holds, so a state saved on 2 hosts
+restores on 1 or on 4 (the elastic path).  A one-host checkpoint keeps
+the single-file layout and reads as before.
 
 A state is a nested dict whose leaves are tensors or Python numbers; its
 flat keys join the dict keys with ``/`` (``params/embed``,
@@ -39,8 +59,22 @@ from typing import Any, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 HOST_FILE = "host_000.npz"
+
+
+def host_file(host_id: int, ext: str = "npz") -> str:
+    return f"host_{host_id:03d}.{ext}"
+
+
+def slice_bounds(size: int, parts: int, index: int) -> tuple:
+    """[start, stop) of part ``index`` of ``parts`` equal parts of
+    ``size``."""
+    if size % parts:
+        raise ValueError(f"a dim of {size} does not split in {parts}")
+    step = size // parts
+    return index * step, (index + 1) * step
 
 
 def flatten(state, prefix: str = "") -> dict:
@@ -73,14 +107,29 @@ def _from_host(arr: np.ndarray, dtype: str) -> torch.Tensor:
     return torch.from_numpy(arr)
 
 
+def _agree(failed: bool, group) -> bool:
+    """True iff some host of ``group`` failed (one all-reduce)."""
+    device = "cuda" if dist.get_backend(group) == "nccl" else "cpu"
+    flag = torch.tensor([float(failed)], device=device)
+    dist.all_reduce(flag, group=group)
+    return bool(flag.item())
+
+
 class CheckpointManager:
-    def __init__(self, directory: str, keep: int = 3,
-                 async_save: bool = True):
+    """``host_id`` of ``n_hosts`` hosts, which meet over ``group`` (the
+    default group when None) to commit; one host needs no group."""
+
+    def __init__(self, directory: str, keep: int = 3, host_id: int = 0,
+                 n_hosts: int = 1, async_save: bool = True, group=None):
         self.dir = str(directory)
         self.keep = keep
+        self.host_id = host_id
+        self.n_hosts = n_hosts
+        self.group = group
         self.async_save = async_save
         self._thread: Optional[threading.Thread] = None
         self._error: Optional[Exception] = None
+        self._pending: Optional[tuple] = None
         os.makedirs(self.dir, exist_ok=True)
 
     # -- paths ------------------------------------------------------------
@@ -101,29 +150,69 @@ class CheckpointManager:
 
     # -- save -------------------------------------------------------------
     def wait(self):
-        """Join the background write, and raise what it raised."""
+        """Join the background write, and raise what it raised.  With
+        several hosts, commit the pending checkpoint once every host's
+        file is written; every host must call it."""
         if self._thread is not None:
             self._thread.join()
             self._thread = None
-        if self._error is not None:
-            err, self._error = self._error, None
+        err, self._error = self._error, None
+        if self.n_hosts > 1 and self._pending is not None:
+            step, meta = self._pending
+            self._pending = None
+            if _agree(err is not None, self.group):
+                raise RuntimeError(f"checkpoint write of step {step} failed "
+                                   f"on some host") from err
+            if self.host_id == 0:
+                self._commit(step, meta)
+            dist.barrier(group=self.group)
+        if err is not None:
             raise RuntimeError("checkpoint write failed") from err
 
-    def save(self, step: int, state: Any, extra_meta: dict | None = None):
+    def _commit(self, step: int, meta: dict):
+        """Host 0: merge every host's slices into meta.json, then COMMIT."""
+        sdir = self._step_dir(step)
+        for h in range(self.n_hosts):
+            with open(os.path.join(sdir, host_file(h, "json"))) as f:
+                for k, part in json.load(f).items():
+                    meta["keys"][k].setdefault("parts", []).append([h, *part])
+        with open(os.path.join(sdir, "meta.json"), "w") as f:
+            json.dump(meta, f)
+        with open(os.path.join(sdir, "COMMIT"), "w") as f:
+            f.write(str(step))
+        self._gc()
+
+    def save(self, step: int, state: Any, extra_meta: dict | None = None,
+             placements: dict | None = None):
         """Snapshot ``state`` to host memory now; write it in the
-        background (if async)."""
+        background (if async).  ``placements`` ({flat key: (dim, parts,
+        index)}) names the leaves of which this host holds a slice; the
+        others are whole, and with several hosts host 0 writes them."""
         self.wait()
-        host, dtypes = {}, {}
+        placements = placements or {}
+        host, dtypes, shapes, slices = {}, {}, {}, {}
         for k, leaf in flatten(state).items():
+            if k not in placements and self.host_id != 0:
+                continue
             host[k], dtypes[k] = _to_host(leaf)
+            shape = list(host[k].shape)
+            if k in placements:
+                dim, parts, index = placements[k]
+                shape[dim] *= parts
+                slices[k] = [dim, *slice_bounds(shape[dim], parts, index)]
+            else:
+                slices[k] = [None, None, None]
+            shapes[k] = shape
         meta = {
             "step": step,
-            "n_hosts": 1,
-            "keys": {k: {"shape": list(v.shape), "dtype": dtypes[k]}
-                     for k, v in host.items()},
+            "n_hosts": self.n_hosts,
+            "keys": {k: {"shape": shapes[k], "dtype": dtypes[k]}
+                     for k in host},
             "extra": extra_meta or {},
             "time": time.time(),
         }
+        if self.n_hosts > 1:
+            self._pending = (step, meta)
 
         def write():
             sdir = self._step_dir(step)
@@ -131,7 +220,12 @@ class CheckpointManager:
             commit = os.path.join(sdir, "COMMIT")
             if os.path.exists(commit):
                 os.remove(commit)
-            np.savez(os.path.join(sdir, HOST_FILE), **host)
+            np.savez(os.path.join(sdir, host_file(self.host_id)), **host)
+            if self.n_hosts > 1:
+                with open(os.path.join(sdir, host_file(self.host_id,
+                                                       "json")), "w") as f:
+                    json.dump(slices, f)
+                return
             with open(os.path.join(sdir, "meta.json"), "w") as f:
                 json.dump(meta, f)
             with open(commit, "w") as f:
@@ -156,39 +250,81 @@ class CheckpointManager:
             shutil.rmtree(self._step_dir(s), ignore_errors=True)
 
     # -- restore ----------------------------------------------------------
-    def restore(self, step: Optional[int] = None, target: Any = None):
+    def restore(self, step: Optional[int] = None, target: Any = None,
+                placements: dict | None = None):
         """Load checkpoint ``step`` (the latest committed by default) into
         ``target``, a state of the saved structure: each tensor leaf is
         overwritten in place (cast to its dtype, on its device), each
-        number leaf replaced.  Returns (target, step)."""
+        number leaf replaced.  A leaf named in ``placements`` ({flat key:
+        (dim, parts, index)}) receives that slice of the saved leaf,
+        whichever hosts saved it.  Returns (target, step)."""
         step = step if step is not None else self.latest_step()
         if step is None:
             raise FileNotFoundError(f"no committed checkpoint in {self.dir}")
         sdir = self._step_dir(step)
         with open(os.path.join(sdir, "meta.json")) as f:
-            keys = json.load(f)["keys"]
-        with np.load(os.path.join(sdir, HOST_FILE)) as npz:
-            data = {k: npz[k] for k in npz.files}
+            meta = json.load(f)
+        keys = meta["keys"]
+        placements = placements or {}
         flat = flatten(target)
-        missing = set(flat) - set(data)
+        missing = set(flat) - set(keys)
         if missing:
             raise KeyError(f"checkpoint missing keys: {sorted(missing)[:5]}")
-        for k, tgt in flat.items():
-            shape = tuple(tgt.shape) if isinstance(tgt, torch.Tensor) else ()
-            if tuple(data[k].shape) != shape:
-                raise ValueError(f"{k}: checkpoint {data[k].shape} != target "
-                                 f"{shape}")
-        _fill(target, data, keys)
+        files = {}
+        try:
+            def npz(h):
+                if h not in files:
+                    files[h] = np.load(os.path.join(sdir, host_file(h)))
+                return files[h]
+
+            for k, tgt in flat.items():
+                arr = _part(keys[k], placements.get(k), npz, k)
+                shape = tuple(tgt.shape) if isinstance(tgt, torch.Tensor) \
+                    else ()
+                if tuple(arr.shape) != shape:
+                    raise ValueError(f"{k}: checkpoint {arr.shape} != "
+                                     f"target {shape}")
+                _put(target, k.split("/"), arr, keys[k]["dtype"])
+        finally:
+            for f in files.values():
+                f.close()
         return target, step
 
 
-def _fill(target: dict, data: dict, keys: dict, prefix: str = ""):
-    for k, tgt in target.items():
-        key = f"{prefix}{k}"
-        if isinstance(tgt, dict):
-            _fill(tgt, data, keys, key + "/")
-        elif isinstance(tgt, torch.Tensor):
-            with torch.no_grad():
-                tgt.copy_(_from_host(data[key], keys[key]["dtype"]))
-        else:
-            target[k] = type(tgt)(data[key].item())
+def _part(entry: dict, placement, npz, key: str) -> np.ndarray:
+    """The slice ``placement`` (None: the whole) of a saved leaf, read
+    from the one host file that holds exactly that slice where there is
+    one, else cut from the assembled leaf."""
+    if placement is not None:
+        dim, parts, index = placement
+        lo, hi = slice_bounds(entry["shape"][dim], parts, index)
+        for h, d, start, stop in entry.get("parts") or ():
+            if (d, start, stop) == (dim, lo, hi):
+                return npz(h)[key]
+    arr = _assemble(entry, npz, key)
+    if placement is None:
+        return arr
+    return arr[(slice(None),) * dim + (slice(lo, hi),)]
+
+
+def _assemble(entry: dict, npz, key: str) -> np.ndarray:
+    """The whole saved leaf: from host 0's file, or its slices from the
+    hosts' files (``parts``: [host, dim, start, stop] each)."""
+    parts = entry.get("parts")
+    if not parts or parts[0][1] is None:
+        return npz(parts[0][0] if parts else 0)[key]
+    dim = parts[0][1]
+    ordered = sorted(parts, key=lambda p: p[2])
+    return np.concatenate([npz(p[0])[key] for p in ordered], axis=dim)
+
+
+def _put(target: dict, path: list, arr: np.ndarray, dtype: str):
+    *outer, last = path
+    for k in outer:
+        target = target[k]
+    tgt = target[last]
+    if isinstance(tgt, torch.Tensor):
+        with torch.no_grad():
+            tgt.copy_(_from_host(np.ascontiguousarray(arr), dtype))
+    else:
+        target[last] = type(tgt)(arr.item())

@@ -4,8 +4,11 @@ image batches for the vision model.
 Every batch derives purely from ``(seed, step)``, so a restarted job
 regenerates the same stream for any step; the numbers equal the reference
 package's bit for bit, the vision and audio stubs' embeddings included.
-This port runs one process, so a host's batch is the global one (host
-sharding comes with ROADMAP.md §1 item 6).  Token
+Each host (a rank of the data-parallel trainer) takes its positional
+slice of the global batch, rows ``host_id * host_batch`` on, so a
+re-sharded job reads the same global stream.  :class:`Prefetcher` builds
+the next step's host batch and copies it to the device on a thread while
+the current step runs.  Token
 streams are Zipf-distributed with a Markov skeleton, so models have
 learnable structure (losses fall in the examples' training runs); the
 reference's uniform streams have no caller.
@@ -14,6 +17,8 @@ reference's uniform streams have no caller.
 from __future__ import annotations
 
 import dataclasses
+import queue
+import threading
 
 import numpy as np
 import torch
@@ -25,9 +30,18 @@ class DataConfig:
     seq_len: int
     global_batch: int
     seed: int = 0
+    n_hosts: int = 1
+    host_id: int = 0
     vision_len: int = 0            # Qwen2-VL stub: vision positions
     d_model: int = 0               # width of the vision and audio stubs
     enc_len: int = 0               # whisper stub: encoder frames
+
+    @property
+    def host_batch(self) -> int:
+        if self.global_batch % self.n_hosts:
+            raise ValueError(f"global batch {self.global_batch} does not "
+                             f"split over {self.n_hosts} hosts")
+        return self.global_batch // self.n_hosts
 
 
 def _batch_rng(cfg: DataConfig, step: int) -> np.random.Generator:
@@ -55,21 +69,63 @@ def synth_tokens(cfg: DataConfig, step: int) -> np.ndarray:
 
 
 def host_batch(cfg: DataConfig, step: int) -> dict:
-    """The batch of ``step`` as numpy: ``tokens`` and ``labels``
-    (global_batch, seq_len), the labels shifted one token left; with
-    ``vision_len``, ``vision_embeds`` (global_batch, vision_len, d_model)
-    and with ``enc_len``, ``enc_frames`` (global_batch, enc_len, d_model),
-    standard normal f32 drawn in that order from a fresh generator of the
-    step, as the reference draws them."""
-    toks = synth_tokens(cfg, step)
+    """This host's slice of the batch of ``step`` as numpy: ``tokens`` and
+    ``labels`` (host_batch, seq_len), the labels shifted one token left;
+    with ``vision_len``, ``vision_embeds`` (host_batch, vision_len,
+    d_model) and with ``enc_len``, ``enc_frames`` (host_batch, enc_len,
+    d_model), standard normal f32 drawn for the whole global batch in that
+    order from a fresh generator of the step, as the reference draws
+    them."""
+    lo = cfg.host_id * cfg.host_batch
+    hi = lo + cfg.host_batch
+    toks = synth_tokens(cfg, step)[lo:hi]
     batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
     rng = _batch_rng(cfg, step)
     for name, n in (("vision_embeds", cfg.vision_len),
                     ("enc_frames", cfg.enc_len)):
         if n:
             batch[name] = rng.standard_normal(
-                (cfg.global_batch, n, cfg.d_model)).astype(np.float32)
+                (cfg.global_batch, n, cfg.d_model)).astype(np.float32)[lo:hi]
     return batch
+
+
+class Prefetcher:
+    """One-step lookahead: a thread builds each step's host batch from
+    ``start_step`` on and copies it to ``device``, at most two ahead.
+    ``next(p)`` returns (step, batch) in step order."""
+
+    def __init__(self, cfg: DataConfig, start_step: int = 0, device=None):
+        self.cfg = cfg
+        self._q: queue.Queue = queue.Queue(maxsize=2)
+        self._stop = threading.Event()
+
+        def worker():
+            step = start_step
+            while not self._stop.is_set():
+                batch = host_batch(cfg, step)
+                if device is not None:
+                    batch = to_device(batch, device)
+                while not self._stop.is_set():
+                    try:
+                        self._q.put((step, batch), timeout=0.1)
+                        break
+                    except queue.Full:
+                        continue
+                step += 1
+
+        self._thread = threading.Thread(target=worker, daemon=True)
+        self._thread.start()
+
+    def __iter__(self):
+        return self
+
+    def __next__(self):
+        return self._q.get()
+
+    def close(self):
+        """Stop the thread and wait for it."""
+        self._stop.set()
+        self._thread.join()
 
 
 def to_device(batch: dict, device) -> dict:

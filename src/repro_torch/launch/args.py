@@ -2,9 +2,8 @@
 ``repro.launch.args``: the kernel impl, the precision policy with the
 pooled state's dtype, the device, the tuning cache, the serving tier's
 router flags, and the trace and metrics outputs.  The serve launcher
-defines ``--seq-parallel`` itself, as the reference's does; the
-reference's multi-host flags come with ROADMAP.md §1 item 6.2 and do not
-parse until then.
+defines ``--seq-parallel`` itself, and the train launcher its
+multi-host flags, as the reference's do.
 """
 
 from __future__ import annotations

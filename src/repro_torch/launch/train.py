@@ -16,29 +16,52 @@ rewrites the dtype policy (DESIGN.md §10), and a low-precision parameter
 dtype turns on the f32 master copy and dynamic loss scaling, as in the
 reference.  ``--ckpt-dir`` holds the checkpoints (the run resumes from
 the latest there), ``--ckpt-every`` sets their interval and
-``--grad-accum`` the microbatches per step, and ``--tune-cache`` layers a
-tuning cache over the seed cache (DESIGN.md §11).  The reference
-launcher's multi-pod, production-mesh, distributed and
-gradient-compression flags are not ported yet (ROADMAP.md §1 item 6) and
-do not parse.
+``--grad-accum`` the microbatches per step, ``--grad-compression
+int8_ef`` quantises the reduced gradients with error feedback, and
+``--tune-cache`` layers a tuning cache over the seed cache (DESIGN.md
+§11).
+
+``--distributed`` is the per-rank entry point of data-parallel training:
+started as ``torchrun`` starts ranks (``RANK``, ``WORLD_SIZE``,
+``MASTER_PORT``), each rank joins the process group
+(``launch.mesh.init_distributed``: NCCL when every rank has a card, gloo
+when they share one or run on the CPU), builds the mesh over the world,
+reads its slice of each global batch and trains with the elastic
+trainer, its parameters, gradients and moments sharded over the data
+axis::
+
+    PYTHONPATH=src torchrun --nproc-per-node 2 -m repro_torch.launch.train \
+        --distributed --arch qwen2-1.5b-gspn --steps 3 --batch 2 --seq 4096 \
+        --grad-compression int8_ef
+
+Its mesh is ``make_mesh_for_devices(world, model_parallel=1)``: every
+rank on the data axis, where the reference takes a model axis of
+``min(16, n)``, until tensor parallelism (ROADMAP.md §1 item 6.2).
+``--production-mesh`` (with ``--multi-pod``) builds the reference's
+16 x 16 (2 x 16 x 16) mesh, which needs 256 (512) ranks, and whose model
+axis raises until then.
 """
 
 from __future__ import annotations
 
 import argparse
 import logging
+import os
 import pathlib
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.configs.base import get_arch, with_precision
 from repro_torch.data.pipeline import DataConfig
+from repro_torch.device import resolve_device
 from repro_torch.kernels import cuda_lib
 from repro_torch.launch import args as largs
+from repro_torch.launch import mesh as lmesh
 from repro_torch.models.lm import count_params
 from repro_torch.optim.adamw import AdamWConfig
-from repro_torch.train.step import LossScaleConfig
-from repro_torch.train.trainer import Trainer, TrainerConfig
+from repro_torch.train.step import GRAD_COMPRESSION, LossScaleConfig
+from repro_torch.train.trainer import ElasticTrainer, Trainer, TrainerConfig
 
 # Checkpoints go under the checkout's build directory unless --ckpt-dir
 # names another.
@@ -57,12 +80,29 @@ def main(argv=None) -> Trainer:
                     help="checkpoint directory (default: build/ckpt/<arch> "
                          "in the checkout)")
     ap.add_argument("--ckpt-every", type=int, default=50)
+    ap.add_argument("--grad-compression", default="none",
+                    choices=list(GRAD_COMPRESSION))
     ap.add_argument("--grad-accum", type=int, default=1)
+    ap.add_argument("--distributed", action="store_true",
+                    help="join the process group torchrun describes in the "
+                         "environment and train data-parallel over it")
+    ap.add_argument("--multi-pod", action="store_true")
+    ap.add_argument("--production-mesh", action="store_true",
+                    help="use the 16x16 / 2x16x16 production mesh "
+                         "(requires 256/512 ranks)")
     largs.add_precision_args(ap)
     largs.add_tuning_args(ap)
     largs.add_device_arg(ap)
     largs.add_observability_args(ap)
     args = ap.parse_args(argv)
+    if (args.production_mesh or args.multi_pod) and not args.distributed:
+        ap.error("--production-mesh and --multi-pod build a mesh over the "
+                 "ranks of --distributed")
+    missing = [v for v in ("RANK", "WORLD_SIZE", "MASTER_PORT")
+               if v not in os.environ]
+    if args.distributed and missing:
+        ap.error(f"--distributed needs {', '.join(missing)} in the "
+                 f"environment, as torchrun sets them")
     logging.basicConfig(level=logging.INFO, format="%(asctime)s %(message)s")
 
     largs.setup_observability(args)
@@ -77,29 +117,52 @@ def main(argv=None) -> Trainer:
             mp_kwargs = dict(master_weights=True,
                              loss_scaling=LossScaleConfig())
 
-    trainer = Trainer(
+    device = resolve_device(args.device)
+    rank, mesh, mesh_kw = 0, None, {}
+    if args.distributed:
+        device = lmesh.init_distributed(device)
+        rank, world = dist.get_rank(), dist.get_world_size()
+        if args.production_mesh:
+            mesh = lmesh.make_production_mesh(multi_pod=args.multi_pod,
+                                              device_type=device.type)
+        else:
+            mesh = lmesh.make_mesh_for_devices(
+                range(world), model_parallel=1, device_type=device.type)
+        mesh_kw = dict(mesh=mesh, dp_axes=lmesh.dp_axes_for(mesh))
+    data_cfg = DataConfig(
+        vocab=cfg.vocab, seq_len=args.seq, global_batch=args.batch,
+        vision_len=args.seq // 2 if cfg.family == "vlm" else 0,
+        enc_len=cfg.enc_len if cfg.family == "audio" else 0,
+        d_model=cfg.d_model)
+    trainer = (ElasticTrainer if args.distributed else Trainer)(
         cfg,
         AdamWConfig(lr=args.lr, warmup_steps=max(args.steps // 20, 5),
                     total_steps=args.steps),
-        DataConfig(vocab=cfg.vocab, seq_len=args.seq,
-                   global_batch=args.batch,
-                   vision_len=args.seq // 2 if cfg.family == "vlm" else 0,
-                   enc_len=cfg.enc_len if cfg.family == "audio" else 0,
-                   d_model=cfg.d_model),
+        data_cfg,
         TrainerConfig(ckpt_dir=args.ckpt_dir or str(BUILD / "ckpt" /
                                                      args.arch),
                       ckpt_every=args.ckpt_every),
-        device=args.device, grad_accum=args.grad_accum, **mp_kwargs)
-    start = trainer.init_or_restore()
-    print(f"[train] {cfg.name} on {trainer.device}: "
-          f"{count_params(trainer.model)} parameters, from step {start}")
-    cuda_lib.clear_counts()
-    hist = trainer.run(args.steps)
-    largs.finish_observability(args, "train")
-    print(f"[train] {args.arch}: loss {hist[0]:.4f} -> {hist[-1]:.4f}, "
-          f"recoveries={trainer.recoveries}")
-    print(f"[train] scan launches {dict(cuda_lib.launch_counts)}, plain "
-          f"scan calls {dict(cuda_lib.plain_calls)}")
+        device=device, grad_accum=args.grad_accum,
+        grad_compression=args.grad_compression, **mesh_kw, **mp_kwargs)
+    tag = f"[train {rank}]" if args.distributed else "[train]"
+    try:
+        start = trainer.init_or_restore()
+        if rank == 0:
+            print(f"{tag} {cfg.name} on {trainer.device}: "
+                  f"{count_params(trainer.model)} parameters, from step "
+                  f"{start}", flush=True)
+        cuda_lib.clear_counts()
+        hist = trainer.run(args.steps)
+        largs.finish_observability(args, "train")
+        if rank == 0:
+            print(f"{tag} {args.arch}: loss {hist[0]:.4f} -> "
+                  f"{hist[-1]:.4f}, recoveries={trainer.recoveries}, "
+                  f"step {trainer.step}, losses {hist}", flush=True)
+        print(f"{tag} scan launches {dict(cuda_lib.launch_counts)}, plain "
+              f"scan calls {dict(cuda_lib.plain_calls)}", flush=True)
+    finally:
+        if args.distributed:
+            dist.destroy_process_group()
     return trainer
 
 

@@ -194,12 +194,14 @@ class LMConfig:
 @dataclasses.dataclass
 class Ctx:
     """Per-call execution context, the ``ctx`` of every entry point: the
-    device mesh (a ``DeviceMesh``, ``launch.mesh.make_sp_mesh``) that
-    ``gspn_impl="sp"`` shards the mixer's scans over.  Every rank holds
-    the whole model; only the scans' rows are sharded.  The reference also
-    shards weights and activations over its data and ``model`` axes; that
-    waits for ROADMAP.md §1 item 6.2: here a data axis shards only the
-    scans' G (``parallel.gspn_sp``), and a ``model`` axis raises."""
+    device mesh (a ``DeviceMesh``) that ``gspn_impl="sp"`` shards the
+    mixer's scans over (``launch.mesh.make_sp_mesh``; a data axis shards
+    the scans' G, ``parallel.gspn_sp``) and that the data-parallel train
+    step runs on (``train.step``: its ``data`` and ``pod`` axes shard the
+    weights and the batch, and the blocks see whole weights and their
+    rank's rows).  Sharding weights over the reference's ``model`` axis
+    waits for ROADMAP.md §1 item 6.2: a ``model`` axis larger than 1
+    raises."""
     mesh: Any = None
 
     def __post_init__(self):

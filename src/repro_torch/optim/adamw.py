@@ -67,11 +67,13 @@ def global_norm(tensors) -> torch.Tensor:
         [a.float().square().sum() for a in tensors]).sum())
 
 
-def clip_by_global_norm(tensors, max_norm):
+def clip_by_global_norm(tensors, max_norm, norm=None):
     """(tensors scaled so their global norm is at most ``max_norm``, the
-    norm before scaling)."""
+    norm before scaling); ``norm``, when given, is that norm (a sharded
+    step's, over every rank's shards)."""
     tensors = list(tensors)
-    norm = global_norm(tensors)
+    if norm is None:
+        norm = global_norm(tensors)
     scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-9), max=1.0)
     return [(a.float() * scale).to(a.dtype) for a in tensors], norm
 
@@ -122,15 +124,17 @@ def decays(name: str, p: torch.Tensor) -> bool:
 
 
 @torch.no_grad()
-def adamw_update(cfg: AdamWConfig, grads, state, params) -> dict:
+def adamw_update(cfg: AdamWConfig, grads, state, params, norm=None) -> dict:
     """One AdamW step: clip ``grads`` by their global norm, then update
-    ``params`` and the moments of ``state`` in place.  Returns
+    ``params`` and the moments of ``state`` in place.  ``norm(grads)``,
+    when given, computes the global norm (a sharded step's).  Returns
     {"lr", "grad_norm", "step"}."""
     step = state["step"] + 1
     lr = lr_at(cfg, step)
     names = list(params)
-    clipped, gnorm = clip_by_global_norm((grads[n] for n in names),
-                                         cfg.grad_clip)
+    clipped, gnorm = clip_by_global_norm(
+        (grads[n] for n in names), cfg.grad_clip,
+        None if norm is None else norm(grads))
     b1, b2 = cfg.b1, cfg.b2
     step_f = torch.tensor(step, dtype=torch.float32)
     bc1 = 1 - b1 ** step_f

@@ -1,12 +1,30 @@
-"""The LM train step: loss -> gradients -> AdamW, the port of the
-reference's ``train/step.py`` on one device.
+"""The LM train step: loss -> gradients -> (compression) -> AdamW, the
+port of the reference's ``train/step.py``.
 
 A train state is a dict: ``params`` (the model's own parameters by name,
-``dict(model.named_parameters())``), ``opt`` (:func:`adamw_init`'s
-moments and step), and optionally ``master`` and ``loss_scale``.
-:func:`init_train_state` builds it; :func:`build_train_step` returns
-``train_step(state, batch) -> (state, metrics)``, which updates the state
-in place (AdamW writes parameters and moments in place) and returns it.
+``dict(model.named_parameters())``; on a data-parallel mesh, each rank's
+local shards), ``opt`` (:func:`adamw_init`'s moments and step), and
+optionally ``errors`` (int8 compression's residuals), ``master`` and
+``loss_scale``.  :func:`init_train_state` builds it;
+:func:`build_train_step` returns ``train_step(state, batch) -> (state,
+metrics)``, which updates the state in place (AdamW writes parameters and
+moments in place) and returns it.
+
+**Data parallelism.**  With a ``mesh`` that has a ``data`` axis (and
+optionally ``pod``), the model's weights, gradients, moments and
+residuals are sharded as ``parallel.sharding``'s rules say
+(``parallel.data_parallel``: FSDP2, ZeRO-3), each rank's batch is its
+slice of the global one, gradients reach the optimizer as the mean over
+the ranks, the clipping norm is the global one and the reported loss is
+the ranks' mean.  :func:`make_train_setup` builds the whole of it from a
+seed: every rank draws the same full weights, keeps its shards and frees
+the rest.
+
+**int8 error feedback** (``grad_compression="int8_ef"``, the
+reference's): each leaf's reduced gradient plus its residual is
+quantised to int8 with one scale for the whole (global) reference leaf,
+which stacks a stage's blocks, and dequantised; the residual stays in
+``state["errors"]`` (f32, placed as its parameter).
 
 Mixed-precision training (DESIGN.md §10): with ``master_weights`` the
 working parameters stay in the model's ``param_dtype`` (bf16 under the
@@ -25,12 +43,16 @@ step increment), which reads one flag back from the device per step.
 from __future__ import annotations
 
 import dataclasses
+from typing import Any, Callable
 
 import torch
 
-from repro_torch.models.lm import LM, lm_loss
+from repro_torch.models.lm import LM, Ctx, LMConfig, lm_loss
 from repro_torch.optim.adamw import (AdamWConfig, adamw_init, adamw_update,
-                                     global_norm, lr_at)
+                                     global_norm, lr_at, reference_leaf)
+from repro_torch.parallel.data_parallel import DataParallel, local
+
+GRAD_COMPRESSION = ("none", "int8_ef")
 
 
 # ---------------------------------------------------------------------------
@@ -81,27 +103,70 @@ def tree_all_finite(tensors) -> torch.Tensor:
 
 def init_train_state(model: LM, opt_cfg: AdamWConfig, *,
                      master_weights: bool = False,
-                     loss_scaling: LossScaleConfig | None = None) -> dict:
-    """The train state of ``model``: its parameters, AdamW's state for the
-    parameters the optimizer walks (the f32 master copy when
-    ``master_weights``), and the loss-scale state when ``loss_scaling``."""
-    params = dict(model.named_parameters())
+                     loss_scaling: LossScaleConfig | None = None,
+                     grad_compression: str = "none") -> dict:
+    """The train state of ``model``: its parameters (this rank's shards of
+    a sharded model), AdamW's state for the parameters the optimizer walks
+    (the f32 master copy when ``master_weights``), f32 zero residuals
+    under ``grad_compression="int8_ef"``, and the loss-scale state when
+    ``loss_scaling``."""
+    params = {n: local(p) for n, p in model.named_parameters()}
     state = {"params": params}
     if master_weights:
         state["master"] = {n: p.detach().to(torch.float32, copy=True)
                            for n, p in params.items()}
     state["opt"] = adamw_init(opt_cfg, state.get("master", params))
+    if grad_compression == "int8_ef":
+        state["errors"] = {n: torch.zeros(p.shape, dtype=torch.float32,
+                                          device=p.device)
+                           for n, p in params.items()}
     if loss_scaling is not None:
         state["loss_scale"] = loss_scale_init(loss_scaling)
     return state
 
 
-def build_train_step(model: LM, opt_cfg: AdamWConfig, *, grad_accum: int = 1,
-                     master_weights: bool = False,
-                     loss_scaling: LossScaleConfig | None = None,
-                     grad_compression: str = "none"):
+def _leaf_amax(xs: dict, dp=None) -> dict:
+    """{name: the largest magnitude of the reference leaf that parameter
+    ``name`` belongs to}: the reference quantises each pytree leaf with
+    one scale, and a leaf stacks the parameters of every block of a
+    stage (``optim.adamw.reference_leaf``).  Under ``dp`` the maxima are
+    of the global leaves (one all-reduce MAX over the data axis)."""
+    groups: dict = {}
+    for n in xs:
+        groups.setdefault(reference_leaf(n)[0], []).append(n)
+    paths = list(groups)
+    local = torch.stack([torch.stack([xs[n].abs().max() for n in groups[p]])
+                         .max() for p in paths])
+    if dp is not None:
+        local = dp.leaf_max(local)
+    return {n: local[i] for i, p in enumerate(paths) for n in groups[p]}
+
+
+def _int8_ef(g, e, amax):
+    """The reference's per-leaf int8 error feedback with the leaf's
+    largest magnitude ``amax`` (of the global leaf under sharding):
+    (the dequantised gradient in ``g``'s dtype, the new residual)."""
+    x = g.float() + e
+    scale = torch.clamp(amax, min=1e-12) / 127.0
+    q = torch.clamp(torch.round(x / scale), -127, 127).to(torch.int8)
+    gh = q.float() * scale
+    return gh.to(g.dtype), x - gh
+
+
+def build_train_step(model: LM, opt_cfg: AdamWConfig, *, mesh=None,
+                     dp_axes=None, grad_compression: str = "none",
+                     grad_accum: int = 1, master_weights: bool = False,
+                     loss_scaling: LossScaleConfig | None = None):
     """Returns ``train_step(state, batch) -> (state, metrics)`` for a state
     from :func:`init_train_state` over ``model``.
+
+    With ``mesh`` (a ``DeviceMesh`` with a ``data`` axis; ``dp_axes`` its
+    data-parallel axes, ``launch.mesh.dp_axes_for`` by default) the step
+    is data-parallel: ``model`` is sharded first if it is not yet (build
+    the state after this call, or use :func:`make_train_setup`), and the
+    batch is this rank's slice.  A ``model`` axis larger than 1 raises
+    (``models.lm.Ctx``).  ``grad_compression`` is ``"none"`` or
+    ``"int8_ef"``.
 
     ``grad_accum`` > 1 splits the batch into that many microbatches along
     its first axis and sums their gradients in f32 (in bf16 for bf16
@@ -111,21 +176,34 @@ def build_train_step(model: LM, opt_cfg: AdamWConfig, *, grad_accum: int = 1,
     ``step``, and ``loss_scale`` (the scale the step ran at) and
     ``grads_finite`` under loss scaling.
     """
-    if grad_compression != "none":
-        raise NotImplementedError(
-            f"grad_compression={grad_compression!r} needs the collectives, "
-            f"which come with parallelism (ROADMAP.md §1 item 6)")
+    if grad_compression not in GRAD_COMPRESSION:
+        raise ValueError(f"grad_compression must be one of "
+                         f"{GRAD_COMPRESSION}, got {grad_compression!r}")
     if grad_accum < 1:
         raise ValueError(f"grad_accum must be at least 1, got {grad_accum}")
+    ctx = Ctx(mesh=mesh) if mesh is not None else None
+    dp = None
+    if mesh is not None:
+        from torch.distributed.fsdp import FSDPModule
+        dp = DataParallel(model, mesh, dp_axes)
+        if not isinstance(model, FSDPModule):
+            dp.shard()
 
     def loss_and_grads(params, batch, scale):
         """(unscaled loss, metrics, gradients of the scaled loss).  A
         parameter the loss does not read (an xattn block's ``xattn.wk``
         and ``xattn.wv``) gets an exact zero gradient, as in the
-        reference."""
-        loss, metrics = lm_loss(model, batch)
-        grads = torch.autograd.grad(loss if scale is None else loss * scale,
-                                    list(params.values()), allow_unused=True)
+        reference.  Data-parallel: FSDP's hooks reduce the gradients in
+        ``backward``, and loss and metrics are the ranks' means."""
+        loss, metrics = lm_loss(model, batch, ctx=ctx)
+        scaled = loss if scale is None else loss * scale
+        if dp is not None:
+            scaled.backward()
+            return dp.all_mean(loss.detach()), {
+                k: dp.all_mean(v.detach()) for k, v in metrics.items()}, \
+                dp.grads()
+        grads = torch.autograd.grad(scaled, list(params.values()),
+                                    allow_unused=True)
         grads = [torch.zeros_like(p) if g is None else g
                  for p, g in zip(params.values(), grads)]
         return loss.detach(), {k: v.detach() for k, v in metrics.items()}, \
@@ -168,9 +246,11 @@ def build_train_step(model: LM, opt_cfg: AdamWConfig, *, grad_accum: int = 1,
 
         finite = True
         if loss_scaling is not None:
-            # Overflow check on the raw, still-scaled gradients; the
-            # unscale runs in f32.
+            # Overflow check on the raw, still-scaled gradients (on every
+            # rank's shards); the unscale runs in f32.
             finite = bool(tree_all_finite(grads.values()))
+            if dp is not None:
+                finite = dp.all_true(finite)
             inv = 1.0 / scale
             grads = {n: (g.float() * inv).to(
                 torch.float32 if master_weights else g.dtype)
@@ -178,10 +258,18 @@ def build_train_step(model: LM, opt_cfg: AdamWConfig, *, grad_accum: int = 1,
         elif master_weights:
             grads = {n: g.float() for n, g in grads.items()}
 
+        if grad_compression == "int8_ef":
+            errors = state["errors"]
+            xs = {n: g.float() + errors[n] for n, g in grads.items()}
+            amax = _leaf_amax(xs, dp)
+            for n, g in grads.items():
+                grads[n], errors[n] = _int8_ef(g, errors[n], amax[n])
+
+        norm = dp.norm if dp is not None else None
         if finite:
             stats = adamw_update(opt_cfg, grads, opt,
                                  state["master"] if master_weights
-                                 else params)
+                                 else params, norm=norm)
             if master_weights:
                 with torch.no_grad():
                     for n, p in params.items():
@@ -190,7 +278,8 @@ def build_train_step(model: LM, opt_cfg: AdamWConfig, *, grad_accum: int = 1,
             # Skipped: parameters, master, moments and step stay as they
             # were; the statistics are those the update would report.
             stats = {"lr": lr_at(opt_cfg, opt["step"] + 1),
-                     "grad_norm": global_norm(grads.values()),
+                     "grad_norm": norm(grads) if norm is not None
+                     else global_norm(grads.values()),
                      "step": opt["step"] + 1}
         del grads
 
@@ -203,3 +292,68 @@ def build_train_step(model: LM, opt_cfg: AdamWConfig, *, grad_accum: int = 1,
         return state, out
 
     return train_step
+
+
+# ---------------------------------------------------------------------------
+# The sharded state, built from a seed.
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class TrainSetup:
+    """Everything a trainer needs on one rank: the (sharded) model, its
+    train state, the step, the mesh, each parameter's spec and this
+    rank's placements of the state (flat state key -> (dim, parts,
+    index)) for the checkpoint manager."""
+    model: LM
+    state: dict
+    train_step: Callable
+    mesh: Any
+    dp_axes: tuple
+    param_specs: dict
+    state_placements: dict
+
+
+def _state_placements(state: dict, placements: dict) -> dict:
+    """Every state leaf that mirrors a sharded parameter takes its
+    placement."""
+    out = {}
+    for n, p in placements.items():
+        out[f"params/{n}"] = p
+        for sub in ("master", "errors"):
+            if sub in state:
+                out[f"{sub}/{n}"] = p
+        out[f"opt/m/{n}"] = out[f"opt/v/{n}"] = p
+    return out
+
+
+def make_train_setup(model_cfg: LMConfig, opt_cfg: AdamWConfig, *,
+                     mesh=None, dp_axes=None, grad_compression="none",
+                     device=None, seed: int = 0, grad_accum: int = 1,
+                     master_weights: bool = False,
+                     loss_scaling: LossScaleConfig | None = None
+                     ) -> TrainSetup:
+    """The model drawn from ``seed`` on ``device``, sharded over ``mesh``'s
+    data axis when a mesh is given (the same full weights on every rank,
+    each keeping its shards), its state and its step."""
+    from repro_torch.device import resolve_device
+    from repro_torch.launch.mesh import dp_axes_for
+
+    device = resolve_device(device)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    model = LM(model_cfg, device=device, generator=gen)
+    specs, placements = {}, {}
+    if mesh is not None:
+        dp_axes = tuple(dp_axes or dp_axes_for(mesh))
+        dp = DataParallel(model, mesh, dp_axes).shard()
+        specs, placements = dp.specs, dp.placements()
+    step = build_train_step(model, opt_cfg, mesh=mesh, dp_axes=dp_axes,
+                            grad_compression=grad_compression,
+                            grad_accum=grad_accum,
+                            master_weights=master_weights,
+                            loss_scaling=loss_scaling)
+    state = init_train_state(model, opt_cfg, master_weights=master_weights,
+                             loss_scaling=loss_scaling,
+                             grad_compression=grad_compression)
+    return TrainSetup(model=model, state=state, train_step=step, mesh=mesh,
+                      dp_axes=tuple(dp_axes or ()), param_specs=specs,
+                      state_placements=_state_placements(state, placements))

@@ -1,5 +1,6 @@
 """Fault-tolerant training loop, the port of the reference's
-``train/trainer.py`` on one device.
+``train/trainer.py``: on one device, or data-parallel over a mesh's
+``data`` (and ``pod``) axis, one process a rank.
 
 * **Checkpoint/restart**: asynchronous atomic checkpoints every
   ``ckpt_every`` steps and one of the last step, which is on disk when
@@ -11,10 +12,18 @@
 * **Straggler detection**: the step's wall time is tracked with an EWMA;
   a step slower than ``straggler_factor`` times it is counted and logged.
 * **Failure injection**: ``failure_injector(step)`` raising before a step
-  exercises the recovery path in tests.
-
-The reference's ``ElasticTrainer`` re-meshes on a changed device set and
-comes with parallelism (ROADMAP.md §1 item 6).
+  exercises the recovery path in tests.  On a mesh the ranks agree on it
+  (one all-reduce of a flag), so every rank recovers together and none
+  waits in a collective of the step.
+* **Data parallelism**: with ``mesh``, every rank draws the same full
+  model from the seed, keeps its shards (``train.step.make_train_setup``)
+  and reads its slice of each global batch (``DataConfig.n_hosts`` and
+  ``host_id`` from its place on the mesh); each rank writes its own
+  shards to the checkpoint.
+* **Elastic re-mesh**: :class:`ElasticTrainer` polls ``device_monitor()``
+  (the live ranks); on a change it saves, builds the new mesh over the
+  live ranks, rebuilds the step and restores under the new placements.
+  Ranks outside the new mesh leave the loop.
 
 Observability (DESIGN.md §13): spans ``train.data`` and ``train.step``;
 events ``train.recovery``, ``train.straggler`` and ``train.loss_scale``
@@ -31,15 +40,16 @@ import logging
 from typing import Callable, Optional
 
 import torch
+import torch.distributed as dist
 
 from repro_torch import obs
 from repro_torch.checkpoint.manager import CheckpointManager
 from repro_torch.data.pipeline import DataConfig, host_batch, to_device
 from repro_torch.device import resolve_device
+from repro_torch.launch.mesh import (dp_axes_for, make_mesh_for_devices)
 from repro_torch.models.lm import LM, LMConfig
 from repro_torch.optim.adamw import AdamWConfig
-from repro_torch.train.step import (LossScaleConfig, build_train_step,
-                                    init_train_state)
+from repro_torch.train.step import LossScaleConfig, make_train_setup
 
 log = logging.getLogger("repro_torch.trainer")
 
@@ -55,14 +65,26 @@ class TrainerConfig:
     log_every: int = 10
 
 
+def _mesh_group(mesh):
+    """A group of every rank of ``mesh`` (its data group when that is all
+    of it)."""
+    names = mesh.mesh_dim_names
+    if mesh.size(names.index("data")) == mesh.size():
+        return mesh.get_group(names.index("data"))
+    return dist.new_group(sorted(mesh.mesh.flatten().tolist()))
+
+
 class Trainer:
     """Trains an :class:`LM` of ``model_cfg`` on ``data_cfg``'s synthetic
     tokens with :func:`build_train_step`, on ``device`` (the card unless
-    the caller asks for another).  Weights are drawn from a generator
+    the caller asks for another), data-parallel over ``mesh`` when one is
+    given (``dp_axes``: its data-parallel axes; ``grad_compression``:
+    ``"none"`` or ``"int8_ef"``).  Weights are drawn from a generator
     seeded with ``init_or_restore``'s ``seed``."""
 
     def __init__(self, model_cfg: LMConfig, opt_cfg: AdamWConfig,
                  data_cfg: DataConfig, tcfg: TrainerConfig, *, device=None,
+                 mesh=None, dp_axes=None, grad_compression: str = "none",
                  grad_accum: int = 1, master_weights: bool = False,
                  loss_scaling: Optional[LossScaleConfig] = None,
                  failure_injector: Optional[Callable[[int], None]] = None):
@@ -71,11 +93,15 @@ class Trainer:
         self.data_cfg = data_cfg
         self.tcfg = tcfg
         self.device = resolve_device(device)
+        self.mesh = mesh
+        self.dp_axes = dp_axes
+        self.grad_compression = grad_compression
         self.grad_accum = grad_accum
         self.master_weights = master_weights
         self.loss_scaling = loss_scaling
         self.failure_injector = failure_injector
-        self.ckpt = CheckpointManager(tcfg.ckpt_dir, keep=tcfg.keep)
+        self._group = None
+        self.ckpt = self._manager()
         self.model: Optional[LM] = None
         self.state = None
         self.step = 0
@@ -88,16 +114,37 @@ class Trainer:
         self._last_scale = None
 
     # -- state management ---------------------------------------------------
+    def _manager(self) -> CheckpointManager:
+        """The checkpoint manager of this rank's place on the mesh; on a
+        mesh, ``data_cfg``'s ``n_hosts`` and ``host_id`` become the
+        data-parallel size and this rank's index."""
+        if self.mesh is not None:
+            names = self.mesh.mesh_dim_names
+            axes = tuple(self.dp_axes or dp_axes_for(self.mesh))
+            n, idx = 1, 0
+            for a in axes:
+                i = names.index(a)
+                n, idx = n * self.mesh.size(i), \
+                    idx * self.mesh.size(i) + self.mesh.get_local_rank(i)
+            self.data_cfg = dataclasses.replace(self.data_cfg, n_hosts=n,
+                                                host_id=idx)
+            self._group = _mesh_group(self.mesh)
+        return CheckpointManager(self.tcfg.ckpt_dir, keep=self.tcfg.keep,
+                                 host_id=self.data_cfg.host_id,
+                                 n_hosts=self.data_cfg.n_hosts,
+                                 group=self._group)
+
     def _init(self, seed: int):
-        gen = torch.Generator(device=self.device).manual_seed(seed)
-        self.model = LM(self.model_cfg, device=self.device, generator=gen)
-        self.state = init_train_state(self.model, self.opt_cfg,
-                                      master_weights=self.master_weights,
-                                      loss_scaling=self.loss_scaling)
-        self._train_step = build_train_step(
-            self.model, self.opt_cfg, grad_accum=self.grad_accum,
+        self.model = self.state = None
+        setup = make_train_setup(
+            self.model_cfg, self.opt_cfg, mesh=self.mesh,
+            dp_axes=self.dp_axes, grad_compression=self.grad_compression,
+            device=self.device, seed=seed, grad_accum=self.grad_accum,
             master_weights=self.master_weights,
             loss_scaling=self.loss_scaling)
+        self.model, self.state = setup.model, setup.state
+        self._train_step = setup.train_step
+        self.placements = setup.state_placements
         self.step = 0
 
     def init_or_restore(self, seed: int = 0) -> int:
@@ -105,6 +152,7 @@ class Trainer:
         committed checkpoint if there is one.  Returns the step."""
         self.seed = seed
         self._init(seed)
+        self.ckpt.wait()
         latest = self.ckpt.latest_step()
         if latest is not None:
             self._restore(latest)
@@ -113,8 +161,8 @@ class Trainer:
 
     def _restore(self, ckpt_step: int):
         self.ckpt.wait()
-        self.state, self.step = self.ckpt.restore(step=ckpt_step,
-                                                  target=self.state)
+        self.state, self.step = self.ckpt.restore(
+            step=ckpt_step, target=self.state, placements=self.placements)
         log.warning("restored checkpoint at step %d", self.step)
 
     def _recover(self):
@@ -122,6 +170,7 @@ class Trainer:
         initial state before the first: the step may have updated the
         state in place before it failed.  Forget the losses of the steps
         that will be replayed."""
+        self.ckpt.wait()
         latest = self.ckpt.latest_step()
         if latest is not None:
             self._restore(latest)
@@ -130,7 +179,29 @@ class Trainer:
         del self.history[max(self.step - self._first_step, 0):]
 
     def _save(self):
-        self.ckpt.save(self.step, self.state)
+        if self.placements:
+            self.ckpt.save(self.step, self.state, placements=self.placements)
+        else:
+            self.ckpt.save(self.step, self.state)
+
+    def _failed_before_step(self) -> Optional[Exception]:
+        """What ``failure_injector`` raised for this step, on any rank: on
+        a mesh the ranks agree (an all-reduce of a flag), so all of them
+        recover together."""
+        exc = None
+        if self.failure_injector is not None:
+            try:
+                self.failure_injector(self.step)
+            except Exception as e:  # noqa: BLE001 — any injected failure
+                exc = e
+        if self._group is not None:
+            flag = torch.tensor([float(exc is not None)])
+            if dist.get_backend(self._group) == "nccl":
+                flag = flag.to(self.device)
+            dist.all_reduce(flag, group=self._group)
+            if flag.item() and exc is None:
+                exc = RuntimeError("a failure on another rank")
+        return exc
 
     def _note_loss_scale(self, metrics):
         """Emit a loss-scale trace event on every scale change or
@@ -160,8 +231,9 @@ class Trainer:
                                   self.device)
             t0 = obs.monotonic()
             try:
-                if self.failure_injector is not None:
-                    self.failure_injector(self.step)
+                failed = self._failed_before_step()
+                if failed is not None:
+                    raise failed
                 with obs.trace("train.step", step=self.step):
                     self.state, metrics = self._train_step(self.state, batch)
                     # Reading the loss waits for the whole step.
@@ -208,4 +280,61 @@ class Trainer:
         if self.step % self.tcfg.ckpt_every:
             self._save()
         self.ckpt.wait()
+        return self.history
+
+
+class ElasticTrainer(Trainer):
+    """A data-parallel trainer that rebuilds itself on a changed rank set.
+
+    ``device_monitor()`` returns the live ranks (by default the whole
+    world); when they change, :meth:`maybe_remesh` saves (the state is on
+    disk when ``run`` returns a chunk), builds ``mesh_builder(ranks)``
+    (by default ``launch.mesh.make_mesh_for_devices`` with a model axis
+    of 1) on every rank of the old world, rebuilds the step and restores
+    under the new placements.  A rank outside the new mesh sets
+    ``active`` False and leaves :meth:`run`."""
+
+    def __init__(self, *args, device_monitor=None, mesh_builder=None,
+                 **kwargs):
+        super().__init__(*args, **kwargs)
+        self.device_monitor = device_monitor or (
+            lambda: list(range(dist.get_world_size())))
+        self.mesh_builder = mesh_builder or (
+            lambda ranks: make_mesh_for_devices(
+                ranks, model_parallel=1, device_type=self.device.type))
+        self._ranks = list(self.device_monitor())
+        self.active = True
+
+    def maybe_remesh(self) -> bool:
+        ranks = list(self.device_monitor())
+        if ranks == self._ranks:
+            return False
+        log.warning("elastic: ranks %s -> %s; re-meshing", self._ranks,
+                    ranks)
+        if self.ckpt.latest_step() != self.step:
+            self._save()
+        self.ckpt.wait()
+        self._ranks = ranks
+        mesh = self.mesh_builder(ranks)
+        if dist.get_rank() not in ranks:
+            self.active = False
+            self.model = self.state = None
+            return True
+        self.mesh = mesh
+        self.ckpt = self._manager()
+        self._init(self.seed)
+        self._restore(self.ckpt.latest_step())
+        return True
+
+    def run(self, n_steps: int, remesh_every: int = 10) -> list:
+        """Run ``n_steps`` more steps in chunks of ``remesh_every``,
+        re-meshing between chunks; returns the loss history."""
+        if self.state is None:
+            self.init_or_restore()
+        done = 0
+        while done < n_steps and self.active:
+            chunk = min(remesh_every, n_steps - done)
+            super().run(chunk)
+            done += chunk
+            self.maybe_remesh()
         return self.history

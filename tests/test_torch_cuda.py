@@ -970,6 +970,128 @@ def test_sp_two_ranks_over_gloo_match_the_kernel(card):
     assert [p.returncode for p in procs] == [0, 0], logs
 
 
+def _two_ranks(code):
+    """Run ``code`` in two ranks that share the card over gloo; both must
+    exit 0."""
+    import os
+    import pathlib
+    import subprocess
+    import sys
+    env = dict(os.environ, WORLD_SIZE="2", MASTER_ADDR="127.0.0.1",
+               MASTER_PORT=str(_free_port()),
+               PYTHONPATH=str(pathlib.Path(__file__).resolve().parents[1]
+                              / "src"))
+    procs = [subprocess.Popen([sys.executable, "-c", code],
+                              env=dict(env, RANK=str(r), LOCAL_RANK=str(r)),
+                              stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for r in range(2)]
+    try:
+        logs = [p.communicate(timeout=300)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    assert [p.returncode for p in procs] == [0, 0], logs
+
+
+# Every collective the data axis issues, on CUDA tensors over gloo and
+# counted: FSDP2's gather and reduce-scatter, the all-reduces of the
+# replicated gradients, the norm, the int8 scale (MAX) and payload
+# (int32), and the pipeline's ring shift (through host memory: gloo's
+# send and receive take no CUDA tensor).
+_DP_COLLECTIVES = """
+import torch, torch.distributed as dist
+from repro_torch.launch.mesh import init_distributed, make_mesh_for_devices
+from repro_torch.parallel import collectives as C
+from repro_torch.parallel.pipeline import _ring_shift
+init_distributed(torch.device("cuda"))
+r = dist.get_rank()
+x = torch.full((4, 6), float(r + 1), device="cuda")
+g = dist.group.WORLD
+out = torch.empty(8, 6, device="cuda")
+C.CountedAllGather()(out, x, g)
+assert (out[:4] == 1).all() and (out[4:] == 2).all()
+out = torch.empty_like(x)
+C.CountedReduceScatter()(out, torch.cat([x, 2 * x]), g, dist.ReduceOp.SUM)
+assert (out == (3 if r == 0 else 6)).all()
+assert (C.all_reduce_counted(x.clone(), g) == 3).all()
+assert (C.all_reduce_counted(x.clone(), g, dist.ReduceOp.MAX) == 2).all()
+assert (C.all_reduce_counted(x.to(torch.int32), g) == 3).all()
+assert C.staged_bytes["all_gather"] == 96 + 192
+fn = C.compressed_allreduce(make_mesh_for_devices(
+    range(2), model_parallel=1, device_type="cuda"), "data")
+gh, e = fn({"g": x}, {"g": torch.zeros_like(x)})
+scale = torch.tensor(2.0) / 127          # the shared amax over 127
+q = torch.round(torch.tensor(float(r + 1)) / scale)   # 64 and 127
+assert torch.allclose(gh["g"].cpu(), torch.full((4, 6), float(
+    (64 + 127) * scale / 2)))
+assert torch.allclose(e["g"].cpu(), torch.full((4, 6), float(
+    r + 1 - q * scale)))
+y = _ring_shift(x, (r + 1) % 2, (r - 1) % 2, g, True)
+assert (y == (2 if r == 0 else 1)).all()
+dist.destroy_process_group()
+"""
+
+
+def test_dp_collectives_on_cuda_tensors_over_gloo(card):
+    """Two ranks sharing the card over gloo: every collective of the data
+    axis on CUDA tensors, counted."""
+    _two_ranks(_DP_COLLECTIVES)
+
+
+# The reduced LM's placements and one sharded step on the card against the
+# one-rank step (f32 policy, TF32 off), #1 and #2 launched, no plain scan.
+_DP_STEP = """
+import dataclasses, torch, torch.distributed as dist
+from repro_torch.configs.base import with_precision
+from repro_torch.configs.qwen2_1_5b_gspn import reduced
+from repro_torch.data.pipeline import DataConfig, host_batch, to_device
+from repro_torch.kernels import cuda_lib
+from repro_torch.launch.mesh import init_distributed, make_mesh_for_devices
+from repro_torch.optim.adamw import AdamWConfig
+from repro_torch.parallel.sharding import sharded_dim
+from repro_torch.train.step import make_train_setup
+torch.backends.cuda.matmul.allow_tf32 = False
+init_distributed(torch.device("cuda"))
+r = dist.get_rank()
+cfg = dataclasses.replace(with_precision(reduced(), "f32"), remat="unit")
+ocfg = AdamWConfig(lr=1e-3, warmup_steps=2, total_steps=10)
+mesh = make_mesh_for_devices(range(2), model_parallel=1, device_type="cuda")
+sh = make_train_setup(cfg, ocfg, mesh=mesh, device="cuda",
+                      grad_compression="int8_ef")
+one = make_train_setup(cfg, ocfg, device="cuda", grad_compression="int8_ef")
+for n, p in sh.state["params"].items():
+    want = list(one.state["params"][n].shape)
+    d = sharded_dim(sh.param_specs[n], "data")
+    if d is not None:
+        want[d[0]] //= 2
+    for t in (p, sh.state["opt"]["m"][n], sh.state["errors"][n]):
+        assert list(t.shape) == want, (n, list(t.shape), want)
+    assert p.is_cuda
+dc = DataConfig(vocab=cfg.vocab, seq_len=64, global_batch=4)
+cuda_lib.clear_counts()
+_, m = sh.train_step(sh.state, to_device(host_batch(
+    dataclasses.replace(dc, n_hosts=2, host_id=r), 0), "cuda"))
+torch.cuda.synchronize()
+assert cuda_lib.launch_counts["gspn_scan_fwd"] == 8
+assert cuda_lib.launch_counts["gspn_scan_bwd"] == 4
+assert not cuda_lib.plain_calls
+_, m1 = one.train_step(one.state, to_device(host_batch(dc, 0), "cuda"))
+assert abs(float(m["loss"]) - float(m1["loss"])) <= 1e-5 * abs(float(m1["loss"]))
+assert abs(float(m["grad_norm"]) - float(m1["grad_norm"])) <= 1e-5 * float(m1["grad_norm"])
+dist.destroy_process_group()
+"""
+
+
+def test_dp_placements_and_a_sharded_step_on_card(card):
+    """The reduced LM on 2 ranks sharing the card: every parameter, moment
+    and residual holds the shape its spec gives, and one int8_ef step
+    launches #1 and #2 and matches the one-rank step's loss and norm."""
+    _two_ranks(_DP_STEP)
+
+
 # ---------------------------------------------------------------------------
 # The SSM and xLSTM families (plain PyTorch on the card: no kernel of their
 # own, and no scan).

@@ -395,10 +395,46 @@ def test_grad_accum_matches_full_batch():
 
 
 def test_grad_compression_waits_for_parallelism():
-    _, ct = _reduced()
-    with pytest.raises(NotImplementedError, match="item 6"):
+    """int8 error feedback came with the data axis (ROADMAP.md §1 item
+    6.2): one step of ``grad_compression="int8_ef"`` over 2 microbatches
+    against the reference's from the same parameters and batch: loss and
+    gradient norm, every parameter (1e-5 of its largest magnitude, but
+    for elements whose gradient is below 1e-5 of their leaf's largest)
+    and every residual (quantised with one scale per stacked leaf) within
+    1e-5 of its leaf's largest gradient; no element sits an int8 step
+    away at this seed (``tests/test_torch_dp.py`` allows and counts those
+    at boundaries).  An unknown mode is refused."""
+    cj, ct = _reduced("f32")
+    params, model = _lm(cj, ct)
+    jcfg = jadamw.AdamWConfig(**OPT)
+    jstate = {"params": params, "opt": jadamw.adamw_init(jcfg, params),
+              "errors": jax.tree.map(jnp.zeros_like, params)}
+    b = _batch(n=4, seq=24)
+    g0 = lm_state_from_jax(jax.tree.map(np.asarray, jax.grad(
+        lambda p: jlm.lm_loss(p, cj, _jax_batch(b))[0])(params)))
+    jstate, want = jax.jit(jstep.build_train_step(
+        cj, jcfg, grad_compression="int8_ef", grad_accum=2))(
+            jstate, _jax_batch(b))
+    ocfg = AdamWConfig(**OPT)
+    state = tstep.init_train_state(model, ocfg, grad_compression="int8_ef")
+    state, got = tstep.build_train_step(
+        model, ocfg, grad_compression="int8_ef", grad_accum=2)(
+            state, _torch_batch(b))
+    np.testing.assert_allclose(float(got["loss"]), float(want["loss"]),
+                               rtol=1e-5)
+    np.testing.assert_allclose(float(got["grad_norm"]),
+                               float(want["grad_norm"]), rtol=1e-6)
+    want_p = lm_state_from_jax(jax.tree.map(np.asarray, jstate["params"]))
+    want_e = lm_state_from_jax(jax.tree.map(np.asarray, jstate["errors"]))
+    for name, w in want_p.items():
+        w, g = _np(w), _np(g0[name])
+        off = np.abs(_np(state["params"][name]) - w) > 1e-5 * np.abs(w).max()
+        assert (np.abs(g[off]) <= NOISE_FLOOR * np.abs(g).max()).all(), name
+        e = np.abs(_np(state["errors"][name]) - _np(want_e[name]))
+        assert e.max() <= 1e-5 * np.abs(g).max(), name
+    with pytest.raises(ValueError, match="grad_compression"):
         tstep.build_train_step(lm.LM(ct, device="cpu"), AdamWConfig(),
-                               grad_compression="int8_ef")
+                               grad_compression="int4")
 
 
 # ---------------------------------------------------------------------------
@@ -528,16 +564,18 @@ def test_token_batches_match_reference(seed, step, host, extra):
 
 
 def test_data_config_has_no_stub_or_host_fields():
-    """Host sharding (item 6) and uniform streams wait for their callers:
-    those fields do not exist.  The vision and audio stubs' fields do
+    """Uniform streams wait for a caller: that field does not exist.  The
+    host fields came with the data axis (ROADMAP.md §1 item 6.2) and the
+    vision and audio stubs' fields with their families
     (tests/test_torch_vl.py and tests/test_torch_whisper.py hold their
-    draws to the reference's), and default to none."""
-    for field in ("n_hosts", "host_id", "structure"):
-        with pytest.raises(TypeError):
-            pipeline.DataConfig(vocab=8, seq_len=4, global_batch=2,
-                                **{field: 1})
+    draws to the reference's); all default to one host and no stub, and
+    ``tests/test_torch_dp.py`` holds the host slices to the
+    reference's."""
+    with pytest.raises(TypeError):
+        pipeline.DataConfig(vocab=8, seq_len=4, global_batch=2, structure=1)
     cfg = pipeline.DataConfig(vocab=8, seq_len=4, global_batch=2)
     assert (cfg.vision_len, cfg.d_model, cfg.enc_len) == (0, 0, 0)
+    assert (cfg.n_hosts, cfg.host_id, cfg.host_batch) == (1, 0, 2)
     assert sorted(pipeline.host_batch(cfg, 0)) == ["labels", "tokens"]
 
 
@@ -759,11 +797,25 @@ def test_entry_points_need_a_card_or_cpu(tmp_path):
     ["--multi-pod"], ["--production-mesh"], ["--distributed"],
     ["--grad-compression", "int8_ef"], ["--grad-compression", "none"],
 ])
-def test_unported_launcher_flags_do_not_parse(flag, tmp_path):
-    with pytest.raises(SystemExit):
-        launch_train.main(["--arch", "qwen2-1.5b-gspn", "--reduced",
-                           "--device", "cpu", "--ckpt-dir", str(tmp_path),
-                           *flag])
+def test_unported_launcher_flags_do_not_parse(flag, tmp_path, monkeypatch):
+    """The reference launcher's multi-host flags parse since the data
+    axis came (ROADMAP.md §1 item 6.2): ``--grad-compression`` reaches the
+    step; ``--multi-pod`` and ``--production-mesh`` build a mesh over the
+    ranks of ``--distributed`` and are refused without it, as is
+    ``--distributed`` without the environment torchrun sets
+    (``tests/test_torch_dp.py`` runs it in 2 gloo ranks)."""
+    for var in ("RANK", "WORLD_SIZE", "MASTER_PORT"):
+        monkeypatch.delenv(var, raising=False)
+    argv = ["--arch", "qwen2-1.5b-gspn", "--reduced", "--device", "cpu",
+            "--ckpt-dir", str(tmp_path), "--steps", "1", "--batch", "2",
+            "--seq", "16", *flag]
+    if flag[0] != "--grad-compression":
+        with pytest.raises(SystemExit):
+            launch_train.main(argv)
+        return
+    tr = launch_train.main(argv)
+    assert tr.grad_compression == flag[1] and tr.step == 1
+    assert ("errors" in tr.state) == (flag[1] == "int8_ef")
 
 
 def test_example_attention_mixer_waits_for_its_item(tmp_path, capsys):
