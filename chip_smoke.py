@@ -151,13 +151,42 @@ Phases, each of which fails the run on any error:
    its share in the counted collectives, the bytes through host memory
    and peak memory a rank; (e) ``pipeline_apply`` over the 2 ranks, one
    full-width GSPN block a stage, 4 microbatches of 1 x 1024,
-   against the blocks in sequence (1e-5), #1 launched on both; then (d)
-   ``launch/train.py --distributed`` on 2 ranks under the config's own
-   policy, 3 steps with ``--grad-compression int8_ef`` and a checkpoint
-   at step 3, then a launch of 1 step that resumes at step 3 (without
-   compression: the smoke keeps its disk writes under 45 GiB, and two
-   checkpoints of the int8 state, 22.3 GB each, do not fit beside the
-   rest of it); losses finite, no plain scan;
+   against the blocks in sequence (1e-5), #1 launched on both; (d) the
+   first ``grad_compression="int8_ef"`` step from the seed on the same
+   mesh (each global leaf's scale from an all-reduce MAX), counted as
+   (b), against the one-rank int8_ef step at 2 x 4096: loss and
+   ``grad_norm`` 1e-5, a sampled residual off by more than 1e-5 of its
+   leaf's largest quantised magnitude only by one int8 step or within
+   four times (c)'s noise control (the residuals start at zero, so a
+   residual's distance is its gradient's), a sampled parameter off by
+   more than 1e-5 of its leaf's largest only at a step;
+   then that FSDP-placed state (parameters, moments, residuals) saved
+   by both ranks with ``CheckpointManager``, zeroed and restored, every
+   tensor bit for bit.  The launcher's ``--distributed``, which now
+   builds a model axis, runs in the ``lm tp`` phase;
+   then tensor parallelism (``lm tp ...`` lines, phase ``lm tp``):
+   ``qwen2-1.5b-gspn`` ``full()`` on (data 1, model 2), 2 gloo ranks
+   sharing the card, f32 policy, remat unit, seed 5: the one-rank side in
+   this process first, then in the ranks (a) parameters and moments at
+   the local shape the model axis gives, leaves split over ``model``,
+   leaf sums against the one rank's, bytes a rank; (b) the first step at
+   1 x 4096 counted, #1 and #2 by shape as the one rank's, no plain scan;
+   (c) that step against the one rank's with (c)'s bounds of ``lm dp``,
+   the noise control measured the same way: four times the distance
+   AdamW's first step puts between the one rank's gradient and that
+   gradient in another reduction order (d_ff and the vocabulary, the
+   sums the model axis splits, in a seeded permutation); and every
+   block's output after its all-reduce bit-equal on both ranks; (d)
+   ``grok-1-314b`` cut to one
+   ``attn_moe`` layer in f32 at M = 2 (ep 2, tp 1) against one rank at M
+   = 1: loss, aux 1e-5, sampled gradients 1e-4 of their leaf's largest,
+   at 1 x 256 tokens; (e) ``launch/train.py --distributed
+   --grad-compression int8_ef`` on 2 ranks under the config's own
+   policy, which picks (data 1, model 2): 2 steps and a model-sharded
+   checkpoint, then a launch of 1 step that resumes from it without
+   compression (two checkpoints of the int8 state, 22.3 GB each, do not
+   fit beside the rest of the smoke's 45 GiB); losses finite and
+   falling, no plain scan;
 12. the serving tier (``lm tier ...`` lines): the prefix cache cold and
    warm on both LMs, threaded replicas under each router policy and a
    replica's failure (``qwen2-1.5b-gspn`` at 7 of its 28 layers), and
@@ -282,6 +311,7 @@ from __future__ import annotations
 import collections
 import contextlib
 import dataclasses
+import gc
 import importlib.util
 import io
 import json
@@ -2569,9 +2599,6 @@ DP_RANKS = 2
 DP_SEED = 4
 DP_SAMPLES = 64                  # sampled elements of each leaf in (c)
 DP_PIPE = (4, 1, 1024)           # microbatches of 1 x 1024 tokens
-DP_LAUNCH = ("-m", "repro_torch.launch.train", "--distributed", "--arch",
-             "qwen2-1.5b-gspn", "--batch", str(TRAIN_BATCH), "--seq",
-             str(TRAIN_SEQ))
 
 
 def _dp_cfg():
@@ -2664,6 +2691,24 @@ def _dp_reference(path: pathlib.Path) -> dict:
                       for n, p in params.items()},
                value_max={n: p.detach().abs().max().item()
                           for n, p in params.items()})
+    del setup, model, params, metrics, _
+    gc.collect()
+    torch.cuda.empty_cache()
+    # (d): the int8_ef step from the same seed on the whole batch.
+    setup = make_train_setup(cfg, _dp_opt(), device="cuda", seed=DP_SEED,
+                             grad_compression="int8_ef")
+    _, metrics = setup.train_step(setup.state, batch)
+    params, errors = setup.state["params"], setup.state["errors"]
+    ref["int8"] = {
+        "loss": float(metrics["loss"]),
+        "grad_norm": float(metrics["grad_norm"]),
+        "value": {n: p.flatten()[idx[n]].cpu() for n, p in params.items()},
+        "value_max": {n: p.abs().max().item() for n, p in params.items()},
+        "error": {n: e.flatten()[idx[n]].cpu() for n, e in errors.items()},
+        "error_max": {n: e.abs().max().item() for n, e in errors.items()}}
+    del setup, params, errors, metrics, _
+    gc.collect()
+    torch.cuda.empty_cache()
     torch.save(ref, path)
     return ref
 
@@ -2801,6 +2846,111 @@ def _dp_step(setup, ref, rank, note):
     return out
 
 
+def _digest(t) -> tuple:
+    """Two integer sums of a tensor's bits (the plain sum and one weighted
+    by position): equal for equal tensors, and a zeroed tensor restored
+    from a checkpoint gives them back only if its bits came back."""
+    v = t.detach().reshape(-1)
+    if v.dtype == torch.float32:
+        v = v.view(torch.int32)
+    v = v.long()
+    w = torch.arange(v.numel(), device=v.device) % 65521 + 1
+    return int(v.sum()), int((v * w).sum())
+
+
+def _dp_int8(ref, rank, mesh, ckpt, note):
+    """(d): the first int8_ef step from the seed on the (2, 1) mesh,
+    counted, against the one-rank int8_ef step; then its FSDP-placed
+    state (parameters, moments, int8 residuals) saved by both ranks,
+    overwritten with zeros and restored: every leaf bit for bit."""
+    import torch.distributed as dist
+    from repro_torch.checkpoint.manager import CheckpointManager, flatten
+    from repro_torch.kernels import cuda_lib
+    from repro_torch.train.step import make_train_setup
+
+    setup = make_train_setup(_dp_cfg(), _dp_opt(), mesh=mesh, device="cuda",
+                             seed=DP_SEED, grad_compression="int8_ef")
+    batch = _dp_batch(_dp_cfg(), DP_RANKS, rank)
+    cuda_lib.clear_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, metrics = setup.train_step(setup.state, batch)
+    torch.cuda.synchronize()
+    out = {"ms": (time.perf_counter() - t0) * 1e3,
+           "loss": float(metrics["loss"]),
+           "grad_norm": float(metrics["grad_norm"]),
+           "launches": {"/".join(map(str, k)): v for k, v in
+                        cuda_lib.launch_shapes.items()},
+           "plain": sum(cuda_lib.plain_calls.values())}
+    note(f"int8_ef step, {out['ms']:.1f} ms")
+    # A residual (the gradient less its quantised value: the residuals
+    # start at zero) may differ by more than 1e-5 of its leaf's largest
+    # quantised magnitude (254 times the largest residual) by one int8
+    # step (at least twice the largest residual), or by up to four times
+    # the distance between the one rank's gradient of the whole batch
+    # and its halves' mean (the noise control of (c)); a parameter may
+    # be off by more than 1e-5 of its leaf's largest only at a step.  A
+    # replicated leaf is checked on rank 0.
+    r = ref["int8"]
+    counts = torch.zeros(5, dtype=torch.float64)
+    worst = []
+    for name, p in setup.state["params"].items():
+        placement = setup.state_placements.get(f"params/{name}")
+        if placement is None and rank:
+            continue
+        mine, flat = _dp_local(p, placement, ref["idx"][name])
+        flat = flat.cuda()
+        e = setup.state["errors"][name].flatten()[flat].cpu()
+        d = (e - r["error"][name][mine]).abs()
+        emax = r["error_max"][name]
+        tol = 1e-5 * 254 * emax
+        off_e = d > tol
+        flip = off_e & (d >= 1.9 * emax)
+        noise = off_e & ~flip & (d <= tol + 4 * (
+            ref["grad"][name][mine] - ref["half_grad"][name][mine]).abs())
+        got = p.detach().flatten()[flat].cpu()
+        off = (got - r["value"][name][mine]).abs() > 1e-5 * r["value_max"][
+            name]
+        bad = (off_e & ~flip & ~noise) | (off & ~flip)
+        counts += torch.tensor([float(mine.sum()), float(flip.sum()),
+                                float(noise.sum()), float(off.sum()),
+                                float(bad.sum())], dtype=torch.float64)
+        for k in torch.nonzero(bad).flatten().tolist()[:2]:
+            worst.append((name, float(d[k]), emax))
+    dist.all_reduce(counts)
+    (out["sampled"], out["flips"], out["noise"], out["off"],
+     out["bad"]) = map(int, counts.tolist())
+    out["worst"] = worst[:6]
+
+    flat_state = {k: t for k, t in flatten(setup.state).items()
+                  if isinstance(t, torch.Tensor)}
+    before = {k: _digest(t) for k, t in flat_state.items()}
+    dist.barrier()
+    t0 = time.perf_counter()
+    ck = CheckpointManager(str(ckpt), host_id=rank, n_hosts=DP_RANKS)
+    ck.save(1, setup.state, placements=setup.state_placements,
+            skip=setup.state_skip)
+    ck.wait()
+    out["save_s"] = time.perf_counter() - t0
+    out["bytes"] = sum(f.stat().st_size for f in pathlib.Path(ckpt).rglob(
+        "host_*.npz"))
+    with torch.no_grad():
+        for t in flat_state.values():
+            t.zero_()
+    t0 = time.perf_counter()
+    _, step = CheckpointManager(str(ckpt), host_id=rank,
+                                n_hosts=DP_RANKS).restore(
+        target=setup.state, placements=setup.state_placements)
+    torch.cuda.synchronize()
+    out["restore_s"] = time.perf_counter() - t0
+    out["restored_step"] = step
+    out["leaves"] = len(before)
+    out["restored_equal"] = sum(
+        _digest(flat_state[k]) == v for k, v in before.items())
+    note("int8_ef checkpoint saved and restored")
+    return out
+
+
 def _dp_pipe(rank):
     """(e): GPipe over the 2 ranks, one full-width GSPN block a stage, 4
     microbatches of 1 x 1024, against the two blocks in sequence."""
@@ -2832,8 +2982,8 @@ def _dp_pipe(rank):
 def dp_worker(mode: str, out: str) -> None:
     """One rank of the lm dp phase, started by :func:`_spawn_ranks`: joins
     the gloo group the ranks share, builds the sharded setup from the
-    seed, runs (a), (b), (c) and (e), and on rank 0 writes every rank's
-    results to ``out``."""
+    seed, runs (a), (b), (c), (e) and (d), and on rank 0 writes every
+    rank's results to ``out``."""
     sys.path.insert(0, str(ROOT / "src"))
     import torch.distributed as dist
     from repro_torch.launch.mesh import init_distributed, make_mesh_for_devices
@@ -2862,9 +3012,12 @@ def dp_worker(mode: str, out: str) -> None:
     note("placements")
     res.update(_dp_step(setup, ref, rank, note))
     del setup
+    gc.collect()
     torch.cuda.empty_cache()
     res["pipe"] = _dp_pipe(rank)
     note("pipeline")
+    res["int8"] = _dp_int8(ref, rank, mesh, pathlib.Path(out).with_name(
+        "ckpt"), note)
     every = [None] * DP_RANKS
     dist.all_gather_object(every, res)
     dist.destroy_process_group()
@@ -2872,22 +3025,14 @@ def dp_worker(mode: str, out: str) -> None:
         pathlib.Path(out).write_text(json.dumps(every))
 
 
-def _dp_launch(extra, ckpt) -> list:
-    """The train launcher with ``--distributed`` in 2 ranks; returns
-    (rank 0's losses, its first step, every rank's launch line)."""
-    logs = _run_ranks([*DP_LAUNCH, *extra, "--ckpt-dir", str(ckpt)],
-                      DP_RANKS, "lm dp launcher")
-    start = int(re.search(r"from step (\d+)", logs[0]).group(1))
-    losses = json.loads(re.search(r"losses (\[[^\]]*\])", logs[0]).group(1))
-    lines = [re.search(r"scan launches .*", log).group(0) for log in logs]
-    return losses, start, lines
-
-
 def dp_phase():
-    """Data parallelism at full width: (a) placements and the seed, (b) a
-    counted step on each rank, (c) that step against the one-rank step,
-    (d) the launcher with --distributed --grad-compression int8_ef and its
-    resume, (e) pipeline_apply over the 2 ranks."""
+    """Data parallelism at full width on a ("data", "model") mesh of
+    (2, 1): (a) placements and the seed, (b) a counted step on each rank,
+    (c) that step against the one-rank step, (e) pipeline_apply over the
+    2 ranks, (d) the int8_ef step against the one-rank int8_ef step and a
+    save and restore of its data-sharded state.  The launcher's
+    --distributed, which now builds a model axis, runs in the lm tp
+    phase."""
     import shutil
 
     out_dir = ROOT / "build" / "dp"
@@ -2968,32 +3113,610 @@ def dp_phase():
         if p["err"] > 1e-5 or not p["launches"].get("gspn_scan_fwd") or \
                 p["plain"]:
             fails.append(f"(e) rank {r}")
+    i8 = [res["int8"] for res in ranks]
+    one = ref["int8"]
+    rel = abs(i8[0]["loss"] - one["loss"]) / abs(one["loss"])
+    gn = abs(i8[0]["grad_norm"] - one["grad_norm"]) / one["grad_norm"]
+    print(f"lm dp (d) int8_ef, 2 ranks vs one rank at {TRAIN_BATCH} x "
+          f"{TRAIN_SEQ} ({smi}): loss {i8[0]['loss']:.7f} vs "
+          f"{one['loss']:.7f} (relative {rel:.3e}, tol 1e-5), grad_norm "
+          f"{i8[0]['grad_norm']:.7f} vs {one['grad_norm']:.7f} (relative "
+          f"{gn:.3e}, tol 1e-5); of {i8[0]['sampled']} sampled elements "
+          f"{i8[0]['flips']} residuals one int8 step from the one rank's, "
+          f"{i8[0]['noise']} off by more than 1e-5 of their leaf's largest "
+          f"quantised magnitude but within 4x the distance between the "
+          f"one rank's whole-batch gradient and its halves' mean (the "
+          f"noise control), {i8[0]['off']} parameters off by more than "
+          f"1e-5 of their leaf's largest, {i8[0]['bad']} otherwise off "
+          f"(tol 0) "
+          f"{i8[0]['worst'] + i8[1]['worst']}; the step "
+          f"{i8[0]['ms']:.1f} / {i8[1]['ms']:.1f} ms, launches by shape "
+          f"{i8[0]['launches']}, plain {i8[0]['plain'] + i8[1]['plain']}; "
+          f"its state ({i8[0]['leaves']} tensors a rank, {i8[0]['bytes']} "
+          f"bytes in the shard files) saved in {i8[0]['save_s']:.1f} s, "
+          f"zeroed and restored in {i8[0]['restore_s']:.1f} s: "
+          f"{[x['restored_equal'] for x in i8]} of {i8[0]['leaves']} "
+          f"tensors bit-equal on each rank", flush=True)
+    if rel > 1e-5 or gn > 1e-5 or i8[0]["bad"] or \
+            i8[0]["sampled"] != DP_SAMPLES * len(ref["idx"]) or \
+            any(x["launches"] != ref["launches"] or x["plain"] or
+                x["restored_step"] != 1 or x["restored_equal"] != x["leaves"]
+                for x in i8):
+        fails.append("(d)")
+    shutil.rmtree(out_dir / "ckpt", ignore_errors=True)
     print(f"lm dp ranks: {time.perf_counter() - t0:.1f} s", flush=True)
 
-    # (d) The launcher, its own policy, and a resume from its checkpoint.
+    if fails:
+        raise AssertionError(f"lm dp: {fails}")
+
+
+# Tensor parallelism (``lm tp ...`` lines): qwen2-1.5b-gspn full() over 2
+# gloo ranks that share the card on (data 1, model 2); grok-1-314b cut to
+# one attn_moe layer at M = 2 (ep 2, tp 1); the launcher's model axis.
+TP_RANKS = 2
+TP_SEED = 5
+TP_SAMPLES = 64                  # sampled elements of each leaf in (c), (d)
+TP_MOE_TOKENS = (1, 256)         # (d): a few hundred tokens
+TP_LAUNCH = ("-m", "repro_torch.launch.train", "--distributed", "--arch",
+             "qwen2-1.5b-gspn", "--batch", str(TRAIN_BATCH), "--seq",
+             str(TRAIN_SEQ))
+
+
+def _tp_moe_cfg(m):
+    """grok-1-314b's full width cut to one attn_moe layer, laid out for m
+    model shards, in f32."""
+    from repro_torch.configs.base import with_precision
+    from repro_torch.configs.grok_1_314b import full
+    return with_precision(dataclasses.replace(
+        full(m), n_layers=1, unit=(("attn_moe", 1),)), "f32")
+
+
+def _tp_batch(cfg, seq=TRAIN_SEQ, batch=1, seed=0):
+    from repro_torch.data.pipeline import DataConfig, host_batch, to_device
+    return to_device(host_batch(DataConfig(
+        vocab=cfg.vocab, seq_len=seq, global_batch=batch, seed=seed), 0),
+        "cuda")
+
+
+def _samples(params, grads, rng_seed):
+    """Seeded flat indices of each leaf, the gradients there, and each
+    gradient's largest magnitude."""
+    rng = np.random.default_rng(rng_seed)
+    idx = {n: torch.from_numpy(rng.integers(0, p.numel(), TP_SAMPLES))
+           for n, p in params.items()}
+    return {"idx": idx,
+            "grad": {n: g.flatten()[idx[n].cuda()].cpu()
+                     for n, g in grads.items()},
+            "grad_max": {n: g.abs().max().item() for n, g in grads.items()}}
+
+
+def _tp_reordered(model, batch, grads) -> dict:
+    """{leaf: the largest distance between its gradient ``grads`` and the
+    one rank's gradient once more in another reduction order}: the FFN's
+    hidden units and the vocabulary taken in a seeded permutation (the
+    same function; the sums over d_ff and over the vocabulary, those the
+    model axis splits, run in another order), the gradients read back in
+    the model's own layout.  The weights are put back bit for bit."""
+    from repro_torch.models import lm
+
+    params = dict(model.named_parameters())
+    gen = torch.Generator(device="cuda").manual_seed(TP_SEED + 2)
+    vocab = torch.randperm(model.cfg.vocab, device="cuda", generator=gen)
+    hidden = torch.randperm(model.cfg.d_ff, device="cuda", generator=gen)
+    # {name: (dim, permutation)}: each leaf's permuted dim.
+    perms = {"embed": (0, vocab)}
+    if "head" in params:
+        perms["head"] = (1, vocab)
+    for n in params:
+        if n.endswith(("ffn.gate", "ffn.up")):
+            perms[n] = (1, hidden)
+        elif n.endswith("ffn.down"):
+            perms[n] = (0, hidden)
+    saved = {n: params[n].detach().clone() for n in perms}
+    inv = torch.argsort(vocab)
+    with torch.no_grad():
+        for n, (dim, pi) in perms.items():
+            params[n].copy_(saved[n].index_select(dim, pi))
+    moved = {k: inv[v.long()] if k in ("tokens", "labels") else v
+             for k, v in batch.items()}
+    loss, _ = lm.lm_loss(model, moved)
+    again = dict(zip(params, torch.autograd.grad(loss, list(
+        params.values()))))
+    del loss
+    with torch.no_grad():
+        for n in perms:
+            params[n].copy_(saved[n])
+    out = {}
+    for n, g in again.items():
+        if n in perms:
+            dim, pi = perms[n]
+            g = g.index_select(dim, torch.argsort(pi))
+        out[n] = (g - grads[n]).abs().max().item()
+    return out
+
+
+def _tp_reference(path: pathlib.Path) -> dict:
+    """The one-rank side, in this process: (a)-(c)'s seeded model (its
+    leaf sums), the counted loss and gradients at 1 x 4096, one AdamW step
+    with its loss, gradient norm and a seeded sample of every leaf; then
+    (d)'s grok layer at M = 1: loss, aux and sampled gradients at
+    1 x 256.  Saved to ``path`` for the ranks."""
+    from repro_torch.kernels import cuda_lib
+    from repro_torch.models import lm
+    from repro_torch.optim.adamw import lr_at
+    from repro_torch.train.step import make_train_setup
+
+    cfg = _dp_cfg()
+    setup = make_train_setup(cfg, _dp_opt(), device="cuda", seed=TP_SEED)
+    model = setup.model
+    params = dict(model.named_parameters())
+    ref = {"sums": {n: p.double().sum().item() for n, p in params.items()},
+           "shapes": {n: list(p.shape) for n, p in params.items()}}
+    batch = _tp_batch(cfg)
+    cuda_lib.clear_counts()
+    loss, _ = lm.lm_loss(model, batch)
+    grads = dict(zip(params, torch.autograd.grad(loss, list(
+        params.values()))))
+    torch.cuda.synchronize()
+    ref["launches"] = {"/".join(map(str, k)): v for k, v in
+                       cuda_lib.launch_shapes.items()}
+    ref["plain"] = sum(cuda_lib.plain_calls.values())
+    ref["step"] = _samples(params, grads, TP_SEED)
+    del loss
+    ref["step"]["reorder"] = _tp_reordered(model, batch, grads)
+    del grads
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, metrics = setup.train_step(setup.state, batch)
+    torch.cuda.synchronize()
+    ref["step_ms"] = (time.perf_counter() - t0) * 1e3
+    ref["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    ref.update(loss=float(metrics["loss"]),
+               grad_norm=float(metrics["grad_norm"]),
+               after={n: p.detach().flatten()[ref["step"]["idx"][n].cuda()]
+                      .cpu() for n, p in params.items()},
+               after_max={n: p.detach().abs().max().item()
+                          for n, p in params.items()})
+    # The noise control of (c): AdamW's first step moves an element by
+    # lr * g / (|g| + eps) of its clipped gradient g, so a change of g by
+    # the largest distance the reordered gradient shows on its leaf
+    # moves it this far.
+    ocfg = _dp_opt()
+    clip = min(1.0, ocfg.grad_clip / max(ref["grad_norm"], 1e-9))
+    lr = float(lr_at(ocfg, 1))
+
+    def moved(g):
+        return lr * g * clip / ((g * clip).abs() + ocfg.eps)
+
+    ref["step"]["noise"] = {
+        n: torch.maximum((moved(g + a) - moved(g)).abs(),
+                         (moved(g - a) - moved(g)).abs())
+        for n, g in ref["step"]["grad"].items()
+        for a in [ref["step"]["reorder"][n]]}
+    del setup, model, params
+    torch.cuda.empty_cache()
+
+    # (d) grok's layer at M = 1.
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    moe_cfg = _tp_moe_cfg(1)
+    model = lm.LM(moe_cfg, device="cuda", generator=torch.Generator(
+        device="cuda").manual_seed(TP_SEED))
+    params = dict(model.named_parameters())
+    ref["moe_bytes"] = {n: p.numel() * p.element_size()
+                        for n, p in params.items()}
+    loss, metrics = lm.lm_loss(model, _tp_batch(moe_cfg, TP_MOE_TOKENS[1],
+                                                TP_MOE_TOKENS[0]))
+    grads = dict(zip(params, torch.autograd.grad(loss, list(
+        params.values()))))
+    ref["moe"] = _samples(params, grads, TP_SEED + 1)
+    ref["moe"].update(loss=loss.detach().item(),
+                      aux=metrics["aux"].detach().item())
+    torch.cuda.synchronize()
+    ref["moe_s"] = time.perf_counter() - t0
+    ref["moe_peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    del model, params, grads, loss, metrics
+    torch.cuda.empty_cache()
+    torch.save(ref, path)
+    return ref
+
+
+def _tp_placements(setup, ref):
+    """(a): local shapes as the specs say, for parameters and moments;
+    leaf sums against the one-rank model's (the shards' sums over the
+    ranks; a replicated leaf's on every rank); bytes."""
+    import torch.distributed as dist
+
+    bad = []
+    for n, p in setup.state["params"].items():
+        want = list(ref["shapes"][n])
+        pl = setup.state_placements.get(f"params/{n}")
+        if pl is not None:
+            want[pl[0]] //= pl[1]
+        for what, t in (("params", p), ("m", setup.state["opt"]["m"][n]),
+                        ("v", setup.state["opt"]["v"][n])):
+            if list(t.shape) != want:
+                bad.append(f"{what}/{n} {list(t.shape)} != {want}")
+    names = sorted(setup.state["params"])
+    sums = torch.tensor([setup.state["params"][n].double().sum().item()
+                         for n in names], dtype=torch.float64)
+    every = [torch.empty_like(sums) for _ in range(TP_RANKS)]
+    dist.all_gather(every, sums)
+    seed_bad = []
+    for i, n in enumerate(names):
+        want = ref["sums"][n]
+        if f"params/{n}" in setup.state_placements:
+            got = sum(e[i].item() for e in every)
+        else:
+            got = every[0][i].item()
+            if any(e[i].item() != got for e in every):
+                seed_bad.append(f"{n}: replicas differ")
+        if abs(got - want) > 1e-9 * max(abs(want), 1.0):
+            seed_bad.append(f"{n}: {got} != {want}")
+
+    def nbytes(d):
+        return sum(t.numel() * t.element_size() for t in d.values())
+
+    full = sum(math.prod(s) for s in ref["shapes"].values()) * 4
+    params = nbytes(setup.state["params"])
+    return {"bad": bad, "seed_bad": seed_bad,
+            "n_sharded": sum(1 for k in setup.state_placements
+                             if k.startswith("params/")),
+            "n_params": len(names),
+            "bytes": {"params": params, "grads": params,
+                      "moments": nbytes(setup.state["opt"]["m"])
+                      + nbytes(setup.state["opt"]["v"])},
+            "one_rank_bytes": {"params": full, "grads": full,
+                               "moments": 2 * full}}
+
+
+def _tp_hidden(setup):
+    """(c)'s replication check: a forward without gradients from the
+    seed, each block's output (the residual stream after its all-reduced
+    FFN) hashed bit for bit (its int32 view summed in int64) and the last
+    one gathered whole: equal on both ranks, or not."""
+    import torch.distributed as dist
+    from repro_torch.models import lm
+
+    model, outs = setup.model, []
+    hooks = [blk.register_forward_hook(
+        lambda mod, args, out: outs.append(out.detach().clone()))
+        for _, _, blk in model.walk()]
+    try:
+        with torch.no_grad():
+            lm.lm_loss(model, _tp_batch(model.cfg))
+    finally:
+        for h in hooks:
+            h.remove()
+    sums = torch.stack([o.float().contiguous().view(torch.int32).long().sum()
+                        for o in outs]).cpu()
+    every = [torch.empty_like(sums) for _ in range(TP_RANKS)]
+    dist.all_gather(every, sums)
+    last = [torch.empty_like(outs[-1]) for _ in range(TP_RANKS)]
+    dist.all_gather(last, outs[-1].contiguous())
+    return {"blocks": len(outs),
+            "equal_blocks": int((every[0] == every[1]).sum()),
+            "last_equal": bool(torch.equal(last[0], last[1]))}
+
+
+def _tp_step(setup, ref, rank, note):
+    """(b) and (c): the first step from the seed, counted and timed with
+    its collectives, against the one-rank step."""
+    import torch.distributed as dist
+    from repro_torch.kernels import cuda_lib
+    from repro_torch.parallel import collectives
+
+    batch = _tp_batch(_dp_cfg())
+    cuda_lib.clear_counts()
+    collectives.clear_staged()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, metrics = setup.train_step(setup.state, batch)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    out = {"step0": {
+        "ms": dt * 1e3, "loss": float(metrics["loss"]),
+        "grad_norm": float(metrics["grad_norm"]),
+        "launches": {"/".join(map(str, k)): v for k, v in
+                     cuda_lib.launch_shapes.items()},
+        "plain": sum(cuda_lib.plain_calls.values()),
+        "staged_bytes": dict(collectives.staged_bytes),
+        "collective_s": dict(collectives.staged_seconds)}}
+    note(f"step, {dt * 1e3:.1f} ms, counted collectives "
+         f"{dict(collectives.staged_seconds)} s")
+    # An element may be off where its gradient is under 1e-5 of its
+    # leaf's largest, or by up to four times the distance AdamW's first
+    # step moves it under a change of its gradient by the largest
+    # distance between the one rank's gradient of its leaf and that
+    # gradient in another reduction order (the noise control, measured).
+    # A replicated leaf is checked on rank 0.
+    s = ref["step"]
+    counts = torch.zeros(4, dtype=torch.float64)
+    worst = []
+    for name, p in setup.state["params"].items():
+        placement = setup.state_placements.get(f"params/{name}")
+        if placement is None and rank:
+            continue
+        mine, flat = _dp_local(p, placement, s["idx"][name])
+        got = p.detach().flatten()[flat.cuda()].cpu()
+        want = ref["after"][name][mine]
+        g = s["grad"][name][mine]
+        tol = 1e-5 * ref["after_max"][name]
+        off = (got - want).abs() > tol
+        floor = g.abs() <= 1e-5 * s["grad_max"][name]
+        noise = (got - want).abs() <= tol + 4 * s["noise"][name][mine]
+        bad = off & ~floor & ~noise
+        counts += torch.tensor([float(mine.sum()), float(off.sum()),
+                                float((off & ~floor & noise).sum()),
+                                float(bad.sum())], dtype=torch.float64)
+        for k in torch.nonzero(bad).flatten().tolist()[:2]:
+            worst.append((name, float(got[k] - want[k]),
+                          float(g[k]) / s["grad_max"][name]))
+    dist.all_reduce(counts)
+    (out["sampled"], out["sample_off"], out["sample_noise"],
+     out["sample_bad"]) = map(int, counts.tolist())
+    out["sample_worst"] = worst[:6]
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    return out
+
+
+def _tp_moe(ref, rank, note):
+    """(d): grok's layer at M = 2 (ep 2, tp 1), built one rank at a time
+    (each draws the whole layer from the seed, then keeps its slab),
+    loss, aux and sampled gradients at 1 x 256 against the one rank at
+    M = 1.  At ep = M the converter's re-laid slabs (``relayout_slab``)
+    are the M = 1 slabs reshaped: a flat index names the same element in
+    both layouts."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_mesh_for_devices
+    from repro_torch.models import lm
+    from repro_torch.parallel.tensor_parallel import shard_model
+
+    cfg = _tp_moe_cfg(TP_RANKS)
+    mesh = make_mesh_for_devices(range(TP_RANKS), model_parallel=TP_RANKS,
+                                 device_type="cuda")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    for r in range(TP_RANKS):
+        if r == rank:
+            model = lm.LM(cfg, device="cuda", generator=torch.Generator(
+                device="cuda").manual_seed(TP_SEED))
+            placements = shard_model(model, mesh)
+            torch.cuda.empty_cache()
+        dist.barrier()
+    setup_s = time.perf_counter() - t0
+    params = dict(model.named_parameters())
+    nbytes = sum(p.numel() * p.element_size() for p in params.values())
+    note(f"moe set-up {setup_s:.1f} s")
+    t0 = time.perf_counter()
+    loss, metrics = lm.lm_loss(model, _tp_batch(cfg, TP_MOE_TOKENS[1],
+                                                TP_MOE_TOKENS[0]),
+                               ctx=lm.Ctx(mesh=mesh))
+    grads = dict(zip(params, torch.autograd.grad(loss, list(
+        params.values()))))
+    torch.cuda.synchronize()
+    s = ref["moe"]
+    counts = torch.zeros(2, dtype=torch.float64)
+    worst = []
+    for name, g in grads.items():
+        placement = placements.get(name)
+        if placement is None and rank:
+            continue
+        mine, flat = _dp_local(g, placement, s["idx"][name])
+        got = g.flatten()[flat.cuda()].cpu()
+        want = s["grad"][name][mine]
+        bad = (got - want).abs() > 1e-4 * s["grad_max"][name]
+        counts += torch.tensor([float(mine.sum()), float(bad.sum())],
+                               dtype=torch.float64)
+        for k in torch.nonzero(bad).flatten().tolist()[:2]:
+            worst.append((name, float(got[k]), float(want[k])))
+    dist.all_reduce(counts)
+    return {"loss": loss.detach().item(),
+            "aux": metrics["aux"].detach().item(),
+            "setup_s": setup_s, "ms": (time.perf_counter() - t0) * 1e3,
+            "bytes": nbytes, "n_sharded": len(placements),
+            "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+            "sampled": int(counts[0]), "bad": int(counts[1]),
+            "worst": worst[:6]}
+
+
+def tp_worker(mode: str, out: str) -> None:
+    """One rank of the lm tp phase, started by :func:`_spawn_ranks`: joins
+    the gloo group the ranks share, builds the setup on (data 1, model 2)
+    from the seed, runs (a), (b), (c) and (d), and on rank 0 writes every
+    rank's results to ``out``."""
+    sys.path.insert(0, str(ROOT / "src"))
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import init_distributed, make_mesh_for_devices
+    from repro_torch.train.step import make_train_setup
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    init_distributed(torch.device("cuda"))
+    rank = dist.get_rank()
+    t_start = time.perf_counter()
+
+    def note(what):
+        print(f"lm tp rank {rank}: {what} at "
+              f"{time.perf_counter() - t_start:.1f} s", flush=True)
+
+    ref = torch.load(pathlib.Path(out).with_name("ref.pt"))
+    mesh = make_mesh_for_devices(range(TP_RANKS), model_parallel=TP_RANKS,
+                                 device_type="cuda")
+    t0 = time.perf_counter()
+    setup = make_train_setup(_dp_cfg(), _dp_opt(), mesh=mesh, device="cuda",
+                             seed=TP_SEED)
+    torch.cuda.synchronize()
+    note("setup")
+    res = {"setup_s": time.perf_counter() - t0,
+           "mesh": dict(zip(mesh.mesh_dim_names, list(mesh.mesh.shape))),
+           "placements": _tp_placements(setup, ref)}
+    res["hidden"] = _tp_hidden(setup)
+    note("placements, hidden states")
+    res.update(_tp_step(setup, ref, rank, note))
+    del setup
+    torch.cuda.empty_cache()
+    res["moe"] = _tp_moe(ref, rank, note)
+    note("moe")
+    every = [None] * TP_RANKS
+    dist.all_gather_object(every, res)
+    dist.destroy_process_group()
+    if rank == 0:
+        pathlib.Path(out).write_text(json.dumps(every))
+
+
+def _tp_launch(extra, ckpt) -> tuple:
+    """The train launcher with ``--distributed`` in 2 ranks; returns
+    (rank 0's losses, its first step, its mesh line, every rank's launch
+    line)."""
+    logs = _run_ranks([*TP_LAUNCH, *extra, "--ckpt-dir", str(ckpt)],
+                      TP_RANKS, "lm tp launcher")
+    start = int(re.search(r"from step (\d+)", logs[0]).group(1))
+    losses = json.loads(re.search(r"losses (\[[^\]]*\])", logs[0]).group(1))
+    mesh = re.search(r"mesh (\{[^}]*\})", logs[0]).group(1)
+    lines = [re.search(r"scan launches .*", log).group(0) for log in logs]
+    return losses, start, mesh, lines
+
+
+def tp_phase():
+    """Tensor parallelism at full width on (data 1, model 2): (a)
+    placements and the seed, (b) a counted step on each rank, (c) that
+    step against the one-rank step and the ranks' hidden states bit for
+    bit, (d) grok's expert-parallel layer against one rank, (e) the
+    launcher with --distributed, which now builds the model axis, and its
+    resume from the model-sharded checkpoint."""
+    import shutil
+
+    out_dir = ROOT / "build" / "tp"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    out_dir.mkdir(parents=True)
+    smi = _run(["nvidia-smi", "--query-gpu=name,power.limit",
+                "--format=csv,noheader"]).strip()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    ref = _tp_reference(out_dir / "ref.pt")
+    print(f"lm tp one rank ({smi}): f32 policy, remat unit, seed {TP_SEED}; "
+          f"1 x {TRAIN_SEQ} loss and gradients launch {ref['launches']}, "
+          f"plain {ref['plain']}; one AdamW step: loss {ref['loss']:.6f}, "
+          f"grad_norm {ref['grad_norm']:.6f}, {ref['step_ms']:.1f} ms, peak "
+          f"{ref['peak_gib']:.2f} GiB; grok one attn_moe layer at M = 1, "
+          f"{sum(ref['moe_bytes'].values())} bytes of f32 parameters (slabs "
+          f"{sum(v for k, v in ref['moe_bytes'].items() if 'slab' in k)}), "
+          f"loss {ref['moe']['loss']:.6f}, aux {ref['moe']['aux']:.6f}, "
+          f"{ref['moe_s']:.1f} s, peak {ref['moe_peak_gib']:.2f} GiB; "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ranks = _spawn_ranks("step", TP_RANKS, out_dir / "step.json",
+                         worker="tp_worker")
+    fails = []
+    for r, res in enumerate(ranks):
+        pl = res["placements"]
+        b, one = pl["bytes"], pl["one_rank_bytes"]
+        print(f"lm tp (a) rank {r} ({smi}): mesh {res['mesh']}, setup "
+              f"{res['setup_s']:.1f} s; {pl['n_sharded']} of "
+              f"{pl['n_params']} parameters sharded over model, shape "
+              f"faults {pl['bad'][:3]}, seed faults {pl['seed_bad'][:3]}; "
+              f"bytes a rank: parameters {b['params']} (one rank "
+              f"{one['params']}), gradients {b['grads']} ({one['grads']}), "
+              f"moments {b['moments']} ({one['moments']})", flush=True)
+        if pl["bad"] or pl["seed_bad"] or not pl["n_sharded"]:
+            fails.append(f"(a) rank {r}")
+        s0 = res["step0"]
+        print(f"lm tp (b) rank {r}: launches by shape {s0['launches']}, "
+              f"plain scan calls {s0['plain']} (one rank at 1 x "
+              f"{TRAIN_SEQ}: {ref['launches']})", flush=True)
+        if s0["launches"] != ref["launches"] or s0["plain"]:
+            fails.append(f"(b) rank {r}")
+        coll = sum(s0["collective_s"].values()) * 1e3
+        by = {k: round(v * 1e3, 1) for k, v in s0["collective_s"].items()}
+        print(f"lm tp step rank {r} ({smi}): the first step from the seed "
+              f"{s0['ms']:.1f} ms (one rank {ref['step_ms']:.1f} ms), of "
+              f"which the counted collectives {coll:.1f} ms "
+              f"({coll / s0['ms']:.3f}) {by}, bytes through host memory "
+              f"{sum(s0['staged_bytes'].values())} {s0['staged_bytes']}; "
+              f"peak memory {res['peak_gib']:.2f} GiB; "
+              f"{TRAIN_SEQ / s0['ms'] * 1e3:.1f} tokens/s", flush=True)
+    s0, r0 = ranks[0]["step0"], ranks[0]
+    rel = abs(s0["loss"] - ref["loss"]) / abs(ref["loss"])
+    gn = abs(s0["grad_norm"] - ref["grad_norm"]) / ref["grad_norm"]
+    hid = r0["hidden"]
+    shares = sorted(a / max(ref["step"]["grad_max"][n], 1e-30)
+                    for n, a in ref["step"]["reorder"].items())
+    reorder, reorder_med = shares[-1], shares[len(shares) // 2]
+    print(f"lm tp (c) (data 1, model 2) vs one rank at 1 x {TRAIN_SEQ}: "
+          f"loss {s0['loss']:.7f} vs {ref['loss']:.7f} (relative {rel:.3e}, "
+          f"tol 1e-5), grad_norm {s0['grad_norm']:.7f} vs "
+          f"{ref['grad_norm']:.7f} (relative {gn:.3e}, tol 1e-6); of "
+          f"{r0['sampled']} sampled parameter elements {r0['sample_off']} "
+          f"off by more than 1e-5 of their leaf's largest, "
+          f"{r0['sample_noise']} of them with a gradient above 1e-5 of its "
+          f"leaf's largest but within 4x the distance the one rank's first "
+          f"step moves it under a change of its gradient by the largest "
+          f"distance the leaf's gradient shows in another reduction order "
+          f"(d_ff and the vocabulary permuted: the noise control; that "
+          f"distance {reorder:.3e} of the leaf's largest gradient at most, "
+          f"median {reorder_med:.3e}), {r0['sample_bad']} otherwise "
+          f"(tol 0) "
+          f"{r0['sample_worst'] + ranks[1]['sample_worst']}; hidden states "
+          f"after the all-reduces: {hid['equal_blocks']} of "
+          f"{hid['blocks']} blocks bit-equal on both ranks, the last "
+          f"gathered whole equal {hid['last_equal']} (no broadcast)",
+          flush=True)
+    if rel > 1e-5 or gn > 1e-6 or r0["sample_bad"] or \
+            r0["sampled"] != TP_SAMPLES * len(ref["step"]["idx"]) or \
+            hid["equal_blocks"] != hid["blocks"] or not hid["last_equal"]:
+        fails.append("(c)")
+    mo = [res["moe"] for res in ranks]
+    lrel = abs(mo[0]["loss"] - ref["moe"]["loss"]) / abs(ref["moe"]["loss"])
+    arel = abs(mo[0]["aux"] - ref["moe"]["aux"]) / abs(ref["moe"]["aux"])
+    print(f"lm tp (d) grok-1-314b one attn_moe layer, 8 experts of hidden "
+          f"32768, d_model 6144, f32, on (data 1, model 2), ep 2 tp 1, vs "
+          f"one rank at M = 1, {TP_MOE_TOKENS[0]} x {TP_MOE_TOKENS[1]} "
+          f"tokens ({smi}): loss {mo[0]['loss']:.7f} vs "
+          f"{ref['moe']['loss']:.7f} (relative {lrel:.3e}, tol 1e-5), aux "
+          f"{mo[0]['aux']:.7f} vs {ref['moe']['aux']:.7f} ({arel:.3e}, tol "
+          f"1e-5); of {mo[0]['sampled']} sampled gradient elements "
+          f"{mo[0]['bad']} off by more than 1e-4 of their leaf's largest "
+          f"{mo[0]['worst'] + mo[1]['worst']}; a rank: {mo[0]['bytes']} "
+          f"bytes of parameters, {mo[0]['n_sharded']} sharded, set-up "
+          f"(one rank at a time) {mo[0]['setup_s']:.1f} s, loss and "
+          f"gradients {mo[0]['ms']:.1f} ms, peak "
+          f"{max(m['peak_gib'] for m in mo):.2f} GiB", flush=True)
+    if lrel > 1e-5 or arel > 1e-5 or mo[0]["bad"] or mo[0]["sampled"] != \
+            TP_SAMPLES * len(ref["moe"]["idx"]):
+        fails.append("(d)")
+    print(f"lm tp ranks: {time.perf_counter() - t0:.1f} s", flush=True)
+
+    # (e) The launcher, its own policy, with int8_ef (each leaf's scale
+    # from a MAX over the model axis), and a resume from its checkpoint.
     # The smoke keeps its disk writes under 45 GiB: one checkpoint of the
     # int8_ef state (parameters, moments, residuals: 22.3 GB over the
     # ranks) and one without residuals (16.7 GB) fit, two of the first
-    # do not with the rest of the smoke.
+    # do not with the rest of the smoke, so the resume runs uncompressed.
     ckpt = out_dir / "ckpt"
     t0 = time.perf_counter()
-    losses, start, lines = _dp_launch(
-        ["--steps", "3", "--ckpt-every", "3", "--grad-compression",
+    losses, start, mesh, lines = _tp_launch(
+        ["--steps", "2", "--ckpt-every", "2", "--grad-compression",
          "int8_ef"], ckpt)
     t1 = time.perf_counter()
-    again, start2, lines2 = _dp_launch(["--steps", "1"], ckpt)
-    print(f"lm dp (d) launcher --distributed --grad-compression int8_ef "
-          f"({smi}): from step {start}, losses {losses} ({t1 - t0:.1f} s, a "
-          f"checkpoint at step 3); resumed from step {start2} without "
-          f"compression, losses {again} ({time.perf_counter() - t1:.1f} "
-          f"s); {lines} {lines2}", flush=True)
-    if start != 0 or len(losses) != 3 or start2 != 3 or len(again) != 1 \
-            or not all(map(math.isfinite, losses + again)) or \
+    again, start2, _, lines2 = _tp_launch(["--steps", "1"], ckpt)
+    print(f"lm tp (e) launcher --distributed --grad-compression int8_ef on "
+          f"{TP_RANKS} ranks ({smi}): mesh {mesh}, from step {start}, "
+          f"losses {losses} ({t1 - t0:.1f} s, a model-sharded checkpoint "
+          f"at step 2); resumed from step {start2} without compression, "
+          f"losses {again} ({time.perf_counter() - t1:.1f} s); "
+          f"{lines} {lines2}", flush=True)
+    if start != 0 or len(losses) != 2 or start2 != 2 or len(again) != 1 \
+            or "'model': 2" not in mesh \
+            or not all(map(math.isfinite, losses + again)) \
+            or not again[0] < losses[0] or \
             any("plain scan calls {}" not in ln for ln in lines + lines2):
-        fails.append("(d)")
+        fails.append("(e)")
     shutil.rmtree(ckpt, ignore_errors=True)
     if fails:
-        raise AssertionError(f"lm dp: {fails}")
+        raise AssertionError(f"lm tp: {fails}")
 
 
 # The SSM and xLSTM families (``ssm ...`` lines).
@@ -4422,8 +5145,10 @@ def main() -> int:
     shapes.update(phase("lm serve", lm_serve_phase))
     # #1's and #2's at the training shapes, those of the counted step.
     shapes.update(phase("lm train", lm_train_phase))
-    # Data parallelism: its ranks' launches are read in its own checks.
+    # Data and tensor parallelism: their ranks' launches are read in
+    # their own checks.
     phase("lm dp", dp_phase)
+    phase("lm tp", tp_phase)
     # The attention LM launches no kernel: its phase adds no launches.
     phase("lm attn", lm_attn_phase)
     # The tier's launches are read in its own checks; the kernels line

@@ -14,10 +14,12 @@ Layout (one directory per step), the reference's::
         COMMIT               — written last; a checkpoint without COMMIT is
                                ignored on restore (atomicity)
 
-**Sharded states.**  A data-parallel rank holds a slice of each sharded
-leaf (``placements``: flat key -> (dim, parts, index)) and the whole of
-each replicated one.  Each host writes its own shards, and host 0 the
-replicated leaves, into ``host_{id:03d}.npz``, with the slices in
+**Sharded states.**  A rank of a mesh holds a slice of each sharded
+leaf (``placements``: flat key -> (dim, parts, index), or a tuple of
+such where a data and a model axis both slice it) and the whole of each
+replicated one.  Each host writes its own shards (less those another
+host of the same slice writes, ``skip``), and host 0 the replicated
+leaves, into ``host_{id:03d}.npz``, with the slices in
 ``host_{id:03d}.json``.  The write is asynchronous; the commit waits for
 every host: at the next :meth:`wait` (which every save starts with) the
 hosts agree that their files are written (one all-reduce of an error
@@ -27,7 +29,8 @@ the commit.  The reference has every host write every leaf whole; a
 full-width state is 16.7 GB, so here each host writes its part.
 **Restore** assembles each leaf from the host files that hold it and
 copies out the slice the target holds, so a state saved on 2 hosts
-restores on 1 or on 4 (the elastic path).  A one-host checkpoint keeps
+restores on 1 or on 4 (the elastic path), and one saved over a
+``(data, model)`` mesh on any other layout.  A one-host checkpoint keeps
 the single-file layout and reads as before.
 
 A state is a nested dict whose leaves are tensors or Python numbers; its
@@ -75,6 +78,16 @@ def slice_bounds(size: int, parts: int, index: int) -> tuple:
         raise ValueError(f"a dim of {size} does not split in {parts}")
     step = size // parts
     return index * step, (index + 1) * step
+
+
+def placement_parts(placement) -> tuple:
+    """A placement as a tuple of (dim, parts, index) triples: empty for
+    None, one for a single triple."""
+    if placement is None:
+        return ()
+    if isinstance(placement[0], int):
+        return (tuple(placement),)
+    return tuple(tuple(p) for p in placement)
 
 
 def flatten(state, prefix: str = "") -> dict:
@@ -175,7 +188,7 @@ class CheckpointManager:
         for h in range(self.n_hosts):
             with open(os.path.join(sdir, host_file(h, "json"))) as f:
                 for k, part in json.load(f).items():
-                    meta["keys"][k].setdefault("parts", []).append([h, *part])
+                    meta["keys"][k].setdefault("parts", []).append([h, part])
         with open(os.path.join(sdir, "meta.json"), "w") as f:
             json.dump(meta, f)
         with open(os.path.join(sdir, "COMMIT"), "w") as f:
@@ -183,25 +196,26 @@ class CheckpointManager:
         self._gc()
 
     def save(self, step: int, state: Any, extra_meta: dict | None = None,
-             placements: dict | None = None):
+             placements: dict | None = None, skip=()):
         """Snapshot ``state`` to host memory now; write it in the
         background (if async).  ``placements`` ({flat key: (dim, parts,
-        index)}) names the leaves of which this host holds a slice; the
-        others are whole, and with several hosts host 0 writes them."""
+        index) or a tuple of them}) names the leaves of which this host
+        holds a slice; the others are whole, and with several hosts host
+        0 writes them.  ``skip`` names sliced leaves that another host
+        holding the same slice writes."""
         self.wait()
         placements = placements or {}
         host, dtypes, shapes, slices = {}, {}, {}, {}
         for k, leaf in flatten(state).items():
-            if k not in placements and self.host_id != 0:
+            if k in skip or (k not in placements and self.host_id != 0):
                 continue
             host[k], dtypes[k] = _to_host(leaf)
             shape = list(host[k].shape)
-            if k in placements:
-                dim, parts, index = placements[k]
+            slices[k] = []
+            for dim, parts, index in placement_parts(placements.get(k)):
                 shape[dim] *= parts
-                slices[k] = [dim, *slice_bounds(shape[dim], parts, index)]
-            else:
-                slices[k] = [None, None, None]
+                slices[k].append([dim, *slice_bounds(shape[dim], parts,
+                                                     index)])
             shapes[k] = shape
         meta = {
             "step": step,
@@ -291,31 +305,54 @@ class CheckpointManager:
         return target, step
 
 
+def _saved_parts(entry: dict) -> list:
+    """[(host, ((dim, start, stop), ...))] of a saved leaf: ``parts``
+    holds [host, [[dim, start, stop], ...]] each (the single-axis layout
+    wrote [host, dim, start, stop], dim None for a whole leaf)."""
+    out = []
+    for part in entry.get("parts") or ():
+        if len(part) == 2:
+            out.append((part[0], tuple(tuple(s) for s in part[1])))
+        else:
+            out.append((part[0], () if part[1] is None
+                        else (tuple(part[1:]),)))
+    return out
+
+
+def _index(ndim: int, slices) -> tuple:
+    index = [slice(None)] * ndim
+    for dim, lo, hi in slices:
+        index[dim] = slice(lo, hi)
+    return tuple(index)
+
+
 def _part(entry: dict, placement, npz, key: str) -> np.ndarray:
     """The slice ``placement`` (None: the whole) of a saved leaf, read
     from the one host file that holds exactly that slice where there is
     one, else cut from the assembled leaf."""
-    if placement is not None:
-        dim, parts, index = placement
-        lo, hi = slice_bounds(entry["shape"][dim], parts, index)
-        for h, d, start, stop in entry.get("parts") or ():
-            if (d, start, stop) == (dim, lo, hi):
-                return npz(h)[key]
+    want = sorted((dim, *slice_bounds(entry["shape"][dim], parts, index))
+                  for dim, parts, index in placement_parts(placement))
+    for h, slices in _saved_parts(entry):
+        if sorted(slices) == want:
+            return npz(h)[key]
     arr = _assemble(entry, npz, key)
-    if placement is None:
-        return arr
-    return arr[(slice(None),) * dim + (slice(lo, hi),)]
+    return arr[_index(arr.ndim, want)]
 
 
 def _assemble(entry: dict, npz, key: str) -> np.ndarray:
-    """The whole saved leaf: from host 0's file, or its slices from the
-    hosts' files (``parts``: [host, dim, start, stop] each)."""
-    parts = entry.get("parts")
-    if not parts or parts[0][1] is None:
-        return npz(parts[0][0] if parts else 0)[key]
-    dim = parts[0][1]
-    ordered = sorted(parts, key=lambda p: p[2])
-    return np.concatenate([npz(p[0])[key] for p in ordered], axis=dim)
+    """The whole saved leaf: from host 0's file, or from a host file that
+    holds it whole, or its slices from the hosts' files."""
+    parts = _saved_parts(entry)
+    whole = [h for h, slices in parts if not slices]
+    if not parts or whole:
+        return npz(whole[0] if whole else 0)[key]
+    out = None
+    for h, slices in parts:
+        piece = npz(h)[key]
+        if out is None:
+            out = np.empty(entry["shape"], dtype=piece.dtype)
+        out[_index(out.ndim, slices)] = piece
+    return out
 
 
 def _put(target: dict, path: list, arr: np.ndarray, dtype: str):

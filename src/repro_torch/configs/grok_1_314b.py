@@ -6,8 +6,9 @@ hidden width 32 768, vocab 131 072, capacity factor 1.25.
 full config only on ``meta``; at full width it runs 2 layers
 (11 450 578 944 parameters, 45.8 GB in f32) or 1 (6 530 598 912, 13.1
 GB under ``bf16``).  The reference lays the slabs out for a 16-way model
-axis (ep = 8, tp = 2); the port refuses more than one shard until that
-axis comes (ROADMAP.md §1 item 6.2).
+axis (ep = 8, tp = 2); the port runs ``full(m)``'s slabs over a model
+axis of m ranks (``parallel.tensor_parallel``) and refuses them without
+one.
 """
 
 from repro_torch.configs.base import ArchEntry, FULL_ATTENTION_SKIP, register

@@ -354,7 +354,14 @@ class GSPNSeqMixer(nn.Module):
     (D, 1), ``w_lam`` and ``w_u`` (D, 2·Cp), ``up`` (Cp, D).  Both folded
     passes are single scans (``kernels.ops.gspn_scan``) with
     channels_per_weight = Cp.
+
+    Under a model axis (``tp``, ``parallel.tensor_parallel``) the mixer is
+    replicated: every rank runs it whole on its data-local tokens.  The
+    rules store ``down`` and ``up`` sliced over the axis (their FFN
+    patterns catch them), so :meth:`whole` gathers them before use.
     """
+
+    tp = None
 
     def __init__(self, cfg: GSPNSeqConfig, *, device=None,
                  generator: torch.Generator | None = None):
@@ -382,6 +389,12 @@ class GSPNSeqMixer(nn.Module):
     def forward(self, x, return_cache: bool = False, mesh=None):
         return apply_gspn_seq_mixer(self, x, return_cache, mesh=mesh)
 
+    def whole(self, name: str):
+        """Parameter ``name``, whole (gathered over the model axis where
+        it is stored sliced)."""
+        return getattr(self, name) if self.tp is None \
+            else self.tp.whole(self, name)
+
 
 def _fold_len(l: int, row_width: int) -> tuple[int, int]:
     w = row_width or 1 << max(1, math.ceil(math.log2(max(l, 4)) / 2))
@@ -394,7 +407,7 @@ def _seq_mixer_projections(mixer: GSPNSeqMixer, xf):
     xf: (B, L, D) in the compute dtype.  Returns (x_p, taps, row_g, lam,
     u), all in xf.dtype."""
     cd = xf.dtype
-    x_p = xf @ mixer.down.to(cd)                             # (B,L,Cp)
+    x_p = xf @ mixer.whole("down").to(cd)                    # (B,L,Cp)
     taps = xf @ mixer.w_taps.to(cd)                          # (B,L,3)
     row_g = torch.sigmoid(xf @ mixer.w_row.to(cd))
     lam = torch.sigmoid(xf @ mixer.w_lam.to(cd))
@@ -500,7 +513,7 @@ def apply_gspn_seq_mixer(mixer: GSPNSeqMixer, x, return_cache: bool = False,
     h_row = _within_row_pass(x_p, row_g, lam[..., cp:], fold, scan_kwargs)
 
     y = unfold(h_tb, cp) * u[..., :cp] + unfold(h_row, cp) * u[..., cp:]
-    y = (y @ mixer.up.to(cd)).to(x.dtype)
+    y = (y @ mixer.whole("up").to(cd)).to(x.dtype)
     if not return_cache:
         return y
     cache = _slice_boundary_cache(

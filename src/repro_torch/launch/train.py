@@ -21,30 +21,32 @@ int8_ef`` quantises the reduced gradients with error feedback, and
 ``--tune-cache`` layers a tuning cache over the seed cache (DESIGN.md
 §11).
 
-``--distributed`` is the per-rank entry point of data-parallel training:
+``--distributed`` is the per-rank entry point of parallel training:
 started as ``torchrun`` starts ranks (``RANK``, ``WORLD_SIZE``,
 ``MASTER_PORT``), each rank joins the process group
 (``launch.mesh.init_distributed``: NCCL when every rank has a card, gloo
 when they share one or run on the CPU), builds the mesh over the world,
 reads its slice of each global batch and trains with the elastic
-trainer, its parameters, gradients and moments sharded over the data
-axis::
+trainer::
 
     PYTHONPATH=src torchrun --nproc-per-node 2 -m repro_torch.launch.train \
-        --distributed --arch qwen2-1.5b-gspn --steps 3 --batch 2 --seq 4096 \
-        --grad-compression int8_ef
+        --distributed --arch qwen2-1.5b-gspn --steps 3 --batch 2 --seq 4096
 
-Its mesh is ``make_mesh_for_devices(world, model_parallel=1)``: every
-rank on the data axis, where the reference takes a model axis of
-``min(16, n)``, until tensor parallelism (ROADMAP.md §1 item 6.2).
-``--production-mesh`` (with ``--multi-pod``) builds the reference's
-16 x 16 (2 x 16 x 16) mesh, which needs 256 (512) ranks, and whose model
-axis raises until then.
+As the reference's, its mesh is ``make_mesh_for_devices(world,
+model_parallel=min(16, world))``, every rank it can on the model axis
+(2 ranks: ``(data 1, model 2)``, every layer tensor-parallel), and the
+config is ``full(n_model_shards=tp)`` (the MoE's slabs laid out for that
+axis); the parameters, gradients and moments are split over the model
+axis and sharded over the data axis where it has more than one rank
+(``train.step``), and the elastic trainer re-meshes at the same model
+extent.  ``--production-mesh`` (with ``--multi-pod``) builds the
+reference's 16 x 16 (2 x 16 x 16) mesh, which needs 256 (512) ranks.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import logging
 import os
 import pathlib
@@ -108,17 +110,8 @@ def main(argv=None) -> Trainer:
     largs.setup_observability(args)
     largs.load_tune_cache(args, "train")
     entry = get_arch(args.arch)
-    cfg = entry.reduced() if args.reduced else entry.full()
-    mp_kwargs = {}
-    if args.precision:
-        cfg = with_precision(cfg, args.precision)
-        if cfg.param_dtype != torch.float32:
-            # low-precision params need the f32 master + loss-scale loop
-            mp_kwargs = dict(master_weights=True,
-                             loss_scaling=LossScaleConfig())
-
     device = resolve_device(args.device)
-    rank, mesh, mesh_kw = 0, None, {}
+    rank, mesh, mesh_kw, tp = 0, None, {}, 1
     if args.distributed:
         device = lmesh.init_distributed(device)
         rank, world = dist.get_rank(), dist.get_world_size()
@@ -127,8 +120,20 @@ def main(argv=None) -> Trainer:
                                               device_type=device.type)
         else:
             mesh = lmesh.make_mesh_for_devices(
-                range(world), model_parallel=1, device_type=device.type)
+                range(world), model_parallel=min(16, world),
+                device_type=device.type)
         mesh_kw = dict(mesh=mesh, dp_axes=lmesh.dp_axes_for(mesh))
+        tp = lmesh.seq_axis_size(mesh, "model")
+    cfg = entry.reduced() if args.reduced else entry.full()
+    cfg = dataclasses.replace(cfg, n_model_shards=tp)
+    mp_kwargs = {}
+    if args.precision:
+        cfg = with_precision(cfg, args.precision)
+        if cfg.param_dtype != torch.float32:
+            # low-precision params need the f32 master + loss-scale loop
+            mp_kwargs = dict(master_weights=True,
+                             loss_scaling=LossScaleConfig())
+
     data_cfg = DataConfig(
         vocab=cfg.vocab, seq_len=args.seq, global_batch=args.batch,
         vision_len=args.seq // 2 if cfg.family == "vlm" else 0,
@@ -148,9 +153,11 @@ def main(argv=None) -> Trainer:
     try:
         start = trainer.init_or_restore()
         if rank == 0:
-            print(f"{tag} {cfg.name} on {trainer.device}: "
-                  f"{count_params(trainer.model)} parameters, from step "
-                  f"{start}", flush=True)
+            layout = "" if mesh is None else ", mesh " + str(dict(zip(
+                mesh.mesh_dim_names, list(mesh.mesh.shape))))
+            print(f"{tag} {cfg.name} on {trainer.device}{layout}: "
+                  f"{count_params(trainer.model)} parameters a rank, from "
+                  f"step {start}", flush=True)
         cuda_lib.clear_counts()
         hist = trainer.run(args.steps)
         largs.finish_observability(args, "train")

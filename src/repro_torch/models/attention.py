@@ -289,7 +289,19 @@ class Attention(nn.Module):
     (``forward``'s ``kv``) the layer reads pre-projected keys and values
     and never uses its own ``wk``, ``wv`` (nor ``bk``, ``bv``): their
     gradients are exact zeros, as in the reference, which projects them
-    and throws them away."""
+    and throws them away.
+
+    Under a model axis (``tp``, ``parallel.tensor_parallel``) the heads
+    are split: ``wo`` is row-parallel, rank r of M holding rows [r·n/M,
+    (r+1)·n/M) of its n = Hq·D, and each rank computes the query heads
+    those rows read and the kv heads those query heads read (query head h
+    reads kv head h // G), from its own columns of ``wq``, ``wk``, ``wv``
+    (and the biases) where every rank's heads are its own slice, else
+    from the whole leaf gathered (the K/V columns where the kv heads do
+    not divide M); the partial outputs are summed over the axis.  Only
+    the training forward runs sharded."""
+
+    tp = None
 
     def __init__(self, cfg: AttentionConfig, policy: DTypePolicy, *,
                  generator, device):
@@ -375,9 +387,53 @@ class Attention(nn.Module):
             k, v = kv
             return self.project_out(self.attend(self.project_q(x), k, v,
                                                  causal=False), x.dtype)
+        if self.tp is not None:
+            return self._forward_tp(x, positions)
         q, k, v = self.project_qkv(x)
         q, k = self.apply_positions(q, k, positions)
         return self.project_out(self.attend(q, k, v), x.dtype)
+
+    def _tp_plan(self):
+        """Every rank's (query heads [h0, h1), kv heads [k0, k1), its rows
+        [c0, c1) of ``wo``) under the model axis."""
+        cfg, m = self.cfg, self.tp.size
+        hd, g = cfg.hd, cfg.n_heads // cfg.n_kv_heads
+        per = cfg.n_heads * hd // m
+        plan = []
+        for r in range(m):
+            c0, c1 = r * per, (r + 1) * per
+            h0, h1 = c0 // hd, -(-c1 // hd)
+            plan.append(((h0, h1), (h0 // g, (h1 - 1) // g + 1), (c0, c1)))
+        return plan
+
+    def _forward_tp(self, x, positions):
+        cfg, tp, cast = self.cfg, self.tp, self.policy.cast
+        hd, g = cfg.hd, cfg.n_heads // cfg.n_kv_heads
+        plan = self._tp_plan()
+        (h0, h1), (k0, k1), (c0, c1) = plan[tp.rank]
+        xc = tp.copy(cast(x))
+        b, s = xc.shape[:2]
+
+        def project(w, bias, heads):
+            cols = [(a * hd, z * hd) for a, z in heads]
+            y = xc @ cast(tp.take(self, w, cols))
+            if cfg.qkv_bias:
+                y = y + cast(tp.take(self, bias, cols))
+            return y.reshape(b, s, -1, hd)
+
+        q = project("wq", "bq", [p[0] for p in plan])
+        k = project("wk", "bk", [p[1] for p in plan])
+        v = project("wv", "bv", [p[1] for p in plan])
+        q, k = self.apply_positions(q, k, positions)
+        if not ((h0 % g == 0 and h1 % g == 0) or k1 - k0 == 1):
+            # Query heads that read their kv heads unevenly: one kv head
+            # beside each query head.
+            idx = torch.tensor([h // g - k0 for h in range(h0, h1)],
+                               device=x.device)
+            k, v = k[:, :, idx], v[:, :, idx]
+        out = self.attend(q, k, v).reshape(b, s, (h1 - h0) * hd)
+        out = out[..., c0 - h0 * hd:c1 - h0 * hd]
+        return tp.reduce(cast(out) @ cast(self.wo)).to(x.dtype)
 
     def decode(self, x, cache):
         """One token per sequence, x (B, 1, dim), against ``cache`` (k and

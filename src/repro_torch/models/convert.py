@@ -17,6 +17,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch.parallel.tensor_parallel import model_slice
+
 # Leaves of one block, by sub-module, in the reference's names.
 _BLOCK_LEAVES = {
     "lpu": ("w", "b"),
@@ -184,7 +186,43 @@ def _lm_leaf(path, a):
     return a.transpose(2, 1, 0) if path == "mix/conv/w" else a
 
 
-def lm_state_from_jax(params_np) -> dict[str, torch.Tensor]:
+def relayout_slab(slab: np.ndarray, n_experts: int, n_shards: int,
+                  down: bool = False) -> np.ndarray:
+    """A MoE slab laid out for ``slab.shape[0]`` model shards re-laid for
+    ``n_shards``: of M shards, ``ep = min(E, M)`` expert groups of
+    ``E_loc = E / ep`` experts and ``tp = M / ep`` hidden slices, slab
+    ``(m, e)`` holding expert ``(m // tp) · E_loc + e``, hidden slice ``m %
+    tp``.  ``down``: the (M, E_loc, F_loc, D) down slab, else (M, E_loc,
+    D, F_loc)."""
+    slab = np.asarray(slab)
+    if down:
+        return relayout_slab(slab.swapaxes(2, 3), n_experts,
+                             n_shards).swapaxes(2, 3)
+    m, e_loc, d, f_loc = slab.shape
+    ep = min(n_experts, m)
+    # (ep, tp, E_loc, D, F_loc) -> the experts whole, (E, D, F).
+    full = slab.reshape(ep, m // ep, e_loc, d, f_loc) \
+        .transpose(0, 2, 3, 1, 4).reshape(n_experts, d, -1)
+    ep = min(n_experts, n_shards)
+    tp = n_shards // ep
+    return full.reshape(ep, n_experts // ep, d, tp, -1) \
+        .transpose(0, 3, 1, 2, 4).reshape(n_shards, n_experts // ep, d, -1)
+
+
+def _relayout(state: dict, n_shards: int) -> None:
+    """Every MoE slab of ``state`` re-laid for ``n_shards`` model shards
+    (the block's router gives E)."""
+    for k in list(state):
+        head, _, leaf = k.rpartition(".")
+        if leaf in ("gate_slab", "up_slab", "down_slab"):
+            e = np.asarray(state[head + ".router"]).shape[-1]
+            state[k] = relayout_slab(state[k], e, n_shards,
+                                     down=leaf == "down_slab")
+
+
+def lm_state_from_jax(params_np, *, n_model_shards: int | None = None,
+                      model_rank: int | None = None
+                      ) -> dict[str, torch.Tensor]:
     """``state_dict`` of an ``LM`` from the reference's ``init_lm`` pytree
     given as numpy arrays.
 
@@ -199,8 +237,30 @@ def lm_state_from_jax(params_np) -> dict[str, torch.Tensor]:
     ``encoder/ln_f``, ``encoder/pos_embed`` and ``enc_kv_proj/{wk,wv}``
     beside them.  Every leaf maps to exactly one entry; a missing leaf
     raises ``KeyError`` and a leaf left over raises ``ValueError``.
+
+    The reference's parameters may come at any ``n_model_shards`` (its
+    MoE slabs' leading M).  ``n_model_shards`` re-lays the slabs for
+    another M (:func:`relayout_slab`); ``model_rank`` then gives that
+    rank's shard of every parameter over a model axis of M
+    (``parallel.tensor_parallel.model_slice``: its contiguous part of each
+    leaf the rules split over ``model``), the state of a model that
+    ``shard_model`` has sharded.
     """
+    if model_rank is not None and n_model_shards is None:
+        raise ValueError("model_rank needs n_model_shards")
     leaves = dict(_flatten(params_np))
+    state = _lm_state(leaves)
+    if n_model_shards is not None:
+        _relayout(state, n_model_shards)
+    if model_rank is not None:
+        state = {k: model_slice(k, np.asarray(v), n_model_shards,
+                                model_rank) for k, v in state.items()}
+    return _to_state(leaves, state)
+
+
+def _lm_state(leaves: dict) -> dict[str, np.ndarray]:
+    """The LM's entries taken out of ``leaves`` (what is left over stays
+    there)."""
     state: dict[str, np.ndarray] = {}
     take = _taker(leaves)
     state["embed"] = take("embed")
@@ -225,4 +285,4 @@ def lm_state_from_jax(params_np) -> dict[str, torch.Tensor]:
             raise ValueError(f"stage {key}: unknown block kind {kind!r}")
         _unstack(take, leaves, state, kind, ("stages", key),
                  f"stages.{key}")
-    return _to_state(leaves, state)
+    return state

@@ -133,7 +133,12 @@ class RMSNorm(nn.Module):
 
 class SwiGLU(nn.Module):
     """``(silu(x @ gate) * (x @ up)) @ down`` in the policy's compute
-    dtype, cast back to ``x.dtype``."""
+    dtype, cast back to ``x.dtype``.  Under a model axis (``tp``,
+    ``parallel.tensor_parallel``) ``gate`` and ``up`` are column-parallel
+    and ``down`` row-parallel: each rank computes its slice of the hidden
+    width and the partial products are summed over the axis."""
+
+    tp = None
 
     def __init__(self, dim: int, hidden: int, policy: DTypePolicy, *,
                  generator, device):
@@ -147,8 +152,13 @@ class SwiGLU(nn.Module):
     def forward(self, x):
         cast = self.policy.cast
         xc = cast(x)
+        if self.tp is not None:
+            xc = self.tp.copy(xc)
         h = F.silu(xc @ cast(self.gate)) * (xc @ cast(self.up))
-        return (h @ cast(self.down)).to(x.dtype)
+        y = h @ cast(self.down)
+        if self.tp is not None:
+            y = self.tp.reduce(y)
+        return y.to(x.dtype)
 
 
 class LayerNorm(nn.Module):
@@ -173,7 +183,11 @@ class GeluMLP(nn.Module):
     policy's compute dtype, the bias adds and the GELU in it, the output
     cast back to x's dtype (the reference's ``apply_gelu_mlp``).  Without a
     ``policy`` the parameters are stored in ``dtype`` and the products run
-    in f32, the vision backbone's policy."""
+    in f32, the vision backbone's policy.  Under a model axis (``tp``)
+    ``fc1`` and ``b1`` are column-parallel and ``fc2`` row-parallel, and
+    ``b2`` is added once, after the partial products are summed."""
+
+    tp = None
 
     def __init__(self, dim: int, hidden: int,
                  policy: DTypePolicy | None = None, *, generator, device,
@@ -188,9 +202,14 @@ class GeluMLP(nn.Module):
 
     def forward(self, x):
         cast = self.policy.cast
-        h = F.gelu(cast(x) @ cast(self.fc1) + cast(self.b1),
-                   approximate="tanh")
-        return (h @ cast(self.fc2) + cast(self.b2)).to(x.dtype)
+        xc = cast(x)
+        if self.tp is not None:
+            xc = self.tp.copy(xc)
+        h = F.gelu(xc @ cast(self.fc1) + cast(self.b1), approximate="tanh")
+        y = h @ cast(self.fc2)
+        if self.tp is not None:
+            y = self.tp.reduce(y)
+        return (y + cast(self.b2)).to(x.dtype)
 
 
 def rope_freqs(head_dim: int, theta: float = 10000.0, *, device=None):

@@ -160,7 +160,7 @@ class LMConfig:
     encoder_layers: int = 0
     enc_len: int = 1500
     # The reference's sharding knob, which the MoE reads (its slabs'
-    # layout; more than 1 raises until ROADMAP.md §1 item 6.2), and the
+    # layout, run over a model axis of that extent), and the
     # rematerialisation of each block under gradients: "none" or "unit".
     n_model_shards: int = 1
     remat: str = "unit"
@@ -196,21 +196,23 @@ class Ctx:
     """Per-call execution context, the ``ctx`` of every entry point: the
     device mesh (a ``DeviceMesh``) that ``gspn_impl="sp"`` shards the
     mixer's scans over (``launch.mesh.make_sp_mesh``; a data axis shards
-    the scans' G, ``parallel.gspn_sp``) and that the data-parallel train
-    step runs on (``train.step``: its ``data`` and ``pod`` axes shard the
-    weights and the batch, and the blocks see whole weights and their
-    rank's rows).  Sharding weights over the reference's ``model`` axis
-    waits for ROADMAP.md §1 item 6.2: a ``model`` axis larger than 1
-    raises."""
+    the scans' G, ``parallel.gspn_sp``) and that the train step runs on
+    (``train.step``: its ``data`` and ``pod`` axes shard the weights and
+    the batch, and the blocks see whole weights and their rank's rows;
+    its ``model`` axis splits heads, FFN hidden width, vocabulary and
+    expert groups).  PyTorch has no partitioner to place weights by the
+    mesh: a model runs over a ``model`` axis larger than 1 once
+    ``parallel.tensor_parallel.shard_model`` has kept this rank's shard,
+    and an entry point refuses a ctx whose model axis differs from the
+    model's."""
     mesh: Any = None
 
-    def __post_init__(self):
+    def model_extent(self) -> int:
+        """The extent of the mesh's ``model`` axis (1 without one)."""
         names = tuple(self.mesh.mesh_dim_names or ()) \
             if self.mesh is not None else ()
-        if "model" in names and self.mesh.size(names.index("model")) > 1:
-            raise NotImplementedError(
-                "sharding weights over the mesh's 'model' axis is not in the "
-                "port yet; ROADMAP.md §1 item 6.2 brings it")
+        return self.mesh.size(names.index("model")) if "model" in names \
+            else 1
 
 
 def gspn_config(cfg: LMConfig) -> GSPNSeqConfig:
@@ -683,7 +685,15 @@ class LM(nn.Module):
     on the ``meta`` device
     nothing is drawn (a twin to load a ``state_dict`` into with
     ``assign=True``).  ``device=None`` is the card.
+
+    Over a model axis (``parallel.tensor_parallel.shard_model``, which
+    sets ``model_axis``) the embedding and the head are vocab-parallel:
+    :meth:`embed_tokens` looks up this rank's rows and sums over the axis,
+    and :meth:`logits` returns this rank's columns of the vocabulary.
     """
+
+    tp = None
+    model_axis = None
 
     def __init__(self, cfg: LMConfig, *, device=None,
                  generator: torch.Generator | None = None):
@@ -744,17 +754,25 @@ class LM(nn.Module):
         ``vision_embeds`` (B, S_vis, D), those (cast to the compute dtype)
         in place of the first S_vis positions' (the reference's Qwen2-VL
         stub frontend)."""
-        x = self.embed[tokens].to(self.cfg.compute_dtype)
+        if self.tp is not None:
+            x = self.tp.reduce(self.tp.embed(self.embed, tokens).to(
+                self.cfg.compute_dtype))
+        else:
+            x = self.embed[tokens].to(self.cfg.compute_dtype)
         if vision_embeds is None:
             return x
         sv = vision_embeds.shape[1]
         return torch.cat([vision_embeds.to(x.dtype), x[:, sv:]], dim=1)
 
     def logits(self, x):
+        """The head's logits (B, S, V); over a model axis, this rank's
+        columns of the vocabulary (B, S, V/M)."""
         cd = self.cfg.compute_dtype
-        x = self.ln_f(x)
+        xc = self.ln_f(x).to(cd)
+        if self.tp is not None:
+            xc = self.tp.copy(xc)
         head = self.embed.T if self.cfg.tie_embeddings else self.head
-        return x.to(cd) @ head.to(cd)
+        return xc @ head.to(cd)
 
     def forward(self, tokens):
         return apply_lm(self, tokens)
@@ -783,6 +801,28 @@ def _mesh(ctx: Ctx | None):
     return ctx.mesh if ctx is not None else None
 
 
+def _model_extent(model: LM) -> int:
+    return model.model_axis.size if model.model_axis is not None else 1
+
+
+def _check_ctx(model: LM, ctx: Ctx | None) -> None:
+    """A ctx whose model axis is not the one the model is sharded over
+    raises (there is no partitioner to reconcile them)."""
+    if ctx is not None and ctx.model_extent() != _model_extent(model):
+        raise ValueError(
+            f"the ctx's model axis has {ctx.model_extent()} ranks; the model "
+            f"is sharded over {_model_extent(model)} (shard it with "
+            f"parallel.tensor_parallel.shard_model)")
+
+
+def _unsharded(model: LM, what: str) -> None:
+    """Serving has no model axis, in the reference as here."""
+    if model.model_axis is not None:
+        raise NotImplementedError(
+            f"{what} of a model sharded over a model axis: serving runs "
+            f"without one, as the reference's does")
+
+
 def lm_encode(model: LM, enc_frames):
     """The encoder over ``enc_frames`` (B, T, D) and the decoder's shared
     keys and values (the reference's ``_apply_encoder`` then
@@ -803,7 +843,9 @@ def _forward(model: LM, tokens, ctx: Ctx | None, vision_embeds=None,
              enc_frames=None, positions=None):
     """(logits, the f32 sum of the attn_moe blocks' aux losses in walk
     order).  Each block runs under ``remat`` as one unit, its aux loss an
-    output of that unit, so a recompute in the backward adds nothing."""
+    output of that unit, so a recompute in the backward adds nothing.
+    Over a model axis the logits are this rank's vocabulary columns."""
+    _check_ctx(model, ctx)
     x = model.embed_tokens(tokens, vision_embeds)
     b, s, _ = x.shape
     if positions is None:
@@ -837,20 +879,27 @@ def apply_lm(model: LM, tokens, *, ctx: Ctx | None = None,
     drive the encoder, whose keys and values every xattn block attends
     to; ``positions`` ((B, S), or (3, B, S) under M-RoPE) reach every
     attention block, ``arange(S)`` when not given.  ``ctx.mesh`` shards
-    the mixers' scans under ``gspn_impl="sp"``."""
-    return _forward(model, tokens, ctx, vision_embeds, enc_frames,
-                    positions)[0]
+    the mixers' scans under ``gspn_impl="sp"``.  A model sharded over a
+    model axis gathers the vocabulary's columns (``lm_loss`` never
+    does)."""
+    logits = _forward(model, tokens, ctx, vision_embeds, enc_frames,
+                      positions)[0]
+    if model.tp is not None:
+        logits = model.tp.gather(logits, -1, partial=False)
+    return logits
 
 
 def lm_loss(model: LM, batch, *, ctx: Ctx | None = None):
     """batch: dict(tokens (B, S), labels (B, S), [mask], [vision_embeds],
     [enc_frames]).  Returns (ce + aux, {"ce", "aux"}): ``aux`` is the
     attn_moe blocks' summed aux loss (0 for a model without them), as in
-    the reference."""
+    the reference.  Over a model axis the cross entropy is
+    vocab-parallel (``ModelAxis.cross_entropy``)."""
     logits, aux = _forward(model, batch["tokens"], ctx,
                            batch.get("vision_embeds"),
                            batch.get("enc_frames"))
-    ce = cross_entropy_loss(logits, batch["labels"], batch.get("mask"))
+    ce = (model.tp.cross_entropy if model.tp is not None
+          else cross_entropy_loss)(logits, batch["labels"], batch.get("mask"))
     return ce + aux, {"ce": ce, "aux": aux}
 
 
@@ -886,6 +935,7 @@ def lm_prefill(model: LM, tokens, max_len: int, *, ctx: Ctx | None = None,
     the first embeddings, as in :func:`apply_lm`, the positions stay
     ``arange(S)``, and the xattn blocks attend to ``enc_kv`` from
     :func:`lm_encode`.  Returns (logits (B, S, V), caches)."""
+    _unsharded(model, "lm_prefill")
     x = model.embed_tokens(tokens, vision_embeds)
     caches = init_lm_cache(model.cfg, tokens.shape[0], max_len,
                            device=x.device)
@@ -936,6 +986,7 @@ def lm_prefill_chunk(model: LM, tokens, caches, off: int, *,
     if missing:
         raise ValueError(f"{model.cfg.name}: the {', '.join(missing)} "
                          f"kind has no chunked prefill; use lm_prefill")
+    _unsharded(model, "lm_prefill_chunk")
     x = model.embed_tokens(tokens)
     new = {k: {n: torch.empty_like(v) for n, v in sub.items()}
            for k, sub in caches.items()}
@@ -952,6 +1003,7 @@ def lm_decode_step(model: LM, token, caches, *, ctx: Ctx | None = None,
     """token: (B, 1) int.  Returns (logits (B, 1, V), new_caches).  The
     step is O(W) per gspn layer and runs unsharded under any ``ctx``; the
     xattn blocks attend to ``enc_kv`` from :func:`lm_encode`."""
+    _unsharded(model, "lm_decode_step")
     x = model.embed_tokens(token)
     new = {k: {n: torch.empty_like(v) for n, v in sub.items()}
            for k, sub in caches.items()}

@@ -1,11 +1,11 @@
-"""The mixture-of-experts layer, the port of ``repro.models.moe`` without
-its mesh (ROADMAP.md §1 item 6.2 brings the sharded branch).
+"""The mixture-of-experts layer, the port of ``repro.models.moe``.
 
 The experts' weights keep the reference's per-shard slab layout
 ``(M, E_loc, D, F_loc)`` (``gate_slab``, ``up_slab``; ``down_slab`` is
-``(M, E_loc, F_loc, D)``), with M = ``n_shards`` = 1 here, so converted
-parameters map one to one and the slabs can later be split over a model
-axis.  A call runs the reference's single-shard body:
+``(M, E_loc, F_loc, D)``), M = ``n_shards``, so converted parameters map
+one to one: slab ``m`` holds experts ``(m // tp) · E_loc`` onwards, and
+of each the hidden slice ``m % tp``.  With M = 1 a call runs the
+reference's single-shard body:
 
 * ``route``: f32 router logits from compute-dtype operands (a hand VJP
   whose backward contracts in the compute dtype, :class:`_RouterMatmul`),
@@ -26,6 +26,16 @@ The buffer is dense: every expert's product runs over all ``cap`` rows
 whatever the tokens chose, as in the reference.  The optional shared
 expert (a :class:`~repro_torch.models.layers.SwiGLU` under ``shared``)
 reads the layer's input and adds to the routed output.
+
+With M > 1 the layer runs the reference's sharded branch (its
+``shard_map`` body) over a model axis of M ranks (``tp``,
+``parallel.tensor_parallel``), each holding slab ``m`` = its rank: every
+rank routes its data-local tokens with the replicated router (the same
+gates, ranks and capacity on each), keeps the slots whose expert lies in
+its group ``m // tp``, runs its slab over them, and one all-reduce SUM
+over the axis assembles the output; the aux loss is the ranks' mean.
+Without that axis an M > 1 layer raises: the reference then runs shard
+0's slab alone, a wrong output.
 """
 
 from __future__ import annotations
@@ -141,23 +151,20 @@ def dispatch(experts, cap: int, n_experts: int):
 class MoE(nn.Module):
     """The layer's parameters in the reference's names (``router`` (D, E)
     in f32 under every policy, the three slabs in ``param_dtype``,
-    ``shared``) and its single-shard call.  ``n_shards`` > 1 raises: the
-    reference then runs shard 0's slab alone, a wrong output, until the
-    sharded branch comes (ROADMAP.md §1 item 6.2).
+    ``shared``), its single-shard call and, over a model axis (``tp``),
+    its sharded branch.  A call with ``n_shards`` > 1 and no model axis
+    of that extent raises: the reference then runs shard 0's slab alone,
+    a wrong output.
 
     The slabs are drawn one expert at a time on the generator's device
     (truncated normal times 1/√D, the down slab times 1/√d_ff), so a
     full-width layer never holds an f32 copy of a whole slab."""
 
+    tp = None
+
     def __init__(self, cfg: MoEConfig, policy: DTypePolicy, *, generator,
                  device):
         super().__init__()
-        if cfg.n_shards > 1:
-            raise NotImplementedError(
-                f"an attn_moe layer over n_model_shards={cfg.n_shards} needs "
-                f"its slabs sharded over a model axis, which is not in the "
-                f"port yet (the reference without a mesh runs shard 0's "
-                f"slab alone); ROADMAP.md §1 item 6.2 brings it")
         self.cfg, self.policy = cfg, policy
         m, el, fl, d = cfg.n_shards, cfg.e_loc, cfg.f_loc, cfg.dim
         self.router = dense_init(d, cfg.n_experts, generator, device,
@@ -176,13 +183,32 @@ class MoE(nn.Module):
     def forward(self, x):
         """x (B, S, D) -> (y (B, S, D) in x's dtype, the aux loss times
         ``aux_loss_coef``), over the B · S tokens of the call."""
-        cfg, cd = self.cfg, self.policy.compute_dtype
+        cfg, cd, tp = self.cfg, self.policy.compute_dtype, self.tp
+        if cfg.n_shards > 1 and (tp is None or tp.size != cfg.n_shards):
+            raise NotImplementedError(
+                f"an attn_moe layer over n_model_shards={cfg.n_shards} runs "
+                f"its slabs over a model axis of {cfg.n_shards} ranks "
+                f"(parallel.tensor_parallel.shard_model); without one the "
+                f"reference runs shard 0's slab alone (ROADMAP.md §1 item "
+                f"6.2)")
         b, s, d = x.shape
         x2d = x.reshape(-1, d)
+        router = self.router
+        if tp is not None:
+            # Each rank's experts take a part of the routed output: the
+            # gradients of the tokens and the router sum over the axis.
+            x2d, router = tp.copy(x2d), tp.copy(router)
         t, k, e = x2d.shape[0], cfg.top_k, cfg.n_experts
         cap = capacity(cfg, t)
-        gates, experts, aux = route(x2d, self.router, cfg)
+        gates, experts, aux = route(x2d, router, cfg)
         row, kept = dispatch(experts, cap, e)
+        if tp is not None:
+            # This rank's group of experts: rows of its (E_loc, cap)
+            # buffer, every other slot dropped here.
+            e, lo = cfg.e_loc, tp.rank // cfg.tp * cfg.e_loc
+            eflat = experts.reshape(-1)
+            kept = kept & (eflat >= lo) & (eflat < lo + e)
+            row = torch.where(kept, row - lo * cap, e * cap)
 
         xc = x2d.to(cd)
         tok = torch.arange(t, device=x.device).repeat_interleave(k)
@@ -199,6 +225,8 @@ class MoE(nn.Module):
                             0.0)
         y = (slots * gates.reshape(-1, 1).to(cd)).view(t, k, d).sum(1)
         y = y.view(b, s, d).to(x.dtype)
+        if tp is not None:
+            y, aux = tp.reduce(y), tp.mean(aux)
         if cfg.shared_expert_ff:
             y = y + self.shared(x)
         return y, aux * cfg.aux_loss_coef

@@ -16,7 +16,11 @@ it; gloo moves a CUDA payload through pinned host memory.
 custom-collective hooks) and :func:`all_reduce_counted` run those
 collectives synchronously and count the bytes that pass through host
 memory (:data:`staged_bytes`) and their host time
-(:data:`staged_seconds`).
+(:data:`staged_seconds`).  The model axis's collectives
+(:func:`model_all_reduce`, :func:`model_all_gather`, which
+``parallel.tensor_parallel`` runs inside its autograd Functions) are
+counted the same way under their own names, ``model_all_reduce`` and
+``model_all_gather``, when their payload lies on a card.
 """
 
 from __future__ import annotations
@@ -143,9 +147,33 @@ class CountedReduceScatter(_Counted):
         return None
 
 
-def all_reduce_counted(t, group=None, op=dist.ReduceOp.SUM):
+def all_reduce_counted(t, group=None, op=dist.ReduceOp.SUM,
+                       what: str = "all_reduce"):
     """``all_reduce`` of ``t`` in place, counted as the classes above."""
     t0 = time.perf_counter()
     dist.all_reduce(t, op=op, group=group)
-    _count("all_reduce", t0, t, t)
+    _count(what, t0, t, t)
     return t
+
+
+# ---------------------------------------------------------------------------
+# The model axis's collectives (tensor parallelism).
+# ---------------------------------------------------------------------------
+
+def model_all_reduce(t, group, op=dist.ReduceOp.SUM):
+    """``all_reduce`` of ``t`` in place over the model-axis ``group``
+    (SUM or MAX), counted as ``model_all_reduce``."""
+    return all_reduce_counted(t, group, op, "model_all_reduce")
+
+
+def model_all_gather(t, group, dim: int):
+    """The ``group``'s pieces of ``t`` concatenated along ``dim`` in rank
+    order (every piece of ``t``'s shape), counted as
+    ``model_all_gather``."""
+    t0 = time.perf_counter()
+    t = t.contiguous()
+    pieces = [torch.empty_like(t) for _ in range(dist.get_world_size(group))]
+    dist.all_gather(pieces, t, group=group)
+    out = torch.cat(pieces, dim=dim)
+    _count("model_all_gather", t0, t, out)
+    return out

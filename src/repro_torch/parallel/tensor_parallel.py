@@ -1,0 +1,315 @@
+"""The model axis of parallelism: tensor parallelism of attention heads,
+FFN hidden width, vocabulary and MoE expert groups over a mesh's
+``model`` axis, in PyTorch's eager idiom.
+
+The reference gets tensor parallelism from XLA's SPMD partitioner: it
+places each weight by ``parallel.sharding``'s rules and the partitioner
+inserts the collectives.  PyTorch has no partitioner, so the port writes
+them: every block whose weights the rules split over ``model`` runs the
+Megatron pattern with explicit autograd Functions over the counted
+collectives of :mod:`parallel.collectives`:
+
+* ``copy`` (identity forward, all-reduce SUM of the gradient backward)
+  where a replicated activation enters a branch that each rank computes
+  a part of (a column-parallel product, the MoE's experts);
+* ``reduce`` (all-reduce SUM forward, identity backward) where the parts
+  meet again (after a row-parallel product, the vocabulary's partial
+  sums);
+* ``mean`` (all-reduce mean forward, the gradient over the ranks
+  backward): the MoE's aux loss, equal on every rank;
+* ``gather``: the whole of a leaf stored sharded, gathered before use.
+  Where every rank then runs the same computation on it (the GSPN
+  mixer's ``mix/up`` and ``mix/down``), each rank's gradient of the whole
+  is complete and the backward keeps its own slice; where each rank uses
+  it for its part only (attention's K/V columns when the kv heads do not
+  divide the axis), the backward sums the ranks' gradients first.
+
+Every activation outside those branches is replicated over ``model``
+and computed identically on each rank (the norms, the GSPN mixer and its
+scans, the router), so its gradient is complete on every rank and the
+replicated parameters need no reduction over ``model``.
+
+:func:`shard_model` turns a whole model into this rank's shard: each
+parameter the rules split over ``model`` keeps its contiguous slice,
+rank ``r`` of ``M`` taking part ``r``, in the rules' order; the layers
+that split their arithmetic along it get the :class:`ModelAxis`
+(``module.tp``).  The kinds outside this slice (``mamba``, ``mlstm``,
+``slstm``, ``xattn``), the VL and audio models and ``gspn_impl="sp"``
+raise under a model axis larger than 1 (ROADMAP.md §1 item 6.2).
+
+Serving has no model axis (the reference serves over a ``seq`` mesh
+only): the prefill, chunk and decode paths of a sharded model raise.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.distributed as dist
+from torch import nn
+
+from repro_torch.parallel import collectives
+from repro_torch.parallel.sharding import sharded_dim, spec_for_param
+
+MODEL_AXIS = "model"
+# Block kinds that run under a model axis larger than 1.
+KINDS = ("gspn", "attn", "attn_moe")
+
+
+class ModelAxis:
+    """This rank's place on the model axis: its ``group``, ``size`` and
+    ``rank``, and the collectives of tensor parallelism over it.  Ranks
+    that share a card (gloo) count their payloads' bytes through host
+    memory (``collectives.staged_bytes``)."""
+
+    def __init__(self, group, size: int, rank: int):
+        self.group, self.size, self.rank = group, size, rank
+
+    @classmethod
+    def of(cls, mesh) -> "ModelAxis | None":
+        """The mesh's model axis, or None when it has none of more than
+        one rank."""
+        names = tuple(getattr(mesh, "mesh_dim_names", None) or ())
+        if MODEL_AXIS not in names:
+            return None
+        i = names.index(MODEL_AXIS)
+        if mesh.size(i) == 1:
+            return None
+        return cls(mesh.get_group(i), mesh.size(i), mesh.get_local_rank(i))
+
+    # -- the collectives (no autograd) -----------------------------------
+    def all_reduce(self, t, op=dist.ReduceOp.SUM):
+        """A new tensor: ``t`` reduced over the axis."""
+        return collectives.model_all_reduce(
+            t.clone(memory_format=torch.contiguous_format), self.group, op)
+
+    def all_gather(self, t, dim: int):
+        return collectives.model_all_gather(t, self.group, dim)
+
+    def max(self, t):
+        """The elementwise maximum of ``t`` over the axis, in f32."""
+        return self.all_reduce(t.detach().float(), dist.ReduceOp.MAX)
+
+    # -- the autograd Functions ------------------------------------------
+    def copy(self, x):
+        return _Copy.apply(x, self)
+
+    def reduce(self, x):
+        return _Reduce.apply(x, self)
+
+    def mean(self, x):
+        return _Mean.apply(x, self)
+
+    def gather(self, t, dim: int, partial: bool):
+        """The whole of ``t``, this rank's part ``rank`` of ``size`` along
+        ``dim``; ``partial``: each rank uses it for its own part (the
+        backward sums the ranks' gradients before keeping this rank's
+        slice), else every rank computes the same thing with it."""
+        return _Gather.apply(t, self, dim % t.dim(), partial)
+
+    # -- parameters of a sharded module ----------------------------------
+    def whole(self, module: nn.Module, name: str):
+        """``module``'s parameter ``name`` whole, for arithmetic that every
+        rank runs in full (gathered where it is stored sliced)."""
+        p = getattr(module, name)
+        dim = module._tp_dims.get(name)
+        return p if dim is None else self.gather(p, dim, partial=False)
+
+    def take(self, module: nn.Module, name: str, ranges):
+        """Columns ``ranges[rank]`` (of the last dim) of ``module``'s
+        parameter ``name`` as a branch that each rank computes a part of
+        uses them: ``ranges`` holds every rank's (lo, hi), so all ranks
+        agree on the collectives.  The local slice itself where every
+        rank's range is its own slice; else the whole, gathered (or, for
+        a leaf replicated over the axis, copied), then cut."""
+        p = getattr(module, name)
+        lo, hi = ranges[self.rank]
+        if name not in module._tp_dims:
+            return self.copy(p)[..., lo:hi]
+        assert module._tp_dims[name] == p.dim() - 1, name
+        n = p.shape[-1]
+        if all(r == (i * n, (i + 1) * n) for i, r in enumerate(ranges)):
+            return p
+        return self.gather(p, -1, partial=True)[..., lo:hi]
+
+    # -- the vocabulary ---------------------------------------------------
+    def embed(self, table, tokens):
+        """The vocab-parallel lookup: rows of this rank's slice of the
+        table (V/M, D), zero for tokens outside it, summed over the axis
+        (one non-zero term a token: exact)."""
+        v = table.shape[0]
+        local = tokens.long() - self.rank * v
+        inside = (local >= 0) & (local < v)
+        rows = table[local.clamp(0, v - 1)]
+        return torch.where(inside[..., None], rows, 0.0)
+
+    def cross_entropy(self, logits, labels, mask=None):
+        """``models.layers.cross_entropy_loss`` over vocab-sharded logits
+        (B, S, V/M): the row maximum by an all-reduce MAX (taken in the
+        logits' dtype, exact in f32), the sum of exponentials in f32 and
+        the label's logit by all-reduces SUM, the mean over the tokens or
+        the mask.  No rank builds the whole (B, S, V)."""
+        v = logits.shape[-1]
+        lf = logits.float()
+        m = self.max(logits.amax(-1, keepdim=True))
+        lse = m[..., 0] + torch.log(self.reduce(torch.exp(lf - m).sum(-1)))
+        local = labels.long() - self.rank * v
+        inside = (local >= 0) & (local < v)
+        ll = lf.gather(-1, local.clamp(0, v - 1)[..., None])[..., 0]
+        nll = lse - self.reduce(torch.where(inside, ll, 0.0))
+        if mask is not None:
+            mask = mask.float()
+            return (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+        return nll.mean()
+
+
+class _Copy(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis):
+        ctx.axis = axis
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.axis.all_reduce(g), None
+
+
+class _Reduce(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis):
+        return axis.all_reduce(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _Mean(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis):
+        ctx.size = axis.size
+        return axis.all_reduce(x) / axis.size
+
+    @staticmethod
+    def backward(ctx, g):
+        return g / ctx.size, None
+
+
+class _Gather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, axis, dim, partial):
+        ctx.axis, ctx.dim, ctx.partial, ctx.n = axis, dim, partial, \
+            t.shape[dim]
+        return axis.all_gather(t, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        axis = ctx.axis
+        if ctx.partial:
+            g = axis.all_reduce(g)
+        return g.narrow(ctx.dim, axis.rank * ctx.n, ctx.n).contiguous(), \
+            None, None, None
+
+
+# ---------------------------------------------------------------------------
+# Sharding a model.
+# ---------------------------------------------------------------------------
+
+def model_dim(name: str, shape, size: int):
+    """The dim that the rules split parameter ``name`` of (whole) ``shape``
+    along over a model axis of ``size``, or None."""
+    d = sharded_dim(spec_for_param(name, shape, {MODEL_AXIS: size}),
+                    MODEL_AXIS)
+    return None if d is None else d[0]
+
+
+def model_slice(name: str, t, size: int, rank: int):
+    """Rank ``rank``'s part of the whole tensor ``t`` of parameter
+    ``name`` over a model axis of ``size`` (``t`` itself where the rules
+    replicate it)."""
+    dim = model_dim(name, tuple(t.shape), size)
+    if dim is None:
+        return t
+    n = t.shape[dim] // size
+    return t[(slice(None),) * dim + (slice(rank * n, (rank + 1) * n),)]
+
+
+def check_model_axis(cfg, size: int) -> None:
+    """Raise for what does not run under a model axis of ``size`` > 1:
+    the kinds outside this slice, the VL and audio models, ``gspn_impl=
+    "sp"`` and an attn_moe layer whose slabs are laid out for another
+    extent."""
+    if size <= 1:
+        return
+    kinds = {kind for _, kind, _ in cfg.stages()}
+    if cfg.shared_attn:
+        kinds.add("attn")
+    out = sorted(kinds - set(KINDS))
+    why = []
+    if out:
+        why.append(f"the {', '.join(out)} kind")
+    if cfg.encoder_layers:
+        why.append("the audio encoder")
+    if cfg.mrope_sections is not None:
+        why.append("the VL model")
+    if "gspn" in kinds and cfg.gspn_impl == "sp":
+        why.append('gspn_impl="sp"')
+    if why:
+        raise NotImplementedError(
+            f"{cfg.name}: {' and '.join(why)} under a model axis of {size} "
+            f"is not in the port yet; ROADMAP.md §1 item 6.2 keeps it")
+    if "attn_moe" in kinds and cfg.n_model_shards != size:
+        raise ValueError(
+            f"{cfg.name}: the MoE's slabs are laid out for n_model_shards="
+            f"{cfg.n_model_shards}; the model axis has {size} ranks")
+
+
+def _split_by(module):
+    """The parameter whose split turns ``module``'s tensor parallelism on
+    ("*": any of its parameters), or None for a module that has none."""
+    from repro_torch.core.gspn import GSPNSeqMixer
+    from repro_torch.models.attention import Attention
+    from repro_torch.models.layers import GeluMLP, SwiGLU
+    from repro_torch.models.lm import LM
+    from repro_torch.models.moe import MoE
+
+    for cls, key in ((SwiGLU, "down"), (GeluMLP, "fc2"), (Attention, "wo"),
+                     (MoE, "gate_slab"), (GSPNSeqMixer, "*"), (LM, "embed")):
+        if isinstance(module, cls):
+            return key
+    return None
+
+
+def shard_model(model: nn.Module, mesh) -> dict:
+    """Keep this rank's part of every parameter of ``model`` (a whole
+    ``models.lm.LM``) that the rules split over ``mesh``'s model axis, and
+    give each layer that then splits its arithmetic the axis
+    (``module.tp``; the LM's own ``model.model_axis`` in any case).
+    Returns {parameter name: (dim, size, rank)}, empty without a model
+    axis of more than one rank.  Run it once, on every rank of the axis,
+    on the same whole weights."""
+    axis = ModelAxis.of(mesh)
+    if axis is None:
+        return {}
+    if getattr(model, "model_axis", None) is not None:
+        raise ValueError("the model is sharded over a model axis already")
+    check_model_axis(model.cfg, axis.size)
+    placements = {}
+    for mod_name, module in model.named_modules():
+        module._tp_dims = {}
+        for pname, p in list(module.named_parameters(recurse=False)):
+            name = f"{mod_name}.{pname}" if mod_name else pname
+            dim = model_dim(name, tuple(p.shape), axis.size)
+            if dim is None:
+                continue
+            part = model_slice(name, p.detach(), axis.size, axis.rank)
+            module._parameters[pname] = nn.Parameter(
+                part.clone(), requires_grad=p.requires_grad)
+            module._tp_dims[pname] = dim
+            placements[name] = (dim, axis.size, axis.rank)
+    for module in model.modules():
+        key = _split_by(module)
+        if key is not None:
+            module.tp = axis if key in module._tp_dims or (
+                key == "*" and module._tp_dims) else None
+    model.model_axis, model.tp_placements = axis, placements
+    return placements

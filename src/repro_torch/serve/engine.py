@@ -56,7 +56,8 @@ Sequence parallelism.  A ``ctx`` (``models.lm.Ctx``) carries the mesh that
 a ``gspn_impl="sp"`` model shards its prefills' and chunks' scans over
 (DESIGN.md §8); the decode step is O(W) and unsharded.  Every rank runs
 the same engine over the same requests, so its collectives come in one
-order on all of them.
+order on all of them.  Serving has no model axis, as in the reference: a
+ctx with one, or a model sharded over one, raises.
 """
 
 from __future__ import annotations
@@ -230,6 +231,11 @@ class ServeEngine:
             raise ValueError(f"unknown scheduler {scheduler!r}")
         if model.cfg.encoder_layers:
             raise ValueError(no_audio_message(model.cfg.name))
+        if getattr(model, "model_axis", None) is not None or (
+                ctx is not None and ctx.model_extent() > 1):
+            raise NotImplementedError(
+                "serving runs without a model axis, as the reference's "
+                "does (its serve launcher builds a seq mesh only)")
         self.ctx = ctx
         self.model = model
         self.cfg = cfg = model.cfg

@@ -20,6 +20,14 @@ the ranks' mean.  :func:`make_train_setup` builds the whole of it from a
 seed: every rank draws the same full weights, keeps its shards and frees
 the rest.
 
+**Tensor parallelism.**  A ``model`` axis of more than one rank splits
+heads, FFN hidden width, vocabulary and expert groups
+(``parallel.tensor_parallel``): each rank keeps its slice of every leaf
+the rules split over ``model``, the collectives run inside the layers'
+autograd Functions, and FSDP2 over ``data`` wraps the model-local shards.
+The loss is vocab-parallel and equal on the model axis's ranks; the
+gradient norm counts each distinct element once.
+
 **int8 error feedback** (``grad_compression="int8_ef"``, the
 reference's): each leaf's reduced gradient plus its residual is
 quantised to int8 with one scale for the whole (global) reference leaf,
@@ -162,11 +170,13 @@ def build_train_step(model: LM, opt_cfg: AdamWConfig, *, mesh=None,
 
     With ``mesh`` (a ``DeviceMesh`` with a ``data`` axis; ``dp_axes`` its
     data-parallel axes, ``launch.mesh.dp_axes_for`` by default) the step
-    is data-parallel: ``model`` is sharded first if it is not yet (build
-    the state after this call, or use :func:`make_train_setup`), and the
-    batch is this rank's slice.  A ``model`` axis larger than 1 raises
-    (``models.lm.Ctx``).  ``grad_compression`` is ``"none"`` or
-    ``"int8_ef"``.
+    is data-parallel (and, over a ``model`` axis, tensor-parallel):
+    ``model`` is sharded first if it is not yet (build the state after
+    this call, or use :func:`make_train_setup`), and the batch is this
+    rank's slice of the data axes (the model axis's ranks read the same
+    one).  ``grad_compression`` is ``"none"`` or ``"int8_ef"``: each
+    global leaf's one scale comes from an all-reduce MAX over the axes
+    that slice it.
 
     ``grad_accum`` > 1 splits the batch into that many microbatches along
     its first axis and sums their gradients in f32 (in bf16 for bf16
@@ -184,17 +194,15 @@ def build_train_step(model: LM, opt_cfg: AdamWConfig, *, mesh=None,
     ctx = Ctx(mesh=mesh) if mesh is not None else None
     dp = None
     if mesh is not None:
-        from torch.distributed.fsdp import FSDPModule
-        dp = DataParallel(model, mesh, dp_axes)
-        if not isinstance(model, FSDPModule):
-            dp.shard()
+        dp = DataParallel(model, mesh, dp_axes).shard()
 
     def loss_and_grads(params, batch, scale):
         """(unscaled loss, metrics, gradients of the scaled loss).  A
         parameter the loss does not read (an xattn block's ``xattn.wk``
         and ``xattn.wv``) gets an exact zero gradient, as in the
-        reference.  Data-parallel: FSDP's hooks reduce the gradients in
-        ``backward``, and loss and metrics are the ranks' means."""
+        reference.  On a mesh: FSDP's hooks reduce the gradients in
+        ``backward`` (the model axis's reductions run inside the layers),
+        and loss and metrics are the data-parallel ranks' means."""
         loss, metrics = lm_loss(model, batch, ctx=ctx)
         scaled = loss if scale is None else loss * scale
         if dp is not None:
@@ -301,9 +309,11 @@ def build_train_step(model: LM, opt_cfg: AdamWConfig, *, mesh=None,
 @dataclasses.dataclass
 class TrainSetup:
     """Everything a trainer needs on one rank: the (sharded) model, its
-    train state, the step, the mesh, each parameter's spec and this
-    rank's placements of the state (flat state key -> (dim, parts,
-    index)) for the checkpoint manager."""
+    train state, the step, the mesh, each parameter's spec (of the whole
+    leaf), this rank's placements of the state (flat state key -> (dim,
+    parts, index), or a tuple of two such where the data and the model
+    axis both slice the leaf) and the sliced state keys another rank
+    writes (``state_skip``), for the checkpoint manager."""
     model: LM
     state: dict
     train_step: Callable
@@ -311,19 +321,26 @@ class TrainSetup:
     dp_axes: tuple
     param_specs: dict
     state_placements: dict
+    state_skip: frozenset = frozenset()
+
+
+def _state_keys(state: dict, names) -> dict:
+    """{flat key: parameter name} of every state leaf that mirrors one of
+    the parameters ``names``."""
+    out = {}
+    for n in names:
+        out[f"params/{n}"] = out[f"opt/m/{n}"] = out[f"opt/v/{n}"] = n
+        for sub in ("master", "errors"):
+            if sub in state:
+                out[f"{sub}/{n}"] = n
+    return out
 
 
 def _state_placements(state: dict, placements: dict) -> dict:
     """Every state leaf that mirrors a sharded parameter takes its
     placement."""
-    out = {}
-    for n, p in placements.items():
-        out[f"params/{n}"] = p
-        for sub in ("master", "errors"):
-            if sub in state:
-                out[f"{sub}/{n}"] = p
-        out[f"opt/m/{n}"] = out[f"opt/v/{n}"] = p
-    return out
+    return {k: placements[n]
+            for k, n in _state_keys(state, placements).items()}
 
 
 def make_train_setup(model_cfg: LMConfig, opt_cfg: AdamWConfig, *,
@@ -333,19 +350,19 @@ def make_train_setup(model_cfg: LMConfig, opt_cfg: AdamWConfig, *,
                      loss_scaling: LossScaleConfig | None = None
                      ) -> TrainSetup:
     """The model drawn from ``seed`` on ``device``, sharded over ``mesh``'s
-    data axis when a mesh is given (the same full weights on every rank,
-    each keeping its shards), its state and its step."""
+    data and model axes when a mesh is given (the same full weights on
+    every rank, each keeping its shards), its state and its step."""
     from repro_torch.device import resolve_device
     from repro_torch.launch.mesh import dp_axes_for
 
     device = resolve_device(device)
     gen = torch.Generator(device=device).manual_seed(seed)
     model = LM(model_cfg, device=device, generator=gen)
-    specs, placements = {}, {}
+    specs, placements, skip = {}, {}, set()
     if mesh is not None:
         dp_axes = tuple(dp_axes or dp_axes_for(mesh))
         dp = DataParallel(model, mesh, dp_axes).shard()
-        specs, placements = dp.specs, dp.placements()
+        specs, placements, skip = dp.specs, dp.placements(), dp.skipped()
     step = build_train_step(model, opt_cfg, mesh=mesh, dp_axes=dp_axes,
                             grad_compression=grad_compression,
                             grad_accum=grad_accum,
@@ -356,4 +373,5 @@ def make_train_setup(model_cfg: LMConfig, opt_cfg: AdamWConfig, *,
                              grad_compression=grad_compression)
     return TrainSetup(model=model, state=state, train_step=step, mesh=mesh,
                       dp_axes=tuple(dp_axes or ()), param_specs=specs,
-                      state_placements=_state_placements(state, placements))
+                      state_placements=_state_placements(state, placements),
+                      state_skip=frozenset(_state_keys(state, skip)))

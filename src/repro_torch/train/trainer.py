@@ -1,6 +1,6 @@
 """Fault-tolerant training loop, the port of the reference's
-``train/trainer.py``: on one device, or data-parallel over a mesh's
-``data`` (and ``pod``) axis, one process a rank.
+``train/trainer.py``: on one device, or over a mesh's ``data`` (and
+``pod``) axis and its ``model`` axis, one process a rank.
 
 * **Checkpoint/restart**: asynchronous atomic checkpoints every
   ``ckpt_every`` steps and one of the last step, which is on disk when
@@ -15,15 +15,17 @@
   exercises the recovery path in tests.  On a mesh the ranks agree on it
   (one all-reduce of a flag), so every rank recovers together and none
   waits in a collective of the step.
-* **Data parallelism**: with ``mesh``, every rank draws the same full
-  model from the seed, keeps its shards (``train.step.make_train_setup``)
-  and reads its slice of each global batch (``DataConfig.n_hosts`` and
-  ``host_id`` from its place on the mesh); each rank writes its own
-  shards to the checkpoint.
+* **Parallelism**: with ``mesh``, every rank draws the same full model
+  from the seed, keeps its shards (``train.step.make_train_setup``) and
+  reads its slice of each global batch (``DataConfig.n_hosts`` and
+  ``host_id`` from its place on the data axes; the model axis's ranks
+  read the same slice); each rank of the mesh is a checkpoint host and
+  writes its own shards.
 * **Elastic re-mesh**: :class:`ElasticTrainer` polls ``device_monitor()``
   (the live ranks); on a change it saves, builds the new mesh over the
-  live ranks, rebuilds the step and restores under the new placements.
-  Ranks outside the new mesh leave the loop.
+  live ranks at the model extent it started with, rebuilds the step and
+  restores under the new placements.  Ranks outside the new mesh leave
+  the loop.
 
 Observability (DESIGN.md §13): spans ``train.data`` and ``train.step``;
 events ``train.recovery``, ``train.straggler`` and ``train.loss_scale``
@@ -63,6 +65,22 @@ class TrainerConfig:
     straggler_warmup: int = 5
     max_retries: int = 3
     log_every: int = 10
+
+
+def _place(mesh, axes) -> tuple:
+    """(the number of ranks over ``axes`` of ``mesh``, this rank's index
+    among them, row-major)."""
+    names = mesh.mesh_dim_names
+    n, idx = 1, 0
+    for a in axes:
+        i = names.index(a)
+        n, idx = n * mesh.size(i), idx * mesh.size(i) + mesh.get_local_rank(i)
+    return n, idx
+
+
+def _model_extent(mesh) -> int:
+    names = mesh.mesh_dim_names if mesh is not None else ()
+    return mesh.size(names.index("model")) if "model" in names else 1
 
 
 def _mesh_group(mesh):
@@ -117,21 +135,18 @@ class Trainer:
     def _manager(self) -> CheckpointManager:
         """The checkpoint manager of this rank's place on the mesh; on a
         mesh, ``data_cfg``'s ``n_hosts`` and ``host_id`` become the
-        data-parallel size and this rank's index."""
+        data-parallel size and this rank's index there, and every rank of
+        the mesh is a checkpoint host."""
+        host_id, n_hosts = self.data_cfg.host_id, self.data_cfg.n_hosts
         if self.mesh is not None:
-            names = self.mesh.mesh_dim_names
             axes = tuple(self.dp_axes or dp_axes_for(self.mesh))
-            n, idx = 1, 0
-            for a in axes:
-                i = names.index(a)
-                n, idx = n * self.mesh.size(i), \
-                    idx * self.mesh.size(i) + self.mesh.get_local_rank(i)
+            n, idx = _place(self.mesh, axes)
             self.data_cfg = dataclasses.replace(self.data_cfg, n_hosts=n,
                                                 host_id=idx)
+            n_hosts, host_id = _place(self.mesh, self.mesh.mesh_dim_names)
             self._group = _mesh_group(self.mesh)
         return CheckpointManager(self.tcfg.ckpt_dir, keep=self.tcfg.keep,
-                                 host_id=self.data_cfg.host_id,
-                                 n_hosts=self.data_cfg.n_hosts,
+                                 host_id=host_id, n_hosts=n_hosts,
                                  group=self._group)
 
     def _init(self, seed: int):
@@ -145,6 +160,7 @@ class Trainer:
         self.model, self.state = setup.model, setup.state
         self._train_step = setup.train_step
         self.placements = setup.state_placements
+        self.skip = setup.state_skip
         self.step = 0
 
     def init_or_restore(self, seed: int = 0) -> int:
@@ -180,7 +196,8 @@ class Trainer:
 
     def _save(self):
         if self.placements:
-            self.ckpt.save(self.step, self.state, placements=self.placements)
+            self.ckpt.save(self.step, self.state, placements=self.placements,
+                           skip=self.skip)
         else:
             self.ckpt.save(self.step, self.state)
 
@@ -289,9 +306,10 @@ class ElasticTrainer(Trainer):
     ``device_monitor()`` returns the live ranks (by default the whole
     world); when they change, :meth:`maybe_remesh` saves (the state is on
     disk when ``run`` returns a chunk), builds ``mesh_builder(ranks)``
-    (by default ``launch.mesh.make_mesh_for_devices`` with a model axis
-    of 1) on every rank of the old world, rebuilds the step and restores
-    under the new placements.  A rank outside the new mesh sets
+    (by default ``launch.mesh.make_mesh_for_devices`` at the model extent
+    of the mesh it started on, as the reference's launcher re-meshes at
+    its ``tp``) on every rank of the old world, rebuilds the step and
+    restores under the new placements.  A rank outside the new mesh sets
     ``active`` False and leaves :meth:`run`."""
 
     def __init__(self, *args, device_monitor=None, mesh_builder=None,
@@ -299,9 +317,10 @@ class ElasticTrainer(Trainer):
         super().__init__(*args, **kwargs)
         self.device_monitor = device_monitor or (
             lambda: list(range(dist.get_world_size())))
+        tp = _model_extent(self.mesh)
         self.mesh_builder = mesh_builder or (
             lambda ranks: make_mesh_for_devices(
-                ranks, model_parallel=1, device_type=self.device.type))
+                ranks, model_parallel=tp, device_type=self.device.type))
         self._ranks = list(self.device_monitor())
         self.active = True
 

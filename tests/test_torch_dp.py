@@ -67,7 +67,10 @@ import test_torch_dp_worker as W  # noqa: E402
 
 MESHES = {"data2": {"data": 2}, "data4": {"data": 4},
           "data4_model2": {"data": 4, "model": 2},
-          "pod2_data2": {"pod": 2, "data": 2}}
+          "pod2_data2": {"pod": 2, "data": 2},
+          "data1_model2": {"data": 1, "model": 2},
+          "data2_model2": {"data": 2, "model": 2},
+          "model4": {"model": 4}}
 NOISE_FLOOR = 1e-5
 ARCHS = tbase.list_archs()
 
@@ -778,9 +781,13 @@ def test_production_mesh_dims_and_refusal():
 
 def test_launcher_trains_distributed_and_resumes(runs):
     """``launch.train --distributed --grad-compression int8_ef`` on 2 gloo
-    ranks: 3 finite losses and checkpoints at steps 2 and 3; a second
-    launch resumes at step 3 and ends at 4."""
+    ranks, which the launcher now lays out as the reference's does, every
+    rank on the model axis (``(data 1, model 2)``, min(16, 2) = 2: every
+    layer tensor-parallel, the compression's scales over both ranks): 3
+    finite losses and model-sharded checkpoints at steps 2 and 3; a
+    second launch resumes at step 3 and ends at 4."""
     first, second = (logs[0] for logs in runs["launch"])
+    assert "mesh {'data': 1, 'model': 2}" in first
     m = re.search(r"from step (\d+)", first)
     assert m and m.group(1) == "0"
     losses = json.loads(re.search(r"losses (\[[^\]]*\])", first).group(1))

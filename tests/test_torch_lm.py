@@ -34,6 +34,7 @@ from repro_torch.kernels import cuda_lib, spec
 from repro_torch.models import layers
 from repro_torch.models import lm
 from repro_torch.models.convert import lm_state_from_jax
+from repro_torch.parallel import tensor_parallel
 
 TOL = 1e-5
 LOGITS_TOL = 1e-4
@@ -373,12 +374,22 @@ def test_registry_runs_only_what_the_port_runs():
     with pytest.raises(ValueError, match="unknown block kind"):
         lm.LM(dataclasses.replace(tq.reduced(), unit=(("conv", 2),)),
               device="meta")
-    # A seq mesh is accepted (the scans shard over it under impl="sp");
-    # sharding weights over a model axis waits for item 6.2.
+    # A seq mesh is accepted (the scans shard over it under impl="sp").
+    # A model axis is accepted too, and a model runs over it once
+    # parallel.tensor_parallel has sharded it: an unsharded model refuses
+    # the ctx, and impl="sp" with a model axis still waits for item 6.2.
     seq = _Mesh(("data", "seq"), (2, 2))
     assert lm.Ctx(mesh=seq).mesh is seq
+    model_ctx = lm.Ctx(mesh=_Mesh(("seq", "model"), (2, 2)))
+    assert model_ctx.model_extent() == 2 and lm.Ctx(mesh=seq).model_extent() \
+        == 1
+    small = lm.LM(tq.reduced(), device="cpu")
+    with pytest.raises(ValueError, match="model axis"):
+        lm.apply_lm(small, torch.zeros((1, 8), dtype=torch.long),
+                    ctx=model_ctx)
     with pytest.raises(NotImplementedError, match="item 6.2"):
-        lm.Ctx(mesh=_Mesh(("seq", "model"), (2, 2)))
+        tensor_parallel.check_model_axis(
+            dataclasses.replace(tq.reduced(), gspn_impl="sp"), 2)
 
 
 class _Mesh:

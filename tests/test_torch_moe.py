@@ -306,21 +306,28 @@ def test_per_expert_loop_matches_the_layer():
 
 
 def test_model_shards_are_refused():
-    """More than one model shard needs the slabs split over a model axis:
+    """More than one model shard needs the slabs split over a model axis
+    of that extent (``parallel.tensor_parallel``, ``tests/test_torch_tp.py``):
     the reference without a mesh then runs shard 0's slab alone (grok at
     16 shards keeps expert group 0 and half of each expert's hidden
-    width), so the port refuses, naming item 6.2.  The geometry of the
-    slabs is the reference's."""
+    width), so a call without that axis raises, naming item 6.2.  The
+    geometry of the slabs is the reference's, and the model builds: its
+    slabs hold every shard until ``shard_model`` keeps one."""
     for shards in (2, 16):
         cfg = tgrok.full(shards)
         mine, theirs = lm.moe_config(cfg), jlm._moe_cfg(jgrok.full(shards))
         assert (mine.ep, mine.tp, mine.e_loc, mine.f_loc) == \
             (theirs.ep, theirs.tp, theirs.e_loc, theirs.f_loc)
+        model = lm.LM(cfg, device="meta")
+        moe = next(b for _, _, b in model.walk()).moe
+        assert moe.gate_slab.shape == (shards, mine.e_loc, cfg.d_model,
+                                       mine.f_loc)
         with pytest.raises(NotImplementedError, match="item 6.2"):
-            lm.LM(cfg, device="meta")
+            moe(torch.zeros((1, 2, cfg.d_model), device="meta"))
+    model = lm.LM(dataclasses.replace(tkimi.reduced(), n_model_shards=2),
+                  device="cpu")
     with pytest.raises(NotImplementedError, match="item 6.2"):
-        lm.LM(dataclasses.replace(tkimi.reduced(), n_model_shards=2),
-              device="cpu")
+        lm.apply_lm(model, torch.zeros((1, 4), dtype=torch.long))
 
 
 # ---------------------------------------------------------------------------

@@ -249,7 +249,9 @@ def test_chunk_snapping_capacity_and_unported_arguments(model):
     pfx = PrefixStateCache()                 # the tier's cache is ported
     assert _engine(model, prefix_cache=pfx).prefix_cache is pfx
     # A ctx reaches prefill and chunks: over a seq axis of one block the
-    # sharded model is the unsharded one; a model axis waits for item 6.2.
+    # sharded model is the unsharded one.  Serving has no model axis, as
+    # in the reference (its serve launcher builds a seq mesh only): the
+    # engine refuses a ctx with one.
     sp_model = lm.LM(_cfg(gspn_impl="sp"), device="meta")
     sp_model.load_state_dict(model.state_dict(), assign=True)
     toks = []
@@ -261,8 +263,8 @@ def test_chunk_snapping_capacity_and_unported_arguments(model):
         eng.run()
         toks.append(h.result().tokens)
     assert toks[0] == toks[1]
-    with pytest.raises(NotImplementedError, match="item 6.2"):
-        lm.Ctx(mesh=_Mesh(("seq", "model"), (1, 2)))
+    with pytest.raises(NotImplementedError, match="model axis"):
+        _engine(model, ctx=lm.Ctx(mesh=_Mesh(("seq", "model"), (1, 2))))
     free_fold = lm.LM(_cfg(gspn_row_width=0), device="cpu")
     assert ServeEngine(free_fold, prefill_chunk=16).prefill_chunk == 0
 

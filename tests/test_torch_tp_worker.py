@@ -1,0 +1,289 @@
+"""One rank of the tensor-parallel CPU checks in ``test_torch_tp.py``.
+
+Started once per rank, as ``torchrun`` starts a rank (``RANK``,
+``WORLD_SIZE``, ``MASTER_PORT``), it joins a gloo group and runs every
+case of its world size on the inputs the test wrote (first argument);
+rank 0 writes the results, every tensor gathered whole, to the ``.npz``
+named by the second argument.  The third argument is a scratch
+directory the test keeps (the checkpoint saved on ``(data 1, model
+2)``).  It imports no JAX: the reference's parameters arrive as numpy
+leaves under their pytree paths.
+
+    RANK=0 WORLD_SIZE=2 MASTER_PORT=29500 \\
+        python tests/test_torch_tp_worker.py inputs.npz out.npz scratch/
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import logging
+import pathlib
+import sys
+
+import numpy as np
+import torch
+import torch.distributed as dist
+from torch.distributed.device_mesh import DeviceMesh
+
+from repro_torch.checkpoint.manager import CheckpointManager, placement_parts
+from repro_torch.configs.base import get_arch, with_precision
+from repro_torch.launch.mesh import init_distributed
+from repro_torch.models import lm
+from repro_torch.models.convert import lm_state_from_jax
+from repro_torch.optim.adamw import AdamWConfig
+from repro_torch.parallel.data_parallel import DataParallel
+from repro_torch.parallel.sharding import sharded_dim
+from repro_torch.parallel.tensor_parallel import ModelAxis
+from repro_torch.train import step as tstep
+
+OPT = dict(lr=1e-3, warmup_steps=2, total_steps=10)
+# The steps' architectures and meshes, by world size.
+# qwen2-1.5b at (1, 4): 6 heads of 8 over 4 ranks of 12 columns, so a
+# rank's rows of wo read one and a half heads, and K/V's 16 columns split
+# in half heads: both gathered whole.
+STEPS = {2: (("qwen2-1.5b-gspn", (1, 2)), ("qwen2-1.5b", (1, 2))),
+         4: (("qwen2-1.5b-gspn", (2, 2)), ("qwen2-1.5b", (2, 2)),
+             ("qwen2-1.5b", (1, 4)))}
+# The int8_ef steps: each global leaf's scale from a MAX over the axes
+# that slice it, the model axis's among them.
+INT8 = {2: (("qwen2-1.5b-gspn", (1, 2)), ("qwen2-1.5b", (1, 2))),
+        4: (("qwen2-1.5b-gspn", (2, 2)), ("qwen2-1.5b", (2, 2)))}
+# The MoE cases: (name, arch, model extent, config changes).
+MOE = {2: (("grok2", "grok-1-314b", 2, {}),
+           ("kimi2", "kimi-k2-1t-a32b", 2, {})),
+       4: (("grok4", "grok-1-314b", 4, {}),
+           ("e2", "grok-1-314b", 4, {"n_experts": 2, "top_k": 1}))}
+
+
+def config(arch, **changes):
+    """The arch's reduced config under the f32 policy, remat "unit"."""
+    return dataclasses.replace(
+        with_precision(get_arch(arch).reduced(), "f32"), remat="unit",
+        **changes)
+
+
+def mesh_of(shape):
+    return DeviceMesh("cpu", torch.arange(shape[0] * shape[1]).reshape(
+        shape), mesh_dim_names=("data", "model"))
+
+
+def tree(inp, prefix):
+    """The nested dict of the reference's parameters saved under
+    ``prefix/<path>``."""
+    out = {}
+    for k, v in inp.items():
+        if k.startswith(prefix + "/"):
+            *outer, last = k[len(prefix) + 1:].split("/")
+            d = out
+            for p in outer:
+                d = d.setdefault(p, {})
+            d[last] = v
+    return out
+
+
+def gather(local, placement, spec, mesh, axes=("data", "model")):
+    """The tensor of which ``local`` is part ``placement`` (its leaf's
+    spec ``spec`` says which axis slices which dim), whole over
+    ``axes``."""
+    t = local.detach().contiguous()
+    for dim, parts, _ in placement_parts(placement):
+        axis = next(a for a in ("data", "model")
+                    if (sharded_dim(spec, a) or (None,))[0] == dim)
+        if axis not in axes:
+            continue
+        pieces = [torch.empty_like(t) for _ in range(parts)]
+        dist.all_gather(pieces, t, group=mesh.get_group(axis))
+        t = torch.cat(pieces, dim=dim)
+    return t
+
+
+def whole_state(setup, key="params", axes=("data", "model")):
+    return {n: gather(t, setup.state_placements.get(f"{key}/{n}"),
+                      setup.param_specs[n], setup.mesh, axes)
+            for n, t in setup.state[key].items()}
+
+
+def load_whole(setup, full: dict):
+    """Copy whole parameters into a sharded setup's local tensors."""
+    with torch.no_grad():
+        for n, t in setup.state["params"].items():
+            src = full[n]
+            for dim, parts, idx in placement_parts(
+                    setup.state_placements.get(f"params/{n}")):
+                size = src.shape[dim] // parts
+                src = src.narrow(dim, idx * size, size)
+            t.copy_(src)
+
+
+def batch_of(inp, key, lo=None, hi=None):
+    return {k: torch.from_numpy(np.ascontiguousarray(
+        inp[f"{key}/{k}"][lo:hi])) for k in ("tokens", "labels")}
+
+
+def _data_index(mesh):
+    return mesh.get_local_rank(0)
+
+
+# ---------------------------------------------------------------------------
+# Cases.
+# ---------------------------------------------------------------------------
+
+def step_case(inp, out, arch, shape, comp="none"):
+    """One AdamW step of the sharded setup from the reference's weights on
+    this rank's rows of the batch (under ``grad_compression=comp``):
+    loss, grad_norm, every parameter (and int8 residual) gathered; local
+    shapes against the specs, the leaves the model axis splits against
+    the rules; the converted shard (``lm_state_from_jax(model_rank=)``)
+    against the setup's slices."""
+    mesh = mesh_of(shape)
+    tag = f"{'step' if comp == 'none' else comp}/{arch}/{shape[0]}x{shape[1]}"
+    full = lm_state_from_jax(tree(inp, f"jax/{arch}"))
+    setup = tstep.make_train_setup(config(arch), AdamWConfig(**OPT),
+                                   mesh=mesh, device="cpu",
+                                   grad_compression=comp)
+    load_whole(setup, full)
+    rank_m = mesh.get_local_rank(1)
+    shard = lm_state_from_jax(tree(inp, f"jax/{arch}"),
+                              n_model_shards=shape[1], model_rank=rank_m)
+    bad = []
+    for n, t in setup.state["params"].items():
+        want = list(full[n].shape)
+        for dim, parts, _ in placement_parts(
+                setup.state_placements.get(f"params/{n}")):
+            want[dim] //= parts
+        if list(t.shape) != want:
+            bad.append((n, list(t.shape), want))
+    # The model axis splits the leaves the rules split over it.
+    rules = {n: d[0] for n, s in setup.param_specs.items()
+             if (d := sharded_dim(s, "model")) is not None}
+    split = {n: pl[0] for n, pl in setup.model.tp_placements.items()}
+    if rules != split:
+        bad.append(("model axis", sorted(set(rules.items())
+                                         ^ set(split.items()))))
+    # The converted shard is the setup's model-local slice.
+    for n, t in whole_state(setup, axes=("data",)).items():
+        if not torch.equal(t, shard[n]):
+            bad.append((n, "converted shard"))
+    n_model = sum(1 for n in setup.state["params"] if sharded_dim(
+        setup.param_specs[n], "model"))
+    i, n_data = _data_index(mesh), shape[0]
+    rows = inp[f"batch/{arch}/tokens"].shape[0] // n_data
+    _, m = setup.train_step(setup.state, batch_of(inp, f"batch/{arch}",
+                                                  i * rows, (i + 1) * rows))
+    out[f"{tag}/loss"] = float(m["loss"])
+    out[f"{tag}/grad_norm"] = float(m["grad_norm"])
+    for n, t in whole_state(setup).items():
+        out[f"{tag}/p/{n}"] = t.numpy()
+    if comp == "int8_ef":
+        for n, t in whole_state(setup, "errors").items():
+            out[f"{tag}/e/{n}"] = t.numpy()
+    out[f"{tag}/meta"] = json.dumps({
+        "bad": bad, "n_model_sharded": n_model,
+        "n_params": len(setup.state["params"])})
+
+
+def moe_case(inp, out, name, arch, m, changes):
+    """Loss, aux and gradients of the MoE model over a model axis of m
+    (the reference's weights at n_model_shards=m, converted whole, then
+    sharded), gathered."""
+    mesh = mesh_of((1, m))
+    cfg = config(arch, n_model_shards=m, **changes)
+    model = lm.LM(cfg, device="meta")
+    model.load_state_dict(lm_state_from_jax(tree(inp, f"jax/{name}")),
+                          assign=True)
+    dp = DataParallel(model, mesh).shard()
+    placements = dp.placements()
+    assert not dp.fsdp
+    loss, metrics = lm.lm_loss(model, batch_of(inp, f"batch/{name}"),
+                               ctx=lm.Ctx(mesh=mesh))
+    loss.backward()
+    out[f"moe/{name}/loss"] = float(loss.detach())
+    out[f"moe/{name}/aux"] = float(metrics["aux"].detach())
+    for n, p in model.named_parameters():
+        out[f"moe/{name}/g/{n}"] = gather(p.grad, placements.get(n),
+                                          dp.specs[n], mesh).numpy()
+
+
+def ce_case(inp, out, m):
+    """The vocab-parallel loss and its gradient, with and without a
+    mask, over m ranks."""
+    axis = ModelAxis.of(mesh_of((1, m)))
+    logits = torch.from_numpy(inp["ce/logits"])
+    v = logits.shape[-1] // m
+    for masked in (False, True):
+        part = logits[..., axis.rank * v:(axis.rank + 1) * v].clone() \
+            .requires_grad_()
+        mask = torch.from_numpy(inp["ce/mask"]) if masked else None
+        loss = axis.cross_entropy(part, torch.from_numpy(inp["ce/labels"]),
+                                  mask)
+        loss.backward()
+        out[f"ce/{m}/{masked}/loss"] = float(loss.detach())
+        out[f"ce/{m}/{masked}/grad"] = axis.all_gather(part.grad, -1).numpy()
+    tokens = torch.from_numpy(inp["ce/labels"])
+    table = torch.from_numpy(inp["ce/table"])
+    vt = table.shape[0] // m
+    rows = axis.reduce(axis.embed(table[axis.rank * vt:(axis.rank + 1) * vt],
+                                  tokens))
+    out[f"ce/{m}/embed_equal"] = bool(torch.equal(rows, table[tokens.long()]))
+
+
+def checkpoint_case(inp, out, rank):
+    """A state saved on (data 1, model 2) after a step, then restored on
+    (data 2, model 1) and gathered."""
+    arch = "qwen2-1.5b-gspn"
+    d = pathlib.Path(sys.argv[3]) / "ck_tp"
+    setup = tstep.make_train_setup(config(arch), AdamWConfig(**OPT),
+                                   mesh=mesh_of((1, 2)), device="cpu",
+                                   seed=3)
+    setup.train_step(setup.state, batch_of(inp, f"batch/{arch}"))
+    ck = CheckpointManager(str(d), host_id=rank, n_hosts=2)
+    ck.save(1, setup.state, placements=setup.state_placements,
+            skip=setup.state_skip)
+    ck.wait()
+    for key in ("params",):
+        for n, t in whole_state(setup, key).items():
+            out[f"ck/saved/{key}/{n}"] = t.numpy()
+    for mom in ("m", "v"):
+        for n, t in setup.state["opt"][mom].items():
+            out[f"ck/saved/opt/{mom}/{n}"] = gather(
+                t, setup.state_placements.get(f"opt/{mom}/{n}"),
+                setup.param_specs[n], setup.mesh).numpy()
+    other = tstep.make_train_setup(config(arch), AdamWConfig(**OPT),
+                                   mesh=mesh_of((2, 1)), device="cpu",
+                                   seed=5)
+    _, step = CheckpointManager(str(d), host_id=rank, n_hosts=2).restore(
+        target=other.state, placements=other.state_placements)
+    out["ck/restored/step"] = step
+    for n, t in whole_state(other).items():
+        out[f"ck/restored/params/{n}"] = t.numpy()
+    for mom in ("m", "v"):
+        for n, t in other.state["opt"][mom].items():
+            out[f"ck/restored/opt/{mom}/{n}"] = gather(
+                t, other.state_placements.get(f"opt/{mom}/{n}"),
+                other.param_specs[n], other.mesh).numpy()
+
+
+def main():
+    logging.disable(logging.WARNING)
+    torch.set_num_threads(1)
+    inp = dict(np.load(sys.argv[1]))
+    init_distributed(torch.device("cpu"))
+    rank, world = dist.get_rank(), dist.get_world_size()
+    out = {}
+    for arch, shape in STEPS[world]:
+        step_case(inp, out, arch, shape)
+    for arch, shape in INT8[world]:
+        step_case(inp, out, arch, shape, "int8_ef")
+    for case in MOE[world]:
+        moe_case(inp, out, *case)
+    ce_case(inp, out, world)
+    if world == 2:
+        checkpoint_case(inp, out, rank)
+    if rank == 0:
+        np.savez(sys.argv[2], **out)
+    dist.destroy_process_group()
+
+
+if __name__ == "__main__":
+    main()
