@@ -301,6 +301,24 @@ Phases, each of which fails the run on any error:
    through ``launch/train.py`` at 4 x 448 tokens and 1500 frames: step
    seconds, every moment finite, the encoder's nonzero, and
    ``xattn.wk`` and ``xattn.wv``'s exactly 0 (their gradients were).
+18. the roofline (``roofline ...`` lines, phase ``roofline``): (a)
+   sharded serving at full width under the f32 policy, gloo ranks
+   sharing the card (:func:`roofline_worker`): ``qwen2-1.5b-gspn`` on
+   (data 1, model 2), ``lm_prefill`` of 1 x 4096 then 16 greedy decode
+   steps, and ``qwen2-1.5b`` on (1, 4), 1 x 1024 then 16 (its 2 kv heads
+   do not divide 4: the cache splits its positions), each step's last
+   logits within 1e-4 of the largest of the one-rank run on the same
+   weights, the greedy tokens equal, each rank's cache shapes those of
+   ``cache_shardings``, #1 56 a rank a GSPN prefill and 0 a decode step,
+   no plain call; (b) three programs measured on the card (the ``lm
+   train`` step, the GSPN-2-T step, (a)'s GSPN prefill on rank 0)
+   against their counts on ``meta`` (``roofline.cost``, in a process of
+   their own, :func:`roofline_meta`): FLOPs equal to ``FlopCounterMode``'s
+   on the card, the compute, memory and collective terms and their bound
+   at most the measured median, the estimated peak within 0.7-1.3 of
+   ``max_memory_allocated``; (c) the dry run of three production cells on
+   the single mesh (``launch.dryrun`` in subprocesses beside the card's
+   work), each ``ok``, with its terms.
 
 It prints a ``{"kernels": [...]}`` line and, last, the ``{"ok": true, ...}``
 line.
@@ -334,9 +352,6 @@ ROOT = pathlib.Path(__file__).resolve().parent
 # tensor cores, at the 700 W power limit.
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_OPS_PER_S = 67e12
-# Operations per output element: the scan does 4 multiplies and 3 adds,
-# the adjoint 6 multiplies and 3 adds.
-OPS_PER_ELEMENT = {"fwd": 7, "bwd": 9}
 MAIN_WIDTHS = (56, 28, 14, 7)
 BATCH = 64
 REPLACES = {
@@ -531,15 +546,13 @@ def kernel_phase(gen):
                        launch_shape=_launch_shape(g, h, w, cpw, dtype, kind,
                                                   NDIR[name]))
             if timed:
-                nbytes = sum(t.numel() * t.element_size() for t in args) \
-                    + got.numel() * got.element_size()
                 row.update(
                     ms=_graph_ms(lambda: kernel(*args, chunk=chunk), 10),
                     plain_ms=_graph_ms(lambda: plain(*args, chunk=chunk), 2),
                     call_ms=_median_ms(lambda: kernel(*args, chunk=chunk)),
                     plain_call_ms=_median_ms(
                         lambda: plain(*args, chunk=chunk)),
-                    **_bound(nbytes, got.numel(), kind))
+                    **_bound(kind, NDIR[name], g, h, w, cpw, dtype))
                 if name in COLD and h in MAIN_WIDTHS:
                     row["cold_ms"] = _cold_ms(
                         lambda: kernel(*args, chunk=chunk))
@@ -565,9 +578,16 @@ def _launch_shape(g, h, w, cpw, dtype, kind, ndir):
             f"bands={s.bands},direct={int(s.direct)},smem={s.smem_bytes}")
 
 
-def _bound(nbytes, out_elements, kind):
+def _bound(kind, ndir, g, h, w, cpw, dtype):
+    """The least time of one launch: its bytes (each input read once, each
+    output written once) and its operations, both from the package's one
+    count of a launch (``gspn_scan.launch_cost``, which the roofline's
+    kernel records read too), over the card's rates."""
+    from repro_torch.kernels.gspn_scan import launch_cost
+
+    nbytes, ops = launch_cost(kind, ndir, g, h, w, cpw, dtype)
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = OPS_PER_ELEMENT[kind] * out_elements / PEAK_F32_OPS_PER_S * 1e3
+    t_ops = ops / PEAK_F32_OPS_PER_S * 1e3
     return dict(bytes=nbytes, bound_ms=max(t_bytes, t_ops),
                 bound_by="bytes" if t_bytes >= t_ops else "operations")
 
@@ -597,15 +617,13 @@ def _quad_rows(gen):
                    max_abs=scale, tol=tol * scale,
                    launch_shape=_launch_shape(g, n, n, cpw, dtype, "fwd", 4))
         if timed:
-            nbytes = sum(t.numel() * t.element_size() for t in args) \
-                + got.numel() * got.element_size()
             row.update(
                 ms=_graph_ms(lambda: mk.gspn_scan_quad(*args), 10),
                 plain_ms=_graph_ms(lambda: mk.gspn_scan_quad_torch(*args), 2),
                 call_ms=_median_ms(lambda: mk.gspn_scan_quad(*args)),
                 plain_call_ms=_median_ms(
                     lambda: mk.gspn_scan_quad_torch(*args)),
-                **_bound(nbytes, got.numel(), "fwd"))
+                **_bound("fwd", 4, g, n, n, cpw, dtype))
             if n in MAIN_WIDTHS:
                 row["cold_ms"] = _cold_ms(lambda: mk.gspn_scan_quad(*args))
         print("kernel " + " ".join(f"{k}={v}" for k, v in row.items()),
@@ -5094,6 +5112,403 @@ def audio_phase():
     print("audio: #1-#5 launched 0 times in the phase", flush=True)
 
 
+# ---------------------------------------------------------------------------
+# The roofline phase: sharded serving, the roofline of measured paths, the
+# dry run of three production cells.
+# ---------------------------------------------------------------------------
+
+# (a) The sharded serving runs: (arch, model ranks, prompt tokens), each
+# followed by RL_DECODE greedy decode steps, under the f32 policy.
+RL_SERVE = (("qwen2-1.5b-gspn", 2, 4096), ("qwen2-1.5b", 4, 1024))
+RL_DECODE = 16
+RL_SEED = 11
+RL_PREFILLS = 3                  # rank 0 times this many prefills
+# (c) The production cells dry-run on meta, single mesh.
+RL_CELLS = (("lm", "qwen2-1.5b-gspn", "train_4k"),
+            ("lm", "qwen2-1.5b", "decode_32k"),
+            ("vision", "gspn2-b", "img_infer_1024"))
+
+
+def _rl_cfg(arch):
+    from repro_torch.configs.base import get_arch, with_precision
+    return with_precision(get_arch(arch).full(), "f32")
+
+
+def _rl_tokens(cfg, prompt, device):
+    gen = torch.Generator().manual_seed(RL_SEED)
+    return torch.randint(0, cfg.vocab, (1, prompt), generator=gen) \
+        .to(device)
+
+
+def _rl_greedy(model, tokens, max_len, ctx=None, counted=None):
+    """``lm_prefill`` of ``tokens`` then RL_DECODE greedy decode steps:
+    (every step's last logits (RL_DECODE + 1, V) on the host, the tokens
+    chosen, the prefill's caches).  ``counted(what, fn)`` wraps each
+    call."""
+    from repro_torch.models import lm
+    counted = counted or (lambda what, fn: fn())
+    with torch.no_grad():
+        logits, caches = counted("prefill", lambda: lm.lm_prefill(
+            model, tokens, max_len, ctx=ctx))
+        first = caches
+        last = [logits[:, -1].float().cpu()]
+        chosen = [int(logits[0, -1].argmax())]
+        for i in range(RL_DECODE):
+            tok = torch.tensor([[chosen[-1]]], device=tokens.device)
+            logits, caches = counted(f"decode {i}", lambda: lm.lm_decode_step(
+                model, tok, caches, ctx=ctx))
+            last.append(logits[:, -1].float().cpu())
+            chosen.append(int(logits[0, -1].argmax()))
+    return torch.cat(last), chosen, first
+
+
+def roofline_worker(mode: str, out: str) -> None:
+    """One rank of the roofline phase's sharded serving (a), started by
+    :func:`_spawn_ranks`: the f32 model of ``mode`` (an arch of
+    RL_SERVE) from RL_SEED, sharded over (data 1, model M); rank 0 counts
+    FLOPs over its first prefill (``FlopCounterMode``), times
+    RL_PREFILLS prefills and reads its peak memory; every rank counts
+    #1's launches and the plain calls of each call.  Rank 0 writes every
+    rank's results to ``out`` and its logits beside it."""
+    sys.path.insert(0, str(ROOT / "src"))
+    import torch.distributed as dist
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.kernels import cuda_lib
+    from repro_torch.launch.mesh import (init_distributed,
+                                         make_mesh_for_devices)
+    from repro_torch.models import lm
+    from repro_torch.parallel.tensor_parallel import shard_model
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    init_distributed(torch.device("cuda"))
+    rank, world = dist.get_rank(), dist.get_world_size()
+    arch, m, prompt = next(c for c in RL_SERVE if c[0] == mode)
+    cfg = _rl_cfg(arch)
+    model = lm.LM(cfg, device="cuda", generator=torch.Generator(
+        device="cuda").manual_seed(RL_SEED))
+    mesh = make_mesh_for_devices(range(m), model_parallel=m,
+                                 device_type="cuda")
+    shard_model(model, mesh)
+    gc.collect()
+    torch.cuda.empty_cache()
+    ctx = lm.Ctx(mesh=mesh)
+    tokens = _rl_tokens(cfg, prompt, "cuda")
+    max_len = prompt + RL_DECODE
+    res = {"launches": {}, "plain": {}}
+
+    def counted(what, fn):
+        torch.cuda.synchronize()
+        cuda_lib.clear_counts()
+        if what == "prefill":
+            torch.cuda.reset_peak_memory_stats()
+            with FlopCounterMode(display=False) as fc:
+                out_ = fn()
+            torch.cuda.synchronize()
+            res["flops"] = fc.get_total_flops()
+            res["peak_bytes"] = torch.cuda.max_memory_allocated()
+        else:
+            out_ = fn()
+            torch.cuda.synchronize()
+        res["launches"][what] = dict(cuda_lib.launch_counts)
+        res["plain"][what] = sum(cuda_lib.plain_calls.values())
+        return out_
+
+    logits, chosen, caches = _rl_greedy(model, tokens, max_len, ctx, counted)
+    res["cache_shapes"] = {k: {n: list(v.shape) for n, v in sub.items()}
+                           for k, sub in caches.items()}
+    del caches
+    times = []
+    with torch.no_grad():
+        for _ in range(RL_PREFILLS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            lm.lm_prefill(model, tokens, max_len, ctx=ctx)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+    res["prefill_ms"] = times
+    res["tokens"] = chosen
+    every = [None] * world
+    dist.all_gather_object(every, res)
+    dist.destroy_process_group()
+    if rank == 0:
+        torch.save(logits, pathlib.Path(out).with_suffix(".pt"))
+        pathlib.Path(out).write_text(json.dumps(every))
+
+
+def _rl_lm_step(device):
+    """The LM train step of the ``lm train`` phase (b): ``qwen2-1.5b-gspn``
+    ``full()`` under its own policy, remat "unit", AdamW, on ``device``:
+    (step, state, batch)."""
+    from repro_torch.configs.qwen2_1_5b_gspn import full
+    from repro_torch.models import lm
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.train.step import build_train_step, init_train_state
+
+    cfg = full()
+    model = lm.LM(cfg, device=device, generator=None if device == "meta"
+                  else torch.Generator(device=device).manual_seed(3))
+    ocfg = AdamWConfig(lr=3e-4, warmup_steps=5, total_steps=100)
+    gen = torch.Generator().manual_seed(5)
+    batch = {k: torch.randint(0, cfg.vocab, (TRAIN_BATCH, TRAIN_SEQ),
+                              generator=gen, dtype=torch.int64)
+             .to(torch.int32).to(device) for k in ("tokens", "labels")}
+    return build_train_step(model, ocfg), init_train_state(model, ocfg), \
+        batch
+
+
+def _rl_vision_step(device):
+    """The GSPN-2-T train step of the ``train`` phase (b): the trainer
+    twin's step (``examples/train_vision_torch.py``) at batch 64, 224²,
+    f32: (step, its optimizer state and the model's parameters, batch)."""
+    from repro_torch.configs.gspn2_vision import GSPN2_T
+    from repro_torch.models.vision import GSPNVision
+    from repro_torch.optim.adamw import AdamWConfig
+
+    model = GSPNVision(GSPN2_T, device=device, generator=None
+                       if device == "meta" else torch.Generator().manual_seed(0))
+    step, opt = _twin().make_step(model, AdamWConfig(
+        lr=1e-3, warmup_steps=5, total_steps=60, weight_decay=0.01))
+    gen = torch.Generator().manual_seed(6)
+    batch = {"images": torch.randn((BATCH, GSPN2_T.img_size,
+                                    GSPN2_T.img_size, 3), generator=gen)
+             .to(device),
+             "labels": torch.randint(0, GSPN2_T.n_classes, (BATCH,),
+                                     generator=gen).to(device)}
+    return step, (opt, dict(model.named_parameters())), batch
+
+
+def roofline_meta(out: str) -> None:
+    """(b)'s three programs on ``meta`` under ``roofline.cost.CostMode``,
+    in a process of their own (the prefill joins a fake group of the
+    model ranks): their cost records, written to ``out``."""
+    sys.path.insert(0, str(ROOT / "src"))
+    from torch.distributed.device_mesh import DeviceMesh
+
+    from repro_torch.launch import dryrun
+    from repro_torch.models import lm
+    from repro_torch.parallel.tensor_parallel import shard_model
+    from repro_torch.roofline.cost import count
+
+    res = {}
+    step, state, batch = _rl_lm_step("meta")
+    res["lm train"] = count(step, state, batch)[1]
+    del step, state, batch
+    step, resident, batch = _rl_vision_step("meta")
+    res["vision train"] = count(step, batch, resident=resident)[1]
+    del step, resident, batch
+    arch, m, prompt = RL_SERVE[0]
+    dryrun.fake_group(m)
+    mesh = DeviceMesh("cpu", torch.arange(m).reshape(1, m),
+                      mesh_dim_names=("data", "model"))
+    model = lm.LM(_rl_cfg(arch), device="meta")
+    shard_model(model, mesh)
+    tokens = torch.empty((1, prompt), dtype=torch.int64, device="meta")
+
+    def prefill():
+        with torch.no_grad():
+            return lm.lm_prefill(model, tokens, prompt + RL_DECODE,
+                                 ctx=lm.Ctx(mesh=mesh))
+
+    res["gspn prefill per rank"] = count(
+        prefill, resident=(list(model.parameters()), tokens))[1]
+    pathlib.Path(out).write_text(json.dumps(res))
+
+
+def _rl_serve(arch, m, prompt, out_dir, smi):
+    """(a) for one arch: the ranks' run against the one-rank run on the
+    same weights.  Returns rank 0's record."""
+    from repro_torch.models import lm
+    from repro_torch.parallel.sharding import cache_shardings
+
+    every = _spawn_ranks(arch, m, out_dir / f"serve_{arch}.json",
+                         worker="roofline_worker")
+    got = torch.load(out_dir / f"serve_{arch}.pt")
+    cfg = _rl_cfg(arch)
+    model = lm.LM(cfg, device="cuda", generator=torch.Generator(
+        device="cuda").manual_seed(RL_SEED))
+    tokens = _rl_tokens(cfg, prompt, "cuda")
+    want, chosen, _ = _rl_greedy(model, tokens, prompt + RL_DECODE)
+    del model
+    torch.cuda.empty_cache()
+    err = ((got - want).abs().max() / want.abs().max()).item()
+    whole = {k: {n: tuple(v.shape) for n, v in sub.items()} for k, sub in
+             lm.init_lm_cache(cfg, 1, prompt + RL_DECODE,
+                              device="meta").items()}
+    specs = cache_shardings(whole, {"data": 1, "model": m})
+    shapes = {k: {n: [d // m if s == "model" else d
+                      for d, s in zip(whole[k][n], specs[k][n])]
+                  for n in sub} for k, sub in whole.items()}
+    n1 = 2 * cfg.layer_count() if arch.endswith("gspn") else 0
+    launches = [r["launches"] for r in every]
+    print(f"roofline serve {arch} on (data 1, model {m}) ({smi}), f32, "
+          f"prompt 1 x {prompt} + {RL_DECODE} greedy tokens: last logits "
+          f"{err:.3e} of the largest one-rank logit (tol 1e-4); tokens "
+          f"equal {every[0]['tokens'] == chosen}; rank 0 cache "
+          f"{every[0]['cache_shapes']}; #1 launches a rank in the prefill "
+          f"{[lc['prefill'] for lc in launches]}, in decode steps "
+          f"{sorted({str(v) for lc in launches for k, v in lc.items() if k.startswith('decode')})}; "
+          f"plain calls {sum(sum(r['plain'].values()) for r in every)}; "
+          f"rank 0 prefill {every[0]['prefill_ms']} ms", flush=True)
+    if not err <= 1e-4 or every[0]["tokens"] != chosen:
+        raise AssertionError(f"roofline serve {arch}: sharded run "
+                             f"disagrees with one rank")
+    for r in every:
+        if r["cache_shapes"] != shapes:
+            raise AssertionError(f"roofline serve {arch}: cache shapes "
+                                 f"{r['cache_shapes']}, want {shapes}")
+        if sum(r["plain"].values()):
+            raise AssertionError(f"roofline serve {arch}: plain calls")
+        for what, lc in r["launches"].items():
+            want_n = n1 if what == "prefill" else 0
+            if lc.get("gspn_scan_fwd", 0) != want_n or \
+                    sum(lc.values()) != want_n:
+                raise AssertionError(f"roofline serve {arch} {what}: "
+                                     f"launches {lc}, want {want_n} of #1")
+    return every[0]
+
+
+def _rl_row(what, rec, flops_card, ms, peak_card, smi):
+    """Print (b)'s line for one program and check its bounds: FLOPs on
+    meta equal the card's, the roofline bound at most the measured
+    median, the estimated peak within 0.7-1.3 of the card's."""
+    from repro_torch.roofline.analysis import terms
+    t = terms(rec["flops_by_dtype"], rec["bytes_hbm"],
+              rec["collectives"]["total"])
+    bound = max(t.values()) * 1e3
+    ratio = rec["peak_bytes"] / peak_card
+    print(f"roofline {what} ({smi}): FLOPs meta {rec['flops']:.0f} card "
+          f"{flops_card:.0f} ({rec['flops_by_dtype']}); compute "
+          f"{t['compute'] * 1e3:.3f} ms, memory {t['memory'] * 1e3:.3f} "
+          f"ms ({rec['bytes_hbm']:.4g} bytes, eager upper bound), "
+          f"collective {t['collective'] * 1e3:.3f} ms; bound {bound:.3f} "
+          f"ms; measured median {ms:.3f} ms; bound / measured "
+          f"{bound / ms:.4f}; peak estimated {rec['peak_bytes'] / 2**30:.3f}"
+          f" GiB, max_memory_allocated {peak_card / 2**30:.3f} GiB (ratio "
+          f"{ratio:.3f}); kernels {rec['kernels']}", flush=True)
+    if rec["flops"] != flops_card:
+        raise AssertionError(f"roofline {what}: FLOPs on meta "
+                             f"{rec['flops']} != the card's {flops_card}")
+    if not bound <= ms:
+        raise AssertionError(f"roofline {what}: bound {bound} ms above the "
+                             f"measured {ms} ms")
+    if not 0.7 <= ratio <= 1.3:
+        raise AssertionError(f"roofline {what}: estimated peak / measured "
+                             f"{ratio}")
+
+
+def _rl_card(make, what, n=3):
+    """A card program of (b): a warm-up, one run under FlopCounterMode,
+    ``n`` timed runs (median ms) and one run's peak memory."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    step, resident, batch = make("cuda")
+    args = (resident, batch) if what == "lm train" else (batch,)
+    step(*args)
+    torch.cuda.synchronize()
+    with FlopCounterMode(display=False) as fc:
+        step(*args)
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step(*args)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.reset_peak_memory_stats()
+    step(*args)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    del step, resident, batch, args
+    gc.collect()
+    torch.cuda.empty_cache()
+    return fc.get_total_flops(), statistics.median(times), peak
+
+
+def roofline_phase():
+    """(a) sharded serving at full width against one rank; (b) the
+    roofline of three programs measured on the card against their meta
+    counts; (c) the dry run of three production cells on meta.  The
+    meta work runs in processes of its own beside the card's."""
+    import shutil
+
+    out_dir = ROOT / "build" / "roofline"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    out_dir.mkdir(parents=True)
+    smi = _run(["nvidia-smi", "--query-gpu=name,power.limit",
+                "--format=csv,noheader"]).strip()
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    procs = {}
+    logs = {}
+    for kind, arch, shape in RL_CELLS:
+        cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+               arch, "--shape", shape, "--mesh", "single", "--out",
+               str(out_dir / "dryrun")] + (["--vision"] if kind == "vision"
+                                           else [])
+        logs[arch] = open(out_dir / f"dryrun_{arch}.log", "w")
+        procs[arch] = subprocess.Popen(cmd, cwd=ROOT, env=env,
+                                       stdout=logs[arch],
+                                       stderr=subprocess.STDOUT)
+    meta_out = out_dir / "meta.json"
+    logs["meta"] = open(out_dir / "meta.log", "w")
+    procs["meta"] = subprocess.Popen(
+        [sys.executable, "-c",
+         f"import chip_smoke; chip_smoke.roofline_meta({str(meta_out)!r})"],
+        cwd=ROOT, env=env, stdout=logs["meta"], stderr=subprocess.STDOUT)
+    try:
+        gspn = None
+        for arch, m, prompt in RL_SERVE:
+            rec = _rl_serve(arch, m, prompt, out_dir, smi)
+            gspn = gspn or rec
+        card = {"lm train": _rl_card(_rl_lm_step, "lm train"),
+                "vision train": _rl_card(_rl_vision_step, "vision train"),
+                "gspn prefill per rank": (
+                    gspn["flops"], statistics.median(gspn["prefill_ms"]),
+                    gspn["peak_bytes"])}
+        deadline = time.monotonic() + 600
+        for name, p in procs.items():
+            p.wait(timeout=max(deadline - time.monotonic(), 1))
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for f in logs.values():
+            f.close()
+    bad = [n for n, p in procs.items() if p.returncode]
+    if bad:
+        for n in bad:
+            path = out_dir / (f"dryrun_{n}.log" if n != "meta"
+                              else "meta.log")
+            print(f"roofline {n}:\n{path.read_text()[-3000:]}", flush=True)
+        raise AssertionError(f"roofline: meta processes failed {bad}")
+    meta = json.loads(meta_out.read_text())
+    for what, (flops, ms, peak) in card.items():
+        _rl_row(what, meta[what], flops, ms, peak, smi)
+
+    # (c) The dry run's three production cells.
+    from repro_torch.roofline.analysis import analyze_dir
+    rows, skips, errors = analyze_dir(str(out_dir / "dryrun"), "single")
+    for r in rows:
+        rec = r.raw
+        print(f"roofline dryrun {r.arch} x {r.shape} single (rank 0 of "
+              f"{rec['n_devices']}, spec constants of {rec['hw']['name']}, "
+              f"{rec['hw']['power_limit_w']} W): status {rec['status']}, "
+              f"FLOPs {rec['flops']:.4g} {rec['flops_by_dtype']}, bytes "
+              f"{rec['bytes_hbm']:.4g}, collectives "
+              f"{rec['collectives']['total']:.4g}, peak "
+              f"{rec['peak_bytes'] / 2**30:.3f} GiB; compute "
+              f"{r.compute_s * 1e3:.3f} ms, memory {r.memory_s * 1e3:.3f} "
+              f"ms, collective {r.collective_s * 1e3:.3f} ms, dominant "
+              f"{r.dominant}; run {rec['compile_s']} s on the host",
+              flush=True)
+    if len(rows) != len(RL_CELLS) or skips or errors:
+        raise AssertionError(f"roofline dryrun: {len(rows)} cells ok, "
+                             f"errors {[e.get('error') for e in errors]}")
+
+
 def main() -> int:
     print(f"torch {torch.__version__} cuda {torch.version.cuda} python "
           f"{sys.version.split()[0]}", flush=True)
@@ -5164,6 +5579,8 @@ def main() -> int:
     # Nor do the VL and encoder-decoder families.
     phase("lm vl", vl_phase)
     phase("lm audio", audio_phase)
+    # Sharded serving launches #1 in its ranks' processes, read there.
+    phase("roofline", roofline_phase)
 
     entries = []
     for row in rows:

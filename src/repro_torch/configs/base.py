@@ -15,8 +15,8 @@ LMs ``kimi-k2-1t-a32b`` and ``grok-1-314b``, the vision-language
 ``qwen2-vl-72b`` (M-RoPE, vision embeddings) and the encoder-decoder
 ``whisper-base``.  The full configs of ``qwen1.5-32b``, the MoE LMs and
 ``qwen2-vl-72b`` fit no single card and are built on ``meta`` only.
-``input_specs`` (the dry run's shape stand-ins) waits for ROADMAP.md §1
-item 8.
+:func:`input_specs` gives the dry run's batches as ``meta`` tensors
+(``launch.lowering``).
 """
 
 from __future__ import annotations
@@ -118,6 +118,35 @@ class ArchEntry:
 
 
 REGISTRY: Dict[str, ArchEntry] = {}
+
+
+def input_specs(cfg: LMConfig, shape: ShapeSpec, *, vision_len: int = 1024,
+                device="meta") -> dict:
+    """The batch of ``shape`` for ``cfg`` as tensors on ``device`` (``meta``:
+    shapes and dtypes only, nothing allocated), the reference's
+    ``input_specs``: ``tokens`` and ``labels`` (B, S) int32 to train,
+    ``tokens`` to prefill, with ``vision_embeds`` (B, min(vision_len,
+    S/2), D) for the ``vlm`` family and ``enc_frames`` (B, enc_len, D) for
+    ``audio``, both f32; ``token`` (B, 1) to decode."""
+    b, s = shape.global_batch, shape.seq_len
+
+    def spec(*dims, dtype=torch.int32):
+        return torch.empty(dims, dtype=dtype, device=device)
+
+    if shape.kind == "decode":
+        return {"token": spec(b, 1)}
+    if shape.kind not in ("train", "prefill"):
+        raise ValueError(shape.kind)
+    batch = {"tokens": spec(b, s)}
+    if shape.kind == "train":
+        batch["labels"] = spec(b, s)
+    if cfg.family == "vlm":
+        batch["vision_embeds"] = spec(b, min(vision_len, s // 2),
+                                      cfg.d_model, dtype=torch.float32)
+    if cfg.family == "audio":
+        batch["enc_frames"] = spec(b, cfg.enc_len, cfg.d_model,
+                                   dtype=torch.float32)
+    return batch
 
 
 FULL_ATTENTION_SKIP = (

@@ -11,7 +11,11 @@ rebuilt and an unchanged one is reused.  ``build()`` starts one ``nvcc`` per mis
 ``launch_shapes`` by name and operand shape (each wrapper adds one where it
 launches, nowhere else); ``plain_calls`` counts calls of the plain PyTorch
 versions.  A run that must show it went through the kernels clears them
-(:func:`clear_counts`), runs, and reads them.
+(:func:`clear_counts`), runs, and reads them.  ``meta_launches`` lists
+the launches that ``meta`` operands stand for (the shape-only path of
+``kernels.spec``): one record each, with the kernel's name, its operand
+shape and the bytes and operations the launch would cost
+(``gspn_scan.launch_cost``); no kernel runs and no count above moves.
 
 Safe for threads (the serving tier's replicas launch from worker threads):
 a library is built and loaded once, under a lock, into a temporary file
@@ -62,6 +66,7 @@ launch_counts: collections.Counter = collections.Counter()
 launch_shapes: collections.Counter = collections.Counter()
 launch_boundaries: collections.Counter = collections.Counter()
 plain_calls: collections.Counter = collections.Counter()
+meta_launches: list = []
 
 
 _COUNT_LOCK = threading.Lock()
@@ -78,8 +83,15 @@ def count(counter: collections.Counter, key, n: int = 1) -> None:
 def clear_counts() -> None:
     with _COUNT_LOCK:
         for c in (launch_counts, launch_shapes, launch_boundaries,
-                  plain_calls):
+                  plain_calls, meta_launches):
             c.clear()
+
+
+def record_meta(**record) -> None:
+    """Append one launch that a ``meta`` operand stands for to
+    :data:`meta_launches`."""
+    with _COUNT_LOCK:
+        meta_launches.append(record)
 
 
 # Compiler output (ptxas register and shared-memory report) per library

@@ -64,9 +64,10 @@ def gspn_scan_bidir(x, wl2, wc2, wr2, lam2, *, chunk: int | None = None,
     ``chunk`` rows of its walk; ``boundary`` names the scan's segment for
     the tuning cache.
 
-    CUDA tensors launch the kernel (or raise); CPU tensors take
+    CUDA tensors launch the kernel (or raise); ``meta`` tensors record
+    the launch; CPU tensors take
     :func:`gspn_scan_bidir_torch`."""
-    if not x.is_cuda:
+    if not (x.is_cuda or x.is_meta):
         return gspn_scan_bidir_torch(x, wl2, wc2, wr2, lam2, chunk=chunk)
     return launch(2, KERNEL, x, wl2, wc2, wr2, lam2, chunk,
                   boundary=boundary)
@@ -99,9 +100,10 @@ def gspn_scan_bidir_bwd(dy2, wl2, wc2, wr2, *, chunk: int | None = None,
     reset every ``chunk`` rows of its walk.  Returns (2, G, H, W) in
     float32.
 
-    CUDA tensors launch the kernel (or raise); CPU tensors take
+    CUDA tensors launch the kernel (or raise); ``meta`` tensors record
+    the launch; CPU tensors take
     :func:`gspn_scan_bidir_bwd_torch`."""
-    if not dy2.is_cuda:
+    if not (dy2.is_cuda or dy2.is_meta):
         return gspn_scan_bidir_bwd_torch(dy2, wl2, wc2, wr2, chunk=chunk)
     return launch_bwd(2, KERNEL_BWD, dy2, wl2, wc2, wr2, chunk,
                       boundary=boundary)
@@ -127,7 +129,8 @@ def gspn_scan_quad(x, wl4, wc4, wr4, lam4):
     (rows of entry 2 are the original columns).  Returns (4, G, N, N) in
     x.dtype, entries 2 and 3 transposed (the caller undoes it).
 
-    CUDA tensors launch the kernel (or raise); CPU tensors take
+    CUDA tensors launch the kernel (or raise); ``meta`` tensors record
+    the launch; CPU tensors take
     :func:`gspn_scan_quad_torch`.  Operands that require grad are refused:
     training uses the pair dispatch (``ops.gspn_scan_pair``)."""
     if x.dim() != 3 or x.shape[-1] != x.shape[-2]:
@@ -137,7 +140,7 @@ def gspn_scan_quad(x, wl4, wc4, wr4, lam4):
             t.requires_grad for t in (x, wl4, wc4, wr4, lam4)):
         raise ValueError("the quad scan is forward-only; differentiate "
                          "through ops.gspn_scan_pair")
-    if not x.is_cuda:
+    if not (x.is_cuda or x.is_meta):
         return gspn_scan_quad_torch(x, wl4, wc4, wr4, lam4)
     return launch(4, KERNEL_QUAD, x, wl4, wc4, wr4, lam4, None)
 

@@ -345,6 +345,42 @@ def _count(name: str, g: int, h: int, w: int, dtype: torch.dtype,
         cuda_lib.launch_boundaries[(name, boundary)] += 1
 
 
+# Operations per output element: the scan does 4 multiplies and 3 adds,
+# the adjoint 6 multiplies and 3 adds.
+OPS_PER_ELEMENT = {"fwd": 7, "bwd": 9}
+
+
+def launch_cost(kind: str, ndir: int, g: int, h: int, w: int, cpw: int,
+                dtype: torch.dtype) -> tuple[int, int]:
+    """(bytes, operations) of one launch of the ``kind`` template ("fwd"
+    or "bwd") over ``ndir`` directions on (G, H, W) planes with G // cpw
+    weight planes, streaming ``dtype``: each input read once and each
+    output written once.  The forward reads x (G, H, W) once, the taps
+    (ndir, G_w, H, W) and lam (ndir, G, H, W), and writes out (ndir, G,
+    H, W) in ``dtype``; the adjoint reads dy (ndir, G, H, W) and the taps
+    and writes g (ndir, G, H, W) in float32.  The one count of a launch's
+    work: ``chip_smoke.py``'s kernel bounds and the roofline's kernel
+    records (``roofline.cost``) both read it."""
+    item = dtype.itemsize
+    plane = g * h * w
+    taps = 3 * ndir * (g // cpw) * h * w * item
+    if kind == "fwd":
+        nbytes = plane * item + taps + 2 * ndir * plane * item
+    else:
+        nbytes = ndir * plane * item + taps + ndir * plane * 4
+    return nbytes, OPS_PER_ELEMENT[kind] * ndir * plane
+
+
+def _record_meta(name, kind, ndir, g, h, w, cpw, dtype, boundary, out):
+    """The launch a ``meta`` operand stands for: recorded, not run
+    (``cuda_lib.meta_launches``); ``out`` is returned empty."""
+    nbytes, ops = launch_cost(kind, ndir, g, h, w, cpw, dtype)
+    cuda_lib.record_meta(kernel=name, kind=kind, ndir=ndir, g=g, h=h, w=w,
+                         cpw=cpw, dtype=str(dtype).removeprefix("torch."),
+                         boundary=boundary, bytes=nbytes, ops=ops)
+    return out
+
+
 def _span(name: str, g: int, h: int, w: int, dtype: torch.dtype):
     if not obs.enabled():  # no attributes to format on the eager path
         return obs.NOOP_SPAN
@@ -400,6 +436,9 @@ def launch(ndir: int, name: str, x, wl, wc, wr, lam, chunk, *,
     out = torch.empty(lead + (g, h, w), dtype=x.dtype, device=x.device)
     if out.numel() == 0:
         return out
+    if x.is_meta:
+        return _record_meta(name, "fwd", ndir, g, h, w, cpw, x.dtype,
+                            boundary, out)
     s = plan("fwd", ndir, g, h, w, cpw, x.dtype, x.device,
              boundary=boundary, shape=shape)
     lib = cuda_lib.library("gspn_pair")
@@ -431,6 +470,9 @@ def launch_bwd(ndir: int, name: str, dy, wl, wc, wr, chunk, *,
     out = torch.empty(dy.shape, dtype=torch.float32, device=dy.device)
     if out.numel() == 0:
         return out
+    if dy.is_meta:
+        return _record_meta(name, "bwd", ndir, g, h, w, cpw, dy.dtype,
+                            boundary, out)
     s = plan("bwd", ndir, g, h, w, cpw, dy.dtype, dy.device,
              boundary=boundary, shape=shape)
     lib = cuda_lib.library("gspn_pair")
@@ -452,9 +494,10 @@ def gspn_scan_fwd(x, wl, wc, wr, lam, *, chunk: int | None = None,
     G_w dividing G.  Returns h: (G, H, W) in x.dtype.  ``boundary`` names
     the scan's segment for the tuning cache (:func:`plan`).
 
-    CUDA tensors launch the kernel (or raise); CPU tensors take
+    CUDA tensors launch the kernel (or raise); ``meta`` tensors record
+    the launch (:func:`launch_cost`); CPU tensors take
     :func:`gspn_scan_fwd_torch`."""
-    if not x.is_cuda:
+    if not (x.is_cuda or x.is_meta):
         return gspn_scan_fwd_torch(x, wl, wc, wr, lam, chunk=chunk)
     return launch(1, KERNEL, x, wl, wc, wr, lam, chunk, boundary=boundary)
 
@@ -478,9 +521,9 @@ def gspn_scan_bwd(dy, wl, wc, wr, *, chunk: int | None = None,
     the forward's taps (G_w, H, W), walking rows H-1..0 with the carry
     reset every ``chunk`` rows.  Returns g: (G, H, W) in float32.
 
-    CUDA tensors launch the kernel (or raise); CPU tensors take
-    :func:`gspn_scan_bwd_torch`."""
-    if not dy.is_cuda:
+    CUDA tensors launch the kernel (or raise); ``meta`` tensors record
+    the launch; CPU tensors take :func:`gspn_scan_bwd_torch`."""
+    if not (dy.is_cuda or dy.is_meta):
         return gspn_scan_bwd_torch(dy, wl, wc, wr, chunk=chunk)
     return launch_bwd(1, KERNEL_BWD, dy, wl, wc, wr, chunk,
                       boundary=boundary)

@@ -9,7 +9,9 @@ Two entry points, used by :mod:`repro_torch.core.gspn`:
 
 Each call takes one :class:`~repro_torch.kernels.spec.ScanSpec` (or builds
 one from ``impl``) and resolves its implementation: ``cuda`` (the hand
-kernels) for CUDA tensors under ``auto``, ``torch`` (the plain versions)
+kernels) for CUDA tensors under ``auto``, ``meta`` for ``meta`` tensors
+(the same wrappers record the launch and return empty outputs; the
+epilogue runs as plain ops on ``meta``), ``torch`` (the plain versions)
 for CPU tensors or on request, and for ``gspn_scan`` only ``per_step``, the
 GSPN-1 emulation of one dispatch per row (``ref.gspn_scan_per_step``, on
 any device; its backward is the plain walk); ``impl="sp"`` hands the call
@@ -55,12 +57,17 @@ from repro_torch.kernels.ref import _shift_left, _shift_right
 from repro_torch.kernels.spec import ScanSpec, resolve_impl
 
 
+# The implementations that go through the kernels' wrappers: the launch
+# on the card, and the record of that launch for a ``meta`` operand.
+_KERNEL = ("cuda", "meta")
+
+
 def _resolve(spec: ScanSpec | None, impl: str, x) -> str:
     """The implementation the caller's spec (or one built from ``impl``)
     resolves to for ``x``; raises if the CUDA kernel cannot run it."""
     spec = spec if spec is not None else ScanSpec(impl=impl)
     resolved = resolve_impl(spec.impl, x)
-    if resolved == "cuda":
+    if resolved in _KERNEL:
         spec.check_cuda()
     return resolved
 
@@ -115,7 +122,7 @@ class _Scan(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, wl, wc, wr, lam, chunk, impl, boundary):
         with _dispatch_span("gspn_scan", impl, x):
-            if impl == "cuda":
+            if impl in _KERNEL:
                 x, wl, wc, wr, lam = (a.contiguous()
                                       for a in (x, wl, wc, wr, lam))
                 h = _pk.gspn_scan_fwd(x, wl, wc, wr, lam, chunk=chunk,
@@ -132,7 +139,7 @@ class _Scan(torch.autograd.Function):
     def backward(ctx, dy):
         x, wl, wc, wr, lam, h = ctx.saved_tensors
         with _dispatch_span("gspn_scan_bwd", ctx.impl, dy):
-            if ctx.impl == "cuda":
+            if ctx.impl in _KERNEL:
                 g = _pk.gspn_scan_bwd(dy.contiguous(), wl, wc, wr,
                                       chunk=ctx.chunk, boundary=ctx.boundary)
             else:
@@ -148,7 +155,7 @@ class _ScanPair(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, wl2, wc2, wr2, lam2, chunk, impl):
         with _dispatch_span("gspn_scan_pair", impl, x):
-            if impl == "cuda":
+            if impl in _KERNEL:
                 x, wl2, wc2, wr2, lam2 = (a.contiguous()
                                           for a in (x, wl2, wc2, wr2, lam2))
                 h2 = _mk.gspn_scan_bidir(x, wl2, wc2, wr2, lam2, chunk=chunk)
@@ -165,7 +172,7 @@ class _ScanPair(torch.autograd.Function):
         # dy2 arrives as autograd builds it, e.g. strided after the L->R
         # transposes of core.gspn, or expanded from a sum.
         with _dispatch_span("gspn_scan_pair_bwd", ctx.impl, dy2):
-            if ctx.impl == "cuda":
+            if ctx.impl in _KERNEL:
                 g2 = _mk.gspn_scan_bidir_bwd(dy2.contiguous(), wl2, wc2, wr2,
                                              chunk=ctx.chunk)
             else:

@@ -9,13 +9,20 @@ its backward pass.
 
 Implementations:
 
-* ``auto``  resolves to ``cuda`` for CUDA tensors and ``torch`` for CPU
-  tensors (:func:`resolve_impl`); never to ``per_step``;
+* ``auto``  resolves to ``cuda`` for CUDA tensors, ``meta`` for ``meta``
+  tensors and ``torch`` for CPU tensors (:func:`resolve_impl`); never to
+  ``per_step``;
 * ``cuda``  is the hand-written kernel; it refuses CPU tensors and any
   carry narrower than float32: the Pallas kernels round the carry only at
   row-tile boundaries, and a kernel without row tiles has no such boundary,
   so that narrowing is refused rather than imitated;
 * ``torch`` is the plain PyTorch version, on any device;
+* ``meta`` is the shape-only path of a ``meta`` operand: the kernel's
+  wrapper checks it as it would on the card, records the one launch the
+  card would run (``cuda_lib.meta_launches``: name, shape, bytes) and
+  returns empty outputs of the right shapes.  ``meta`` has no data to
+  compute on, so this is no fallback: CPU and CUDA tensors never take
+  it, and it is never asked for by name;
 * ``per_step`` is the GSPN-1 emulation, one dispatch per row
   (``ref.gspn_scan_per_step``), for the single ``fwd`` direction only;
 * ``sp`` shards the scan's rows over the ``seq`` axis of a device mesh
@@ -78,9 +85,11 @@ def dtype_name(dtype) -> str:
 
 
 def resolve_impl(impl: str, tensor: torch.Tensor) -> str:
-    """``auto`` by the tensor's device; ``cuda`` on a CPU tensor raises."""
+    """``auto`` by the tensor's device (``meta`` for a ``meta`` tensor);
+    ``cuda`` on a CPU or ``meta`` tensor raises."""
     if impl == "auto":
-        return "cuda" if tensor.is_cuda else "torch"
+        return "cuda" if tensor.is_cuda else \
+            "meta" if tensor.is_meta else "torch"
     if impl == "cuda" and not tensor.is_cuda:
         raise ValueError("impl='cuda' needs CUDA tensors; use impl='torch' "
                          "or 'auto' for CPU tensors")

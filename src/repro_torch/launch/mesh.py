@@ -7,8 +7,8 @@ Axes (DESIGN.md §5, §8): ``pod`` (outer data parallelism), ``data``
 extent) and ``model`` (tensor parallelism).  A mesh is a
 ``torch.distributed.device_mesh.DeviceMesh`` over ranks, built after the
 process group is up (:func:`init_distributed`), on every rank of the
-default group.  The reference's ``HW`` table holds TPU constants and has
-no counterpart here.
+default group.  :data:`HW` is the card's table for the roofline
+(``roofline.analysis``), the counterpart of the reference's TPU table.
 
 The backend is chosen, never tried: NCCL where every rank has a card of
 its own, gloo on the CPU and where ranks share a card (NCCL refuses two
@@ -146,6 +146,24 @@ def make_production_mesh(*, multi_pod: bool = False, seq_parallel: int = 1,
         raise ValueError(f"the production mesh {dict(zip(names, shape))} "
                          f"needs {need} ranks; the world has {world}")
     return _mesh(range(need), shape, names, device_type)
+
+
+# The NVIDIA H100 SXM5 80 GB (700 W) that the roofline charges: datasheet
+# constants, not measurements.  The f32 peak is the CUDA cores' (the port
+# runs with TF32 off); bf16 is the dense tensor-core peak.  ``link_bw``:
+# the production mesh's 16-wide model axis spans two nodes of 8 cards, so
+# its collectives cross the one 400 Gb/s NIC of each card (50 GB/s a
+# direction), not NVLink (450 GB/s a direction within a node).
+HW = {
+    "name": "NVIDIA H100 SXM5 80GB",
+    "power_limit_w": 700,
+    "peak_flops_bf16": 989.4e12,
+    "peak_flops_f32": 66.9e12,
+    "hbm_bw": 3.35e12,
+    "hbm_bytes": 80e9,
+    "nvlink_bw": 450e9,
+    "link_bw": 50e9,
+}
 
 
 def _names(mesh) -> tuple:

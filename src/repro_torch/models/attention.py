@@ -256,6 +256,31 @@ def decode_attention(q, k_cache, v_cache, cache_len):
     return out.reshape(b, 1, hq, d).to(q.dtype)
 
 
+def decode_attention_split(q, k_cache, v_cache, cache_len, axis):
+    """:func:`decode_attention` over a cache whose positions are split
+    over ``axis`` (a ``ModelAxis``): q (B, 1, Hq, D) whole, the caches
+    this rank's (B, S/M, Hkv, D) slice, ``cache_len`` (B,) the valid
+    entries counted from the slice's start (at most 0: none).  The
+    logits' maximum is taken over the axis (all-reduce MAX), then the
+    sum of exponentials and the weighted values (all-reduce SUM); a
+    slice with no valid entry adds exact zeros."""
+    b, _, hq, d = q.shape
+    s, hkv = k_cache.shape[1], k_cache.shape[2]
+    with obs.trace("attention.decode"):
+        qg = _group_q(q, hkv).float() / math.sqrt(d)
+        logits = torch.einsum("bqhgd,bkhd->bhgqk", qg, k_cache.float())
+        lens = torch.as_tensor(cache_len, device=q.device).reshape(-1, 1)
+        valid = torch.arange(s, device=q.device)[None, :] < lens  # (B,S)
+        logits = torch.where(valid[:, None, None, None], logits, NEG_INF)
+        m = axis.max(logits.amax(-1, keepdim=True))
+        e = torch.exp(logits - m)
+        total = axis.all_reduce(e.sum(-1, keepdim=True))
+        out = axis.all_reduce(torch.einsum("bhgqk,bkhd->bqhgd", e,
+                                           v_cache.float()))
+        out = out / total.permute(0, 3, 1, 2, 4)
+    return out.reshape(b, 1, hq, d).to(q.dtype)
+
+
 # ---------------------------------------------------------------------------
 # The layer: projections, rope, attention, output projection.
 # ---------------------------------------------------------------------------
@@ -298,8 +323,9 @@ class Attention(nn.Module):
     reads kv head h // G), from its own columns of ``wq``, ``wk``, ``wv``
     (and the biases) where every rank's heads are its own slice, else
     from the whole leaf gathered (the K/V columns where the kv heads do
-    not divide M); the partial outputs are summed over the axis.  Only
-    the training forward runs sharded."""
+    not divide M); the partial outputs are summed over the axis.  The
+    training forward, the prefill (:meth:`prefill_tp`) and the decode step
+    run sharded, the caches split as :func:`kv_split` says."""
 
     tp = None
 
@@ -406,41 +432,140 @@ class Attention(nn.Module):
             plan.append(((h0, h1), (h0 // g, (h1 - 1) // g + 1), (c0, c1)))
         return plan
 
+    def _tp_project(self, xc, w, bias, ranges):
+        """xc @ the columns ``ranges[rank]`` (head ranges, every rank's) of
+        ``w`` (+ the bias's) as (B, S, heads, D), through ``tp.take``."""
+        cfg, cast, hd = self.cfg, self.policy.cast, self.cfg.hd
+        cols = [(a * hd, z * hd) for a, z in ranges]
+        y = xc @ cast(self.tp.take(self, w, cols))
+        if cfg.qkv_bias:
+            y = y + cast(self.tp.take(self, bias, cols))
+        return y.reshape(*xc.shape[:2], -1, hd)
+
+    def _tp_all_heads(self, xc, w, bias, heads: int):
+        """xc @ the whole of ``w`` (+ the bias) as (B, S, heads, D) without
+        gathering the weight: each rank's columns of it, the outputs then
+        gathered over the axis (where the rules store ``w`` whole, the
+        product itself)."""
+        cfg, cast, tp = self.cfg, self.policy.cast, self.tp
+        y = xc @ cast(getattr(self, w))
+        if cfg.qkv_bias:
+            y = y + cast(getattr(self, bias))
+        if w in self._tp_dims:
+            y = tp.all_gather(y, -1)
+        return y.reshape(*xc.shape[:2], heads, cfg.hd)
+
+    def _tp_kv_of_q(self, k, v, lo: int):
+        """k, v over kv heads from ``lo`` beside this rank's query heads:
+        as they are where the query heads read them evenly, else one kv
+        head beside each query head."""
+        g = self.cfg.n_heads // self.cfg.n_kv_heads
+        (h0, h1), (k0, k1), _ = self._tp_plan()[self.tp.rank]
+        if (h0 % g == 0 and h1 % g == 0) or k1 - k0 == 1:
+            return k[:, :, k0 - lo:k1 - lo], v[:, :, k0 - lo:k1 - lo]
+        idx = torch.tensor([h // g - lo for h in range(h0, h1)],
+                           device=k.device)
+        return k[:, :, idx], v[:, :, idx]
+
+    def _tp_out(self, out, dtype, h0: int = 0):
+        """This rank's rows of ``wo`` over ``out`` (B, S, heads from
+        ``h0``, D), summed over the axis, in ``dtype``."""
+        cast, hd = self.policy.cast, self.cfg.hd
+        _, _, (c0, c1) = self._tp_plan()[self.tp.rank]
+        b, s = out.shape[:2]
+        out = out.reshape(b, s, -1)[..., c0 - h0 * hd:c1 - h0 * hd]
+        return self.tp.reduce(cast(out) @ cast(self.wo)).to(dtype)
+
     def _forward_tp(self, x, positions):
-        cfg, tp, cast = self.cfg, self.tp, self.policy.cast
-        hd, g = cfg.hd, cfg.n_heads // cfg.n_kv_heads
+        tp, cast = self.tp, self.policy.cast
         plan = self._tp_plan()
-        (h0, h1), (k0, k1), (c0, c1) = plan[tp.rank]
+        h0 = plan[tp.rank][0][0]
         xc = tp.copy(cast(x))
-        b, s = xc.shape[:2]
-
-        def project(w, bias, heads):
-            cols = [(a * hd, z * hd) for a, z in heads]
-            y = xc @ cast(tp.take(self, w, cols))
-            if cfg.qkv_bias:
-                y = y + cast(tp.take(self, bias, cols))
-            return y.reshape(b, s, -1, hd)
-
-        q = project("wq", "bq", [p[0] for p in plan])
-        k = project("wk", "bk", [p[1] for p in plan])
-        v = project("wv", "bv", [p[1] for p in plan])
+        q = self._tp_project(xc, "wq", "bq", [p[0] for p in plan])
+        k = self._tp_project(xc, "wk", "bk", [p[1] for p in plan])
+        v = self._tp_project(xc, "wv", "bv", [p[1] for p in plan])
         q, k = self.apply_positions(q, k, positions)
-        if not ((h0 % g == 0 and h1 % g == 0) or k1 - k0 == 1):
-            # Query heads that read their kv heads unevenly: one kv head
-            # beside each query head.
-            idx = torch.tensor([h // g - k0 for h in range(h0, h1)],
-                               device=x.device)
-            k, v = k[:, :, idx], v[:, :, idx]
-        out = self.attend(q, k, v).reshape(b, s, (h1 - h0) * hd)
-        out = out[..., c0 - h0 * hd:c1 - h0 * hd]
-        return tp.reduce(cast(out) @ cast(self.wo)).to(x.dtype)
+        k, v = self._tp_kv_of_q(k, v, plan[tp.rank][1][0])
+        return self._tp_out(self.attend(q, k, v), x.dtype, h0)
+
+    def prefill_tp(self, x, positions, max_len: int, dtype):
+        """The prefill forward of x (B, S, dim) under the model axis and
+        this rank's part of the KV cache (``init_kv_cache(...,
+        model_axis=)``): its kv heads where they divide the axis, else
+        every kv head at its slice of the ``max_len`` positions.  The
+        attention itself runs as the training forward's."""
+        cfg, tp, cast = self.cfg, self.tp, self.policy.cast
+        plan = self._tp_plan()
+        h0 = plan[tp.rank][0][0]
+        xc = cast(x)
+        q = self._tp_project(xc, "wq", "bq", [p[0] for p in plan])
+        split = kv_split(cfg.n_kv_heads, max_len, tp.size)
+        # The cached heads: this rank's, or all of them.
+        if split == "heads":
+            heads = [p[1] for p in plan]
+            k = self._tp_project(xc, "wk", "bk", heads)
+            v = self._tp_project(xc, "wv", "bv", heads)
+        else:
+            heads = [(0, cfg.n_kv_heads)] * tp.size
+            k = self._tp_all_heads(xc, "wk", "bk", cfg.n_kv_heads)
+            v = self._tp_all_heads(xc, "wv", "bv", cfg.n_kv_heads)
+        q, k = self.apply_positions(q, k, positions)
+        b, s = x.shape[:2]
+        cache = init_kv_cache(b, max_len, cfg, dtype, device=x.device,
+                              model_axis=tp)
+        lo = tp.rank * cache["k"].shape[1] if split == "seq" else 0
+        hi = min(s, lo + cache["k"].shape[1])
+        if hi > lo:
+            cache["k"][:, :hi - lo] = k[:, lo:hi]
+            cache["v"][:, :hi - lo] = v[:, lo:hi]
+        cache["length"].fill_(s)
+        ka, va = self._tp_kv_of_q(k, v, heads[tp.rank][0])
+        return self._tp_out(self.attend(q, ka, va), x.dtype, h0), cache
+
+    def _decode_tp(self, x, cache):
+        """:meth:`decode` under the model axis, on this rank's part of the
+        cache.  Split by kv heads: this rank's heads, as unsharded.  Split
+        by positions: every query head over this rank's positions, the
+        softmax's maximum, sum and weighted values then combined over the
+        axis (a slice with no valid position adds an exact 0)."""
+        cfg, tp, cast = self.cfg, self.tp, self.policy.cast
+        plan = self._tp_plan()
+        idx = cache["length"]
+        xc = cast(x)
+        if cache["k"].shape[2] < cfg.n_kv_heads:
+            (h0, _), kv, _ = plan[tp.rank]
+            q = self._tp_project(xc, "wq", "bq", [p[0] for p in plan])
+            k_new = self._tp_project(xc, "wk", "bk", [p[1] for p in plan])
+            v_new = self._tp_project(xc, "wv", "bv", [p[1] for p in plan])
+            q, k_new = self.apply_positions(q, k_new, idx[:, None])
+            k_cache = write_token(cache["k"], idx, k_new)
+            v_cache = write_token(cache["v"], idx, v_new)
+            out = decode_attention(q, k_cache, v_cache, idx + 1)
+        else:
+            h0 = 0
+            q = self._tp_all_heads(xc, "wq", "bq", cfg.n_heads)
+            k_new = self._tp_all_heads(xc, "wk", "bk", cfg.n_kv_heads)
+            v_new = self._tp_all_heads(xc, "wv", "bv", cfg.n_kv_heads)
+            q, k_new = self.apply_positions(q, k_new, idx[:, None])
+            s_loc = cache["k"].shape[1]
+            lo = tp.rank * s_loc
+            at = torch.where(idx >= lo, idx - lo, s_loc)   # past: no write
+            k_cache = write_token(cache["k"], at, k_new)
+            v_cache = write_token(cache["v"], at, v_new)
+            out = decode_attention_split(q, k_cache, v_cache, idx + 1 - lo,
+                                         tp)
+        return self._tp_out(out, x.dtype, h0), {
+            "k": k_cache, "v": v_cache, "length": idx + 1}
 
     def decode(self, x, cache):
         """One token per sequence, x (B, 1, dim), against ``cache`` (k and
         v (B, S, Hkv, D), ``length`` (B,) filled entries).  Returns (y,
         new_cache): the token's k (after rope at position ``length``) and
         v written at ``length`` into fresh copies of the cache, and
-        ``length + 1``."""
+        ``length + 1``.  Under a model axis the cache is this rank's part
+        (:meth:`_decode_tp`)."""
+        if self.tp is not None:
+            return self._decode_tp(x, cache)
         q, k_new, v_new = self.project_qkv(x)
         idx = cache["length"]
         q, k_new = self.apply_positions(q, k_new, idx[:, None])
@@ -465,11 +590,31 @@ def write_token(cache, idx, new):
     return out
 
 
+def kv_split(n_kv_heads: int, max_len: int, size: int) -> str:
+    """The dim of a KV cache that a model axis of ``size`` splits, as
+    ``parallel.sharding.cache_shardings`` places it (``kv_cache_split``):
+    ``"heads"`` or ``"seq"``; a cache that neither divides, which the
+    rules would replicate, is refused."""
+    from repro_torch.parallel.sharding import kv_cache_split
+    split = kv_cache_split(n_kv_heads, max_len, size)
+    if split is None:
+        raise ValueError(f"neither the {n_kv_heads} kv heads nor max_len="
+                         f"{max_len} divide the model axis of {size}")
+    return split
+
+
 def init_kv_cache(batch: int, max_len: int, cfg: AttentionConfig,
-                  dtype=torch.bfloat16, *, device):
+                  dtype=torch.bfloat16, *, device, model_axis=None):
     """Zeroed k and v (batch, max_len, Hkv, D) in ``dtype`` and the
-    int32 ``length`` (batch,)."""
-    shape = (batch, max_len, cfg.n_kv_heads, cfg.hd)
+    int32 ``length`` (batch,); over ``model_axis`` (a
+    ``parallel.tensor_parallel.ModelAxis``) this rank's part, split as
+    :func:`kv_split` says (``length`` counts the whole sequence)."""
+    shape = [batch, max_len, cfg.n_kv_heads, cfg.hd]
+    if model_axis is not None and model_axis.size > 1:
+        dim = 2 if kv_split(cfg.n_kv_heads, max_len,
+                            model_axis.size) == "heads" else 1
+        shape[dim] //= model_axis.size
+    shape = tuple(shape)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device),
             "length": torch.zeros((batch,), dtype=torch.int32,

@@ -251,7 +251,8 @@ def apply_mrope(x, positions_3d, sections=(16, 24, 24),
     freqs = rope_freqs(d, theta, device=x.device)             # (D/2,)
     plane = torch.repeat_interleave(
         torch.arange(3, device=x.device),
-        torch.tensor(sections, device=x.device))              # (D/2,)
+        torch.tensor(sections, device=x.device),
+        output_size=d // 2)                                   # (D/2,)
     pos = positions_3d.float().permute(1, 2, 0)[..., plane]   # (B,S,D/2)
     ang = pos * freqs
     cos = torch.cos(ang)[:, :, None, :]

@@ -79,9 +79,11 @@ with gradients on, each block is rematerialised as ``LMConfig.remat``
 says (the reference's ``_maybe_remat``): ``"none"`` keeps every
 activation and ``"unit"`` keeps only each block's input and runs the
 block again in the backward (so the mixer's scans launch twice a step,
-and attention's blockwise forward runs twice).
-The reference's ``"dots"`` (keep the matrix products' outputs) has no
-caller in the port until the dry-run of ROADMAP.md §1 item 8, and raises.
+and attention's blockwise forward runs twice); ``"dots"``, the
+reference's ``dots_with_no_batch_dims_saveable``, keeps the outputs of
+the products without batch dimensions (``mm``, ``addmm``, ``linear``)
+and recomputes everything else, batched products (``bmm``) included
+(:data:`DOTS_SAVED`).
 """
 
 from __future__ import annotations
@@ -385,6 +387,10 @@ class AttnBlock(nn.Module):
             raise ValueError(f"a prompt of {s} tokens does not fit the KV "
                              f"cache's max_len={max_len}")
         attn = self.attn
+        if attn.tp is not None:
+            y, cache = attn.prefill_tp(self.ln1(x), _positions(b, s, x.device),
+                                       max_len, self.cd)
+            return x + y, cache
         q, k, v = attn.project_qkv(self.ln1(x))
         q, k = attn.apply_positions(q, k, _positions(b, s, x.device))
         x = x + attn.project_out(attn.attend(q, k, v), x.dtype)
@@ -421,9 +427,11 @@ class AttnBlock(nn.Module):
         return self._ffn(x + y), new
 
     @staticmethod
-    def init_cache(cfg: LMConfig, batch: int, max_len: int, *, device):
+    def init_cache(cfg: LMConfig, batch: int, max_len: int, *, device,
+                   model_axis=None):
         return init_kv_cache(batch, max_len, attn_config(cfg),
-                             cfg.compute_dtype, device=device)
+                             cfg.compute_dtype, device=device,
+                             model_axis=model_axis)
 
 
 class AttnMoEBlock(AttnBlock):
@@ -591,7 +599,7 @@ def gspn_decode_step(mixer: GSPNSeqMixer, x, cache):
     w = cache["prev_row"].shape[-1]
     xf = x[:, 0].float()                                      # (B,D)
 
-    x_p = xf @ mixer.down.float()                             # (B,Cp)
+    x_p = xf @ mixer.whole("down").float()                    # (B,Cp)
     tap_logits = xf @ mixer.w_taps.float()                    # (B,3)
     row_g = torch.sigmoid(xf @ mixer.w_row.float())           # (B,1)
     lam = torch.sigmoid(xf @ mixer.w_lam.float())             # (B,2Cp)
@@ -625,7 +633,7 @@ def gspn_decode_step(mixer: GSPNSeqMixer, x, cache):
     h_row = row_g * row_prev + lam[:, cp:] * x_p
 
     y = u[:, :cp] * h_tb + u[:, cp:] * h_row
-    y = (y @ mixer.up.float())[:, None]                       # (B,1,D)
+    y = (y @ mixer.whole("up").float())[:, None]              # (B,1,D)
 
     cur = torch.where(at_row_start[..., None],
                       torch.zeros_like(cache["cur_row"]), cache["cur_row"])
@@ -778,23 +786,36 @@ class LM(nn.Module):
         return apply_lm(self, tokens)
 
 
-REMAT = ("none", "unit")
+REMAT = ("none", "unit", "dots")
+# The ops whose outputs remat "dots" keeps: the matrix products without
+# batch dimensions, as JAX's ``dots_with_no_batch_dims_saveable`` (a 3-D
+# activation times a 2-D weight reaches ATen as one ``mm``).
+DOTS_SAVED = frozenset({torch.ops.aten.mm.default,
+                        torch.ops.aten.addmm.default,
+                        torch.ops.aten.linear.default})
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    from torch.utils.checkpoint import CheckpointPolicy
+    return CheckpointPolicy.MUST_SAVE if op in DOTS_SAVED \
+        else CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _dots_context():
+    return checkpoint.create_selective_checkpoint_contexts(_dots_policy)
 
 
 def _maybe_remat(cfg: LMConfig, block):
     """``block`` as the reference's ``_maybe_remat`` wraps a layer's body:
     as it is under "none" or without gradients, else under non-reentrant
-    activation checkpointing."""
-    if cfg.remat == "dots":
-        raise NotImplementedError(
-            'remat="dots" is not in the port yet; ROADMAP.md §1 item 8 (the '
-            "dry-run, its only caller) brings it")
+    activation checkpointing, selective under "dots"."""
     if cfg.remat not in REMAT:
         raise ValueError(f"remat must be one of {REMAT}, got {cfg.remat!r}")
     if cfg.remat == "none" or not torch.is_grad_enabled():
         return block
+    kw = {"context_fn": _dots_context} if cfg.remat == "dots" else {}
     return functools.partial(checkpoint.checkpoint, block,
-                             use_reentrant=False)
+                             use_reentrant=False, **kw)
 
 
 def _mesh(ctx: Ctx | None):
@@ -816,11 +837,12 @@ def _check_ctx(model: LM, ctx: Ctx | None) -> None:
 
 
 def _unsharded(model: LM, what: str) -> None:
-    """Serving has no model axis, in the reference as here."""
+    """The chunked prefill (and the engine that runs it) has no model
+    axis, as the reference's serving has none."""
     if model.model_axis is not None:
         raise NotImplementedError(
-            f"{what} of a model sharded over a model axis: serving runs "
-            f"without one, as the reference's does")
+            f"{what} of a model sharded over a model axis: the chunked "
+            f"prefill runs without one, as the reference's serving does")
 
 
 def lm_encode(model: LM, enc_frames):
@@ -882,11 +904,8 @@ def apply_lm(model: LM, tokens, *, ctx: Ctx | None = None,
     the mixers' scans under ``gspn_impl="sp"``.  A model sharded over a
     model axis gathers the vocabulary's columns (``lm_loss`` never
     does)."""
-    logits = _forward(model, tokens, ctx, vision_embeds, enc_frames,
-                      positions)[0]
-    if model.tp is not None:
-        logits = model.tp.gather(logits, -1, partial=False)
-    return logits
+    return _whole_logits(model, _forward(model, tokens, ctx, vision_embeds,
+                                         enc_frames, positions)[0])
 
 
 def lm_loss(model: LM, batch, *, ctx: Ctx | None = None):
@@ -903,14 +922,22 @@ def lm_loss(model: LM, batch, *, ctx: Ctx | None = None):
     return ce + aux, {"ce": ce, "aux": aux}
 
 
-def init_lm_cache(cfg: LMConfig, batch: int, max_len: int, *, device):
+def init_lm_cache(cfg: LMConfig, batch: int, max_len: int, *, device,
+                  model_axis=None):
     """Zeroed decode caches of ``batch`` sequences, in the reference's
     layout (per stage key, leading (n,) or (n_units, n) axes, and
     ``shared_attn`` with (n_units,)); an attn, attn_moe or xattn stage's
     KV cache holds ``max_len`` positions, the other kinds' state does not
-    depend on it (nor do the encoder's keys and values live here)."""
+    depend on it (nor do the encoder's keys and values live here).  Over
+    ``model_axis`` (a sharded model's ``model.model_axis``) a KV cache is
+    this rank's part, as ``parallel.sharding.cache_shardings`` places it:
+    its kv heads where they divide the axis, else its slice of the
+    positions; the O(W) GSPN state is whole on every rank."""
     def stacked(kind, lead):
-        one = KINDS[kind].init_cache(cfg, batch, max_len, device=device)
+        kw = {"model_axis": model_axis} if kind in ("attn", "attn_moe") \
+            else {}
+        one = KINDS[kind].init_cache(cfg, batch, max_len, device=device,
+                                     **kw)
         return {k: v.expand(lead + v.shape).clone() for k, v in one.items()}
 
     caches = {}
@@ -934,16 +961,27 @@ def lm_prefill(model: LM, tokens, max_len: int, *, ctx: Ctx | None = None,
     whose KV caches hold ``max_len`` positions; ``vision_embeds`` replace
     the first embeddings, as in :func:`apply_lm`, the positions stay
     ``arange(S)``, and the xattn blocks attend to ``enc_kv`` from
-    :func:`lm_encode`.  Returns (logits (B, S, V), caches)."""
-    _unsharded(model, "lm_prefill")
+    :func:`lm_encode`.  Returns (logits (B, S, V), caches).  A model
+    sharded over a model axis (the gspn, attn and attn_moe kinds) runs its
+    layers as in training, fills this rank's part of each KV cache
+    (:func:`init_lm_cache`'s ``model_axis``) and gathers the logits."""
+    _check_ctx(model, ctx)
     x = model.embed_tokens(tokens, vision_embeds)
     caches = init_lm_cache(model.cfg, tokens.shape[0], max_len,
-                           device=x.device)
+                           device=x.device, model_axis=model.model_axis)
     for key, idx, block in model.walk():
         kw = {"enc_kv": enc_kv} if isinstance(block, XAttnBlock) else {}
         x, layer_cache = block.prefill(x, max_len, mesh=_mesh(ctx), **kw)
         _store(caches, key, idx, layer_cache)
-    return model.logits(x), caches
+    return _whole_logits(model, model.logits(x)), caches
+
+
+def _whole_logits(model: LM, logits):
+    """The logits over the whole vocabulary (gathered over a model
+    axis)."""
+    if model.tp is not None:
+        logits = model.tp.gather(logits, -1, partial=False)
+    return logits
 
 
 def supports_chunked_prefill(cfg: LMConfig) -> bool:
@@ -1001,9 +1039,12 @@ def lm_prefill_chunk(model: LM, tokens, caches, off: int, *,
 def lm_decode_step(model: LM, token, caches, *, ctx: Ctx | None = None,
                    enc_kv=None):
     """token: (B, 1) int.  Returns (logits (B, 1, V), new_caches).  The
-    step is O(W) per gspn layer and runs unsharded under any ``ctx``; the
-    xattn blocks attend to ``enc_kv`` from :func:`lm_encode`."""
-    _unsharded(model, "lm_decode_step")
+    step is O(W) per gspn layer; the xattn blocks attend to ``enc_kv``
+    from :func:`lm_encode`.  A model sharded over a model axis reads and
+    writes this rank's part of each KV cache (split by kv heads or by
+    positions, ``models.attention.Attention.decode``) and gathers the
+    logits."""
+    _check_ctx(model, ctx)
     x = model.embed_tokens(token)
     new = {k: {n: torch.empty_like(v) for n, v in sub.items()}
            for k, sub in caches.items()}
@@ -1012,7 +1053,7 @@ def lm_decode_step(model: LM, token, caches, *, ctx: Ctx | None = None,
         kw = {"enc_kv": enc_kv} if isinstance(block, XAttnBlock) else {}
         x, layer_cache = block.decode(x, layer, **kw)
         _store(new, key, idx, layer_cache)
-    return model.logits(x), new
+    return _whole_logits(model, model.logits(x)), new
 
 
 def count_params(model: nn.Module) -> int:

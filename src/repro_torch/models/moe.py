@@ -139,7 +139,11 @@ def dispatch(experts, cap: int, n_experts: int):
     past the buffer."""
     eflat = experts.reshape(-1)
     order = torch.argsort(eflat, stable=True)
-    counts = torch.bincount(eflat, minlength=n_experts)
+    # bincount's output length depends on the data; this has n_experts
+    # entries on any device, ``meta`` included.
+    counts = torch.zeros(n_experts, dtype=eflat.dtype,
+                         device=eflat.device).index_add_(
+        0, eflat, torch.ones_like(eflat))
     starts = torch.cumsum(counts, 0) - counts
     rank = torch.empty_like(eflat)
     rank[order] = torch.arange(eflat.numel(), device=eflat.device) \

@@ -21,6 +21,15 @@ memory (:data:`staged_bytes`) and their host time
 ``parallel.tensor_parallel`` runs inside its autograd Functions) are
 counted the same way under their own names, ``model_all_reduce`` and
 ``model_all_gather``, when their payload lies on a card.
+
+Whatever the backend and the device, every counted collective also adds
+the bytes it puts on this rank's links to :data:`link_bytes`, under the
+reference's op names and ring multipliers (``repro/roofline/hlo.py``):
+an all-reduce twice its payload, an all-gather its output, a
+reduce-scatter its input.  The roofline's collective term reads them
+(``roofline.cost``).  Only a gloo group stages a card's payload through
+host memory: under any other backend (``"fake"``, the dry run's, over
+``meta`` tensors) a collective runs directly and counts no staged bytes.
 """
 
 from __future__ import annotations
@@ -36,11 +45,23 @@ import torch.distributed as dist
 # the last clear_staged().
 staged_bytes: collections.Counter = collections.Counter()
 staged_seconds: collections.Counter = collections.Counter()
+# Bytes on this rank's links by the reference's op name, ring multipliers
+# applied, since the last clear_staged().
+link_bytes: collections.Counter = collections.Counter()
+link_calls: collections.Counter = collections.Counter()
+RING = {"all-reduce": 2.0, "all-gather": 1.0, "reduce-scatter": 1.0,
+        "all-to-all": 1.0, "collective-permute": 1.0}
 
 
 def clear_staged():
     staged_bytes.clear()
     staged_seconds.clear()
+    link_bytes.clear()
+    link_calls.clear()
+
+
+def _nbytes(t) -> int:
+    return t.numel() * t.element_size()
 
 
 def quantize_int8(x):
@@ -111,11 +132,15 @@ def compressed_allreduce(mesh, axis: str):
 # Counted collectives for gloo (FSDP2's Comm protocol: allocate + __call__).
 # ---------------------------------------------------------------------------
 
-def _count(what, t0, *tensors):
-    """Add the device tensors' bytes (gloo copies each through pinned
-    host memory) and the host seconds since ``t0`` to the counters."""
-    staged_bytes[what] += sum(t.numel() * t.element_size() for t in tensors
-                              if t.device.type != "cpu")
+def _count(what, t0, group, op, payload, *tensors):
+    """Add ``op``'s link bytes (its ``payload`` times its ring
+    multiplier), the card tensors' bytes where gloo carries ``group``
+    (it copies each through pinned host memory) and the host seconds
+    since ``t0`` to the counters."""
+    link_bytes[op] += RING[op] * payload
+    link_calls[op] += 1
+    if dist.get_backend(group) == "gloo":
+        staged_bytes[what] += sum(_nbytes(t) for t in tensors if t.is_cuda)
     staged_seconds[what] += time.perf_counter() - t0
 
 
@@ -131,7 +156,8 @@ class CountedAllGather(_Counted):
     def __call__(self, output_tensor, input_tensor, group, async_op=False):
         t0 = time.perf_counter()
         dist.all_gather_into_tensor(output_tensor, input_tensor, group=group)
-        _count("all_gather", t0, input_tensor, output_tensor)
+        _count("all_gather", t0, group, "all-gather", _nbytes(output_tensor),
+               input_tensor, output_tensor)
         return None
 
 
@@ -143,7 +169,8 @@ class CountedReduceScatter(_Counted):
         t0 = time.perf_counter()
         dist.reduce_scatter_tensor(output_tensor, input_tensor, op=op,
                                    group=group)
-        _count("reduce_scatter", t0, input_tensor, output_tensor)
+        _count("reduce_scatter", t0, group, "reduce-scatter",
+               _nbytes(input_tensor), input_tensor, output_tensor)
         return None
 
 
@@ -152,7 +179,7 @@ def all_reduce_counted(t, group=None, op=dist.ReduceOp.SUM,
     """``all_reduce`` of ``t`` in place, counted as the classes above."""
     t0 = time.perf_counter()
     dist.all_reduce(t, op=op, group=group)
-    _count(what, t0, t, t)
+    _count(what, t0, group, "all-reduce", _nbytes(t), t, t)
     return t
 
 
@@ -175,5 +202,5 @@ def model_all_gather(t, group, dim: int):
     pieces = [torch.empty_like(t) for _ in range(dist.get_world_size(group))]
     dist.all_gather(pieces, t, group=group)
     out = torch.cat(pieces, dim=dim)
-    _count("model_all_gather", t0, t, out)
+    _count("model_all_gather", t0, group, "all-gather", _nbytes(out), t, out)
     return out

@@ -187,6 +187,18 @@ def _cache_path(key: str, leaf: str) -> str:
         else f"{key}/{leaf}"
 
 
+def kv_cache_split(n_kv_heads: int, max_len: int, size: int):
+    """The dim of a KV cache that a model axis of ``size`` splits:
+    ``"heads"`` where the kv heads divide it, else ``"seq"`` where the
+    ``max_len`` positions do (so a long cache is not replicated), else
+    None (replicated)."""
+    if n_kv_heads % size == 0:
+        return "heads"
+    if max_len % size == 0:
+        return "seq"
+    return None
+
+
 def cache_shardings(shapes: dict, mesh, dp_axes=("data",),
                     tp_axis: str = "model") -> dict:
     """{stage key: {leaf: spec}} of decode caches shaped as
@@ -208,11 +220,10 @@ def cache_shardings(shapes: dict, mesh, dp_axes=("data",),
                     and len(shape) >= 4:
                 if shape[-4] % dp_size == 0:
                     spec[-4] = _dp_entry(dp_axes)
-                tp = sizes[tp_axis]
-                if shape[-2] % tp == 0:
-                    spec[-2] = tp_axis
-                elif shape[-3] % tp == 0:
-                    spec[-3] = tp_axis
+                split = kv_cache_split(shape[-2], shape[-3],
+                                       sizes[tp_axis])
+                if split is not None:
+                    spec[-2 if split == "heads" else -3] = tp_axis
             else:
                 for i, d in enumerate(shape):
                     if d % dp_size == 0 and d >= dp_size:

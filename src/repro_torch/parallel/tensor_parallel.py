@@ -37,8 +37,14 @@ that split their arithmetic along it get the :class:`ModelAxis`
 ``slstm``, ``xattn``), the VL and audio models and ``gspn_impl="sp"``
 raise under a model axis larger than 1 (ROADMAP.md §1 item 6.2).
 
-Serving has no model axis (the reference serves over a ``seq`` mesh
-only): the prefill, chunk and decode paths of a sharded model raise.
+The one-shot prefill and the decode step run sharded, as the
+reference's dry-run cells lay them out (``launch.lowering``): the KV
+caches split by kv heads where they divide the axis, else by positions
+(``parallel.sharding.cache_shardings``); a decode step over split
+positions combines the ranks' softmax parts with counted collectives
+(``models.attention.decode_attention_split``).  The chunked prefill and
+the serving engine run without a model axis, as the reference's serving
+does, and refuse a sharded model.
 """
 
 from __future__ import annotations

@@ -86,6 +86,10 @@ def _moe_params(name):
                        _jcfg(arch, n_model_shards=m, **changes))
 
 
+def _serve_params(arch, changes):
+    return jlm.init_lm(jax.random.PRNGKey(4), _jcfg(arch, **changes))
+
+
 def _inputs() -> dict:
     d = {}
     for arch in {a for a, _ in STEP_CASES}:
@@ -100,6 +104,11 @@ def _inputs() -> dict:
         for k, v in _batch(MOE_SEQ, seed=3).items():
             d[f"batch/{name}/{k}"] = v
     rng = np.random.default_rng(0)
+    for name, arch, changes in W.SERVE[2]:
+        for k, v in _paths(_serve_params(arch, changes)).items():
+            d[f"jax/serve_{name}/{k}"] = v
+        d[f"serve/{name}/tokens"] = rng.integers(
+            0, 512, (2, W.PROMPT + W.DECODE_STEPS)).astype(np.int32)
     d["ce/logits"] = rng.standard_normal((2, 6, 64)).astype(np.float32) * 3
     d["ce/labels"] = rng.integers(0, 64, (2, 6)).astype(np.int32)
     d["ce/mask"] = (rng.random((2, 6)) < 0.6).astype(np.float32)
@@ -430,6 +439,55 @@ def test_moe_refuses_shards_without_their_axis():
         "kimi-k2-1t-a32b").reduced(), n_model_shards=2), device="cpu")
     with pytest.raises(NotImplementedError, match="item 6.2"):
         lm.apply_lm(model, torch.zeros((1, 4), dtype=torch.long))
+
+
+# ---------------------------------------------------------------------------
+# Prefill and decode under the model axis.
+# ---------------------------------------------------------------------------
+
+SERVE_CASES = {name: (arch, changes) for name, arch, changes in W.SERVE[2]}
+
+
+@pytest.mark.parametrize("name", sorted(SERVE_CASES))
+def test_sharded_prefill_and_decode_match_jax(runs, name):
+    """``lm_prefill`` and three ``lm_decode_step`` calls on (data 1, model
+    2) against the reference's unsharded ones on the same weights: the
+    GSPN mixer whole on each rank, qwen2-1.5b's kv heads split, one kv
+    head (the cache split by positions, the decode's softmax combined
+    over the axis) and grok's expert-parallel MoE.  Logits within 1e-5
+    of their largest, each rank's cache shapes those of
+    ``cache_shardings``, each KV cache gathered within 1e-5 of the
+    reference's; ``lm_prefill_chunk`` and the engine refuse the sharded
+    model."""
+    from repro_torch.parallel.sharding import cache_shardings
+
+    mine, inp = runs["torch"], runs["inputs"]
+    arch, changes = SERVE_CASES[name]
+    cfg = _jcfg(arch, **changes)
+    params = _serve_params(arch, changes)
+    tokens = jnp.asarray(inp[f"serve/{name}/tokens"])
+    tag = f"serve/{name}"
+    logits, caches, _ = jlm.lm_prefill(params, cfg, tokens[:, :W.PROMPT],
+                                       max_len=W.MAX_LEN)
+    _close(mine[f"{tag}/prefill"], logits, 1e-5, "prefill")
+    for i in range(W.DECODE_STEPS):
+        logits, caches = jlm.lm_decode_step(
+            params, cfg, tokens[:, W.PROMPT + i:W.PROMPT + i + 1], caches)
+        _close(mine[f"{tag}/decode{i}"], logits, 1e-5, f"decode {i}")
+    tcfg = W.config(arch, **changes)
+    whole = {k: {n: tuple(v.shape) for n, v in sub.items()} for k, sub in
+             lm.init_lm_cache(tcfg, 2, W.MAX_LEN, device="meta").items()}
+    specs = cache_shardings(whole, {"data": 1, "model": 2})
+    want = {k: {n: [d // 2 if s == "model" else d
+                    for d, s in zip(whole[k][n], specs[k][n])]
+                for n in sub} for k, sub in whole.items()}
+    assert json.loads(str(mine[f"{tag}/shapes"])) == want
+    kv = [(k, n) for k, sub in whole.items() for n in sub if n in ("k", "v")]
+    assert bool(kv) == (name != "gspn")
+    for key, n in kv:
+        _close(mine[f"{tag}/cache/{key}/{n}"], caches[key]["attn"][n],
+               1e-5, f"cache {key}/{n}")
+    assert json.loads(str(mine[f"{tag}/refused"])) == ["chunk", "engine"]
 
 
 # ---------------------------------------------------------------------------

@@ -6,7 +6,8 @@ case of its world size on the inputs the test wrote (first argument);
 rank 0 writes the results, every tensor gathered whole, to the ``.npz``
 named by the second argument.  The third argument is a scratch
 directory the test keeps (the checkpoint saved on ``(data 1, model
-2)``).  It imports no JAX: the reference's parameters arrive as numpy
+2)``).  At world size 2 it also runs the sharded prefill and decode
+cases (``SERVE``).  It imports no JAX: the reference's parameters arrive as numpy
 leaves under their pytree paths.
 
     RANK=0 WORLD_SIZE=2 MASTER_PORT=29500 \\
@@ -34,7 +35,7 @@ from repro_torch.models.convert import lm_state_from_jax
 from repro_torch.optim.adamw import AdamWConfig
 from repro_torch.parallel.data_parallel import DataParallel
 from repro_torch.parallel.sharding import sharded_dim
-from repro_torch.parallel.tensor_parallel import ModelAxis
+from repro_torch.parallel.tensor_parallel import ModelAxis, shard_model
 from repro_torch.train import step as tstep
 
 OPT = dict(lr=1e-3, warmup_steps=2, total_steps=10)
@@ -54,6 +55,17 @@ MOE = {2: (("grok2", "grok-1-314b", 2, {}),
            ("kimi2", "kimi-k2-1t-a32b", 2, {})),
        4: (("grok4", "grok-1-314b", 4, {}),
            ("e2", "grok-1-314b", 4, {"n_experts": 2, "top_k": 1}))}
+
+
+# The sharded prefill and decode cases at world size 2, (name, arch,
+# config changes): the GSPN mixer whole on each rank; qwen2-1.5b's 2 kv
+# heads split over the axis; one kv head, so the cache splits its
+# positions; grok's expert-parallel MoE at M = 2.
+SERVE = {2: (("gspn", "qwen2-1.5b-gspn", {}), ("heads", "qwen2-1.5b", {}),
+             ("seq", "qwen2-1.5b", {"n_kv_heads": 1}),
+             ("moe", "grok-1-314b", {}))}
+# Prompt tokens, the caches' max_len and the decode steps after them.
+PROMPT, MAX_LEN, DECODE_STEPS = 12, 16, 3
 
 
 def config(arch, **changes):
@@ -228,6 +240,59 @@ def ce_case(inp, out, m):
     out[f"ce/{m}/embed_equal"] = bool(torch.equal(rows, table[tokens.long()]))
 
 
+def serve_case(inp, out, name, arch, changes):
+    """``lm_prefill`` of the prompt, then ``DECODE_STEPS`` decode steps of
+    the given tokens, on (data 1, model M) from the reference's weights at
+    n_model_shards=1 (re-laid for M where the model has a MoE): every
+    logit (gathered over the vocabulary by the entry points), this rank's
+    cache shapes, each KV cache gathered whole along its split dim, and
+    whether ``lm_prefill_chunk`` and the engine refuse the sharded
+    model."""
+    from repro_torch.serve.engine import ServeEngine
+
+    m = dist.get_world_size()
+    mesh = mesh_of((1, m))
+    moe = arch == "grok-1-314b"
+    cfg = config(arch, n_model_shards=m if moe else 1, **changes)
+    model = lm.LM(cfg, device="meta")
+    model.load_state_dict(lm_state_from_jax(
+        tree(inp, f"jax/serve_{name}"), n_model_shards=m if moe else None),
+        assign=True)
+    shard_model(model, mesh)
+    ctx = lm.Ctx(mesh=mesh)
+    tokens = torch.from_numpy(inp[f"serve/{name}/tokens"]).long()
+    tag = f"serve/{name}"
+    with torch.no_grad():
+        logits, caches = lm.lm_prefill(model, tokens[:, :PROMPT], MAX_LEN,
+                                       ctx=ctx)
+        out[f"{tag}/prefill"] = logits.numpy()
+        out[f"{tag}/shapes"] = json.dumps({
+            k: {n: list(v.shape) for n, v in sub.items()}
+            for k, sub in caches.items()})
+        for i in range(DECODE_STEPS):
+            logits, caches = lm.lm_decode_step(
+                model, tokens[:, PROMPT + i:PROMPT + i + 1], caches, ctx=ctx)
+            out[f"{tag}/decode{i}"] = logits.numpy()
+    axis = model.model_axis
+    for key, sub in caches.items():
+        for n in ("k", "v"):
+            if n in sub:
+                t = sub[n]
+                dim = -2 if t.shape[-2] < cfg.n_kv_heads else -3
+                out[f"{tag}/cache/{key}/{n}"] = axis.all_gather(t, dim) \
+                    .numpy()
+    refused = []
+    for what, call in (
+            ("chunk", lambda: lm.lm_prefill_chunk(
+                model, tokens[:, :4], caches, 0, ctx=ctx)),
+            ("engine", lambda: ServeEngine(model, max_len=MAX_LEN))):
+        try:
+            call()
+        except NotImplementedError:
+            refused.append(what)
+    out[f"{tag}/refused"] = json.dumps(refused)
+
+
 def checkpoint_case(inp, out, rank):
     """A state saved on (data 1, model 2) after a step, then restored on
     (data 2, model 1) and gathered."""
@@ -278,6 +343,8 @@ def main():
     for case in MOE[world]:
         moe_case(inp, out, *case)
     ce_case(inp, out, world)
+    for case in SERVE.get(world, ()):
+        serve_case(inp, out, *case)
     if world == 2:
         checkpoint_case(inp, out, rank)
     if rank == 0:

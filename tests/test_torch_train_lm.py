@@ -276,13 +276,15 @@ def test_bf16_gradients_amplify_f32_noise(precision, lo, hi):
 
 
 def test_remat_modes_give_the_same_loss_and_gradients():
-    """"none" and "unit" within 1e-6; "unit" runs each block's forward
-    again in the backward (two more scans a layer).  The reference's
-    "dots" raises until the dry-run, its only caller, is ported."""
+    """"none", "unit" and "dots" within 1e-6; "unit" runs each block's
+    forward again in the backward (two more scans a layer), and so does
+    "dots", which keeps only the matrix products' outputs (the scans are
+    recomputed, the products not: ``test_torch_roofline`` counts
+    them)."""
     _, ct = _reduced("f32")
     b = _batch(seq=24, seed=3)
     out, calls = {}, {}
-    for remat in ("none", "unit"):
+    for remat in ("none", "unit", "dots"):
         model = lm.LM(dataclasses.replace(ct, remat=remat), device="cpu",
                       generator=torch.Generator().manual_seed(2))
         cuda_lib.clear_counts()
@@ -290,14 +292,14 @@ def test_remat_modes_give_the_same_loss_and_gradients():
         calls[remat] = dict(cuda_lib.plain_calls)
     assert calls["none"] == {"gspn_scan_fwd": 4, "gspn_scan_bwd": 4}
     assert calls["unit"] == {"gspn_scan_fwd": 8, "gspn_scan_bwd": 4}
+    assert calls["dots"] == {"gspn_scan_fwd": 8, "gspn_scan_bwd": 4}
     loss, _, grads = out["none"]
-    np.testing.assert_allclose(float(out["unit"][0]), float(loss), rtol=1e-6)
-    for name, g in grads.items():
-        _close(out["unit"][2][name], g, 1e-6, f"unit {name}")
+    for remat in ("unit", "dots"):
+        np.testing.assert_allclose(float(out[remat][0]), float(loss),
+                                   rtol=1e-6)
+        for name, g in grads.items():
+            _close(out[remat][2][name], g, 1e-6, f"{remat} {name}")
     tokens = torch.zeros((1, 8), dtype=torch.long)
-    with pytest.raises(NotImplementedError, match="item 8"):
-        lm.apply_lm(lm.LM(dataclasses.replace(ct, remat="dots"),
-                          device="cpu"), tokens)
     with pytest.raises(ValueError, match="remat"):
         lm.apply_lm(lm.LM(dataclasses.replace(ct, remat="all"),
                           device="cpu"), tokens)
