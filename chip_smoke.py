@@ -160,8 +160,9 @@ Phases, each of which fails the run on any error:
    four times (c)'s noise control (the residuals start at zero, so a
    residual's distance is its gradient's), a sampled parameter off by
    more than 1e-5 of its leaf's largest only at a step;
-   then that FSDP-placed state (parameters, moments, residuals) saved
-   by both ranks with ``CheckpointManager``, zeroed and restored, every
+   then that FSDP-placed state (parameters, moments, residuals) of the
+   first 2 of the 28 blocks and every leaf outside the blocks saved by
+   both ranks with ``CheckpointManager``, zeroed and restored, every
    tensor bit for bit.  The launcher's ``--distributed``, which now
    builds a model axis, runs in the ``lm tp`` phase;
    then tensor parallelism (``lm tp ...`` lines, phase ``lm tp``):
@@ -180,7 +181,17 @@ Phases, each of which fails the run on any error:
    ``grok-1-314b`` cut to one
    ``attn_moe`` layer in f32 at M = 2 (ep 2, tp 1) against one rank at M
    = 1: loss, aux 1e-5, sampled gradients 1e-4 of their leaf's largest,
-   at 1 x 256 tokens; (e) ``launch/train.py --distributed
+   at 1 x 256 tokens; (f) the recurrent kinds, ``zamba2-2.7b`` and
+   ``xlstm-1.3b`` at full width and 1 unit each, f32, remat unit, on
+   (data 1, model 2), every mixer on its own heads: placements as (a),
+   the first step (zamba2 at 1 x 4096, xlstm at 1 x 1024) against the
+   one rank's with (c)'s bounds and noise control, and ``lm_prefill`` of
+   1 x 1024 with 8 greedy ``lm_decode_step``s against one rank: last
+   logits within 1e-4 of the largest or four times the one rank's own
+   noise (batch 2 against 1), equal tokens, every cache leaf that the
+   axis keeps whole bit-equal on both ranks after each call, and the
+   collective bytes a rank of the step, the prefill and a decode step;
+   (e) ``launch/train.py --distributed
    --grad-compression int8_ef`` on 2 ranks under the config's own
    policy, which picks (data 1, model 2): 2 steps and a model-sharded
    checkpoint, then a launch of 1 step that resumes from it without
@@ -2617,6 +2628,13 @@ DP_RANKS = 2
 DP_SEED = 4
 DP_SAMPLES = 64                  # sampled elements of each leaf in (c)
 DP_PIPE = (4, 1, 1024)           # microbatches of 1 x 1024 tokens
+# (d) saves and restores the leaves of the first DP_CKPT_BLOCKS of the 28
+# blocks and every leaf outside the blocks (the embedding, the final
+# norm): each kind of leaf, sharded over data or replicated, its
+# parameter, moments and residual, in about a quarter of the whole
+# state's bytes, whose save and restore took most of a minute (PERF.md
+# §4).
+DP_CKPT_BLOCKS = 2
 
 
 def _dp_cfg():
@@ -2827,6 +2845,7 @@ def _dp_step(setup, ref, rank, note):
                      cuda_lib.launch_shapes.items()},
         "plain": sum(cuda_lib.plain_calls.values()),
         "staged_bytes": dict(collectives.staged_bytes),
+        "link_bytes": dict(collectives.link_bytes),
         "collective_s": dict(collectives.staged_seconds)}}
     note(f"step, {dt * 1e3:.1f} ms, counted collectives "
          f"{dict(collectives.staged_seconds)} s")
@@ -2876,11 +2895,24 @@ def _digest(t) -> tuple:
     return int(v.sum()), int((v * w).sum())
 
 
+def _depth_cut(state, blocks: int):
+    """``state``'s nested dicts with the leaves of the blocks from
+    ``blocks`` on left out (a parameter's name ``stages.<stage>.<unit>.
+    <block>. ...``); every other leaf stays."""
+    def keep(name):
+        m = re.match(r"stages\.[^.]+\.\d+\.(\d+)\.", name)
+        return m is None or int(m.group(1)) < blocks
+
+    return {k: _depth_cut(v, blocks) if isinstance(v, dict) else v
+            for k, v in state.items() if isinstance(v, dict) or keep(k)}
+
+
 def _dp_int8(ref, rank, mesh, ckpt, note):
     """(d): the first int8_ef step from the seed on the (2, 1) mesh,
     counted, against the one-rank int8_ef step; then its FSDP-placed
-    state (parameters, moments, int8 residuals) saved by both ranks,
-    overwritten with zeros and restored: every leaf bit for bit."""
+    state (parameters, moments, int8 residuals) cut to DP_CKPT_BLOCKS
+    blocks, saved by both ranks, overwritten with zeros and restored:
+    every leaf bit for bit."""
     import torch.distributed as dist
     from repro_torch.checkpoint.manager import CheckpointManager, flatten
     from repro_torch.kernels import cuda_lib
@@ -2940,13 +2972,16 @@ def _dp_int8(ref, rank, mesh, ckpt, note):
      out["bad"]) = map(int, counts.tolist())
     out["worst"] = worst[:6]
 
-    flat_state = {k: t for k, t in flatten(setup.state).items()
+    state = _depth_cut(setup.state, DP_CKPT_BLOCKS)
+    flat_state = {k: t for k, t in flatten(state).items()
                   if isinstance(t, torch.Tensor)}
+    out["whole_leaves"] = sum(isinstance(t, torch.Tensor)
+                              for t in flatten(setup.state).values())
     before = {k: _digest(t) for k, t in flat_state.items()}
     dist.barrier()
     t0 = time.perf_counter()
     ck = CheckpointManager(str(ckpt), host_id=rank, n_hosts=DP_RANKS)
-    ck.save(1, setup.state, placements=setup.state_placements,
+    ck.save(1, state, placements=setup.state_placements,
             skip=setup.state_skip)
     ck.wait()
     out["save_s"] = time.perf_counter() - t0
@@ -2958,7 +2993,7 @@ def _dp_int8(ref, rank, mesh, ckpt, note):
     t0 = time.perf_counter()
     _, step = CheckpointManager(str(ckpt), host_id=rank,
                                 n_hosts=DP_RANKS).restore(
-        target=setup.state, placements=setup.state_placements)
+        target=state, placements=setup.state_placements)
     torch.cuda.synchronize()
     out["restore_s"] = time.perf_counter() - t0
     out["restored_step"] = step
@@ -3150,7 +3185,9 @@ def dp_phase():
           f"{i8[0]['worst'] + i8[1]['worst']}; the step "
           f"{i8[0]['ms']:.1f} / {i8[1]['ms']:.1f} ms, launches by shape "
           f"{i8[0]['launches']}, plain {i8[0]['plain'] + i8[1]['plain']}; "
-          f"its state ({i8[0]['leaves']} tensors a rank, {i8[0]['bytes']} "
+          f"its state cut to blocks 0-{DP_CKPT_BLOCKS - 1} of 28 and every "
+          f"leaf outside the blocks ({i8[0]['leaves']} of "
+          f"{i8[0]['whole_leaves']} tensors a rank, {i8[0]['bytes']} "
           f"bytes in the shard files) saved in {i8[0]['save_s']:.1f} s, "
           f"zeroed and restored in {i8[0]['restore_s']:.1f} s: "
           f"{[x['restored_equal'] for x in i8]} of {i8[0]['leaves']} "
@@ -3178,6 +3215,13 @@ TP_MOE_TOKENS = (1, 256)         # (d): a few hundred tokens
 TP_LAUNCH = ("-m", "repro_torch.launch.train", "--distributed", "--arch",
              "qwen2-1.5b-gspn", "--batch", str(TRAIN_BATCH), "--seq",
              str(TRAIN_SEQ))
+# (f): the recurrent kinds at full width and SSM_UNITS' depth, f32, remat
+# unit, on (data 1, model 2): {arch: the training step's 1 x length}
+# (xlstm's sLSTM runs token by token, hence its shorter step), then a
+# prefill of TP_REC_PROMPT tokens and TP_REC_DECODE greedy decode steps.
+TP_REC = {"zamba2-2.7b": 4096, "xlstm-1.3b": 1024}
+TP_REC_PROMPT = 1024
+TP_REC_DECODE = 8
 
 
 def _tp_moe_cfg(m):
@@ -3187,6 +3231,17 @@ def _tp_moe_cfg(m):
     from repro_torch.configs.grok_1_314b import full
     return with_precision(dataclasses.replace(
         full(m), n_layers=1, unit=(("attn_moe", 1),)), "f32")
+
+
+def _tp_rec_cfg(arch):
+    """(f)'s config: the arch's full width cut to SSM_UNITS' units, the
+    f32 policy, remat unit."""
+    from repro_torch.configs.base import get_arch, with_precision
+    cfg = get_arch(arch).full()
+    units = SSM_UNITS[arch]
+    return dataclasses.replace(
+        with_precision(cfg, "f32"), n_units=units, remat="unit",
+        n_layers=cfg.n_layers // cfg.n_units * units)
 
 
 def _tp_batch(cfg, seq=TRAIN_SEQ, batch=1, seed=0):
@@ -3208,13 +3263,57 @@ def _samples(params, grads, rng_seed):
             "grad_max": {n: g.abs().max().item() for n, g in grads.items()}}
 
 
-def _tp_reordered(model, batch, grads) -> dict:
-    """{leaf: the largest distance between its gradient ``grads`` and the
-    one rank's gradient once more in another reduction order}: the FFN's
-    hidden units and the vocabulary taken in a seeded permutation (the
-    same function; the sums over d_ff and over the vocabulary, those the
-    model axis splits, run in another order), the gradients read back in
-    the model's own layout.  The weights are put back bit for bit."""
+def _head_perms(name, mod, gen) -> dict:
+    """{leaf: (dim, permutation)} that relabels the heads of a recurrent
+    mixer ``mod`` (at module path ``name``) in a seeded order: every
+    column, channel, row and vector that belongs to a head moves with it;
+    Mamba-2's B and C, shared by the heads, stay.  Empty for another
+    module."""
+    from repro_torch.models.ssm import Mamba2
+    from repro_torch.models.xlstm import MLSTM, SLSTM
+
+    if not isinstance(mod, (Mamba2, MLSTM, SLSTM)):
+        return {}
+    cfg = mod.cfg
+    nh = cfg.n_heads
+    width = cfg.dim if isinstance(mod, SLSTM) else cfg.d_inner
+    hd = width // nh
+    hp = torch.randperm(nh, device="cuda", generator=gen)
+    cp = (hp[:, None] * hd + torch.arange(hd, device="cuda")).flatten()
+
+    def ar(lo, hi):
+        return torch.arange(lo, hi, device="cuda")
+
+    p = f"{name}."
+    if isinstance(mod, Mamba2):
+        di, ns = cfg.d_inner, cfg.d_state
+        chans = torch.cat([cp, ar(di, di + 2 * ns)])
+        return {p + "in_proj": (1, torch.cat([cp, di + cp, ar(
+                    2 * di, 2 * di + 2 * ns), 2 * di + 2 * ns + hp])),
+                p + "conv.w": (0, chans), p + "conv.b": (0, chans),
+                p + "a_log": (0, hp), p + "dt_bias": (0, hp),
+                p + "d_skip": (0, hp), p + "norm.scale": (0, cp),
+                p + "out_proj": (0, cp)}
+    if isinstance(mod, MLSTM):
+        di = cfg.d_inner
+        return {p + "in_proj": (1, torch.cat(
+                    [g * di + cp for g in range(4)]
+                    + [4 * di + hp, 4 * di + nh + hp])),
+                p + "norm.scale": (0, cp), p + "out_proj": (0, cp)}
+    gates = torch.cat([g * width + cp for g in range(4)])
+    return {p + "w_in": (1, gates), p + "b": (0, gates), p + "r": (1, hp),
+            p + "out_proj": (0, cp)}
+
+
+def _tp_reordered(model, batch, grads) -> tuple:
+    """({leaf: the largest distance between its gradient ``grads`` and the
+    one rank's gradient once more in another reduction order}, the
+    relative distance between the two gradients' global norms): the FFN's
+    hidden units, the vocabulary and the recurrent mixers' heads taken in
+    a seeded permutation (the same function; the sums over d_ff, over the
+    vocabulary and over a mixer's inner width, those the model axis
+    splits, run in another order), the gradients read back in the
+    model's own layout.  The weights are put back bit for bit."""
     from repro_torch.models import lm
 
     params = dict(model.named_parameters())
@@ -3230,6 +3329,8 @@ def _tp_reordered(model, batch, grads) -> dict:
             perms[n] = (1, hidden)
         elif n.endswith("ffn.down"):
             perms[n] = (0, hidden)
+    for name, mod in model.named_modules():
+        perms.update(_head_perms(name, mod, gen))
     saved = {n: params[n].detach().clone() for n in perms}
     inv = torch.argsort(vocab)
     with torch.no_grad():
@@ -3250,7 +3351,12 @@ def _tp_reordered(model, batch, grads) -> dict:
             dim, pi = perms[n]
             g = g.index_select(dim, torch.argsort(pi))
         out[n] = (g - grads[n]).abs().max().item()
-    return out
+
+    def norm(gs):
+        return math.sqrt(sum(g.double().square().sum().item()
+                             for g in gs.values()))
+
+    return out, abs(norm(again) / norm(grads) - 1.0)
 
 
 def _tp_reference(path: pathlib.Path) -> dict:
@@ -3259,18 +3365,63 @@ def _tp_reference(path: pathlib.Path) -> dict:
     with its loss, gradient norm and a seeded sample of every leaf; then
     (d)'s grok layer at M = 1: loss, aux and sampled gradients at
     1 x 256.  Saved to ``path`` for the ranks."""
+    from repro_torch.models import lm
+
+    ref = _tp_one_rank(_dp_cfg(), TRAIN_SEQ)
+
+    # (d) grok's layer at M = 1.
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    moe_cfg = _tp_moe_cfg(1)
+    model = lm.LM(moe_cfg, device="cuda", generator=torch.Generator(
+        device="cuda").manual_seed(TP_SEED))
+    params = dict(model.named_parameters())
+    ref["moe_bytes"] = {n: p.numel() * p.element_size()
+                        for n, p in params.items()}
+    loss, metrics = lm.lm_loss(model, _tp_batch(moe_cfg, TP_MOE_TOKENS[1],
+                                                TP_MOE_TOKENS[0]))
+    grads = dict(zip(params, torch.autograd.grad(loss, list(
+        params.values()))))
+    ref["moe"] = _samples(params, grads, TP_SEED + 1)
+    ref["moe"].update(loss=loss.detach().item(),
+                      aux=metrics["aux"].detach().item())
+    torch.cuda.synchronize()
+    ref["moe_s"] = time.perf_counter() - t0
+    ref["moe_peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    del model, params, grads, loss, metrics
+    torch.cuda.empty_cache()
+
+    # (f) the recurrent kinds.
+    ref["rec"] = {}
+    for arch, seq in TP_REC.items():
+        t0 = time.perf_counter()
+        cfg = _tp_rec_cfg(arch)
+        ref["rec"][arch] = _tp_one_rank(cfg, seq)
+        ref["rec"][arch]["serve"] = _tp_rec_serve_one_rank(cfg)
+        ref["rec"][arch]["s"] = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+    torch.save(ref, path)
+    return ref
+
+
+def _tp_one_rank(cfg, seq) -> dict:
+    """The one-rank side of a model-axis step check, in this process:
+    the seeded model's leaf sums and shapes, the counted loss and
+    gradients at 1 x ``seq``, one AdamW step with its loss, gradient norm
+    and a seeded sample of every leaf, and the noise control of (c)."""
     from repro_torch.kernels import cuda_lib
     from repro_torch.models import lm
     from repro_torch.optim.adamw import lr_at
     from repro_torch.train.step import make_train_setup
 
-    cfg = _dp_cfg()
+    torch.cuda.reset_peak_memory_stats()
     setup = make_train_setup(cfg, _dp_opt(), device="cuda", seed=TP_SEED)
     model = setup.model
     params = dict(model.named_parameters())
     ref = {"sums": {n: p.double().sum().item() for n, p in params.items()},
-           "shapes": {n: list(p.shape) for n, p in params.items()}}
-    batch = _tp_batch(cfg)
+           "shapes": {n: list(p.shape) for n, p in params.items()},
+           "seq": seq}
+    batch = _tp_batch(cfg, seq)
     cuda_lib.clear_counts()
     loss, _ = lm.lm_loss(model, batch)
     grads = dict(zip(params, torch.autograd.grad(loss, list(
@@ -3281,7 +3432,8 @@ def _tp_reference(path: pathlib.Path) -> dict:
     ref["plain"] = sum(cuda_lib.plain_calls.values())
     ref["step"] = _samples(params, grads, TP_SEED)
     del loss
-    ref["step"]["reorder"] = _tp_reordered(model, batch, grads)
+    ref["step"]["reorder"], ref["step"]["reorder_norm"] = _tp_reordered(
+        model, batch, grads)
     del grads
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -3313,30 +3465,51 @@ def _tp_reference(path: pathlib.Path) -> dict:
         for a in [ref["step"]["reorder"][n]]}
     del setup, model, params
     torch.cuda.empty_cache()
-
-    # (d) grok's layer at M = 1.
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    moe_cfg = _tp_moe_cfg(1)
-    model = lm.LM(moe_cfg, device="cuda", generator=torch.Generator(
-        device="cuda").manual_seed(TP_SEED))
-    params = dict(model.named_parameters())
-    ref["moe_bytes"] = {n: p.numel() * p.element_size()
-                        for n, p in params.items()}
-    loss, metrics = lm.lm_loss(model, _tp_batch(moe_cfg, TP_MOE_TOKENS[1],
-                                                TP_MOE_TOKENS[0]))
-    grads = dict(zip(params, torch.autograd.grad(loss, list(
-        params.values()))))
-    ref["moe"] = _samples(params, grads, TP_SEED + 1)
-    ref["moe"].update(loss=loss.detach().item(),
-                      aux=metrics["aux"].detach().item())
-    torch.cuda.synchronize()
-    ref["moe_s"] = time.perf_counter() - t0
-    ref["moe_peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
-    del model, params, grads, loss, metrics
-    torch.cuda.empty_cache()
-    torch.save(ref, path)
     return ref
+
+
+def _tp_rec_tokens(cfg, batch=1):
+    gen = torch.Generator(device="cuda").manual_seed(TP_SEED + 3)
+    return torch.randint(0, cfg.vocab, (1, TP_REC_PROMPT), device="cuda",
+                         generator=gen).expand(batch, TP_REC_PROMPT)
+
+
+def _tp_rec_greedy(model, tokens, ctx=None, after=None):
+    """:func:`_rl_greedy` over TP_REC_DECODE steps, each call timed: (the
+    last logits of row 0, the tokens chosen, each call's ms).
+    ``after(what, caches)`` sees the caches after each call."""
+    ms = []
+
+    def timed(what, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        if after is not None:
+            after(what, out[1])
+        return out
+
+    logits, chosen, _ = _rl_greedy(model, tokens,
+                                   TP_REC_PROMPT + TP_REC_DECODE, ctx, timed,
+                                   TP_REC_DECODE)
+    return logits, chosen, ms
+
+
+def _tp_rec_serve_one_rank(cfg) -> dict:
+    """(f)'s serving reference: the seeded model's greedy run on one rank
+    at batch 1, and its own rounding noise: the same run over a batch of
+    two copies of the prompt (other product shapes, the same function),
+    row 0's largest distance from batch 1's over the largest logit."""
+    from repro_torch.models import lm
+    model = lm.LM(cfg, device="cuda", generator=torch.Generator(
+        device="cuda").manual_seed(TP_SEED))
+    logits, chosen, ms = _tp_rec_greedy(model, _tp_rec_tokens(cfg))
+    twin, _, _ = _tp_rec_greedy(model, _tp_rec_tokens(cfg, 2))
+    del model
+    torch.cuda.empty_cache()
+    return {"logits": logits, "tokens": chosen, "ms": ms,
+            "noise": _rel_err(twin, logits)}
 
 
 def _tp_placements(setup, ref):
@@ -3418,13 +3591,14 @@ def _tp_hidden(setup):
 
 
 def _tp_step(setup, ref, rank, note):
-    """(b) and (c): the first step from the seed, counted and timed with
-    its collectives, against the one-rank step."""
+    """(b) and (c) (and (f)'s step): the first step from the seed at 1 x
+    ``ref["seq"]``, counted and timed with its collectives, against the
+    one-rank step ``ref``."""
     import torch.distributed as dist
     from repro_torch.kernels import cuda_lib
     from repro_torch.parallel import collectives
 
-    batch = _tp_batch(_dp_cfg())
+    batch = _tp_batch(setup.model.cfg, ref["seq"])
     cuda_lib.clear_counts()
     collectives.clear_staged()
     torch.cuda.synchronize()
@@ -3439,6 +3613,7 @@ def _tp_step(setup, ref, rank, note):
                      cuda_lib.launch_shapes.items()},
         "plain": sum(cuda_lib.plain_calls.values()),
         "staged_bytes": dict(collectives.staged_bytes),
+        "link_bytes": dict(collectives.link_bytes),
         "collective_s": dict(collectives.staged_seconds)}}
     note(f"step, {dt * 1e3:.1f} ms, counted collectives "
          f"{dict(collectives.staged_seconds)} s")
@@ -3538,11 +3713,71 @@ def _tp_moe(ref, rank, note):
             "worst": worst[:6]}
 
 
+def _tp_rec(arch, ref, rank, note):
+    """(f) on this rank: the arch's setup on (data 1, model 2) from the
+    seed, its placements, its first step against the one rank's, then
+    the seeded model sharded: the greedy prefill and decode steps, each
+    call's collective bytes, and the digests of every cache leaf that the
+    axis keeps whole (all but the KV caches) after each call."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_mesh_for_devices
+    from repro_torch.models import lm
+    from repro_torch.parallel import collectives
+    from repro_torch.parallel.tensor_parallel import (HeadParallel,
+                                                      shard_model)
+    from repro_torch.train.step import make_train_setup
+
+    cfg = _tp_rec_cfg(arch)
+    mesh = make_mesh_for_devices(range(TP_RANKS), model_parallel=TP_RANKS,
+                                 device_type="cuda")
+    torch.cuda.reset_peak_memory_stats()
+    setup = make_train_setup(cfg, _dp_opt(), mesh=mesh, device="cuda",
+                             seed=TP_SEED)
+    out = {"placements": _tp_placements(setup, ref),
+           "paths": sorted({f"{type(m).__name__}: "
+                            f"{'whole' if m._own() is None else 'heads'}"
+                            for m in setup.model.modules()
+                            if isinstance(m, HeadParallel)})}
+    out.update(_tp_step(setup, ref, rank, note))
+    del setup
+    gc.collect()
+    torch.cuda.empty_cache()
+    note(f"{arch} step")
+    model = lm.LM(cfg, device="cuda", generator=torch.Generator(
+        device="cuda").manual_seed(TP_SEED))
+    shard_model(model, mesh)
+    digests, calls = [], {}
+
+    def after(what, caches):
+        calls[what] = {"staged": sum(collectives.staged_bytes.values()),
+                       "link": sum(collectives.link_bytes.values())}
+        collectives.clear_staged()
+        digests.append({f"{k}/{n}": _digest(t) for k, sub in caches.items()
+                        for n, t in sub.items() if n not in ("k", "v")})
+
+    collectives.clear_staged()
+    logits, chosen, ms = _tp_rec_greedy(model, _tp_rec_tokens(cfg),
+                                        lm.Ctx(mesh=mesh), after)
+    every = [None] * TP_RANKS
+    dist.all_gather_object(every, digests)
+    out.update(serve_ms=ms, tokens=chosen, calls=calls,
+               caches_equal=[all(e[i] == digests[i] for e in every)
+                             for i in range(len(digests))],
+               leaves=len(digests[0]))
+    if rank == 0:
+        out["serve_err"] = _rel_err(logits, ref["serve"]["logits"])
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    note(f"{arch} prefill and decode")
+    return out
+
+
 def tp_worker(mode: str, out: str) -> None:
     """One rank of the lm tp phase, started by :func:`_spawn_ranks`: joins
     the gloo group the ranks share, builds the setup on (data 1, model 2)
-    from the seed, runs (a), (b), (c) and (d), and on rank 0 writes every
-    rank's results to ``out``."""
+    from the seed, runs (a), (b), (c), (d) and (f), and on rank 0 writes
+    every rank's results to ``out``."""
     sys.path.insert(0, str(ROOT / "src"))
     import torch.distributed as dist
     from repro_torch.launch.mesh import init_distributed, make_mesh_for_devices
@@ -3576,6 +3811,10 @@ def tp_worker(mode: str, out: str) -> None:
     torch.cuda.empty_cache()
     res["moe"] = _tp_moe(ref, rank, note)
     note("moe")
+    gc.collect()
+    torch.cuda.empty_cache()
+    res["rec"] = {arch: _tp_rec(arch, ref["rec"][arch], rank, note)
+                  for arch in TP_REC}
     every = [None] * TP_RANKS
     dist.all_gather_object(every, res)
     dist.destroy_process_group()
@@ -3596,13 +3835,100 @@ def _tp_launch(extra, ckpt) -> tuple:
     return losses, start, mesh, lines
 
 
+def _tp_rec_report(arch, ref, ranks, smi) -> list:
+    """(f)'s lines for ``arch`` and the names of its failed checks."""
+    fails = []
+    cfg = _tp_rec_cfg(arch)
+    r0, seq = ranks[0], ref["seq"]
+    pl, s0 = r0["placements"], r0["step0"]
+    print(f"lm tp (f) {arch} ({smi}): full width, {cfg.n_units} of its "
+          f"units ({cfg.layer_count()} blocks applied), f32, remat unit, on "
+          f"(data 1, model 2), mixers {r0['paths']}; one rank set-up and "
+          f"checks {ref['s']:.1f} s; {pl['n_sharded']} of {pl['n_params']} "
+          f"parameters sharded over model, shape faults "
+          f"{pl['bad'][:3] + ranks[1]['placements']['bad'][:3]}, seed "
+          f"faults {pl['seed_bad'][:3]}; bytes a rank: parameters "
+          f"{pl['bytes']['params']} (one rank "
+          f"{pl['one_rank_bytes']['params']})", flush=True)
+    if any(r["placements"]["bad"] or r["placements"]["seed_bad"]
+           for r in ranks) or not pl["n_sharded"]:
+        fails.append(f"(f) {arch} placements")
+    rel = abs(s0["loss"] - ref["loss"]) / abs(ref["loss"])
+    gn = abs(s0["grad_norm"] - ref["grad_norm"]) / ref["grad_norm"]
+    shares = sorted(a / max(ref["step"]["grad_max"][n], 1e-30)
+                    for n, a in ref["step"]["reorder"].items())
+    # grad_norm's bar: (c)'s 1e-6, or four times the relative distance
+    # between the one rank's gradient norm and that of its reordered
+    # gradient (the noise control's), measured in this run.
+    gn_bar = max(1e-6, 4 * ref["step"]["reorder_norm"])
+    for r, res in enumerate(ranks):
+        st = res["step0"]
+        coll = sum(st["collective_s"].values()) * 1e3
+        by = {k: round(v * 1e3, 1) for k, v in st["collective_s"].items()}
+        print(f"lm tp (f) {arch} step rank {r} ({smi}): 1 x {seq}, the "
+              f"first step from the seed {st['ms']:.1f} ms (one rank "
+              f"{ref['step_ms']:.1f} ms), of which the counted collectives "
+              f"{coll:.1f} ms ({coll / st['ms']:.3f}) {by}, "
+              f"bytes through host memory {sum(st['staged_bytes'].values())} "
+              f"{st['staged_bytes']}, on the rank's links "
+              f"{sum(st['link_bytes'].values())}; peak "
+              f"{res['peak_gib']:.2f} GiB (one rank {ref['peak_gib']:.2f}); "
+              f"launches {st['launches']}, plain {st['plain']}", flush=True)
+    print(f"lm tp (f) {arch} step vs one rank: loss {s0['loss']:.7f} vs "
+          f"{ref['loss']:.7f} (relative {rel:.3e}, tol 1e-5), grad_norm "
+          f"{s0['grad_norm']:.7f} vs {ref['grad_norm']:.7f} (relative "
+          f"{gn:.3e}, tol {gn_bar:.3e}: 1e-6 or 4x the reordered one "
+          f"rank's {ref['step']['reorder_norm']:.3e}); of {r0['sampled']} "
+          f"sampled parameter elements {r0['sample_off']} off by more than "
+          f"1e-5 of their leaf's largest, {r0['sample_noise']} of them "
+          f"within (c)'s noise "
+          f"control (vocabulary{' and d_ff' if cfg.d_ff else ''} permuted: "
+          f"{shares[-1]:.3e} of a leaf's largest gradient at most, median "
+          f"{shares[len(shares) // 2]:.3e}), {r0['sample_bad']} otherwise "
+          f"(tol 0) {r0['sample_worst'] + ranks[1]['sample_worst']}",
+          flush=True)
+    if rel > 1e-5 or gn > gn_bar or r0["sample_bad"] or \
+            r0["sampled"] != TP_SAMPLES * len(ref["step"]["idx"]) or \
+            any(r["step0"]["launches"] or r["step0"]["plain"]
+                for r in ranks):
+        fails.append(f"(f) {arch} step")
+    sv = ref["serve"]
+    bar = max(1e-4, 4 * sv["noise"])
+    calls = r0["calls"]
+    dec = [calls[f"decode {i}"] for i in range(TP_REC_DECODE)]
+    equal = [all(r["caches_equal"][i] for r in ranks)
+             for i in range(TP_REC_DECODE + 1)]
+    print(f"lm tp (f) {arch} serve ({smi}): lm_prefill of 1 x "
+          f"{TP_REC_PROMPT} and {TP_REC_DECODE} greedy lm_decode_steps on "
+          f"(data 1, model 2) vs one rank: last logits "
+          f"{r0['serve_err']:.3e} of the largest (bar {bar:.3e}: 1e-4 or "
+          f"4x the one rank's own noise {sv['noise']:.3e}, batch 2 vs 1), "
+          f"tokens {r0['tokens']} vs {sv['tokens']}; the {r0['leaves']} "
+          f"whole cache leaves bit-equal on both ranks after each call "
+          f"{equal}; "
+          f"prefill {r0['serve_ms'][0]:.1f} / {ranks[1]['serve_ms'][0]:.1f} "
+          f"ms a rank (one rank {sv['ms'][0]:.1f}), decode step median "
+          f"{statistics.median(r0['serve_ms'][1:]):.1f} ms (one rank "
+          f"{statistics.median(sv['ms'][1:]):.1f}); collective bytes a "
+          f"rank: prefill {calls['prefill']['staged']} through host memory "
+          f"({calls['prefill']['link']} on its links), a decode step "
+          f"{dec[0]['staged']} ({dec[0]['link']})", flush=True)
+    if r0["serve_err"] > bar or r0["tokens"] != sv["tokens"] or \
+            ranks[1]["tokens"] != sv["tokens"] or not all(equal):
+        fails.append(f"(f) {arch} serve")
+    return fails
+
+
 def tp_phase():
     """Tensor parallelism at full width on (data 1, model 2): (a)
     placements and the seed, (b) a counted step on each rank, (c) that
     step against the one-rank step and the ranks' hidden states bit for
-    bit, (d) grok's expert-parallel layer against one rank, (e) the
-    launcher with --distributed, which now builds the model axis, and its
-    resume from the model-sharded checkpoint."""
+    bit, (d) grok's expert-parallel layer against one rank, (f) the
+    recurrent kinds (zamba2-2.7b and xlstm-1.3b, SSM_UNITS' depth):
+    placements, a step and a greedy prefill and decode against one rank,
+    the caches bit-equal across ranks, (e) the launcher with
+    --distributed, which now builds the model axis, and its resume from
+    the model-sharded checkpoint."""
     import shutil
 
     out_dir = ROOT / "build" / "tp"
@@ -3705,6 +4031,9 @@ def tp_phase():
     if lrel > 1e-5 or arel > 1e-5 or mo[0]["bad"] or mo[0]["sampled"] != \
             TP_SAMPLES * len(ref["moe"]["idx"]):
         fails.append("(d)")
+    for arch in TP_REC:
+        fails += _tp_rec_report(arch, ref["rec"][arch],
+                                [res["rec"][arch] for res in ranks], smi)
     print(f"lm tp ranks: {time.perf_counter() - t0:.1f} s", flush=True)
 
     # (e) The launcher, its own policy, with int8_ef (each leaf's scale
@@ -5140,24 +5469,26 @@ def _rl_tokens(cfg, prompt, device):
         .to(device)
 
 
-def _rl_greedy(model, tokens, max_len, ctx=None, counted=None):
-    """``lm_prefill`` of ``tokens`` then RL_DECODE greedy decode steps:
-    (every step's last logits (RL_DECODE + 1, V) on the host, the tokens
-    chosen, the prefill's caches).  ``counted(what, fn)`` wraps each
-    call."""
+def _rl_greedy(model, tokens, max_len, ctx=None, counted=None,
+               steps=RL_DECODE):
+    """``lm_prefill`` of ``tokens`` then ``steps`` greedy decode steps, row
+    0's choice fed to every row: (every step's last logits of row 0
+    (steps + 1, V) on the host, the tokens chosen, the prefill's caches).
+    ``counted(what, fn)`` wraps each call."""
     from repro_torch.models import lm
     counted = counted or (lambda what, fn: fn())
     with torch.no_grad():
         logits, caches = counted("prefill", lambda: lm.lm_prefill(
             model, tokens, max_len, ctx=ctx))
         first = caches
-        last = [logits[:, -1].float().cpu()]
+        last = [logits[:1, -1].float().cpu()]
         chosen = [int(logits[0, -1].argmax())]
-        for i in range(RL_DECODE):
-            tok = torch.tensor([[chosen[-1]]], device=tokens.device)
+        for i in range(steps):
+            tok = torch.full((tokens.shape[0], 1), chosen[-1],
+                             device=tokens.device)
             logits, caches = counted(f"decode {i}", lambda: lm.lm_decode_step(
                 model, tok, caches, ctx=ctx))
-            last.append(logits[:, -1].float().cpu())
+            last.append(logits[:1, -1].float().cpu())
             chosen.append(int(logits[0, -1].argmax()))
     return torch.cat(last), chosen, first
 

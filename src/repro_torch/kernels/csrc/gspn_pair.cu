@@ -187,6 +187,43 @@
 
 #include "gspn_cell.cuh"
 
+// The library is compiled from this file in four parts side by side
+// (kernels/cuda_lib.py), each object instantiating only its own part's
+// kernels: GSPN_PART = 0 the float forward and the C entry points, 1 the
+// bfloat16 forward, 2 the float adjoint, 3 the bfloat16 adjoint.  The parts
+// meet at the functions below, whose arguments are the C entry points' own.
+// The host helpers that only the C entry points call are [[maybe_unused]] in
+// the other parts.
+#ifndef GSPN_PART
+#error "compile with -DGSPN_PART=0..3 (kernels/cuda_lib.py)"
+#endif
+#define GSPN_HAS_PART(p) (GSPN_PART == (p))
+
+namespace gspn {
+
+struct FwdArgs {
+  int ndir;
+  const void *x, *wl, *wc, *wr, *lam;
+  void* out;
+  int G, H, W, cpw, chunk, planes, warps, k, splits, batch, nbuf, xpitch, smem;
+  void* stream;
+};
+
+struct BwdArgs {
+  int ndir;
+  const void *dy, *wl, *wc, *wr;
+  void* g;
+  int G, H, W, cpw, chunk, planes, warps, k, splits, batch, nbuf, bands, direct, smem;
+  void* stream;
+};
+
+cudaError_t fwd_f32(const FwdArgs& a);   // part 0
+cudaError_t fwd_bf16(const FwdArgs& a);  // part 1
+cudaError_t bwd_f32(const BwdArgs& a);   // part 2
+cudaError_t bwd_bf16(const BwdArgs& a);  // part 3
+
+}  // namespace gspn
+
 namespace {
 
 using gspn::from_f32;
@@ -214,18 +251,21 @@ __host__ __device__ inline int region_bytes(int rows, int W, int item) {
 // 4-byte words one column-slab run of `rows` items may cover: a bf16 run
 // that starts mid-word takes one more half word.  The slab's pitch is at
 // least this.
-__host__ __device__ inline int slab_words(int rows, int item) {
+[[maybe_unused]] __host__ __device__ inline int slab_words(int rows, int item) {
   return (rows * item + (item < 4 ? 2 : 0) + 3) / 4;
 }
 
 // Bytes of the banded adjoint's edge products after the ring: two row
 // parities of Pl and Pr per warp.
-__host__ __device__ inline int edge_bytes(int warps) { return 2 * 2 * 4 * warps; }
+[[maybe_unused]] __host__ __device__ inline int edge_bytes(int warps) {
+  return 2 * 2 * 4 * warps;
+}
 
 // Bytes of a forward region over D directions: rows, or for D = 4 the
 // larger of rows and a column slab of W runs at `pitch` words, so that one
 // stage layout serves the launch's row and slab directions alike.
-__host__ __device__ inline int fwd_region_bytes(int D, int rows, int W, int item, int pitch) {
+[[maybe_unused]] __host__ __device__ inline int fwd_region_bytes(int D, int rows, int W, int item,
+                                                                  int pitch) {
   const int r = region_bytes(rows, W, item);
   const int slab = (W * pitch * 4 + 15) / 16 * 16;
   return D == 4 && slab > r ? slab : r;
@@ -831,9 +871,10 @@ gspn_bwd_kernel(const T* __restrict__ dy, const T* __restrict__ wl, const T* __r
 // plane, K <= 4 per lane, a named barrier per plane (at most 15 planes);
 // direct (kDirect), a CTA walks `bands` windows of 32K columns of each of
 // its planes, K <= 4, each window storing 32K - 2H >= 1 of them.
-cudaError_t check_shape(int G, int H, int W, int cpw, int P, int warps, int k, int splits,
-                        int batch, int nbuf, int smem, long stage_bytes, int bands = 1,
-                        long extra = 0, bool direct = false) {
+[[maybe_unused]] cudaError_t check_shape(int G, int H, int W, int cpw, int P, int warps, int k,
+                                         int splits, int batch, int nbuf, int smem,
+                                         long stage_bytes, int bands = 1, long extra = 0,
+                                         bool direct = false) {
   const bool k_ok = k == 1 || k == 2 || k == 4 || k == 8 || k == 16 || k == 32;
   const bool bands_ok = bands == 1 || ((bands == 2 || bands == 4 || bands == 8 ||
                                         bands == 16 || bands == 32) &&
@@ -951,7 +992,41 @@ cudaError_t dispatch_bwd(const void* dy, const void* wl, const void* wc, const v
   return cudaErrorInvalidValue;
 }
 
+template <typename T>
+cudaError_t run_fwd(const gspn::FwdArgs& a) {
+  const Shape sh{a.planes, a.warps, a.k, a.splits, a.batch, a.nbuf, a.xpitch, a.smem};
+  return dispatch_ndir<T>(a.ndir, a.x, a.wl, a.wc, a.wr, a.lam, a.out, a.G, a.H, a.W, a.cpw,
+                          a.chunk, sh, static_cast<cudaStream_t>(a.stream));
+}
+
+template <typename T>
+cudaError_t run_bwd(const gspn::BwdArgs& a) {
+  const Shape sh{a.planes, a.warps, a.k, a.splits, a.batch, a.nbuf, 0, a.smem, a.bands,
+                 a.direct};
+  const cudaStream_t s = static_cast<cudaStream_t>(a.stream);
+  return a.ndir == 1
+             ? dispatch_bwd<1, T>(a.dy, a.wl, a.wc, a.wr, a.g, a.G, a.H, a.W, a.cpw, a.chunk,
+                                  sh, s)
+             : dispatch_bwd<2, T>(a.dy, a.wl, a.wc, a.wr, a.g, a.G, a.H, a.W, a.cpw, a.chunk,
+                                  sh, s);
+}
+
 }  // namespace
+
+#if GSPN_HAS_PART(0)
+cudaError_t gspn::fwd_f32(const FwdArgs& a) { return run_fwd<float>(a); }
+#endif
+#if GSPN_HAS_PART(1)
+cudaError_t gspn::fwd_bf16(const FwdArgs& a) { return run_fwd<__nv_bfloat16>(a); }
+#endif
+#if GSPN_HAS_PART(2)
+cudaError_t gspn::bwd_f32(const BwdArgs& a) { return run_bwd<float>(a); }
+#endif
+#if GSPN_HAS_PART(3)
+cudaError_t gspn::bwd_bf16(const BwdArgs& a) { return run_bwd<__nv_bfloat16>(a); }
+#endif
+
+#if GSPN_HAS_PART(0)
 
 // The forward over ndir = 1, 2 or 4 directions (4: a square grid, no chunk).
 // dtype: 0 = float32, 1 = bfloat16.  chunk <= 0: no reset.  planes, warps,
@@ -964,8 +1039,6 @@ extern "C" int gspn_fwd_launch(int ndir, int dtype, const void* x, const void* w
                                int G, int H, int W, int cpw, int chunk, int planes, int warps,
                                int k, int splits, int batch, int nbuf, int xpitch, int smem,
                                void* stream) {
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const Shape sh{planes, warps, k, splits, batch, nbuf, xpitch, smem};
   const int item = dtype == 1 ? 2 : 4;
   const bool quad = ndir == 4;
   if ((ndir != 1 && ndir != 2 && !quad) || dtype < 0 || dtype > 1 ||
@@ -976,12 +1049,9 @@ extern "C" int gspn_fwd_launch(int ndir, int dtype, const void* x, const void* w
       check_shape(G, H, W, cpw, planes, warps, k, splits, batch, nbuf, smem,
                   (3L + 2 * planes) * fwd_region_bytes(ndir, batch, W, item, xpitch));
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (dtype == 0)
-    err = dispatch_ndir<float>(ndir, x, wl, wc, wr, lam, out, G, H, W, cpw, chunk, sh, s);
-  else
-    err = dispatch_ndir<__nv_bfloat16>(ndir, x, wl, wc, wr, lam, out, G, H, W, cpw, chunk, sh,
-                                       s);
-  return static_cast<int>(err);
+  const gspn::FwdArgs a{ndir, x, wl, wc, wr, lam, out, G, H, W, cpw, chunk, planes, warps,
+                        k, splits, batch, nbuf, xpitch, smem, stream};
+  return static_cast<int>(dtype == 0 ? gspn::fwd_f32(a) : gspn::fwd_bf16(a));
 }
 
 // The adjoint over ndir = 1 or 2 directions.  dtype of dy and the taps: 0 =
@@ -995,8 +1065,6 @@ extern "C" int gspn_bwd_launch(int ndir, int dtype, const void* dy, const void* 
                                int cpw, int chunk, int planes, int warps, int k, int splits,
                                int batch, int nbuf, int bands, int direct, int smem,
                                void* stream) {
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const Shape sh{planes, warps, k, splits, batch, nbuf, 0, smem, bands, direct};
   const int item = dtype == 1 ? 2 : 4;
   if ((ndir != 1 && ndir != 2) || dtype < 0 || dtype > 1 || direct < 0 || direct > 1 ||
       (ndir == 2 && (bands != 1 || direct)))
@@ -1006,16 +1074,12 @@ extern "C" int gspn_bwd_launch(int ndir, int dtype, const void* dy, const void* 
       direct ? 0L : static_cast<long>(3 + planes) * region_bytes(batch, W, item), bands,
       bands > 1 && !direct ? edge_bytes(warps) : 0, direct);
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (dtype == 0)
-    err = ndir == 1 ? dispatch_bwd<1, float>(dy, wl, wc, wr, g, G, H, W, cpw, chunk, sh, s)
-                    : dispatch_bwd<2, float>(dy, wl, wc, wr, g, G, H, W, cpw, chunk, sh, s);
-  else
-    err = ndir == 1
-              ? dispatch_bwd<1, __nv_bfloat16>(dy, wl, wc, wr, g, G, H, W, cpw, chunk, sh, s)
-              : dispatch_bwd<2, __nv_bfloat16>(dy, wl, wc, wr, g, G, H, W, cpw, chunk, sh, s);
-  return static_cast<int>(err);
+  const gspn::BwdArgs a{ndir, dy, wl, wc, wr, g, G, H, W, cpw, chunk, planes, warps, k,
+                        splits, batch, nbuf, bands, direct, smem, stream};
+  return static_cast<int>(dtype == 0 ? gspn::bwd_f32(a) : gspn::bwd_bf16(a));
 }
 
 extern "C" const char* gspn_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
+#endif  // GSPN_HAS_PART(0)

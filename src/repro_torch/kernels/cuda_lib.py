@@ -5,7 +5,10 @@ shared library with a plain C interface and loaded with ``ctypes``.  The
 build happens at first use, never at import, into ``build/repro_torch/``
 at the root of the checkout, under a name keyed on a hash of the source
 and the flags (and of the headers under ``csrc/``), so a changed source is
-rebuilt and an unchanged one is reused.  ``build()`` starts one ``nvcc`` per missing library, all at once.
+rebuilt and an unchanged one is reused.  A source compiles in
+:data:`PARTS` parts side by side (``-DGSPN_PART=p``, each object
+instantiating its own part's kernels), then links them.  ``build()``
+starts every object's ``nvcc`` of every missing library at once.
 
 ``launch_counts`` counts kernel launches by kernel name and
 ``launch_shapes`` by name and operand shape (each wrapper adds one where it
@@ -37,8 +40,12 @@ import threading
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 SOURCES = {"gspn_pair": CSRC / "gspn_pair.cu"}
+# Parts of a source compiled side by side: gspn_pair.cu's float and
+# bfloat16 forward and adjoint, a quarter of its kernels each (one object
+# of them all took 105-134 s on the H100's host).
+PARTS = 4
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # C entry points of each library: name -> (restype, argtypes).
@@ -113,13 +120,20 @@ def nvcc_path() -> str:
 def library_path(name: str) -> pathlib.Path:
     text = SOURCES[name].read_bytes() + b"".join(
         h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
-    digest = hashlib.sha256(text + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    key = " ".join(NVCC_FLAGS) + f" parts={PARTS}"
+    digest = hashlib.sha256(text + key.encode()).hexdigest()
     return BUILD_DIR / f"{name}-{digest[:16]}.so"
+
+
+def _run(cmd) -> subprocess.Popen:
+    return subprocess.Popen([str(c) for c in cmd], stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
 
 
 def build(names=None) -> dict[str, pathlib.Path]:
     """Compile the named libraries (all by default) that are not built
-    yet, in parallel.  Raises with the compiler's output on failure."""
+    yet: every part's object at once, then each library's link.  Raises
+    with the compiler's output on failure."""
     names = list(SOURCES) if names is None else list(names)
     targets = {n: library_path(n) for n in names}
     todo = {n: t for n, t in targets.items() if not t.exists()}
@@ -127,22 +141,37 @@ def build(names=None) -> dict[str, pathlib.Path]:
         return targets
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = nvcc_path()
-    procs = {}
+    tag = f"{os.getpid()}.{threading.get_ident()}"
+    objs = {}
     for n, target in todo.items():
-        tmp = target.with_name(f"{target.name}.{os.getpid()}."
-                               f"{threading.get_ident()}.tmp")
-        procs[n] = (tmp, subprocess.Popen(
-            [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(SOURCES[n])],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+        objs[n] = []
+        for p in range(PARTS):
+            obj = target.with_name(f"{target.stem}.{p}.{tag}.o")
+            objs[n].append((obj, _run([nvcc, *NVCC_FLAGS, f"-DGSPN_PART={p}",
+                                       "-c", "-o", obj, SOURCES[n]])))
     failed = []
-    for n, (tmp, proc) in procs.items():
-        out, _ = proc.communicate()
-        build_logs[n] = out
-        if proc.returncode != 0:
-            failed.append(f"{n}: nvcc exited {proc.returncode}\n{out}")
-            tmp.unlink(missing_ok=True)
-        else:
-            os.replace(tmp, todo[n])
+    for n, target in todo.items():
+        logs, ok = [], True
+        for obj, proc in objs[n]:
+            out, _ = proc.communicate()
+            logs.append(out)
+            ok &= proc.returncode == 0
+        if ok:
+            tmp = target.with_name(f"{target.name}.{tag}.tmp")
+            link = _run([nvcc, "-shared", "-o", tmp,
+                         *(obj for obj, _ in objs[n])])
+            out, _ = link.communicate()
+            logs.append(out)
+            ok = link.returncode == 0
+            if ok:
+                os.replace(tmp, target)
+            else:
+                tmp.unlink(missing_ok=True)
+        for obj, _ in objs[n]:
+            obj.unlink(missing_ok=True)
+        build_logs[n] = "\n".join(logs)
+        if not ok:
+            failed.append(f"{n}: nvcc failed\n{build_logs[n]}")
     if failed:
         raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failed))
     return targets

@@ -20,9 +20,12 @@ memory: Python's dispatch of the ops is its cost.
 Sweep mode (``--all``) runs each cell in a subprocess, so a failing cell
 cannot take the sweep down, skips the cells whose JSON already says
 ``ok`` or ``skipped``, and exits 1 if any cell failed, as the
-reference's does.  The cells of a kind that the model axis does not run
-yet fail by design (``tensor_parallel.check_model_axis``, ROADMAP.md §1
-item 6.2) and are recorded as ``"error"``.
+reference's does.  The cells of the models that the model axis does
+not run yet (``qwen2-vl-72b``'s VL model and ``whisper-base``'s encoder
+and xattn kind) fail by design (``tensor_parallel.check_model_axis``,
+ROADMAP.md §1 item 6.2) and are recorded as ``"error"``.  Each cell
+stops after ``--timeout`` seconds, a cell of a model with the sLSTM
+after :data:`TOKEN_LOOP_TIMEOUT` times that.
 """
 
 from __future__ import annotations
@@ -166,7 +169,27 @@ def write_skip(arch, shape, mesh_mode, reason, out_dir):
                    "status": "skipped", "reason": reason}, f, indent=1)
 
 
+# A model with the sLSTM runs its token loop on ``meta`` one token's ops
+# at a time, each dispatched through Python: on one CPU core
+# xlstm-1.3b × train_4k took 62 min (multi) and 130 min (single), its
+# prefill_32k 20-22 min.  The sweep gives its cells this many times the
+# timeout.
+TOKEN_LOOP_TIMEOUT = 6
+
+
+def cell_timeout(kind: str, arch: str, timeout: int) -> int:
+    """The sweep's timeout of one cell, in seconds."""
+    from repro_torch.configs.base import get_arch
+    if kind == "lm" and any(k == "slstm" for _, k, _ in
+                            get_arch(arch).full().stages()):
+        return timeout * TOKEN_LOOP_TIMEOUT
+    return timeout
+
+
 def drive_all(mesh_modes, out_dir, timeout: int = 1800):
+    """Run every cell not yet ``ok`` or ``skipped`` in ``out_dir``, each
+    in a subprocess stopped after :func:`cell_timeout`; True when none
+    failed."""
     ok = fail = skip = cached = 0
     for kind, arch, shape, skip_reason in cell_matrix():
         for mm in mesh_modes:
@@ -187,12 +210,13 @@ def drive_all(mesh_modes, out_dir, timeout: int = 1800):
             if kind == "vision":
                 cmd.append("--vision")
             print(f"[sweep] {arch} × {shape} × {mm} ...", flush=True)
+            limit = cell_timeout(kind, arch, timeout)
             try:
-                r = subprocess.run(cmd, timeout=timeout)
+                r = subprocess.run(cmd, timeout=limit)
                 ok += int(r.returncode == 0)
                 fail += int(r.returncode != 0)
             except subprocess.TimeoutExpired:
-                write_skip(arch, shape, mm, f"run timeout {timeout}s",
+                write_skip(arch, shape, mm, f"run timeout {limit}s",
                            out_dir)
                 fail += 1
     print(f"[sweep] done: ok={ok} fail={fail} skipped={skip} "

@@ -246,7 +246,8 @@ def build_lm_cell(arch: str, shape_name: str, mesh, *,
                   reduced: bool = False) -> Cell:
     """The (arch, shape) cell of rank 0 on ``mesh`` (a ``DeviceMesh`` over
     the fake group, with a ``model`` axis).  Raises for a config the
-    model axis does not run yet (``check_model_axis``, ROADMAP.md §1 item
+    model axis does not run yet (the xattn kind, the encoder, the VL
+    model, ``gspn_impl="sp"``: ``check_model_axis``, ROADMAP.md §1 item
     6.2).  ``spec`` stands in for ``SHAPES[shape_name]`` and ``reduced``
     takes the arch's reduced config (at ``n_model_shards`` = the model
     extent), for small checks."""

@@ -434,12 +434,12 @@ class Attention(nn.Module):
 
     def _tp_project(self, xc, w, bias, ranges):
         """xc @ the columns ``ranges[rank]`` (head ranges, every rank's) of
-        ``w`` (+ the bias's) as (B, S, heads, D), through ``tp.take``."""
+        ``w`` (+ the bias's) as (B, S, heads, D), through ``tp.pick``."""
         cfg, cast, hd = self.cfg, self.policy.cast, self.cfg.hd
-        cols = [(a * hd, z * hd) for a, z in ranges]
-        y = xc @ cast(self.tp.take(self, w, cols))
+        cols = [[(a * hd, z * hd)] for a, z in ranges]
+        y = xc @ cast(self.tp.pick(self, w, cols))
         if cfg.qkv_bias:
-            y = y + cast(self.tp.take(self, bias, cols))
+            y = y + cast(self.tp.pick(self, bias, cols))
         return y.reshape(*xc.shape[:2], -1, hd)
 
     def _tp_all_heads(self, xc, w, bias, heads: int):

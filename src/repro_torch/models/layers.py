@@ -351,17 +351,23 @@ class CausalConv1d(nn.Module):
     def forward(self, x, state=None):
         """(y (B, S, C), the new state (B, k-1, C) when ``state`` is given,
         else None)."""
-        k = self.w.shape[-1]
-        w = self.w.float()[:, 0]                       # (C, k)
-        xf = x.float()
-        if state is not None:
-            xa = torch.cat([state.float(), xf], dim=1)
-            new_state = xa[:, xa.shape[1] - (k - 1):]
-        else:
-            xa = F.pad(xf, (0, 0, k - 1, 0))
-            new_state = None
-        s = x.shape[1]
-        y = xa[:, 0:s] * w[:, 0]
-        for j in range(1, k):
-            y = y + xa[:, j:j + s] * w[:, j]
-        return (y + self.b.float()).to(x.dtype), new_state
+        return causal_conv1d(x, self.w, self.b, state)
+
+
+def causal_conv1d(x, w, b, state=None):
+    """:class:`CausalConv1d`'s arithmetic with the weight ``w`` (C, 1, k)
+    and bias ``b`` (C,) given (a model-axis rank's channels of them)."""
+    k = w.shape[-1]
+    w = w.float()[:, 0]                                # (C, k)
+    xf = x.float()
+    if state is not None:
+        xa = torch.cat([state.float(), xf], dim=1)
+        new_state = xa[:, xa.shape[1] - (k - 1):]
+    else:
+        xa = F.pad(xf, (0, 0, k - 1, 0))
+        new_state = None
+    s = x.shape[1]
+    y = xa[:, 0:s] * w[:, 0]
+    for j in range(1, k):
+        y = y + xa[:, j:j + s] * w[:, j]
+    return (y + b.float()).to(x.dtype), new_state

@@ -509,7 +509,10 @@ class _MixerBlock(nn.Module):
     mixer's cache) and ``decode``.  There is no ``prefill_chunk``: the
     reference's prefill of these mixers starts from a zero state, so a
     model with one prefills in one shot (:func:`supports_chunked_prefill`).
-    A ``mesh`` is accepted and unused."""
+    A ``mesh`` is accepted and unused: under a model axis the mixer
+    carries it (``mix.tp``, set by ``parallel.tensor_parallel.
+    shard_model``), runs its own heads or the whole, and keeps the caches
+    whole on every rank."""
 
     def __init__(self, cfg: LMConfig, mixer, *, device):
         super().__init__()
@@ -932,7 +935,8 @@ def init_lm_cache(cfg: LMConfig, batch: int, max_len: int, *, device,
     ``model_axis`` (a sharded model's ``model.model_axis``) a KV cache is
     this rank's part, as ``parallel.sharding.cache_shardings`` places it:
     its kv heads where they divide the axis, else its slice of the
-    positions; the O(W) GSPN state is whole on every rank."""
+    positions; the O(W) GSPN state, the conv tails and SSM states of the
+    mamba kind and the mlstm and slstm states are whole on every rank."""
     def stacked(kind, lead):
         kw = {"model_axis": model_axis} if kind in ("attn", "attn_moe") \
             else {}
@@ -962,9 +966,10 @@ def lm_prefill(model: LM, tokens, max_len: int, *, ctx: Ctx | None = None,
     the first embeddings, as in :func:`apply_lm`, the positions stay
     ``arange(S)``, and the xattn blocks attend to ``enc_kv`` from
     :func:`lm_encode`.  Returns (logits (B, S, V), caches).  A model
-    sharded over a model axis (the gspn, attn and attn_moe kinds) runs its
-    layers as in training, fills this rank's part of each KV cache
-    (:func:`init_lm_cache`'s ``model_axis``) and gathers the logits."""
+    sharded over a model axis (every kind but xattn) runs its layers as
+    in training, fills this rank's part of each KV cache and the whole of
+    every other cache leaf (:func:`init_lm_cache`'s ``model_axis``) and
+    gathers the logits."""
     _check_ctx(model, ctx)
     x = model.embed_tokens(tokens, vision_embeds)
     caches = init_lm_cache(model.cfg, tokens.shape[0], max_len,
@@ -1019,12 +1024,12 @@ def lm_prefill_chunk(model: LM, tokens, caches, off: int, *,
     head: only the last chunk's logits feed sampling.  A model with a
     kind that has no chunked prefill (xattn, mamba, mlstm, slstm)
     raises."""
+    _unsharded(model, "lm_prefill_chunk")
     missing = sorted({kind for _, kind, _ in model.cfg.stages()
                       if not _has_chunk_path(kind)})
     if missing:
         raise ValueError(f"{model.cfg.name}: the {', '.join(missing)} "
                          f"kind has no chunked prefill; use lm_prefill")
-    _unsharded(model, "lm_prefill_chunk")
     x = model.embed_tokens(tokens)
     new = {k: {n: torch.empty_like(v) for n, v in sub.items()}
            for k, sub in caches.items()}
@@ -1042,8 +1047,9 @@ def lm_decode_step(model: LM, token, caches, *, ctx: Ctx | None = None,
     step is O(W) per gspn layer; the xattn blocks attend to ``enc_kv``
     from :func:`lm_encode`.  A model sharded over a model axis reads and
     writes this rank's part of each KV cache (split by kv heads or by
-    positions, ``models.attention.Attention.decode``) and gathers the
-    logits."""
+    positions, ``models.attention.Attention.decode``) and the whole of
+    every other leaf (the recurrent mixers gather their heads' new
+    states), and gathers the logits."""
     _check_ctx(model, ctx)
     x = model.embed_tokens(token)
     new = {k: {n: torch.empty_like(v) for n, v in sub.items()}

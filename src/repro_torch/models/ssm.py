@@ -32,10 +32,11 @@ import dataclasses
 
 import torch
 import torch.nn.functional as F
-from torch import nn
 
 from repro_torch.models.layers import (CausalConv1d, DTypePolicy, RMSNorm,
-                                       dense_init, new_param, ones, zeros)
+                                       causal_conv1d, dense_init, new_param,
+                                       ones, zeros)
+from repro_torch.parallel.tensor_parallel import HeadParallel
 
 
 def gla_chunk_len(s: int, chunk: int) -> int:
@@ -145,7 +146,7 @@ def _linspace_log(n):
     return init
 
 
-class Mamba2(nn.Module):
+class Mamba2(HeadParallel):
     """The Mamba-2 mixer of the reference (``init_mamba2``,
     ``_mamba2_inner``): ``in_proj`` splits into z (d_inner), xbc (d_inner +
     2 d_state) and dt (n_heads); xbc goes through the causal conv and SiLU
@@ -155,7 +156,11 @@ class Mamba2(nn.Module):
 
     ``in_proj`` and ``out_proj`` are cast to the compute dtype at use;
     ``a_log``, ``dt_bias`` and ``d_skip`` are f32 under every policy, and
-    everything between the two projections runs in f32."""
+    everything between the two projections runs in f32.
+
+    Under a model axis (``tp``, ``parallel.tensor_parallel``) each rank
+    runs its own heads where the axis divides them, else the whole mixer
+    (:meth:`_inner`); the decode caches stay whole on every rank."""
 
     def __init__(self, cfg: Mamba2Config, policy: DTypePolicy, *,
                  generator, device):
@@ -176,38 +181,79 @@ class Mamba2(nn.Module):
         self.out_proj = dense_init(di, cfg.dim, generator, device, pd)
 
     def _inner(self, x, conv_state=None, ssm_state=None):
-        """(out, conv tail or state, SSM state); streaming when the states
-        are given."""
-        cfg, cast = self.cfg, self.policy.cast
+        """(out, conv tail, SSM state); streaming when the states are
+        given.  Over this rank's heads [h0, h1) (all heads off the heads
+        path, :class:`HeadParallel`): ``in_proj``'s product whole; the
+        conv over the heads' x channels and all of B and C; the
+        recurrence, the skip and the gate over the heads; the norm over
+        ``d_inner``; ``out_proj`` over the heads' rows, the partial
+        products summed over the axis.  The conv tail is whole, the SSM
+        state the heads' (:meth:`_whole_state` gathers it)."""
+        cfg = self.cfg
         b, s, _ = x.shape
         di, ns, nh, hd = cfg.d_inner, cfg.d_state, cfg.n_heads, cfg.head_dim
-        proj = (cast(x) @ cast(self.in_proj)).float()
+        h0, h1 = self._heads()
+        proj = self._column_product("in_proj", x).float()
         z, xbc_raw, dt_raw = proj.split([di, di + 2 * ns, nh], dim=-1)
-        xbc, new_conv = self.conv(xbc_raw, conv_state)
-        if conv_state is None:
-            # The prefill's tail: the last k-1 raw inputs, zero-padded on
-            # the left for a prompt shorter than that.
-            tail = F.pad(xbc_raw, (0, 0, max(cfg.conv_k - 1 - s, 0), 0))
-            new_conv = tail[:, tail.shape[1] - (cfg.conv_k - 1):]
-        xbc = F.silu(xbc.float())
-        x_ssm, bmat, cmat = xbc.split([di, ns, ns], dim=-1)
 
-        dt = F.softplus(dt_raw + self.dt_bias)                # (B,S,H)
-        log_decay = -torch.exp(self.a_log) * dt
-        xh = x_ssm.reshape(b, s, nh, hd)
+        def chans(a, e):
+            return [(a * hd, e * hd), (di, di + 2 * ns)]
+
+        def heads(a, e):
+            return [(a, e)]
+
+        def cols(a, e):
+            return [(a * hd, e * hd)]
+
+        def mine(t):
+            if (h0, h1) == (0, nh):
+                return t
+            return torch.cat([t[..., lo:hi] for lo, hi in chans(h0, h1)], -1)
+
+        xbc, _ = causal_conv1d(
+            mine(xbc_raw), self._leaf("w", chans, 0, self.conv),
+            self._leaf("b", chans, module=self.conv),
+            None if conv_state is None else mine(conv_state))
+        xbc = F.silu(xbc.float())
+        x_ssm, bmat, cmat = xbc.split([(h1 - h0) * hd, ns, ns], dim=-1)
+
+        dt = F.softplus(dt_raw[..., h0:h1] + self._leaf("dt_bias", heads))
+        log_decay = -torch.exp(self._leaf("a_log", heads)) * dt
+        xh = x_ssm.reshape(b, s, h1 - h0, hd)
+        y, state = self._scan(xh, bmat, cmat, dt, log_decay,
+                              None if ssm_state is None
+                              else ssm_state[:, h0:h1])
+        y = (y + self._leaf("d_skip", heads)[:, None] * xh).reshape(
+            b, s, (h1 - h0) * hd)
+        y = self._norm(y, cols, di) * F.silu(z[..., h0 * hd:h1 * hd])
+        out = self._row_product(y, cols).to(x.dtype)
+        return out, self._conv_tail(xbc_raw, conv_state), state
+
+    def _scan(self, xh, bmat, cmat, dt, log_decay, ssm_state):
+        """The SSD recurrence over the heads of ``xh`` (B, S, n, hd): v =
+        x · dt, k and q are B and C broadcast over the heads; chunked over
+        the sequence, or one step from ``ssm_state``.  (y, final state)."""
+        b, s, n, _ = xh.shape
+        ns = self.cfg.d_state
         v = xh * dt[..., None]
-        k = bmat[:, :, None, :].expand(b, s, nh, ns)
-        q = cmat[:, :, None, :].expand(b, s, nh, ns)
+        k = bmat[:, :, None, :].expand(b, s, n, ns)
+        q = cmat[:, :, None, :].expand(b, s, n, ns)
         if ssm_state is None:
-            y, state = chunked_gla(q, k, v, log_decay, chunk=cfg.chunk)
+            return chunked_gla(q, k, v, log_decay, chunk=self.cfg.chunk)
+        y, state = gla_decode_step(ssm_state, q[:, 0], k[:, 0], v[:, 0],
+                                   log_decay[:, 0])
+        return y[:, None], state
+
+    def _conv_tail(self, xbc_raw, conv_state):
+        """The last k-1 raw conv inputs after this call: the prefill's
+        zero-padded on the left for a prompt shorter than that, the
+        streamed state's shifted by the new token."""
+        k = self.cfg.conv_k
+        if conv_state is None:
+            tail = F.pad(xbc_raw, (0, 0, max(k - 1 - xbc_raw.shape[1], 0), 0))
         else:
-            y, state = gla_decode_step(ssm_state, q[:, 0], k[:, 0], v[:, 0],
-                                       log_decay[:, 0])
-            y = y[:, None]
-        y = (y + self.d_skip[:, None] * xh).reshape(b, s, di)
-        y = self.norm(y) * F.silu(z)
-        out = (cast(y) @ cast(self.out_proj)).to(x.dtype)
-        return out, new_conv, state
+            tail = torch.cat([conv_state.float(), xbc_raw.float()], dim=1)
+        return tail[:, tail.shape[1] - (k - 1):]
 
     def forward(self, x):
         return self._inner(x)[0]
@@ -216,13 +262,14 @@ class Mamba2(nn.Module):
         """The forward over the prompt and the streaming cache: the conv
         tail in f32 and the final SSM state."""
         out, conv, state = self._inner(x)
-        return out, {"conv": conv.float(), "ssm": state}
+        return out, {"conv": conv.float(), "ssm": self._whole_state(state)}
 
     def decode(self, x, cache):
         """x (B, 1, D); cache {"conv": (B, k-1, conv_dim), "ssm": (B, H,
         d_state, head_dim)}; the new conv state keeps the cache's dtype."""
         out, conv, state = self._inner(x, cache["conv"], cache["ssm"])
-        return out, {"conv": conv.to(cache["conv"].dtype), "ssm": state}
+        return out, {"conv": conv.to(cache["conv"].dtype),
+                     "ssm": self._whole_state(state)}
 
 
 def init_mamba2_cache(batch: int, cfg: Mamba2Config, *, device):

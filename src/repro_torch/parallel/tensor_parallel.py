@@ -33,9 +33,26 @@ replicated parameters need no reduction over ``model``.
 parameter the rules split over ``model`` keeps its contiguous slice,
 rank ``r`` of ``M`` taking part ``r``, in the rules' order; the layers
 that split their arithmetic along it get the :class:`ModelAxis`
-(``module.tp``).  The kinds outside this slice (``mamba``, ``mlstm``,
-``slstm``, ``xattn``), the VL and audio models and ``gspn_impl="sp"``
-raise under a model axis larger than 1 (ROADMAP.md §1 item 6.2).
+(``module.tp``).  The ``xattn`` kind, the VL and audio models and
+``gspn_impl="sp"`` raise under a model axis larger than 1 (ROADMAP.md
+§1 item 6.2).
+
+The recurrent mixers (``mamba``, ``mlstm``, ``slstm``) pack several
+heads' projections into one matrix (Mamba-2's z | x | B | C | dt, the
+mLSTM's q | k | v | o | f | i, the sLSTM's gates i | f | z | o), so the
+rules' column split of ``in_proj`` and ``w_in`` cuts across heads.  Each
+mixer (a :class:`HeadParallel`) runs one body over heads [h0, h1), and
+:func:`head_split` says which of two paths it takes.  Where the
+axis divides the head count, each rank runs the recurrence of its own
+heads: the column-parallel product's outputs are gathered whole
+(:meth:`ModelAxis.product`), each rank reads its heads' columns of them
+and its heads' entries of the other leaves (:meth:`ModelAxis.pick`),
+the norm over the inner width takes its sum of squares over the axis
+(:meth:`ModelAxis.rmsnorm`), ``out_proj``'s stored rows are the rank's
+heads and its partial products are summed; the decode caches stay whole
+on every rank, the new state of each rank's heads gathered.  Else every
+rank gathers the mixer's split leaves whole and runs it over all its
+heads (:meth:`ModelAxis.whole`), as the GSPN mixer does.
 
 The one-shot prefill and the decode step run sharded, as the
 reference's dry-run cells lay them out (``launch.lowering``): the KV
@@ -58,7 +75,7 @@ from repro_torch.parallel.sharding import sharded_dim, spec_for_param
 
 MODEL_AXIS = "model"
 # Block kinds that run under a model axis larger than 1.
-KINDS = ("gspn", "attn", "attn_moe")
+KINDS = ("gspn", "attn", "attn_moe", "mamba", "mlstm", "slstm")
 
 
 class ModelAxis:
@@ -120,22 +137,52 @@ class ModelAxis:
         dim = module._tp_dims.get(name)
         return p if dim is None else self.gather(p, dim, partial=False)
 
-    def take(self, module: nn.Module, name: str, ranges):
-        """Columns ``ranges[rank]`` (of the last dim) of ``module``'s
-        parameter ``name`` as a branch that each rank computes a part of
-        uses them: ``ranges`` holds every rank's (lo, hi), so all ranks
-        agree on the collectives.  The local slice itself where every
-        rank's range is its own slice; else the whole, gathered (or, for
-        a leaf replicated over the axis, copied), then cut."""
+    def pick(self, module: nn.Module, name: str, ranges, dim: int = -1):
+        """The entries ``ranges[rank]`` (this rank's (lo, hi) pairs along
+        ``dim``, joined in order) of ``module``'s parameter ``name``, as a
+        branch that each rank computes a part of uses them.  ``ranges``
+        holds every rank's pairs, so all ranks agree on the collectives:
+        the local slice itself where each rank's pairs are its stored
+        slice; else the whole, gathered where the leaf is stored sliced
+        along ``dim`` (copied where it is replicated), so the backward
+        sums the ranks' gradients, then cut."""
         p = getattr(module, name)
-        lo, hi = ranges[self.rank]
-        if name not in module._tp_dims:
-            return self.copy(p)[..., lo:hi]
-        assert module._tp_dims[name] == p.dim() - 1, name
-        n = p.shape[-1]
-        if all(r == (i * n, (i + 1) * n) for i, r in enumerate(ranges)):
-            return p
-        return self.gather(p, -1, partial=True)[..., lo:hi]
+        dim %= p.dim()
+        stored = module._tp_dims.get(name)
+        if stored is None:
+            whole = self.copy(p)
+        else:
+            assert stored == dim, name
+            n = p.shape[dim]
+            if all(list(r) == [(i * n, (i + 1) * n)]
+                   for i, r in enumerate(ranges)):
+                return p
+            whole = self.gather(p, dim, partial=True)
+        parts = [whole.narrow(dim, lo, hi - lo) for lo, hi in ranges[self.rank]]
+        return parts[0] if len(parts) == 1 else torch.cat(parts, dim)
+
+    def product(self, module: nn.Module, name: str, xc, cast):
+        """``xc @ cast(w)`` for ``module``'s whole (D, N) parameter ``name``
+        as an activation that each rank then reads its own columns of:
+        where the rules split its columns, each rank's product with its
+        slice, gathered over the axis (its bytes grow with the tokens, not
+        with the weight); where they replicate it, the product itself.
+        Either way the backward sums the ranks' gradients of the whole
+        activation, so the input's and the weight's are complete."""
+        if name in module._tp_dims:
+            y = self.copy(xc) @ cast(getattr(module, name))
+            return self.gather(y, -1, partial=True)
+        return self.copy(xc @ cast(getattr(module, name)))
+
+    def rmsnorm(self, x, scale, eps: float, dim: int):
+        """The reference's rmsnorm of rows whose ``dim`` entries are split
+        over the axis, ``x`` (..., dim / size) and ``scale`` this rank's
+        part: the mean square from the rows' sums of squares summed over
+        the axis (forward and backward), then ``x * inv * scale`` in
+        ``x.dtype``, as :func:`models.layers._rmsnorm`."""
+        ss = self.copy(self.reduce(x.float().square().sum(-1)))
+        inv = torch.rsqrt(ss / dim + eps)
+        return x * inv[..., None].to(x.dtype) * scale.to(x.dtype)
 
     # -- the vocabulary ---------------------------------------------------
     def embed(self, table, tokens):
@@ -239,11 +286,96 @@ def model_slice(name: str, t, size: int, rank: int):
     return t[(slice(None),) * dim + (slice(rank * n, (rank + 1) * n),)]
 
 
+def head_split(n_heads: int, size: int):
+    """Every rank's heads [h0, h1) over a model axis of ``size`` where it
+    divides ``n_heads`` (each rank then runs its own heads), else None
+    (the mixer runs whole on every rank)."""
+    if n_heads % size:
+        return None
+    n = n_heads // size
+    return [(r * n, (r + 1) * n) for r in range(size)]
+
+
+class HeadParallel(nn.Module):
+    """A recurrent mixer (``cfg.n_heads`` heads) on the model axis
+    (``tp``, set by :func:`shard_model`): where the axis divides the heads
+    each rank runs its own heads [h0, h1) (:meth:`_heads`), else every
+    rank runs all of them with its split leaves gathered.  The mixer's
+    one body runs over [h0, h1) on either path (all heads without an
+    axis) through the helpers below."""
+
+    tp = None
+
+    def _split(self):
+        """Every rank's heads [(h0, h1), ...] where a model axis divides
+        them, else None (no axis, or the mixer runs whole)."""
+        if self.tp is None:
+            return None
+        return head_split(self.cfg.n_heads, self.tp.size)
+
+    def _own(self):
+        """This rank's heads (h0, h1) on the heads path, else None."""
+        split = self._split()
+        return None if split is None else split[self.tp.rank]
+
+    def _heads(self):
+        """This rank's heads (h0, h1): its own on the heads path, else
+        all of them."""
+        return self._own() or (0, self.cfg.n_heads)
+
+    def _leaf(self, name: str, cols=None, dim: int = -1, module=None):
+        """Parameter ``name`` of ``module`` (this mixer by default) as the
+        body uses it: on the heads path the entries ``cols(h0, h1)`` (the
+        (lo, hi) pairs along ``dim`` of heads [h0, h1)) of this rank's
+        heads (:meth:`ModelAxis.pick`); else the whole leaf, gathered
+        over a model axis where it is stored sliced (``cols`` of all the
+        heads then covers it)."""
+        module = self if module is None else module
+        split = self._split()
+        if split is not None:
+            return self.tp.pick(module, name, [cols(*h) for h in split], dim)
+        return getattr(module, name) if self.tp is None \
+            else self.tp.whole(module, name)
+
+    def _column_product(self, name: str, x):
+        """``x`` @ parameter ``name`` (D, N) in the compute dtype, every
+        column: on the heads path each rank's product with its slice,
+        gathered (:meth:`ModelAxis.product`); each rank then reads its
+        heads' columns."""
+        cast = self.policy.cast
+        if self._split() is None:
+            return cast(x) @ cast(self._leaf(name))
+        return self.tp.product(self, name, cast(x), cast)
+
+    def _row_product(self, y, rows):
+        """``y`` (this rank's heads' columns) @ ``out_proj`` in the compute
+        dtype: on the heads path its rows ``rows(h0, h1)`` (the stored
+        slice where the rules split them) and the partial products
+        summed over the axis."""
+        cast = self.policy.cast
+        out = cast(y) @ cast(self._leaf("out_proj", rows, 0))
+        return out if self._split() is None else self.tp.reduce(out)
+
+    def _norm(self, y, cols, dim: int):
+        """``self.norm`` over the ``dim`` channels of ``y``: on the heads
+        path this rank's columns ``cols(h0, h1)``, the mean square summed
+        over the axis (:meth:`ModelAxis.rmsnorm`)."""
+        if self._split() is None:
+            return self.norm(y)
+        return self.tp.rmsnorm(y, self._leaf("scale", cols, module=self.norm),
+                               self.norm.eps, dim)
+
+    def _whole_state(self, state, dim: int = 1):
+        """A recurrent state over every head: this rank's heads' gathered
+        along ``dim`` on the heads path."""
+        return state if self._split() is None \
+            else self.tp.all_gather(state, dim)
+
+
 def check_model_axis(cfg, size: int) -> None:
     """Raise for what does not run under a model axis of ``size`` > 1:
-    the kinds outside this slice, the VL and audio models, ``gspn_impl=
-    "sp"`` and an attn_moe layer whose slabs are laid out for another
-    extent."""
+    the ``xattn`` kind, the VL and audio models, ``gspn_impl="sp"`` and
+    an attn_moe layer whose slabs are laid out for another extent."""
     if size <= 1:
         return
     kinds = {kind for _, kind, _ in cfg.stages()}
@@ -271,7 +403,8 @@ def check_model_axis(cfg, size: int) -> None:
 
 def _split_by(module):
     """The parameter whose split turns ``module``'s tensor parallelism on
-    ("*": any of its parameters), or None for a module that has none."""
+    ("*": any of its or its submodules' parameters), or None for a module
+    that has none."""
     from repro_torch.core.gspn import GSPNSeqMixer
     from repro_torch.models.attention import Attention
     from repro_torch.models.layers import GeluMLP, SwiGLU
@@ -279,7 +412,8 @@ def _split_by(module):
     from repro_torch.models.moe import MoE
 
     for cls, key in ((SwiGLU, "down"), (GeluMLP, "fc2"), (Attention, "wo"),
-                     (MoE, "gate_slab"), (GSPNSeqMixer, "*"), (LM, "embed")):
+                     (MoE, "gate_slab"), (GSPNSeqMixer, "*"),
+                     (HeadParallel, "*"), (LM, "embed")):
         if isinstance(module, cls):
             return key
     return None
@@ -316,6 +450,7 @@ def shard_model(model: nn.Module, mesh) -> dict:
         key = _split_by(module)
         if key is not None:
             module.tp = axis if key in module._tp_dims or (
-                key == "*" and module._tp_dims) else None
+                key == "*" and any(m._tp_dims for m in module.modules())) \
+                else None
     model.model_axis, model.tp_placements = axis, placements
     return placements

@@ -22,14 +22,15 @@ import textwrap
 import pytest
 
 from repro_torch.configs import base as tbase
-from repro_torch.launch.dryrun import cell_matrix
+from repro_torch.launch.dryrun import (TOKEN_LOOP_TIMEOUT, cell_matrix,
+                                      cell_timeout)
 from repro_torch.parallel import tensor_parallel as tpar
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ENV = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"),
            JAX_PLATFORMS="cpu")
-# The kinds outside the model axis's slice (ROADMAP.md §1 item 6.2).
-OUT_OF_SLICE = {"zamba2-2.7b", "xlstm-1.3b", "qwen2-vl-72b", "whisper-base"}
+# The models outside the model axis's slice (ROADMAP.md §1 item 6.2).
+OUT_OF_SLICE = {"qwen2-vl-72b", "whisper-base"}
 
 
 def _run(args, timeout=300):
@@ -58,9 +59,9 @@ def test_list_and_cell_matrix_match_the_reference():
 
 def test_failing_cells_are_exactly_the_out_of_slice_kinds():
     """On the production mesh's model axis of 16, ``check_model_axis``
-    refuses (naming item 6.2) the configs of zamba2, xlstm, qwen2-vl and
-    whisper and accepts every other: 14 cells a mesh that are not
-    skipped."""
+    refuses (naming item 6.2) the configs of qwen2-vl and whisper and
+    accepts every other, zamba2's and xlstm's among them: 6 cells a mesh
+    that are not skipped."""
     failing = []
     for kind, arch, shape, skip in cell_matrix():
         if kind != "lm" or skip is not None:
@@ -72,7 +73,20 @@ def test_failing_cells_are_exactly_the_out_of_slice_kinds():
             assert "item 6.2" in str(exc)
             failing.append((arch, shape))
     assert {a for a, _ in failing} == OUT_OF_SLICE
-    assert len(failing) == 14
+    assert len(failing) == 6
+
+
+def test_sweep_gives_the_token_loop_cells_their_timeout():
+    """The sweep stops each cell of xlstm-1.3b, whose sLSTM runs token by
+    token on ``meta`` (its train_4k cell took 130 min on the single
+    mesh), after ``TOKEN_LOOP_TIMEOUT`` times ``--timeout``, past that
+    cell's time at the default; every other cell after ``--timeout``."""
+    limits = {(arch, shape): cell_timeout(kind, arch, 1800)
+              for kind, arch, shape, _ in cell_matrix()}
+    long = {cell for cell, t in limits.items() if t != 1800}
+    assert long == {("xlstm-1.3b", shape) for shape in tbase.SHAPES}
+    assert {limits[cell] for cell in long} == {1800 * TOKEN_LOOP_TIMEOUT}
+    assert 1800 * TOKEN_LOOP_TIMEOUT > 130 * 60
 
 
 CELL = """

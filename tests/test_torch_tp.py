@@ -10,14 +10,19 @@ the int8_ef step, whose scales take a MAX over the model axis, on
 Spawned: the same numpy inputs go through the reference on forced host
 devices (``run_sub``) and through the port in gloo ranks
 (``tests/test_torch_tp_worker.py``, one process a rank): 2 ranks for the
-steps of ``qwen2-1.5b-gspn`` and ``qwen2-1.5b`` reduced on ``(data 1,
-model 2)``, the MoE of ``grok-1-314b`` and ``kimi-k2-1t-a32b`` reduced
-at M = 2, the vocab-parallel loss and a checkpoint saved on ``(1, 2)``
-and restored on ``(2, 1)``; 4 ranks for the steps on ``(2, 2)`` and of
-``qwen2-1.5b`` on ``(1, 4)`` (heads that straddle ranks), grok at M = 4
-(ep 4) and a variant with E = 2 at M = 4 (ep 2, tp 2: the hidden
-split).  In process: the port's one-rank step and MoE at M = 1 on the
-same weights, the checkpoint restored on one rank, the kinds that raise.
+steps of ``qwen2-1.5b-gspn``, ``qwen2-1.5b``, ``zamba2-2.7b`` and
+``xlstm-1.3b`` reduced on ``(data 1, model 2)``, the MoE of
+``grok-1-314b`` and ``kimi-k2-1t-a32b`` reduced at M = 2, the
+vocab-parallel loss, the sharded prefill and decode, and a checkpoint
+saved on ``(1, 2)`` and restored on ``(2, 1)``; 4 ranks for the steps on
+``(2, 2)``, of ``qwen2-1.5b`` on ``(1, 4)`` (heads that straddle ranks)
+and of a 2-head xlstm twin on ``(1, 4)`` (its mixers whole on every
+rank), that twin's prefill and decode, grok at M = 4 (ep 4) and a
+variant with E = 2 at M = 4 (ep 2, tp 2: the hidden split).  Beside
+them, the train launcher's ``--distributed`` on reduced zamba2 over
+``(data 1, model 2)``: 3 steps straight, and 2 then a resumed 1.  In
+process: the port's one-rank step and MoE at M = 1 on the same weights,
+the checkpoints restored on one rank, the kinds that raise.
 """
 
 from __future__ import annotations
@@ -26,6 +31,7 @@ import concurrent.futures
 import dataclasses
 import json
 import pathlib
+import re
 import sys
 import textwrap
 
@@ -59,13 +65,16 @@ STEP_CASES = [(arch, shape) for k in (2, 4) for arch, shape in W.STEPS[k]]
 INT8_CASES = [(arch, shape) for k in (2, 4) for arch, shape in W.INT8[k]]
 MOE_CASES = {name: (arch, m, changes) for k in (2, 4)
              for name, arch, m, changes in W.MOE[k]}
+SERVE_CASES = {name: (arch, changes, k) for k, cases in W.SERVE.items()
+               for name, arch, changes in cases}
 SEQ, MOE_SEQ = 24, 16
 
 
 def _jcfg(arch, **changes):
+    arch, twin = W.TWINS.get(arch, (arch, {}))
     return dataclasses.replace(
         jbase.with_precision(jbase.get_arch(arch).reduced(), "f32"),
-        remat="unit", **changes)
+        remat="unit", **twin, **changes)
 
 
 def _paths(params) -> dict:
@@ -104,7 +113,7 @@ def _inputs() -> dict:
         for k, v in _batch(MOE_SEQ, seed=3).items():
             d[f"batch/{name}/{k}"] = v
     rng = np.random.default_rng(0)
-    for name, arch, changes in W.SERVE[2]:
+    for name, (arch, changes, _) in SERVE_CASES.items():
         for k, v in _paths(_serve_params(arch, changes)).items():
             d[f"jax/serve_{name}/{k}"] = v
         d[f"serve/{name}/tokens"] = rng.integers(
@@ -130,8 +139,10 @@ JAX_BODY = """
     out = {}
 
     def jcfg(arch, **changes):
+        arch, twin = TWINS.get(arch, (arch, {}))
         return dataclasses.replace(jbase.with_precision(
-            jbase.get_arch(arch).reduced(), "f32"), remat="unit", **changes)
+            jbase.get_arch(arch).reduced(), "f32"), remat="unit", **twin,
+            **changes)
 
     def batch(key):
         return {k: jnp.asarray(inp[f"batch/{key}/{k}"])
@@ -195,32 +206,51 @@ STEPS = [(arch, shape, "none") for arch, shape in STEP_CASES] + \
     [(arch, shape, "int8_ef") for arch, shape in INT8_CASES]
 
 
+# The train launcher on reduced zamba2 over 2 ranks: (data 1, model 2),
+# with int8 error feedback (its residuals ride in the checkpoint).
+LAUNCH = ["-m", "repro_torch.launch.train", "--distributed", "--arch",
+          "zamba2-2.7b", "--reduced", "--device", "cpu", "--batch", "2",
+          "--seq", "16", "--ckpt-every", "2", "--grad-compression",
+          "int8_ef"]
+
+
 @pytest.fixture(scope="module")
 def runs(run_sub, tmp_path_factory):
-    """The reference's run, and the worker in 2 ranks then 4, all
+    """The reference's run, the worker in 2 ranks then 4, and the
+    launcher's runs (3 steps straight; 2 steps, then 1 resumed), all
     started together."""
     d = tmp_path_factory.mktemp("tp")
     inputs = d / "inputs.npz"
     np.savez(inputs, **_inputs())
     scratch = d / "scratch"
     scratch.mkdir()
+    straight, split = scratch / "launch_straight", scratch / "launch_split"
     two = DP._start(2, [WORKER, inputs, d / "torch2.npz", scratch])
+    launches = [DP._start(2, LAUNCH + ["--steps", "3", "--ckpt-dir",
+                                       straight]),
+                DP._start(2, LAUNCH + ["--steps", "2", "--ckpt-dir", split])]
     with concurrent.futures.ThreadPoolExecutor(1) as pool:
         ref = pool.submit(
             run_sub, f"IN, OUT = {str(inputs)!r}, {str(d / 'jax.npz')!r}\n"
                      f"OPT = {W.OPT!r}\nSTEPS = {STEPS!r}\n"
-                     f"MOE = {MOE_CASES!r}\n" + textwrap.dedent(JAX_BODY),
+                     f"MOE = {MOE_CASES!r}\nTWINS = {W.TWINS!r}\n"
+                     + textwrap.dedent(JAX_BODY),
             timeout=600)
         try:
             DP._join(two)
             four = DP._start(4, [WORKER, inputs, d / "torch4.npz", scratch])
+            logs = [DP._join(launches[0])[0], DP._join(launches[1])[0]]
+            resumed = DP._start(2, LAUNCH + ["--steps", "1", "--ckpt-dir",
+                                             split])
             DP._join(four)
+            logs.append(DP._join(resumed)[0])
         finally:
             ref.result()
     mine = dict(np.load(d / "torch2.npz"))
     mine.update(np.load(d / "torch4.npz"))
     return {"jax": dict(np.load(d / "jax.npz")), "torch": mine,
-            "inputs": dict(np.load(inputs)), "scratch": scratch}
+            "inputs": dict(np.load(inputs)), "scratch": scratch,
+            "launch": logs, "memo": {}}
 
 
 def _close(got, want, tol, what):
@@ -258,6 +288,15 @@ def test_vocab_parallel_loss_matches_jax(runs, m, masked):
 # ---------------------------------------------------------------------------
 # The train step.
 # ---------------------------------------------------------------------------
+
+def _once(runs, fn, arch, *args):
+    """``fn(arch, runs["inputs"], *args)``, computed once a module run: the
+    same CPU program on the same inputs for every test that reads it."""
+    key = (fn.__name__, arch, *args)
+    if key not in runs["memo"]:
+        runs["memo"][key] = fn(arch, runs["inputs"], *args)
+    return runs["memo"][key]
+
 
 def _one_rank(arch, inp, comp="none"):
     """The port's one-rank step on the whole batch from the reference's
@@ -303,7 +342,7 @@ def test_tp_step_matches(runs, arch, shape, against):
     their largest except elements whose gradient is below 1e-5 of their
     leaf's largest (the bounds of the data-parallel step) or whose update
     a gradient change of that size moves further (``_adamw_noise``)."""
-    mine, inp = runs["torch"], runs["inputs"]
+    mine = runs["torch"]
     tag = f"step/{arch}/{shape[0]}x{shape[1]}"
     if against == "jax":
         ref = runs["jax"]
@@ -313,10 +352,10 @@ def test_tp_step_matches(runs, arch, shape, against):
         want = {n: t.numpy() for n, t in lm_state_from_jax(_tree(jp, [
             ref[f"{tag}/leaf/{i}"] for i in range(n_leaves)])).items()}
     else:
-        loss, gn, want, _ = _one_rank(arch, inp)
+        loss, gn, want, _ = _once(runs, _one_rank, arch)
     np.testing.assert_allclose(mine[f"{tag}/loss"], loss, rtol=1e-5)
     np.testing.assert_allclose(mine[f"{tag}/grad_norm"], gn, rtol=1e-6)
-    g0 = _grads0(arch, inp)
+    g0 = _once(runs, _grads0, arch)
     for name, w in want.items():
         p, g = mine[f"{tag}/p/{name}"], g0[name]
         off = np.abs(p - w) > 1e-5 * np.abs(w).max() + _adamw_noise(g, gn)
@@ -337,7 +376,7 @@ def test_tp_int8_ef_step_matches(runs, arch, shape, against):
     step away where the other side's unquantised value lies within 1e-4
     of a step of a rounding boundary (its residual within 1e-4 of a step
     of half a step), the residuals then one step apart (reported)."""
-    mine, inp = runs["torch"], runs["inputs"]
+    mine = runs["torch"]
     tag = f"int8_ef/{arch}/{shape[0]}x{shape[1]}"
     if against == "jax":
         ref = runs["jax"]
@@ -351,11 +390,11 @@ def test_tp_int8_ef_step_matches(runs, arch, shape, against):
 
         want, errors = leaves("leaf"), leaves("err")
     else:
-        loss, gn, want, errors = _one_rank(arch, inp, "int8_ef")
+        loss, gn, want, errors = _once(runs, _one_rank, arch, "int8_ef")
     np.testing.assert_allclose(mine[f"{tag}/loss"], loss, rtol=1e-5)
     np.testing.assert_allclose(mine[f"{tag}/grad_norm"], gn, rtol=1e-5)
     amax = tstep._leaf_amax({n: torch.from_numpy(g) for n, g in
-                             _grads0(arch, inp).items()})
+                             _once(runs, _grads0, arch).items()})
     flips = 0
     for name, w in want.items():
         scale = max(float(amax[name]), 1e-12) / 127.0
@@ -445,24 +484,23 @@ def test_moe_refuses_shards_without_their_axis():
 # Prefill and decode under the model axis.
 # ---------------------------------------------------------------------------
 
-SERVE_CASES = {name: (arch, changes) for name, arch, changes in W.SERVE[2]}
-
-
 @pytest.mark.parametrize("name", sorted(SERVE_CASES))
 def test_sharded_prefill_and_decode_match_jax(runs, name):
     """``lm_prefill`` and three ``lm_decode_step`` calls on (data 1, model
-    2) against the reference's unsharded ones on the same weights: the
-    GSPN mixer whole on each rank, qwen2-1.5b's kv heads split, one kv
-    head (the cache split by positions, the decode's softmax combined
-    over the axis) and grok's expert-parallel MoE.  Logits within 1e-5
-    of their largest, each rank's cache shapes those of
-    ``cache_shardings``, each KV cache gathered within 1e-5 of the
-    reference's; ``lm_prefill_chunk`` and the engine refuse the sharded
-    model."""
+    M) against the reference's unsharded ones on the same weights, at M =
+    2: the GSPN mixer whole on each rank, qwen2-1.5b's kv heads split,
+    one kv head (the cache split by positions, the decode's softmax
+    combined over the axis), grok's expert-parallel MoE, zamba2's and
+    xlstm's heads a rank; at M = 4 the 2-head xlstm whole on each rank.
+    Logits within 1e-5 of their largest, each rank's cache shapes those
+    of ``cache_shardings``, each KV cache gathered and each recurrent
+    cache leaf within 1e-5 of the reference's, every rank's whole leaves
+    bit-equal after the prefill and each step; ``lm_prefill_chunk`` and
+    the engine refuse the sharded model."""
     from repro_torch.parallel.sharding import cache_shardings
 
     mine, inp = runs["torch"], runs["inputs"]
-    arch, changes = SERVE_CASES[name]
+    arch, changes, m = SERVE_CASES[name]
     cfg = _jcfg(arch, **changes)
     params = _serve_params(arch, changes)
     tokens = jnp.asarray(inp[f"serve/{name}/tokens"])
@@ -477,16 +515,24 @@ def test_sharded_prefill_and_decode_match_jax(runs, name):
     tcfg = W.config(arch, **changes)
     whole = {k: {n: tuple(v.shape) for n, v in sub.items()} for k, sub in
              lm.init_lm_cache(tcfg, 2, W.MAX_LEN, device="meta").items()}
-    specs = cache_shardings(whole, {"data": 1, "model": 2})
-    want = {k: {n: [d // 2 if s == "model" else d
+    specs = cache_shardings(whole, {"data": 1, "model": m})
+    want = {k: {n: [d // m if s == "model" else d
                     for d, s in zip(whole[k][n], specs[k][n])]
                 for n in sub} for k, sub in whole.items()}
     assert json.loads(str(mine[f"{tag}/shapes"])) == want
     kv = [(k, n) for k, sub in whole.items() for n in sub if n in ("k", "v")]
-    assert bool(kv) == (name != "gspn")
+    assert bool(kv) == (arch not in ("qwen2-1.5b-gspn", "xlstm-1.3b"))
     for key, n in kv:
         _close(mine[f"{tag}/cache/{key}/{n}"], caches[key]["attn"][n],
                1e-5, f"cache {key}/{n}")
+    recurrent = [(k, n) for k, sub in whole.items() for n in sub
+                 if k.endswith(("_mamba", "_mlstm", "_slstm"))]
+    assert bool(recurrent) == (arch in ("zamba2-2.7b", "xlstm-1.3b"))
+    for key, n in recurrent:
+        _close(mine[f"{tag}/cache/{key}/{n}"], caches[key][n], 1e-5,
+               f"cache {key}/{n}")
+    assert json.loads(str(mine[f"{tag}/agree"])) == [True] * (
+        1 + W.DECODE_STEPS)
     assert json.loads(str(mine[f"{tag}/refused"])) == ["chunk", "engine"]
 
 
@@ -528,18 +574,77 @@ def test_launcher_mesh_matches_jax(runs, n):
     assert [list(dims[0]), list(dims[1])] == want
 
 
+@pytest.mark.parametrize("m", [2, 4, 16])
+@pytest.mark.parametrize("arch", ["zamba2-2.7b", "xlstm-1.3b"])
+def test_recurrent_kinds_run_under_the_model_axis(arch, m):
+    """mamba, mlstm and slstm (and zamba2's shared attention block) pass
+    ``check_model_axis`` at M = 2, 4 and 16, reduced and full; the full
+    configs' mixers run their own heads where M divides them (zamba2's
+    80 at every M, xlstm's 4 at 2 and 4) and whole at xlstm's M = 16."""
+    for cfg in (tbase.get_arch(arch).reduced(), tbase.get_arch(arch).full(
+            n_model_shards=m)):
+        tpar.check_model_axis(cfg, m)
+    split = tpar.head_split(cfg.n_heads, m)
+    assert (split is None) == (arch == "xlstm-1.3b" and m == 16)
+    if split is not None:
+        assert split[-1] == (cfg.n_heads - cfg.n_heads // m, cfg.n_heads)
+
+
 @pytest.mark.parametrize("arch,changes", [
-    ("zamba2-2.7b", {}), ("xlstm-1.3b", {}), ("whisper-base", {}),
-    ("qwen2-vl-72b", {}), ("qwen2-1.5b-gspn", {"gspn_impl": "sp"})])
+    ("whisper-base", {}), ("qwen2-vl-72b", {}),
+    ("qwen2-1.5b-gspn", {"gspn_impl": "sp"})])
 def test_out_of_slice_kinds_raise(arch, changes):
-    """mamba, mlstm and slstm, xattn and the audio encoder, the VL model
-    and ``gspn_impl="sp"`` raise under a model axis of 2, naming item
-    6.2; the slice's kinds and one model rank do not."""
+    """xattn and the audio encoder, the VL model and ``gspn_impl="sp"``
+    raise under a model axis of 2, naming item 6.2; the slice's kinds
+    and one model rank do not."""
     cfg = dataclasses.replace(tbase.get_arch(arch).reduced(), **changes)
     with pytest.raises(NotImplementedError, match="item 6.2"):
         tpar.check_model_axis(cfg, 2)
     tpar.check_model_axis(cfg, 1)
-    for ok in ("qwen2-1.5b-gspn", "qwen2-1.5b"):
+    for ok in ("qwen2-1.5b-gspn", "qwen2-1.5b", "zamba2-2.7b",
+               "xlstm-1.3b"):
         tpar.check_model_axis(tbase.get_arch(ok).reduced(), 2)
     with pytest.raises(ValueError, match="n_model_shards"):
         tpar.check_model_axis(tbase.get_arch("grok-1-314b").reduced(), 2)
+
+
+def test_launcher_trains_zamba2_on_the_model_axis_and_resumes_bit_equal(
+        runs):
+    """``launch.train --distributed --grad-compression int8_ef`` on
+    reduced zamba2 over 2 gloo ranks, laid out as (data 1, model 2) (its
+    mamba mixers on their own heads, the shared attention block's heads
+    split): 3 steps straight, and 2 steps then a launch that resumes from
+    the model-sharded checkpoint at step 2 and takes the third.  Every
+    loss is finite, the resumed third step's loss is the straight run's
+    bit for bit, and both step-3 checkpoints restore on one rank to the
+    same parameters, moments and int8 residuals bit for bit."""
+    straight, first, resumed = runs["launch"]
+    for log in runs["launch"]:
+        assert "mesh {'data': 1, 'model': 2}" in log, log[-2000:]
+
+    def losses(log):
+        return json.loads(re.search(r"losses (\[[^\]]*\])", log).group(1))
+
+    assert "from step 0" in straight and "from step 2" in resumed
+    want, head = losses(straight), losses(first)
+    assert len(want) == 3 and np.isfinite(want).all()
+    assert head == want[:2]
+    assert losses(resumed) == want[2:]
+    states = []
+    for name in ("launch_straight", "launch_split"):
+        setup = tstep.make_train_setup(
+            tbase.get_arch("zamba2-2.7b").reduced(), AdamWConfig(),
+            device="cpu", seed=11, grad_compression="int8_ef")
+        _, step = CheckpointManager(str(runs["scratch"] / name)).restore(
+            target=setup.state)
+        assert step == 3, name
+        states.append({f"{k}/{n}": t.detach().clone()
+                       for k in ("params", "errors")
+                       for n, t in setup.state[k].items()}
+                      | {f"opt/{m}/{n}": t.clone() for m in ("m", "v")
+                         for n, t in setup.state["opt"][m].items()})
+    assert states[0].keys() == states[1].keys() and len(states[0]) > 30
+    for k, t in states[0].items():
+        assert torch.equal(t, states[1][k]), k
+    assert any(t.any() for k, t in states[0].items()
+               if k.startswith("errors/"))

@@ -7,7 +7,8 @@ rank 0 writes the results, every tensor gathered whole, to the ``.npz``
 named by the second argument.  The third argument is a scratch
 directory the test keeps (the checkpoint saved on ``(data 1, model
 2)``).  At world size 2 it also runs the sharded prefill and decode
-cases (``SERVE``).  It imports no JAX: the reference's parameters arrive as numpy
+cases (``SERVE``), and at world size 4 the whole-path xLSTM twin's.  It
+imports no JAX: the reference's parameters arrive as numpy
 leaves under their pytree paths.
 
     RANK=0 WORLD_SIZE=2 MASTER_PORT=29500 \\
@@ -42,10 +43,18 @@ OPT = dict(lr=1e-3, warmup_steps=2, total_steps=10)
 # The steps' architectures and meshes, by world size.
 # qwen2-1.5b at (1, 4): 6 heads of 8 over 4 ranks of 12 columns, so a
 # rank's rows of wo read one and a half heads, and K/V's 16 columns split
-# in half heads: both gathered whole.
-STEPS = {2: (("qwen2-1.5b-gspn", (1, 2)), ("qwen2-1.5b", (1, 2))),
+# in half heads: both gathered whole.  zamba2 (8 heads) and xlstm (4)
+# run each rank's own heads; the 2-head xlstm twin at (1, 4) runs its
+# mixers whole on every rank, its split leaves gathered.
+STEPS = {2: (("qwen2-1.5b-gspn", (1, 2)), ("qwen2-1.5b", (1, 2)),
+             ("zamba2-2.7b", (1, 2)), ("xlstm-1.3b", (1, 2))),
          4: (("qwen2-1.5b-gspn", (2, 2)), ("qwen2-1.5b", (2, 2)),
-             ("qwen2-1.5b", (1, 4)))}
+             ("qwen2-1.5b", (1, 4)), ("zamba2-2.7b", (2, 2)),
+             ("xlstm-1.3b", (2, 2)), ("xlstm-1.3b-2h", (1, 4)))}
+# Reduced twins of a registry arch: name -> (arch, config changes).  The
+# xlstm with 2 heads: at a model axis of 4 the rules still split its
+# in_proj, w_in and out_proj, and no rank holds a whole head.
+TWINS = {"xlstm-1.3b-2h": ("xlstm-1.3b", {"n_heads": 2, "n_kv_heads": 2})}
 # The int8_ef steps: each global leaf's scale from a MAX over the axes
 # that slice it, the model axis's among them.
 INT8 = {2: (("qwen2-1.5b-gspn", (1, 2)), ("qwen2-1.5b", (1, 2))),
@@ -57,22 +66,31 @@ MOE = {2: (("grok2", "grok-1-314b", 2, {}),
            ("e2", "grok-1-314b", 4, {"n_experts": 2, "top_k": 1}))}
 
 
-# The sharded prefill and decode cases at world size 2, (name, arch,
-# config changes): the GSPN mixer whole on each rank; qwen2-1.5b's 2 kv
-# heads split over the axis; one kv head, so the cache splits its
-# positions; grok's expert-parallel MoE at M = 2.
+# The sharded prefill and decode cases by world size, (name, arch, config
+# changes): the GSPN mixer whole on each rank; qwen2-1.5b's 2 kv heads
+# split over the axis; one kv head, so the cache splits its positions;
+# grok's expert-parallel MoE at M = 2; zamba2's and xlstm's own heads a
+# rank (zamba2's shared attention block beside them); the 2-head xlstm
+# whole on each of 4 ranks.
 SERVE = {2: (("gspn", "qwen2-1.5b-gspn", {}), ("heads", "qwen2-1.5b", {}),
              ("seq", "qwen2-1.5b", {"n_kv_heads": 1}),
-             ("moe", "grok-1-314b", {}))}
+             ("moe", "grok-1-314b", {}), ("zamba2", "zamba2-2.7b", {}),
+             ("xlstm", "xlstm-1.3b", {})),
+         4: (("xlstm_whole", "xlstm-1.3b", TWINS["xlstm-1.3b-2h"][1]),)}
+# The cache leaves that the model axis keeps whole on every rank: all
+# but the attention kinds' KV caches.
+SPLIT_LEAVES = ("k", "v")
 # Prompt tokens, the caches' max_len and the decode steps after them.
 PROMPT, MAX_LEN, DECODE_STEPS = 12, 16, 3
 
 
 def config(arch, **changes):
-    """The arch's reduced config under the f32 policy, remat "unit"."""
+    """The arch's (or twin's) reduced config under the f32 policy, remat
+    "unit"."""
+    arch, twin = TWINS.get(arch, (arch, {}))
     return dataclasses.replace(
         with_precision(get_arch(arch).reduced(), "f32"), remat="unit",
-        **changes)
+        **twin, **changes)
 
 
 def mesh_of(shape):
@@ -240,14 +258,28 @@ def ce_case(inp, out, m):
     out[f"ce/{m}/embed_equal"] = bool(torch.equal(rows, table[tokens.long()]))
 
 
+def caches_agree(caches, axis) -> bool:
+    """Whether every rank of ``axis`` holds each cache leaf at one shape,
+    and the bits of each leaf the axis keeps whole."""
+    ok = True
+    for sub in caches.values():
+        for n, t in sub.items():
+            parts = [torch.empty_like(t) for _ in range(axis.size)]
+            dist.all_gather(parts, t.contiguous(), group=axis.group)
+            ok &= n in SPLIT_LEAVES or all(torch.equal(p, t) for p in parts)
+    return bool(ok)
+
+
 def serve_case(inp, out, name, arch, changes):
     """``lm_prefill`` of the prompt, then ``DECODE_STEPS`` decode steps of
     the given tokens, on (data 1, model M) from the reference's weights at
     n_model_shards=1 (re-laid for M where the model has a MoE): every
     logit (gathered over the vocabulary by the entry points), this rank's
-    cache shapes, each KV cache gathered whole along its split dim, and
-    whether ``lm_prefill_chunk`` and the engine refuse the sharded
-    model."""
+    cache shapes, each KV cache gathered whole along its split dim, the
+    recurrent kinds' cache leaves (whole on every rank), whether every
+    rank holds the same whole leaves after the prefill and each decode
+    step, and whether ``lm_prefill_chunk`` and the engine refuse the
+    sharded model."""
     from repro_torch.serve.engine import ServeEngine
 
     m = dist.get_world_size()
@@ -262,9 +294,11 @@ def serve_case(inp, out, name, arch, changes):
     ctx = lm.Ctx(mesh=mesh)
     tokens = torch.from_numpy(inp[f"serve/{name}/tokens"]).long()
     tag = f"serve/{name}"
+    axis = model.model_axis
     with torch.no_grad():
         logits, caches = lm.lm_prefill(model, tokens[:, :PROMPT], MAX_LEN,
                                        ctx=ctx)
+        agree = [caches_agree(caches, axis)]
         out[f"{tag}/prefill"] = logits.numpy()
         out[f"{tag}/shapes"] = json.dumps({
             k: {n: list(v.shape) for n, v in sub.items()}
@@ -272,8 +306,9 @@ def serve_case(inp, out, name, arch, changes):
         for i in range(DECODE_STEPS):
             logits, caches = lm.lm_decode_step(
                 model, tokens[:, PROMPT + i:PROMPT + i + 1], caches, ctx=ctx)
+            agree.append(caches_agree(caches, axis))
             out[f"{tag}/decode{i}"] = logits.numpy()
-    axis = model.model_axis
+    out[f"{tag}/agree"] = json.dumps(agree)
     for key, sub in caches.items():
         for n in ("k", "v"):
             if n in sub:
@@ -281,6 +316,9 @@ def serve_case(inp, out, name, arch, changes):
                 dim = -2 if t.shape[-2] < cfg.n_kv_heads else -3
                 out[f"{tag}/cache/{key}/{n}"] = axis.all_gather(t, dim) \
                     .numpy()
+        if key.endswith(("_mamba", "_mlstm", "_slstm")):
+            for n, t in sub.items():
+                out[f"{tag}/cache/{key}/{n}"] = t.numpy()
     refused = []
     for what, call in (
             ("chunk", lambda: lm.lm_prefill_chunk(
