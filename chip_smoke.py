@@ -28,7 +28,7 @@ Phases, each of which fails the run on any error:
    1e-2 for the forward's bfloat16 output); at all but the ragged and
    small chunked shapes, the device time per launch of the kernel and of
    the plain version (CUDA-graph replays timed by CUDA events, median of
-   20) and of one eager call, and at the main-path shapes the kernel's
+   20, the plain version's of 5) and of one eager call, and at the main-path shapes the kernel's
    time with the L2 flushed before each launch (``cold_ms``, as the main
    path finds its operands in device memory).  #1, #3 and #5 are the D =
    1, 2 and 4 instances of one forward template (a warp per plane,
@@ -108,8 +108,8 @@ Phases, each of which fails the run on any error:
    steps, whose loss must fall, then a restart that resumes from its
    checkpoint under ``build/``;
 11. the attn block kind (``lm attn ...`` lines), ``qwen2-1.5b`` at full
-   width (28 layers, d_model 1536, 12 heads over 2, vocab 151 936, tied,
-   qkv bias) with seeded weights, no scan launched anywhere: (a) under
+   width and 7 of its 28 layers (d_model 1536, 12 heads over 2, vocab
+   151 936, tied, qkv bias) with seeded weights, no scan launched anywhere: (a) under
    the f32 policy, a 2048-token prompt as two chunks of 1024 against the
    one-shot prefill (logits 1e-4, KV caches 1e-4) and 2 decode steps
    against ``apply_lm`` with its attention dense (1e-4; blockwise, 2050
@@ -191,6 +191,18 @@ Phases, each of which fails the run on any error:
    noise (batch 2 against 1), equal tokens, every cache leaf that the
    axis keeps whole bit-equal on both ranks after each call, and the
    collective bytes a rank of the step, the prefill and a decode step;
+   (g) the VL and encoder-decoder families the same way, f32, remat
+   unit, on (data 1, model 2): ``whisper-base`` whole (its encoder, self-
+   and cross-attention split by heads, its vocabulary of 51 865 whole on
+   every rank), the step at 4 clips of 1500 frames and 448 tokens, then
+   ``lm_encode`` (its ``enc_kv`` bit-equal on both ranks and counted), a
+   prefill of 4 tokens a clip and 8 greedy decode steps; ``qwen2-vl-72b``
+   at full width and 1 of its 80 layers (3.37 B parameters: the one rank
+   runs its step alone before the ranks start), the step at 1 x 2048
+   with 1024 vision embeddings, then a prefill of that prompt and 8
+   greedy decode steps; the noise control's permutation takes every
+   attention layer's heads too (the cross-attention's and
+   ``enc_kv_proj``'s kv heads in one order);
    (e) ``launch/train.py --distributed
    --grad-compression int8_ef`` on 2 ranks under the config's own
    policy, which picks (data 1, model 2): 2 steps and a model-sharded
@@ -279,7 +291,7 @@ Phases, each of which fails the run on any error:
    shape, (1, 2048, 64, 128), sections 16/24/24, three distinct planes
    (a patch grid, then text) against an f64 evaluation of the f32
    angles, 1e-5 of the largest magnitude, and three equal planes bit for
-   bit ``apply_rope``; then ``qwen2-vl-72b`` at full width and 2 of its
+   bit ``apply_rope``; then ``qwen2-vl-72b`` at full width and 1 of its
    80 layers with seeded weights: (b) under the f32 policy
    ``lm_prefill`` of 2048 tokens, the first 1024 vision embeddings,
    against ``apply_lm``, 4 decode steps against ``apply_lm`` over 2052
@@ -305,7 +317,7 @@ Phases, each of which fails the run on any error:
    ``apply_lm(enc_frames=)`` and 8 decode steps against ``apply_lm``,
    ``max_len`` 448, at 1e-4 of the largest logit or four times the noise
    control; (c) under its own policy 4 clips batched, a prompt of 4
-   tokens and 32 greedy tokens each: the encoder's, the prefill's and a
+   tokens and 8 greedy tokens each: the encoder's, the prefill's and a
    decode step's ms, tok/s, the idle share and the share of a decode
    step's device time under the ``lm.cross_attention`` spans, and the
    engine's refusal of the model; (d) two AdamW steps of the whole model
@@ -364,6 +376,9 @@ ROOT = pathlib.Path(__file__).resolve().parent
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_OPS_PER_S = 67e12
 MAIN_WIDTHS = (56, 28, 14, 7)
+# The plain versions' timings in the kernel phase take the median of this
+# many calls (the kernels' of 20): the smoke's time limit.
+PLAIN_REPS = 5
 BATCH = 64
 REPLACES = {
     "gspn_quad_fwd": "src/repro/kernels/gspn_multidir.py:422",
@@ -559,10 +574,12 @@ def kernel_phase(gen):
             if timed:
                 row.update(
                     ms=_graph_ms(lambda: kernel(*args, chunk=chunk), 10),
-                    plain_ms=_graph_ms(lambda: plain(*args, chunk=chunk), 2),
+                    plain_ms=_graph_ms(lambda: plain(*args, chunk=chunk), 2,
+                                       n=PLAIN_REPS),
                     call_ms=_median_ms(lambda: kernel(*args, chunk=chunk)),
                     plain_call_ms=_median_ms(
-                        lambda: plain(*args, chunk=chunk)),
+                        lambda: plain(*args, chunk=chunk), n=PLAIN_REPS,
+                        warmup=1),
                     **_bound(kind, NDIR[name], g, h, w, cpw, dtype))
                 if name in COLD and h in MAIN_WIDTHS:
                     row["cold_ms"] = _cold_ms(
@@ -630,10 +647,12 @@ def _quad_rows(gen):
         if timed:
             row.update(
                 ms=_graph_ms(lambda: mk.gspn_scan_quad(*args), 10),
-                plain_ms=_graph_ms(lambda: mk.gspn_scan_quad_torch(*args), 2),
+                plain_ms=_graph_ms(lambda: mk.gspn_scan_quad_torch(*args), 2,
+                                   n=PLAIN_REPS),
                 call_ms=_median_ms(lambda: mk.gspn_scan_quad(*args)),
                 plain_call_ms=_median_ms(
-                    lambda: mk.gspn_scan_quad_torch(*args)),
+                    lambda: mk.gspn_scan_quad_torch(*args), n=PLAIN_REPS,
+                    warmup=1),
                 **_bound("fwd", 4, g, n, n, cpw, dtype))
             if n in MAIN_WIDTHS:
                 row["cold_ms"] = _cold_ms(lambda: mk.gspn_scan_quad(*args))
@@ -1503,8 +1522,8 @@ def _exact_attention(q, k, v):
 
 
 def lm_attn_phase():
-    """The attn block kind at full width: ``qwen2-1.5b`` ``full()`` with
-    seeded weights.  (a) Under the f32 policy: a chunk chain against the
+    """The attn block kind at full width: ``qwen2-1.5b`` ``full()`` cut to
+    TIER_LAYERS of its 28 layers, with seeded weights.  (a) Under the f32 policy: a chunk chain against the
     one-shot prefill, decode against ``apply_lm``, and
     ``chunked_attention`` against ``full_attention`` at one layer's
     shapes; (b) the engine over ``SERVE_PROMPTS`` under the config's own
@@ -1521,7 +1540,10 @@ def lm_attn_phase():
     from repro_torch.serve.engine import Request, ServeEngine
     from repro_torch.train.step import build_train_step, init_train_state
 
-    cfg = full()
+    # Full width, the tier's TIER_LAYERS of the 28 layers (the smoke's
+    # time limit).
+    cfg = dataclasses.replace(full(), unit=(("attn", TIER_LAYERS),),
+                              n_layers=TIER_LAYERS)
     device = "cuda"
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -1529,7 +1551,8 @@ def lm_attn_phase():
     model = lm.LM(cfg, device=device, generator=gen)
     torch.cuda.synchronize()
     print(f"lm attn {cfg.name}: {lm.count_params(model)} parameters "
-          f"({cfg.layer_count()} layers, d_model {cfg.d_model}, "
+          f"({cfg.layer_count()} of {full().n_layers} layers, d_model "
+          f"{cfg.d_model}, "
           f"{cfg.n_heads} heads over {cfg.n_kv_heads}, head_dim {cfg.hd}, "
           f"d_ff {cfg.d_ff}, vocab {cfg.vocab}, qkv bias {cfg.qkv_bias}, "
           f"tied {cfg.tie_embeddings}), set-up "
@@ -1736,7 +1759,7 @@ def lm_attn_phase():
         raise AssertionError("lm attn train: non-finite loss")
     # Attention's share: the device time under the attention.* spans of
     # the same profiled step (the blockwise forward, its recompute under
-    # remat and its two-sweep backward, in each of the 28 layers).
+    # remat and its two-sweep backward, in each layer).
     _profile(lambda: step(state, batch), dt, "lm attn train step",
              spans="attention.")
     del state, step, metrics, model
@@ -3222,6 +3245,17 @@ TP_LAUNCH = ("-m", "repro_torch.launch.train", "--distributed", "--arch",
 TP_REC = {"zamba2-2.7b": 4096, "xlstm-1.3b": 1024}
 TP_REC_PROMPT = 1024
 TP_REC_DECODE = 8
+# (g): the VL and encoder-decoder families, f32, remat unit, on (data 1,
+# model 2): {arch: (sequences, tokens a sequence, layers kept or None:
+# all)}.  whisper-base whole, 4 clips of its 1500 frames with 448 tokens
+# (its context) a step, then lm_encode, a prefill of TP_XF_PROMPT tokens
+# a clip (the start-of-transcript tokens) and TP_REC_DECODE greedy steps
+# in a cache of 448; qwen2-vl-72b at full width and 1 of its 80 layers,
+# 1 x 2048 tokens, the first TP_XF_VISION of them vision embeddings, in
+# the step and in the prompt.
+TP_XF = {"whisper-base": (4, 448, None), "qwen2-vl-72b": (1, 2048, 1)}
+TP_XF_VISION = 1024
+TP_XF_PROMPT = {"whisper-base": 4, "qwen2-vl-72b": 2048}
 
 
 def _tp_moe_cfg(m):
@@ -3244,11 +3278,27 @@ def _tp_rec_cfg(arch):
         n_layers=cfg.n_layers // cfg.n_units * units)
 
 
+def _tp_xf_cfg(arch):
+    """(g)'s config: the arch's full width, TP_XF's layers, the f32
+    policy, remat unit."""
+    from repro_torch.configs.base import get_arch, with_precision
+    cfg = get_arch(arch).full()
+    layers = TP_XF[arch][2]
+    if layers:
+        cfg = dataclasses.replace(cfg, unit=((cfg.unit[0][0], layers),),
+                                  n_layers=layers)
+    return dataclasses.replace(with_precision(cfg, "f32"), remat="unit")
+
+
 def _tp_batch(cfg, seq=TRAIN_SEQ, batch=1, seed=0):
+    """The synthetic batch, with TP_XF_VISION vision embeddings for the
+    VL family and the encoder's frames for the audio family."""
     from repro_torch.data.pipeline import DataConfig, host_batch, to_device
     return to_device(host_batch(DataConfig(
-        vocab=cfg.vocab, seq_len=seq, global_batch=batch, seed=seed), 0),
-        "cuda")
+        vocab=cfg.vocab, seq_len=seq, global_batch=batch, seed=seed,
+        vision_len=TP_XF_VISION if cfg.family == "vlm" else 0,
+        enc_len=cfg.enc_len if cfg.family == "audio" else 0,
+        d_model=cfg.d_model), 0), "cuda")
 
 
 def _samples(params, grads, rng_seed):
@@ -3263,15 +3313,40 @@ def _samples(params, grads, rng_seed):
             "grad_max": {n: g.abs().max().item() for n, g in grads.items()}}
 
 
+def _attn_perms(name, mod, kp) -> dict:
+    """{leaf: (dim, permutation)} that relabels an attention layer's kv
+    heads in the order ``kp``, each kv head's query heads with it: the
+    columns of wq, wk, wv (and the biases) and the rows of wo."""
+    cfg = mod.cfg
+    hd, g = cfg.hd, cfg.n_heads // cfg.n_kv_heads
+    qp = (kp[:, None] * g + torch.arange(g, device="cuda")).flatten()
+
+    def cols(hp):
+        return (hp[:, None] * hd + torch.arange(hd, device="cuda")).flatten()
+
+    qc, kc = cols(qp), cols(kp)
+    p = f"{name}."
+    out = {p + "wq": (1, qc), p + "wk": (1, kc), p + "wv": (1, kc),
+           p + "wo": (0, qc)}
+    if cfg.qkv_bias:
+        out.update({p + "bq": (0, qc), p + "bk": (0, kc), p + "bv": (0, kc)})
+    return out
+
+
 def _head_perms(name, mod, gen) -> dict:
     """{leaf: (dim, permutation)} that relabels the heads of a recurrent
-    mixer ``mod`` (at module path ``name``) in a seeded order: every
-    column, channel, row and vector that belongs to a head moves with it;
-    Mamba-2's B and C, shared by the heads, stay.  Empty for another
-    module."""
+    mixer or an attention layer ``mod`` (at module path ``name``) in a
+    seeded order: every column, channel, row and vector that belongs to a
+    head moves with it; Mamba-2's B and C, shared by the heads, stay.  A
+    cross-attention's heads are relabelled in :func:`_tp_reordered`, with
+    the encoder's K/V projection.  Empty for another module."""
+    from repro_torch.models.attention import Attention
     from repro_torch.models.ssm import Mamba2
     from repro_torch.models.xlstm import MLSTM, SLSTM
 
+    if isinstance(mod, Attention) and not name.endswith("xattn"):
+        return _attn_perms(name, mod, torch.randperm(
+            mod.cfg.n_kv_heads, device="cuda", generator=gen))
     if not isinstance(mod, (Mamba2, MLSTM, SLSTM)):
         return {}
     cfg = mod.cfg
@@ -3309,12 +3384,15 @@ def _tp_reordered(model, batch, grads) -> tuple:
     """({leaf: the largest distance between its gradient ``grads`` and the
     one rank's gradient once more in another reduction order}, the
     relative distance between the two gradients' global norms): the FFN's
-    hidden units, the vocabulary and the recurrent mixers' heads taken in
-    a seeded permutation (the same function; the sums over d_ff, over the
-    vocabulary and over a mixer's inner width, those the model axis
-    splits, run in another order), the gradients read back in the
-    model's own layout.  The weights are put back bit for bit."""
+    hidden units, the vocabulary, the recurrent mixers' and the attention
+    layers' heads taken in a seeded permutation (the same function; the
+    sums over d_ff, over the vocabulary, over a mixer's inner width and
+    over the heads, those the model axis splits, run in another order),
+    the gradients read back in the model's own layout.  Every
+    cross-attention and the encoder's K/V projection share one order of
+    the kv heads.  The weights are put back bit for bit."""
     from repro_torch.models import lm
+    from repro_torch.models.lm import XAttnBlock
 
     params = dict(model.named_parameters())
     gen = torch.Generator(device="cuda").manual_seed(TP_SEED + 2)
@@ -3325,12 +3403,21 @@ def _tp_reordered(model, batch, grads) -> tuple:
     if "head" in params:
         perms["head"] = (1, vocab)
     for n in params:
-        if n.endswith(("ffn.gate", "ffn.up")):
+        if n.endswith(("ffn.gate", "ffn.up", "ffn.fc1")):
             perms[n] = (1, hidden)
-        elif n.endswith("ffn.down"):
+        elif n.endswith(("ffn.down", "ffn.fc2", "ffn.b1")):
             perms[n] = (0, hidden)
     for name, mod in model.named_modules():
         perms.update(_head_perms(name, mod, gen))
+    if model.cfg.encoder_layers:
+        cfg, cross = model.cfg, torch.randperm(
+            model.cfg.n_kv_heads, device="cuda", generator=gen)
+        kc = (cross[:, None] * cfg.hd
+              + torch.arange(cfg.hd, device="cuda")).flatten()
+        perms.update({f"enc_kv_proj.{w}": (1, kc) for w in ("wk", "wv")})
+        for name, mod in model.named_modules():
+            if isinstance(mod, XAttnBlock):
+                perms.update(_attn_perms(f"{name}.xattn", mod.xattn, cross))
     saved = {n: params[n].detach().clone() for n in perms}
     inv = torch.argsort(vocab)
     with torch.no_grad():
@@ -3340,7 +3427,7 @@ def _tp_reordered(model, batch, grads) -> tuple:
              for k, v in batch.items()}
     loss, _ = lm.lm_loss(model, moved)
     again = dict(zip(params, torch.autograd.grad(loss, list(
-        params.values()))))
+        params.values()), allow_unused=True, materialize_grads=True)))
     del loss
     with torch.no_grad():
         for n in perms:
@@ -3400,46 +3487,100 @@ def _tp_reference(path: pathlib.Path) -> dict:
         ref["rec"][arch]["serve"] = _tp_rec_serve_one_rank(cfg)
         ref["rec"][arch]["s"] = time.perf_counter() - t0
         torch.cuda.empty_cache()
+
+    # (g) the VL and encoder-decoder families.
+    ref["xf"] = {}
+    for arch, (rows, seq, _) in TP_XF.items():
+        t0 = time.perf_counter()
+        cfg = _tp_xf_cfg(arch)
+        ref["xf"][arch] = _tp_one_rank(cfg, seq, rows,
+                                       lean=cfg.family == "vlm")
+        ref["xf"][arch]["serve"] = _tp_xf_serve_one_rank(cfg)
+        ref["xf"][arch]["s"] = time.perf_counter() - t0
+        gc.collect()
+        torch.cuda.empty_cache()
     torch.save(ref, path)
     return ref
 
 
-def _tp_one_rank(cfg, seq) -> dict:
+def _adamw_by_leaf(params, grads):
+    """One AdamW step from zero moments of ``params`` by ``grads`` (which
+    it empties), clipped by the global norm of all of them, each leaf
+    updated by ``adamw_update`` on its own: the step's arithmetic with one
+    leaf's moments and temporaries alive at a time.  Returns the global
+    norm."""
+    from repro_torch.optim.adamw import adamw_init, adamw_update, global_norm
+
+    ocfg = _dp_opt()
+    gnorm = global_norm(grads[n] for n in params)
+    for n, p in params.items():
+        one = {n: p}
+        adamw_update(ocfg, {n: grads.pop(n)}, adamw_init(ocfg, one), one,
+                     norm=lambda _: gnorm)
+    return gnorm
+
+
+def _tp_one_rank(cfg, seq, rows=1, lean=False) -> dict:
     """The one-rank side of a model-axis step check, in this process:
     the seeded model's leaf sums and shapes, the counted loss and
-    gradients at 1 x ``seq``, one AdamW step with its loss, gradient norm
-    and a seeded sample of every leaf, and the noise control of (c)."""
+    gradients at ``rows`` x ``seq``, one AdamW step with its loss,
+    gradient norm and a seeded sample of every leaf, and the noise
+    control of (c).  The gradients and the control run before the
+    optimizer's state exists; the step is then the train step of a
+    setup drawn again from the seed, or, ``lean``, those gradients
+    applied leaf by leaf (:func:`_adamw_by_leaf`): qwen2-vl's cut model
+    (13.5 GB of f32 parameters) with its whole state, its gradients and
+    AdamW's temporaries over the 4.6 GiB embedding and head does not fit
+    the card."""
     from repro_torch.kernels import cuda_lib
     from repro_torch.models import lm
     from repro_torch.optim.adamw import lr_at
     from repro_torch.train.step import make_train_setup
 
     torch.cuda.reset_peak_memory_stats()
-    setup = make_train_setup(cfg, _dp_opt(), device="cuda", seed=TP_SEED)
-    model = setup.model
+    model = lm.LM(cfg, device="cuda", generator=torch.Generator(
+        device="cuda").manual_seed(TP_SEED))
     params = dict(model.named_parameters())
     ref = {"sums": {n: p.double().sum().item() for n, p in params.items()},
            "shapes": {n: list(p.shape) for n, p in params.items()},
-           "seq": seq}
-    batch = _tp_batch(cfg, seq)
+           "seq": seq, "rows": rows}
+    batch = _tp_batch(cfg, seq, rows)
     cuda_lib.clear_counts()
-    loss, _ = lm.lm_loss(model, batch)
-    grads = dict(zip(params, torch.autograd.grad(loss, list(
-        params.values()))))
     torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loss, _ = lm.lm_loss(model, batch)
+    # Exact zeros for the leaves the loss does not read (xattn's own wk
+    # and wv).
+    grads = dict(zip(params, torch.autograd.grad(loss, list(
+        params.values()), allow_unused=True, materialize_grads=True)))
+    torch.cuda.synchronize()
+    grads_s = time.perf_counter() - t0
     ref["launches"] = {"/".join(map(str, k)): v for k, v in
                        cuda_lib.launch_shapes.items()}
     ref["plain"] = sum(cuda_lib.plain_calls.values())
     ref["step"] = _samples(params, grads, TP_SEED)
-    del loss
     ref["step"]["reorder"], ref["step"]["reorder_norm"] = _tp_reordered(
         model, batch, grads)
-    del grads
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    _, metrics = setup.train_step(setup.state, batch)
-    torch.cuda.synchronize()
-    ref["step_ms"] = (time.perf_counter() - t0) * 1e3
+    if lean:
+        t0 = time.perf_counter()
+        metrics = {"loss": loss.detach(),
+                   "grad_norm": _adamw_by_leaf(params, grads)}
+        torch.cuda.synchronize()
+        ref["step_ms"] = (grads_s + time.perf_counter() - t0) * 1e3
+        setup = None
+    else:
+        del grads, model, params, loss
+        gc.collect()
+        torch.cuda.empty_cache()
+        setup = make_train_setup(cfg, _dp_opt(), device="cuda",
+                                 seed=TP_SEED)
+        model = setup.model
+        params = dict(model.named_parameters())
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, metrics = setup.train_step(setup.state, batch)
+        torch.cuda.synchronize()
+        ref["step_ms"] = (time.perf_counter() - t0) * 1e3
     ref["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
     ref.update(loss=float(metrics["loss"]),
                grad_norm=float(metrics["grad_norm"]),
@@ -3464,6 +3605,7 @@ def _tp_one_rank(cfg, seq) -> dict:
         for n, g in ref["step"]["grad"].items()
         for a in [ref["step"]["reorder"][n]]}
     del setup, model, params
+    gc.collect()
     torch.cuda.empty_cache()
     return ref
 
@@ -3476,16 +3618,16 @@ def _tp_rec_tokens(cfg, batch=1):
 
 def _tp_rec_greedy(model, tokens, ctx=None, after=None):
     """:func:`_rl_greedy` over TP_REC_DECODE steps, each call timed: (the
-    last logits of row 0, the tokens chosen, each call's ms).
+    last logits of row 0, the tokens chosen, {call: ms}).
     ``after(what, caches)`` sees the caches after each call."""
-    ms = []
+    ms = {}
 
     def timed(what, fn):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         out = fn()
         torch.cuda.synchronize()
-        ms.append((time.perf_counter() - t0) * 1e3)
+        ms[what] = (time.perf_counter() - t0) * 1e3
         if after is not None:
             after(what, out[1])
         return out
@@ -3507,6 +3649,70 @@ def _tp_rec_serve_one_rank(cfg) -> dict:
     logits, chosen, ms = _tp_rec_greedy(model, _tp_rec_tokens(cfg))
     twin, _, _ = _tp_rec_greedy(model, _tp_rec_tokens(cfg, 2))
     del model
+    torch.cuda.empty_cache()
+    return {"logits": logits, "tokens": chosen, "ms": ms,
+            "noise": _rel_err(twin, logits)}
+
+
+def _tp_xf_serve(model, ctx=None, after=None, copies=1):
+    """(g)'s serving run of ``model`` (a TP_XF arch): whisper's clips
+    through ``lm_encode``, then ``lm_prefill`` of the seeded prompt (the
+    VL prompt's first TP_XF_VISION positions vision embeddings) and
+    TP_REC_DECODE greedy decode steps, each call timed; ``copies`` stacks
+    that many copies of the batch (the noise control).  ``after(what,
+    out)`` sees each call's output.  Returns (the last logits of row 0,
+    the tokens chosen, {call: ms})."""
+    from repro_torch.models import lm
+
+    cfg = model.cfg
+    rows = TP_XF[cfg.name][0]
+    gen = torch.Generator(device="cuda").manual_seed(TP_SEED + 4)
+    tokens = torch.randint(0, cfg.vocab, (rows, TP_XF_PROMPT[cfg.name]),
+                           device="cuda", generator=gen)
+    vision = frames = None
+    if cfg.family == "vlm":
+        vision = torch.randn((rows, TP_XF_VISION, cfg.d_model),
+                             device="cuda", generator=gen)
+    if cfg.family == "audio":
+        frames = torch.randn((rows, cfg.enc_len, cfg.d_model),
+                             device="cuda", generator=gen)
+    tokens, vision, frames = (None if t is None else torch.cat([t] * copies)
+                              for t in (tokens, vision, frames))
+    ms = {}
+
+    def timed(what, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        ms[what] = (time.perf_counter() - t0) * 1e3
+        if after is not None:
+            after(what, out)
+        return out
+
+    enc_kv = None
+    if frames is not None:
+        with torch.no_grad():
+            enc_kv = timed("encode", lambda: lm.lm_encode(model, frames))
+    max_len = 448 if cfg.family == "audio" else \
+        TP_XF_PROMPT[cfg.name] + TP_REC_DECODE
+    logits, chosen, _ = _rl_greedy(model, tokens, max_len, ctx, timed,
+                                   TP_REC_DECODE, vision_embeds=vision,
+                                   enc_kv=enc_kv)
+    return logits, chosen, ms
+
+
+def _tp_xf_serve_one_rank(cfg) -> dict:
+    """(g)'s serving reference: the seeded model's run on one rank, and
+    its own rounding noise (two copies of the batch against one, row
+    0's largest distance over the largest logit)."""
+    from repro_torch.models import lm
+    model = lm.LM(cfg, device="cuda", generator=torch.Generator(
+        device="cuda").manual_seed(TP_SEED))
+    logits, chosen, ms = _tp_xf_serve(model)
+    twin, _, _ = _tp_xf_serve(model, copies=2)
+    del model
+    gc.collect()
     torch.cuda.empty_cache()
     return {"logits": logits, "tokens": chosen, "ms": ms,
             "noise": _rel_err(twin, logits)}
@@ -3598,7 +3804,7 @@ def _tp_step(setup, ref, rank, note):
     from repro_torch.kernels import cuda_lib
     from repro_torch.parallel import collectives
 
-    batch = _tp_batch(setup.model.cfg, ref["seq"])
+    batch = _tp_batch(setup.model.cfg, ref["seq"], ref["rows"])
     cuda_lib.clear_counts()
     collectives.clear_staged()
     torch.cuda.synchronize()
@@ -3773,11 +3979,77 @@ def _tp_rec(arch, ref, rank, note):
     return out
 
 
+def _tp_xf(arch, ref, rank, note):
+    """(g) on this rank: the arch's setup on (data 1, model 2) from the
+    seed, its placements, its first step against the one rank's, then
+    the seeded model sharded: (whisper's ``lm_encode``,) the prefill and
+    the greedy decode steps, each call's collective bytes, the digests of
+    ``enc_kv`` and of every cache leaf that the axis keeps whole after
+    each call, and this rank's KV cache shape."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_mesh_for_devices
+    from repro_torch.models import lm
+    from repro_torch.parallel import collectives
+    from repro_torch.parallel.tensor_parallel import shard_model
+    from repro_torch.train.step import make_train_setup
+
+    cfg = _tp_xf_cfg(arch)
+    mesh = make_mesh_for_devices(range(TP_RANKS), model_parallel=TP_RANKS,
+                                 device_type="cuda")
+    torch.cuda.reset_peak_memory_stats()
+    setup = make_train_setup(cfg, _dp_opt(), mesh=mesh, device="cuda",
+                             seed=TP_SEED)
+    out = {"placements": _tp_placements(setup, ref),
+           "vocab_parallel": setup.model.tp is not None}
+    out.update(_tp_step(setup, ref, rank, note))
+    del setup
+    gc.collect()
+    torch.cuda.empty_cache()
+    note(f"{arch} step")
+    model = lm.LM(cfg, device="cuda", generator=torch.Generator(
+        device="cuda").manual_seed(TP_SEED))
+    shard_model(model, mesh)
+    gc.collect()
+    torch.cuda.empty_cache()
+    digests, calls = [], {}
+
+    def after(what, res):
+        calls[what] = {"staged": sum(collectives.staged_bytes.values()),
+                       "link": sum(collectives.link_bytes.values())}
+        collectives.clear_staged()
+        if what == "encode":
+            digests.append({f"enc_kv/{n}": _digest(t)
+                            for n, t in zip("kv", res)})
+            return
+        caches = res[1]
+        digests.append({f"{k}/{n}": _digest(t) for k, sub in caches.items()
+                        for n, t in sub.items() if n not in ("k", "v")})
+        if what == "prefill":
+            calls[what]["kv_shapes"] = sorted({
+                str(list(sub["k"].shape)) for sub in caches.values()})
+
+    collectives.clear_staged()
+    logits, chosen, ms = _tp_xf_serve(model, lm.Ctx(mesh=mesh), after)
+    every = [None] * TP_RANKS
+    dist.all_gather_object(every, digests)
+    out.update(serve_ms=ms, tokens=chosen, calls=calls,
+               caches_equal=[all(e[i] == digests[i] for e in every)
+                             for i in range(len(digests))],
+               leaves=len(digests[-1]))
+    if rank == 0:
+        out["serve_err"] = _rel_err(logits, ref["serve"]["logits"])
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    note(f"{arch} serve")
+    return out
+
+
 def tp_worker(mode: str, out: str) -> None:
     """One rank of the lm tp phase, started by :func:`_spawn_ranks`: joins
     the gloo group the ranks share, builds the setup on (data 1, model 2)
-    from the seed, runs (a), (b), (c), (d) and (f), and on rank 0 writes
-    every rank's results to ``out``."""
+    from the seed, runs (a), (b), (c), (d), (f) and (g), and on rank 0
+    writes every rank's results to ``out``."""
     sys.path.insert(0, str(ROOT / "src"))
     import torch.distributed as dist
     from repro_torch.launch.mesh import init_distributed, make_mesh_for_devices
@@ -3815,6 +4087,8 @@ def tp_worker(mode: str, out: str) -> None:
     torch.cuda.empty_cache()
     res["rec"] = {arch: _tp_rec(arch, ref["rec"][arch], rank, note)
                   for arch in TP_REC}
+    res["xf"] = {arch: _tp_xf(arch, ref["xf"][arch], rank, note)
+                 for arch in TP_XF}
     every = [None] * TP_RANKS
     dist.all_gather_object(every, res)
     dist.destroy_process_group()
@@ -3837,13 +4111,67 @@ def _tp_launch(extra, ckpt) -> tuple:
 
 def _tp_rec_report(arch, ref, ranks, smi) -> list:
     """(f)'s lines for ``arch`` and the names of its failed checks."""
-    fails = []
     cfg = _tp_rec_cfg(arch)
-    r0, seq = ranks[0], ref["seq"]
+    return _tp_axis_report(
+        "(f)", arch, ref, ranks, smi,
+        f"full width, {cfg.n_units} of its units ({cfg.layer_count()} "
+        f"blocks applied), f32, remat unit, on (data 1, model 2), mixers "
+        f"{ranks[0]['paths']}",
+        f"lm_prefill of 1 x {TP_REC_PROMPT} and {TP_REC_DECODE} greedy "
+        f"lm_decode_steps", "vocabulary" + (" and d_ff" if cfg.d_ff else "")
+        + " and heads")
+
+
+def _tp_xf_report(arch, ref, ranks, smi) -> list:
+    """(g)'s lines for ``arch`` and the names of its failed checks."""
+    from repro_torch.configs.base import get_arch
+    from repro_torch.models.attention import kv_split
+    cfg = _tp_xf_cfg(arch)
+    rows, seq, _ = TP_XF[arch]
+    per = cfg.n_heads * cfg.hd // TP_RANKS
+    prompt = TP_XF_PROMPT[arch]
+    max_len = 448 if cfg.family == "audio" else prompt + TP_REC_DECODE
+    extra = (f"{TP_XF_VISION} vision embeddings" if cfg.family == "vlm"
+             else f"{cfg.enc_len} frames a clip")
+    fails = _tp_axis_report(
+        "(g)", arch, ref, ranks, smi,
+        f"full width, {cfg.layer_count()} of {get_arch(arch).full().n_layers}"
+        f" decoder layers, {cfg.encoder_layers} encoder layers, f32, remat "
+        f"unit, on (data 1, model 2): {per // cfg.hd} heads of "
+        f"{cfg.n_heads} ({per} rows of wo) a rank, KV caches split by "
+        f"{kv_split(cfg.n_kv_heads, max_len, TP_RANKS)}, vocabulary "
+        f"{'split' if ranks[0]['vocab_parallel'] else 'whole'}; the step "
+        f"at {rows} x {seq} with {extra}",
+        ("lm_encode, " if cfg.encoder_layers else "")
+        + f"lm_prefill of {rows} x {prompt} ({extra}) and "
+        f"{TP_REC_DECODE} greedy lm_decode_steps",
+        "vocabulary, d_ff and heads")
+    calls = ranks[0]["calls"]
+    ms = ranks[0]["serve_ms"]
+    sv = ref["serve"]
+    enc = ""
+    if "encode" in calls:
+        enc = (f"lm_encode {ms['encode']:.1f} ms a rank (one rank "
+               f"{sv['ms']['encode']:.1f}), {calls['encode']['staged']} "
+               f"bytes a rank through host memory "
+               f"({calls['encode']['link']} on its links), enc_kv "
+               f"bit-equal on both ranks {all(r['caches_equal'][0] for r in ranks)}; ")
+    print(f"lm tp (g) {arch} serve layout ({smi}): {enc}KV caches a rank "
+          f"{calls['prefill']['kv_shapes']}; vocab-parallel "
+          f"{ranks[0]['vocab_parallel']}", flush=True)
+    if ranks[0]["vocab_parallel"] != (cfg.vocab % TP_RANKS == 0):
+        fails.append(f"(g) {arch} vocabulary")
+    return fails
+
+
+def _tp_axis_report(tag, arch, ref, ranks, smi, layout, serve, permuted):
+    """The lines of (f) or (g) (``tag``) for ``arch`` laid out as
+    ``layout``, its serving run ``serve``, its noise control's permuted
+    sums ``permuted``; the names of its failed checks."""
+    fails = []
+    r0, seq, rows = ranks[0], ref["seq"], ref["rows"]
     pl, s0 = r0["placements"], r0["step0"]
-    print(f"lm tp (f) {arch} ({smi}): full width, {cfg.n_units} of its "
-          f"units ({cfg.layer_count()} blocks applied), f32, remat unit, on "
-          f"(data 1, model 2), mixers {r0['paths']}; one rank set-up and "
+    print(f"lm tp {tag} {arch} ({smi}): {layout}; one rank set-up and "
           f"checks {ref['s']:.1f} s; {pl['n_sharded']} of {pl['n_params']} "
           f"parameters sharded over model, shape faults "
           f"{pl['bad'][:3] + ranks[1]['placements']['bad'][:3]}, seed "
@@ -3852,7 +4180,7 @@ def _tp_rec_report(arch, ref, ranks, smi) -> list:
           f"{pl['one_rank_bytes']['params']})", flush=True)
     if any(r["placements"]["bad"] or r["placements"]["seed_bad"]
            for r in ranks) or not pl["n_sharded"]:
-        fails.append(f"(f) {arch} placements")
+        fails.append(f"{tag} {arch} placements")
     rel = abs(s0["loss"] - ref["loss"]) / abs(ref["loss"])
     gn = abs(s0["grad_norm"] - ref["grad_norm"]) / ref["grad_norm"]
     shares = sorted(a / max(ref["step"]["grad_max"][n], 1e-30)
@@ -3865,8 +4193,8 @@ def _tp_rec_report(arch, ref, ranks, smi) -> list:
         st = res["step0"]
         coll = sum(st["collective_s"].values()) * 1e3
         by = {k: round(v * 1e3, 1) for k, v in st["collective_s"].items()}
-        print(f"lm tp (f) {arch} step rank {r} ({smi}): 1 x {seq}, the "
-              f"first step from the seed {st['ms']:.1f} ms (one rank "
+        print(f"lm tp {tag} {arch} step rank {r} ({smi}): {rows} x {seq}, "
+              f"the first step from the seed {st['ms']:.1f} ms (one rank "
               f"{ref['step_ms']:.1f} ms), of which the counted collectives "
               f"{coll:.1f} ms ({coll / st['ms']:.3f}) {by}, "
               f"bytes through host memory {sum(st['staged_bytes'].values())} "
@@ -3874,15 +4202,14 @@ def _tp_rec_report(arch, ref, ranks, smi) -> list:
               f"{sum(st['link_bytes'].values())}; peak "
               f"{res['peak_gib']:.2f} GiB (one rank {ref['peak_gib']:.2f}); "
               f"launches {st['launches']}, plain {st['plain']}", flush=True)
-    print(f"lm tp (f) {arch} step vs one rank: loss {s0['loss']:.7f} vs "
+    print(f"lm tp {tag} {arch} step vs one rank: loss {s0['loss']:.7f} vs "
           f"{ref['loss']:.7f} (relative {rel:.3e}, tol 1e-5), grad_norm "
           f"{s0['grad_norm']:.7f} vs {ref['grad_norm']:.7f} (relative "
           f"{gn:.3e}, tol {gn_bar:.3e}: 1e-6 or 4x the reordered one "
           f"rank's {ref['step']['reorder_norm']:.3e}); of {r0['sampled']} "
           f"sampled parameter elements {r0['sample_off']} off by more than "
           f"1e-5 of their leaf's largest, {r0['sample_noise']} of them "
-          f"within (c)'s noise "
-          f"control (vocabulary{' and d_ff' if cfg.d_ff else ''} permuted: "
+          f"within (c)'s noise control ({permuted} permuted: "
           f"{shares[-1]:.3e} of a leaf's largest gradient at most, median "
           f"{shares[len(shares) // 2]:.3e}), {r0['sample_bad']} otherwise "
           f"(tol 0) {r0['sample_worst'] + ranks[1]['sample_worst']}",
@@ -3891,31 +4218,32 @@ def _tp_rec_report(arch, ref, ranks, smi) -> list:
             r0["sampled"] != TP_SAMPLES * len(ref["step"]["idx"]) or \
             any(r["step0"]["launches"] or r["step0"]["plain"]
                 for r in ranks):
-        fails.append(f"(f) {arch} step")
+        fails.append(f"{tag} {arch} step")
     sv = ref["serve"]
     bar = max(1e-4, 4 * sv["noise"])
     calls = r0["calls"]
-    dec = [calls[f"decode {i}"] for i in range(TP_REC_DECODE)]
+    n_dec = len([k for k in calls if k.startswith("decode")])
+    dec = [calls[f"decode {i}"] for i in range(n_dec)]
     equal = [all(r["caches_equal"][i] for r in ranks)
-             for i in range(TP_REC_DECODE + 1)]
-    print(f"lm tp (f) {arch} serve ({smi}): lm_prefill of 1 x "
-          f"{TP_REC_PROMPT} and {TP_REC_DECODE} greedy lm_decode_steps on "
-          f"(data 1, model 2) vs one rank: last logits "
-          f"{r0['serve_err']:.3e} of the largest (bar {bar:.3e}: 1e-4 or "
-          f"4x the one rank's own noise {sv['noise']:.3e}, batch 2 vs 1), "
-          f"tokens {r0['tokens']} vs {sv['tokens']}; the {r0['leaves']} "
-          f"whole cache leaves bit-equal on both ranks after each call "
-          f"{equal}; "
-          f"prefill {r0['serve_ms'][0]:.1f} / {ranks[1]['serve_ms'][0]:.1f} "
-          f"ms a rank (one rank {sv['ms'][0]:.1f}), decode step median "
-          f"{statistics.median(r0['serve_ms'][1:]):.1f} ms (one rank "
-          f"{statistics.median(sv['ms'][1:]):.1f}); collective bytes a "
-          f"rank: prefill {calls['prefill']['staged']} through host memory "
-          f"({calls['prefill']['link']} on its links), a decode step "
-          f"{dec[0]['staged']} ({dec[0]['link']})", flush=True)
+             for i in range(len(r0["caches_equal"]))]
+    ms, one = r0["serve_ms"], sv["ms"]
+    print(f"lm tp {tag} {arch} serve ({smi}): {serve} on (data 1, model 2) "
+          f"vs one rank: last logits {r0['serve_err']:.3e} of the largest "
+          f"(bar {bar:.3e}: 1e-4 or 4x the one rank's own noise "
+          f"{sv['noise']:.3e}, a batch of two copies vs one), tokens "
+          f"{r0['tokens']} vs {sv['tokens']}; the {r0['leaves']} whole "
+          f"cache leaves bit-equal on both ranks after each call {equal}; "
+          f"prefill {ms['prefill']:.1f} / {ranks[1]['serve_ms']['prefill']:.1f}"
+          f" ms a rank (one rank {one['prefill']:.1f}), decode step median "
+          f"{statistics.median(ms[f'decode {i}'] for i in range(n_dec)):.1f}"
+          f" ms (one rank "
+          f"{statistics.median(one[f'decode {i}'] for i in range(n_dec)):.1f}"
+          f"); collective bytes a rank: prefill {calls['prefill']['staged']} "
+          f"through host memory ({calls['prefill']['link']} on its links), "
+          f"a decode step {dec[0]['staged']} ({dec[0]['link']})", flush=True)
     if r0["serve_err"] > bar or r0["tokens"] != sv["tokens"] or \
             ranks[1]["tokens"] != sv["tokens"] or not all(equal):
-        fails.append(f"(f) {arch} serve")
+        fails.append(f"{tag} {arch} serve")
     return fails
 
 
@@ -3926,9 +4254,11 @@ def tp_phase():
     bit, (d) grok's expert-parallel layer against one rank, (f) the
     recurrent kinds (zamba2-2.7b and xlstm-1.3b, SSM_UNITS' depth):
     placements, a step and a greedy prefill and decode against one rank,
-    the caches bit-equal across ranks, (e) the launcher with
-    --distributed, which now builds the model axis, and its resume from
-    the model-sharded checkpoint."""
+    the caches bit-equal across ranks, (g) the VL and encoder-decoder
+    families (whisper-base whole, qwen2-vl-72b at 1 of 80 layers): the
+    same, with whisper's lm_encode and enc_kv bit-equal across ranks,
+    (e) the launcher with --distributed, which now builds the model axis,
+    and its resume from the model-sharded checkpoint."""
     import shutil
 
     out_dir = ROOT / "build" / "tp"
@@ -3950,6 +4280,8 @@ def tp_phase():
           f"loss {ref['moe']['loss']:.6f}, aux {ref['moe']['aux']:.6f}, "
           f"{ref['moe_s']:.1f} s, peak {ref['moe_peak_gib']:.2f} GiB; "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
+    # The ranks share the card: (g)'s qwen2-vl step takes ~34 GiB a rank.
+    gc.collect()
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     ranks = _spawn_ranks("step", TP_RANKS, out_dir / "step.json",
@@ -4034,6 +4366,9 @@ def tp_phase():
     for arch in TP_REC:
         fails += _tp_rec_report(arch, ref["rec"][arch],
                                 [res["rec"][arch] for res in ranks], smi)
+    for arch in TP_XF:
+        fails += _tp_xf_report(arch, ref["xf"][arch],
+                               [res["xf"][arch] for res in ranks], smi)
     print(f"lm tp ranks: {time.perf_counter() - t0:.1f} s", flush=True)
 
     # (e) The launcher, its own policy, with int8_ef (each leaf's scale
@@ -4888,7 +5223,7 @@ def moe_phase():
 # weights; the vision frontend is the reference's stub: random
 # embeddings in place of the first positions.
 VL_ARCH = "qwen2-vl-72b"
-VL_LAYERS = 2
+VL_LAYERS = 1
 VL_VISION = 1024
 VL_DECODE = 4
 VL_IMAGE_DECODE = 16
@@ -5229,7 +5564,7 @@ AUDIO_PROMPTS = (4, 16, 40, 64)
 AUDIO_CHECK_DECODE = 8
 AUDIO_MAX_LEN = 448              # Whisper's trained context
 AUDIO_PROMPT = 4                 # the start-of-transcript tokens
-AUDIO_NEW = 32
+AUDIO_NEW = 8
 
 
 def _audio_attention():
@@ -5470,16 +5805,18 @@ def _rl_tokens(cfg, prompt, device):
 
 
 def _rl_greedy(model, tokens, max_len, ctx=None, counted=None,
-               steps=RL_DECODE):
-    """``lm_prefill`` of ``tokens`` then ``steps`` greedy decode steps, row
-    0's choice fed to every row: (every step's last logits of row 0
-    (steps + 1, V) on the host, the tokens chosen, the prefill's caches).
-    ``counted(what, fn)`` wraps each call."""
+               steps=RL_DECODE, vision_embeds=None, enc_kv=None):
+    """``lm_prefill`` of ``tokens`` (with ``vision_embeds`` in place of the
+    first embeddings) then ``steps`` greedy decode steps, row 0's choice
+    fed to every row, the xattn blocks reading ``enc_kv``: (every step's
+    last logits of row 0 (steps + 1, V) on the host, the tokens chosen,
+    the prefill's caches).  ``counted(what, fn)`` wraps each call."""
     from repro_torch.models import lm
     counted = counted or (lambda what, fn: fn())
     with torch.no_grad():
         logits, caches = counted("prefill", lambda: lm.lm_prefill(
-            model, tokens, max_len, ctx=ctx))
+            model, tokens, max_len, ctx=ctx, vision_embeds=vision_embeds,
+            enc_kv=enc_kv))
         first = caches
         last = [logits[:1, -1].float().cpu()]
         chosen = [int(logits[0, -1].argmax())]
@@ -5487,7 +5824,7 @@ def _rl_greedy(model, tokens, max_len, ctx=None, counted=None,
             tok = torch.full((tokens.shape[0], 1), chosen[-1],
                              device=tokens.device)
             logits, caches = counted(f"decode {i}", lambda: lm.lm_decode_step(
-                model, tok, caches, ctx=ctx))
+                model, tok, caches, ctx=ctx, enc_kv=enc_kv))
             last.append(logits[:1, -1].float().cpu())
             chosen.append(int(logits[0, -1].argmax()))
     return torch.cat(last), chosen, first

@@ -20,12 +20,12 @@ memory: Python's dispatch of the ops is its cost.
 Sweep mode (``--all``) runs each cell in a subprocess, so a failing cell
 cannot take the sweep down, skips the cells whose JSON already says
 ``ok`` or ``skipped``, and exits 1 if any cell failed, as the
-reference's does.  The cells of the models that the model axis does
-not run yet (``qwen2-vl-72b``'s VL model and ``whisper-base``'s encoder
-and xattn kind) fail by design (``tensor_parallel.check_model_axis``,
-ROADMAP.md §1 item 6.2) and are recorded as ``"error"``.  Each cell
-stops after ``--timeout`` seconds, a cell of a model with the sLSTM
-after :data:`TOKEN_LOOP_TIMEOUT` times that.
+reference's does.  Every LM cell that is not skipped runs under the
+model axis of 16 (``tensor_parallel.check_model_axis`` accepts each
+registry config; only ``gspn_impl="sp"``, which no cell uses, waits for
+ROADMAP.md §1 item 6.2).  Each cell stops after ``--timeout`` seconds, a
+cell of a model with the sLSTM after :data:`TOKEN_LOOP_TIMEOUT` times
+that.
 """
 
 from __future__ import annotations

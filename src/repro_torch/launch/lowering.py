@@ -246,11 +246,14 @@ def build_lm_cell(arch: str, shape_name: str, mesh, *,
                   reduced: bool = False) -> Cell:
     """The (arch, shape) cell of rank 0 on ``mesh`` (a ``DeviceMesh`` over
     the fake group, with a ``model`` axis).  Raises for a config the
-    model axis does not run yet (the xattn kind, the encoder, the VL
-    model, ``gspn_impl="sp"``: ``check_model_axis``, ROADMAP.md §1 item
-    6.2).  ``spec`` stands in for ``SHAPES[shape_name]`` and ``reduced``
-    takes the arch's reduced config (at ``n_model_shards`` = the model
-    extent), for small checks."""
+    model axis does not run yet (``gspn_impl="sp"``:
+    ``check_model_axis``, ROADMAP.md §1 item 6.2).  A decode cell of the
+    ``audio`` family takes the encoder's ``enc_kv`` as the reference's
+    does: (B_local, enc_len, Hkv, D) each in the compute dtype, split
+    over the data axes and whole over ``model``.  ``spec`` stands in for
+    ``SHAPES[shape_name]`` and ``reduced`` takes the arch's reduced
+    config (at ``n_model_shards`` = the model extent), for small
+    checks."""
     entry = get_arch(arch)
     shape = spec or SHAPES[shape_name]
     sizes = mesh_shape(mesh)
@@ -316,12 +319,20 @@ def build_lm_cell(arch: str, shape_name: str, mesh, *,
                                   device="meta",
                                   model_axis=model.model_axis)
 
-    def decode_fn(token, caches):
-        with torch.no_grad():
-            return lm_mod.lm_decode_step(model, token, caches, ctx=ctx)
+    enc_kv = None
+    if cfg.family == "audio":
+        enc_kv = tuple(torch.empty((token.shape[0], cfg.enc_len,
+                                    cfg.n_kv_heads, cfg.hd),
+                                   dtype=cfg.compute_dtype, device="meta")
+                       for _ in "kv")
 
-    return Cell(name=name, fn=decode_fn, args=(token, caches), meta=meta,
-                resident=(params, token, caches),
+    def decode_fn(token, caches, enc_kv):
+        with torch.no_grad():
+            return lm_mod.lm_decode_step(model, token, caches, ctx=ctx,
+                                         enc_kv=enc_kv)
+
+    return Cell(name=name, fn=decode_fn, args=(token, caches, enc_kv),
+                meta=meta, resident=(params, token, caches, enc_kv),
                 collectives=axis.collectives("decode", 1),
                 gathered_bytes=axis.gathered_bytes())
 

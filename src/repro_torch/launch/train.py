@@ -39,12 +39,15 @@ config is ``full(n_model_shards=tp)`` (the MoE's slabs laid out for that
 axis); the parameters, gradients and moments are split over the model
 axis and sharded over the data axis where it has more than one rank
 (``train.step``), and the elastic trainer re-meshes at the same model
-extent.  Every architecture but ``qwen2-vl-72b`` and ``whisper-base``
-(ROADMAP.md §1 item 6.2) trains so, ``zamba2-2.7b`` and ``xlstm-1.3b``
-among them::
+extent.  Every architecture trains so, ``zamba2-2.7b``, ``xlstm-1.3b``,
+``whisper-base`` (its encoder frames in every batch) and ``qwen2-vl-72b``
+(its vision embeddings in half of each sequence's positions) among
+them::
 
     PYTHONPATH=src torchrun --nproc-per-node 2 -m repro_torch.launch.train \
         --distributed --arch zamba2-2.7b --steps 3 --batch 2 --seq 4096
+    PYTHONPATH=src torchrun --nproc-per-node 2 -m repro_torch.launch.train \
+        --distributed --arch whisper-base --steps 3 --batch 4 --seq 448
 
 ``--production-mesh`` (with ``--multi-pod``) builds the reference's
 16 x 16 (2 x 16 x 16) mesh, which needs 256 (512) ranks.

@@ -324,8 +324,9 @@ class Attention(nn.Module):
     (and the biases) where every rank's heads are its own slice, else
     from the whole leaf gathered (the K/V columns where the kv heads do
     not divide M); the partial outputs are summed over the axis.  The
-    training forward, the prefill (:meth:`prefill_tp`) and the decode step
-    run sharded, the caches split as :func:`kv_split` says."""
+    training forward, the cross-attention (:meth:`_cross_tp`, over the
+    whole ``kv`` on every rank), the prefill (:meth:`prefill_tp`) and the
+    decode step run sharded, the caches split as :func:`kv_split` says."""
 
     tp = None
 
@@ -411,6 +412,8 @@ class Attention(nn.Module):
         None``)."""
         if kv is not None:
             k, v = kv
+            if self.tp is not None:
+                return self._cross_tp(x, k, v)
             return self.project_out(self.attend(self.project_q(x), k, v,
                                                  causal=False), x.dtype)
         if self.tp is not None:
@@ -487,6 +490,19 @@ class Attention(nn.Module):
         q, k = self.apply_positions(q, k, positions)
         k, v = self._tp_kv_of_q(k, v, plan[tp.rank][1][0])
         return self._tp_out(self.attend(q, k, v), x.dtype, h0)
+
+    def _cross_tp(self, x, k, v):
+        """Cross-attention under the model axis over the whole pre-projected
+        k, v (B, T, Hkv, D), equal on every rank: this rank's query heads,
+        the kv heads they read cut from k and v, no positions and no
+        mask, its rows of ``wo`` summed over the axis."""
+        tp, cast = self.tp, self.policy.cast
+        plan = self._tp_plan()
+        q = self._tp_project(tp.copy(cast(x)), "wq", "bq",
+                             [p[0] for p in plan])
+        k, v = self._tp_kv_of_q(k, v, 0)
+        return self._tp_out(self.attend(q, k, v, causal=False), x.dtype,
+                            plan[tp.rank][0][0])
 
     def prefill_tp(self, x, positions, max_len: int, dtype):
         """The prefill forward of x (B, S, dim) under the model axis and

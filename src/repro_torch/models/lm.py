@@ -663,7 +663,13 @@ class Encoder(nn.Module):
     added in the frames' dtype (so its residual stream is f32 for f32
     frames, whatever the compute dtype), ``encoder_layers`` attn blocks
     with non-causal self-attention and no rotary positions, then
-    ``ln_f``.  Its layers are not rematerialised, as in the reference."""
+    ``ln_f``.  Its layers are not rematerialised, as in the reference.
+    Over a model axis (``tp``) the rules split ``pos_embed``'s positions
+    as they split a vocabulary (its name ends in ``embed``) where the
+    axis divides ``enc_len``: every rank gathers it whole and adds it
+    alike."""
+
+    tp = None
 
     def __init__(self, cfg: LMConfig, *, generator, device):
         super().__init__()
@@ -676,7 +682,9 @@ class Encoder(nn.Module):
 
     def forward(self, frames):
         """frames (B, T, D), T <= enc_len -> (B, T, D) in their dtype."""
-        x = frames + self.pos_embed.to(frames.dtype)[None, :frames.shape[1]]
+        pos = self.pos_embed if self.tp is None \
+            else self.tp.whole(self, "pos_embed")
+        x = frames + pos.to(frames.dtype)[None, :frames.shape[1]]
         for layer in self.layers:
             x = layer(x)
         return self.ln_f(x)
@@ -698,9 +706,11 @@ class LM(nn.Module):
     ``assign=True``).  ``device=None`` is the card.
 
     Over a model axis (``parallel.tensor_parallel.shard_model``, which
-    sets ``model_axis``) the embedding and the head are vocab-parallel:
-    :meth:`embed_tokens` looks up this rank's rows and sums over the axis,
-    and :meth:`logits` returns this rank's columns of the vocabulary.
+    sets ``model_axis``) the embedding and the head are vocab-parallel
+    where the axis divides the vocabulary (``tp``): :meth:`embed_tokens`
+    looks up this rank's rows and sums over the axis, and :meth:`logits`
+    returns this rank's columns of the vocabulary.  Else (whisper's
+    51 865) both stay whole and ``tp`` None.
     """
 
     tp = None
@@ -764,7 +774,8 @@ class LM(nn.Module):
         """Token embeddings (B, S, D) in the compute dtype; with
         ``vision_embeds`` (B, S_vis, D), those (cast to the compute dtype)
         in place of the first S_vis positions' (the reference's Qwen2-VL
-        stub frontend)."""
+        stub frontend), spliced after the vocab-parallel lookup is summed,
+        so they are whole on every rank."""
         if self.tp is not None:
             x = self.tp.reduce(self.tp.embed(self.embed, tokens).to(
                 self.cfg.compute_dtype))
@@ -784,6 +795,26 @@ class LM(nn.Module):
             xc = self.tp.copy(xc)
         head = self.embed.T if self.cfg.tie_embeddings else self.head
         return xc @ head.to(cd)
+
+    def encode(self, enc_frames):
+        """:func:`lm_encode`'s body: a method, so that a data-parallel
+        layout can gather ``enc_kv_proj`` around it
+        (``parallel.data_parallel``)."""
+        cfg = self.cfg
+        out = self.encoder(enc_frames)
+        cast = cfg.policy.cast
+        b, t, _ = out.shape
+        # The model axis that the cross-attention splits its heads over
+        # (None: no axis, or every rank runs it whole).
+        tp = next((block.xattn.tp for _, _, block in self.walk()
+                   if isinstance(block, XAttnBlock)), None)
+
+        def kv(name):
+            if tp is None:
+                return cast(out) @ cast(self.enc_kv_proj[name])
+            return tp.product(self.enc_kv_proj, name, cast(out), cast)
+        return tuple(kv(name).reshape(b, t, cfg.n_kv_heads, cfg.hd)
+                     for name in ("wk", "wv"))
 
     def forward(self, tokens):
         return apply_lm(self, tokens)
@@ -853,15 +884,14 @@ def lm_encode(model: LM, enc_frames):
     keys and values (the reference's ``_apply_encoder`` then
     ``_encoder_kv``): ``enc_kv`` = (k, v), each (B, T, Hkv, D) in the
     compute dtype, which :func:`lm_prefill` and :func:`lm_decode_step`
-    take.  Raises for a model without an encoder."""
-    cfg = model.cfg
-    if not cfg.encoder_layers:
-        raise ValueError(f"{cfg.name} has no encoder")
-    out = model.encoder(enc_frames)
-    cast = cfg.policy.cast
-    b, t, _ = out.shape
-    return tuple((cast(out) @ cast(model.enc_kv_proj[name])).reshape(
-        b, t, cfg.n_kv_heads, cfg.hd) for name in ("wk", "wv"))
+    take.  Raises for a model without an encoder.  Over a model axis the
+    encoder's output is whole on every rank, and so are k and v: each
+    rank's product with its columns of ``enc_kv_proj``, gathered
+    (``ModelAxis.product``), the backward summing the ranks' gradients
+    (each xattn block reads its own heads' part of them)."""
+    if not model.cfg.encoder_layers:
+        raise ValueError(f"{model.cfg.name} has no encoder")
+    return model.encode(enc_frames)
 
 
 def _forward(model: LM, tokens, ctx: Ctx | None, vision_embeds=None,
@@ -938,8 +968,8 @@ def init_lm_cache(cfg: LMConfig, batch: int, max_len: int, *, device,
     positions; the O(W) GSPN state, the conv tails and SSM states of the
     mamba kind and the mlstm and slstm states are whole on every rank."""
     def stacked(kind, lead):
-        kw = {"model_axis": model_axis} if kind in ("attn", "attn_moe") \
-            else {}
+        kw = {"model_axis": model_axis} \
+            if kind in ("attn", "attn_moe", "xattn") else {}
         one = KINDS[kind].init_cache(cfg, batch, max_len, device=device,
                                      **kw)
         return {k: v.expand(lead + v.shape).clone() for k, v in one.items()}
@@ -966,9 +996,9 @@ def lm_prefill(model: LM, tokens, max_len: int, *, ctx: Ctx | None = None,
     the first embeddings, as in :func:`apply_lm`, the positions stay
     ``arange(S)``, and the xattn blocks attend to ``enc_kv`` from
     :func:`lm_encode`.  Returns (logits (B, S, V), caches).  A model
-    sharded over a model axis (every kind but xattn) runs its layers as
-    in training, fills this rank's part of each KV cache and the whole of
-    every other cache leaf (:func:`init_lm_cache`'s ``model_axis``) and
+    sharded over a model axis runs its layers as in training, fills this
+    rank's part of each KV cache and the whole of every other cache leaf
+    (:func:`init_lm_cache`'s ``model_axis``), reads ``enc_kv`` whole and
     gathers the logits."""
     _check_ctx(model, ctx)
     x = model.embed_tokens(tokens, vision_embeds)

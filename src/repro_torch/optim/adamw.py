@@ -68,14 +68,15 @@ def global_norm(tensors) -> torch.Tensor:
 
 
 def clip_by_global_norm(tensors, max_norm, norm=None):
-    """(tensors scaled so their global norm is at most ``max_norm``, the
-    norm before scaling); ``norm``, when given, is that norm (a sharded
-    step's, over every rank's shards)."""
+    """(an iterator over ``tensors`` scaled so their global norm is at
+    most ``max_norm``, the norm before scaling); ``norm``, when given, is
+    that norm (a sharded step's, over every rank's shards)."""
     tensors = list(tensors)
     if norm is None:
         norm = global_norm(tensors)
     scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-9), max=1.0)
-    return [(a.float() * scale).to(a.dtype) for a in tensors], norm
+    # Each scaled tensor is made as it is read: one leaf's copy at a time.
+    return ((a.float() * scale).to(a.dtype) for a in tensors), norm
 
 
 def adamw_init(cfg: AdamWConfig, params) -> dict:
@@ -128,7 +129,9 @@ def adamw_update(cfg: AdamWConfig, grads, state, params, norm=None) -> dict:
     """One AdamW step: clip ``grads`` by their global norm, then update
     ``params`` and the moments of ``state`` in place.  ``norm(grads)``,
     when given, computes the global norm (a sharded step's).  Returns
-    {"lr", "grad_norm", "step"}."""
+    {"lr", "grad_norm", "step"}.  One leaf's clipped gradient and
+    temporaries are alive at a time, updated in place where that gives
+    the same bits: at most three of a leaf's size."""
     step = state["step"] + 1
     lr = lr_at(cfg, step)
     names = list(params)
@@ -139,7 +142,10 @@ def adamw_update(cfg: AdamWConfig, grads, state, params, norm=None) -> dict:
     step_f = torch.tensor(step, dtype=torch.float32)
     bc1 = 1 - b1 ** step_f
     bc2 = 1 - b2 ** step_f
-    for n, g in zip(names, clipped):
+    for n in names:
+        # next(), not zip(): zip's reused result tuple would keep the
+        # previous leaf's clipped gradient alive.
+        g = next(clipped)
         p, m, v = params[n], state["m"][n], state["v"][n]
         decay = cfg.weight_decay if (cfg.weight_decay and decays(n, p)) \
             else 0.0
@@ -147,14 +153,24 @@ def adamw_update(cfg: AdamWConfig, grads, state, params, norm=None) -> dict:
         cd = torch.float32 if torch.float32 in (p.dtype, m.dtype) \
             else p.dtype
         gf = g.to(cd)
-        mf = m.to(cd) * b1 + gf * (1 - b1)
-        vf = v.to(cd) * b2 + gf.square() * (1 - b2)
-        upd_dir = (mf / bc1.to(cd)) / (torch.sqrt(vf / bc2.to(cd)) + cfg.eps)
-        pf = p.to(cd)
-        if decay:
-            upd_dir = upd_dir + decay * pf
-        p.copy_(pf - lr.to(cd) * upd_dir)
+        del g
+        g1 = gf * (1 - b1)
+        g2 = gf.square().mul_(1 - b2)
+        del gf
+        mf = (m.to(cd) * b1).add_(g1)
+        del g1
+        vf = (v.to(cd) * b2).add_(g2)
+        del g2
         m.copy_(mf)
         v.copy_(vf)
+        # mf / bc1 / (sqrt(vf / bc2) + eps), in the moments' buffers.
+        upd_dir = mf.div_(bc1.to(cd)).div_(
+            vf.div_(bc2.to(cd)).sqrt_().add_(cfg.eps))
+        del vf
+        pf = p.to(cd)
+        if decay:
+            upd_dir.add_(decay * pf)
+        p.copy_(pf - upd_dir.mul_(lr.to(cd)))
+        del pf, mf, upd_dir
     state["step"] = step
     return {"lr": lr, "grad_norm": gnorm, "step": step}

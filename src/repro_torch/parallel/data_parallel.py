@@ -139,7 +139,8 @@ class DataParallel:
     def shard(self):
         """Apply FSDP2 to every block and to the model over the data axes
         (each rank's model-local shard); returns self."""
-        from torch.distributed.fsdp import FSDPModule, fully_shard
+        from torch.distributed.fsdp import (FSDPModule, fully_shard,
+                                            register_fsdp_forward_method)
         from torch.distributed.tensor import Shard
 
         if not self.fsdp or isinstance(self.model, FSDPModule):
@@ -157,6 +158,10 @@ class DataParallel:
         for mod in modules:
             fully_shard(mod, mesh=fsdp_mesh, shard_placement_fn=place,
                         ignored_params=ignored)
+        if getattr(self.model, "encoder", None) is not None:
+            # The root's own sharded leaves (``enc_kv_proj``) are gathered
+            # around the encoder's call, the root's forward in a step.
+            register_fsdp_forward_method(self.model, "encode")
         if self.counted:
             for mod in modules:
                 mod.set_custom_all_gather(collectives.CountedAllGather())

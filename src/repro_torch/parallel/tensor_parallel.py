@@ -33,9 +33,20 @@ replicated parameters need no reduction over ``model``.
 parameter the rules split over ``model`` keeps its contiguous slice,
 rank ``r`` of ``M`` taking part ``r``, in the rules' order; the layers
 that split their arithmetic along it get the :class:`ModelAxis`
-(``module.tp``).  The ``xattn`` kind, the VL and audio models and
-``gspn_impl="sp"`` raise under a model axis larger than 1 (ROADMAP.md
-§1 item 6.2).
+(``module.tp``).  Only ``gspn_impl="sp"`` raises under a model axis
+larger than 1 (ROADMAP.md §1 item 6.2).
+
+Whisper's encoder runs its attention and GELU MLP split as the decoder's
+blocks do (its ``pos_embed``, which the rules split as a vocabulary,
+gathered whole), its output whole on every rank; its keys and values
+(``models.lm.lm_encode``) are each rank's product with its columns of
+``enc_kv_proj``, gathered whole (:meth:`ModelAxis.product`), and each
+xattn block's cross-attention reads the kv heads of its own query heads
+from them.  The VL model's M-RoPE rotates each rank's heads, and its
+vision embeddings replace the first positions after the vocab-parallel
+lookup is summed.  Where the axis does not divide the vocabulary
+(whisper's 51 865) the rules keep the embedding and the head whole, the
+LM has no ``tp`` and its loss is the whole cross entropy.
 
 The recurrent mixers (``mamba``, ``mlstm``, ``slstm``) pack several
 heads' projections into one matrix (Mamba-2's z | x | B | C | dt, the
@@ -74,8 +85,6 @@ from repro_torch.parallel import collectives
 from repro_torch.parallel.sharding import sharded_dim, spec_for_param
 
 MODEL_AXIS = "model"
-# Block kinds that run under a model axis larger than 1.
-KINDS = ("gspn", "attn", "attn_moe", "mamba", "mlstm", "slstm")
 
 
 class ModelAxis:
@@ -374,27 +383,15 @@ class HeadParallel(nn.Module):
 
 def check_model_axis(cfg, size: int) -> None:
     """Raise for what does not run under a model axis of ``size`` > 1:
-    the ``xattn`` kind, the VL and audio models, ``gspn_impl="sp"`` and
-    an attn_moe layer whose slabs are laid out for another extent."""
+    ``gspn_impl="sp"`` and an attn_moe layer whose slabs are laid out for
+    another extent."""
     if size <= 1:
         return
     kinds = {kind for _, kind, _ in cfg.stages()}
-    if cfg.shared_attn:
-        kinds.add("attn")
-    out = sorted(kinds - set(KINDS))
-    why = []
-    if out:
-        why.append(f"the {', '.join(out)} kind")
-    if cfg.encoder_layers:
-        why.append("the audio encoder")
-    if cfg.mrope_sections is not None:
-        why.append("the VL model")
     if "gspn" in kinds and cfg.gspn_impl == "sp":
-        why.append('gspn_impl="sp"')
-    if why:
         raise NotImplementedError(
-            f"{cfg.name}: {' and '.join(why)} under a model axis of {size} "
-            f"is not in the port yet; ROADMAP.md §1 item 6.2 keeps it")
+            f'{cfg.name}: gspn_impl="sp" under a model axis of {size} is '
+            f"not in the port yet; ROADMAP.md §1 item 6.2 keeps it")
     if "attn_moe" in kinds and cfg.n_model_shards != size:
         raise ValueError(
             f"{cfg.name}: the MoE's slabs are laid out for n_model_shards="
@@ -408,12 +405,13 @@ def _split_by(module):
     from repro_torch.core.gspn import GSPNSeqMixer
     from repro_torch.models.attention import Attention
     from repro_torch.models.layers import GeluMLP, SwiGLU
-    from repro_torch.models.lm import LM
+    from repro_torch.models.lm import LM, Encoder
     from repro_torch.models.moe import MoE
 
     for cls, key in ((SwiGLU, "down"), (GeluMLP, "fc2"), (Attention, "wo"),
                      (MoE, "gate_slab"), (GSPNSeqMixer, "*"),
-                     (HeadParallel, "*"), (LM, "embed")):
+                     (HeadParallel, "*"), (LM, "embed"),
+                     (Encoder, "pos_embed")):
         if isinstance(module, cls):
             return key
     return None

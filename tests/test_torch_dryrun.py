@@ -7,9 +7,11 @@ module forces 512 host devices at import).  A cell of reduced
 ``qwen2-1.5b`` runs under a fake process group of 8 ranks on (data 4,
 model 2), as the reference's ``test_dryrun_cell_builds_and_compiles_small_mesh``
 compiles it: it ends ``ok`` with FLOPs and a peak, and the data axis's
-collective bytes are the sum that the sharding specs give.  The cells
-that fail by design on the production mesh are exactly those of the
-kinds the model axis does not run yet, checked without running them.
+collective bytes are the sum that the sharding specs give.  Every LM
+cell that is not skipped passes ``check_model_axis`` on the production
+mesh's model axis, checked without running it, and the decode cell of
+reduced whisper passes the encoder's ``enc_kv`` to ``lm_decode_step``,
+as the reference's does.
 """
 
 import dataclasses
@@ -29,8 +31,6 @@ from repro_torch.parallel import tensor_parallel as tpar
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ENV = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"),
            JAX_PLATFORMS="cpu")
-# The models outside the model axis's slice (ROADMAP.md §1 item 6.2).
-OUT_OF_SLICE = {"qwen2-vl-72b", "whisper-base"}
 
 
 def _run(args, timeout=300):
@@ -58,22 +58,20 @@ def test_list_and_cell_matrix_match_the_reference():
 
 
 def test_failing_cells_are_exactly_the_out_of_slice_kinds():
-    """On the production mesh's model axis of 16, ``check_model_axis``
-    refuses (naming item 6.2) the configs of qwen2-vl and whisper and
-    accepts every other, zamba2's and xlstm's among them: 6 cells a mesh
-    that are not skipped."""
-    failing = []
+    """No cell fails by design: on the production mesh's model axis of
+    16, ``check_model_axis`` accepts the config of every LM cell that is
+    not skipped (36 cells a mesh, qwen2-vl's and whisper's 6 among
+    them)."""
+    checked = []
     for kind, arch, shape, skip in cell_matrix():
         if kind != "lm" or skip is not None:
             continue
-        try:
-            tpar.check_model_axis(tbase.get_arch(arch).full(
-                n_model_shards=16), 16)
-        except NotImplementedError as exc:
-            assert "item 6.2" in str(exc)
-            failing.append((arch, shape))
-    assert {a for a, _ in failing} == OUT_OF_SLICE
-    assert len(failing) == 6
+        tpar.check_model_axis(tbase.get_arch(arch).full(n_model_shards=16),
+                              16)
+        checked.append(arch)
+    assert len(checked) == 36
+    assert checked.count("qwen2-vl-72b") == checked.count("whisper-base") \
+        == 3
 
 
 def test_sweep_gives_the_token_loop_cells_their_timeout():
@@ -146,3 +144,66 @@ def test_dryrun_cell_on_a_fake_group_of_8(tmp_path):
     assert coll["total"] > out["data"]        # the model axis's too
     assert coll["reduce-scatter"] > 0 and coll["all-reduce"] > 0
     assert rec["bytes_hbm_calibrated"] is None and rec["hw"]["hbm_bw"]
+
+
+DECODE = """
+    import json, sys, torch
+    from torch.distributed.device_mesh import DeviceMesh
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.launch import dryrun, lowering
+    from repro_torch.models import lm
+
+    dryrun.fake_group(1)
+    mesh = DeviceMesh("cpu", torch.arange(1).reshape(1, 1),
+                      mesh_dim_names=("data", "model"))
+    built = []
+
+    class OnCPU(lm.LM):
+        # The cell's model on the CPU with seeded weights, kept to compare.
+        def __init__(self, cfg, device=None):
+            super().__init__(cfg, device="cpu",
+                             generator=torch.Generator().manual_seed(0))
+            built.append(self)
+
+    lowering.lm_mod.LM = OnCPU
+    cell = lowering.build_lm_cell(
+        "whisper-base", "tiny", mesh, spec=ShapeSpec("tiny", "decode", 16, 2),
+        reduced=True)
+    token, caches, enc_kv = cell.args
+    (model,) = built
+    cfg = model.cfg
+    shapes = [[list(t.shape), str(t.dtype), t.device.type] for t in enc_kv]
+    resident = any(t is enc_kv[0] for t in torch.utils._pytree.tree_flatten(
+        cell.resident)[0])
+    g = torch.Generator().manual_seed(1)
+    token = torch.randint(0, cfg.vocab, token.shape, generator=g)
+    prompt = torch.randint(0, cfg.vocab, (token.shape[0], 5), generator=g)
+    frames = torch.randn((token.shape[0], cfg.enc_len, cfg.d_model),
+                         generator=g)
+    with torch.no_grad():
+        kv = lm.lm_encode(model, frames)
+        _, caches = lm.lm_prefill(model, prompt, 16, enc_kv=kv)
+        got, _ = cell.fn(token, caches, kv)
+        want, _ = lm.lm_decode_step(model, token, caches, enc_kv=kv)
+        without, _ = lm.lm_decode_step(model, token, caches)
+    print(json.dumps({"shapes": shapes, "resident": resident,
+                      "equal": bool(torch.equal(got, want)),
+                      "cross": bool((got - without).abs().max() > 1e-3),
+                      "want": [token.shape[0], cfg.enc_len, cfg.n_kv_heads,
+                               cfg.hd, str(cfg.compute_dtype)]}))
+"""
+
+
+def test_whisper_decode_cell_takes_enc_kv():
+    """The decode cell of reduced whisper (``build_lm_cell(...,
+    reduced=True)``, one rank) takes ``enc_kv`` as the reference's cell
+    does: two (B, enc_len, Hkv, D) tensors in the compute dtype on
+    ``meta``, counted in ``resident``.  Given weights and the encoder's
+    keys and values, its program returns ``lm_decode_step(enc_kv=)``'s
+    logits bit for bit, which the cross-attention moves (they differ
+    from the step without ``enc_kv``)."""
+    out = json.loads(_run(["-c", textwrap.dedent(DECODE)])
+                     .strip().splitlines()[-1])
+    b, t, h, d, dtype = out["want"]
+    assert out["shapes"] == [[[b, t, h, d], dtype, "meta"]] * 2
+    assert out["resident"] and out["equal"] and out["cross"]

@@ -375,10 +375,10 @@ def test_registry_runs_only_what_the_port_runs():
         lm.LM(dataclasses.replace(tq.reduced(), unit=(("conv", 2),)),
               device="meta")
     # A seq mesh is accepted (the scans shard over it under impl="sp").
-    # A model axis is accepted too, and a model of any kind but xattn
-    # runs over it once parallel.tensor_parallel has sharded it: an
-    # unsharded model refuses the ctx, and impl="sp" with a model axis,
-    # like xattn, the encoder and the VL model, still waits for item 6.2.
+    # A model axis is accepted too, and a model of any kind, the encoder
+    # and the VL model included, runs over it once
+    # parallel.tensor_parallel has sharded it: an unsharded model refuses
+    # the ctx, and impl="sp" with a model axis still waits for item 6.2.
     seq = _Mesh(("data", "seq"), (2, 2))
     assert lm.Ctx(mesh=seq).mesh is seq
     model_ctx = lm.Ctx(mesh=_Mesh(("seq", "model"), (2, 2)))

@@ -6,8 +6,9 @@ case of its world size on the inputs the test wrote (first argument);
 rank 0 writes the results, every tensor gathered whole, to the ``.npz``
 named by the second argument.  The third argument is a scratch
 directory the test keeps (the checkpoint saved on ``(data 1, model
-2)``).  At world size 2 it also runs the sharded prefill and decode
-cases (``SERVE``), and at world size 4 the whole-path xLSTM twin's.  It
+2)``).  It runs the sharded prefill and decode cases of its world size
+(``SERVE``: at 4 the whole-path xLSTM twin, the 2-head whisper twin and
+qwen2-vl with its cache split by positions).  It
 imports no JAX: the reference's parameters arrive as numpy
 leaves under their pytree paths.
 
@@ -45,16 +46,29 @@ OPT = dict(lr=1e-3, warmup_steps=2, total_steps=10)
 # rank's rows of wo read one and a half heads, and K/V's 16 columns split
 # in half heads: both gathered whole.  zamba2 (8 heads) and xlstm (4)
 # run each rank's own heads; the 2-head xlstm twin at (1, 4) runs its
-# mixers whole on every rank, its split leaves gathered.
+# mixers whole on every rank, its split leaves gathered.  whisper's
+# encoder, self- and cross-attention and qwen2-vl's M-RoPE split their
+# heads; the 2-head whisper twin at (1, 4) holds half a head a rank in
+# all three, and the 509-token whisper twin keeps its embedding and head
+# whole (509 is prime).
 STEPS = {2: (("qwen2-1.5b-gspn", (1, 2)), ("qwen2-1.5b", (1, 2)),
-             ("zamba2-2.7b", (1, 2)), ("xlstm-1.3b", (1, 2))),
+             ("zamba2-2.7b", (1, 2)), ("xlstm-1.3b", (1, 2)),
+             ("whisper-base", (1, 2)), ("qwen2-vl-72b", (1, 2)),
+             ("whisper-base-v509", (1, 2))),
          4: (("qwen2-1.5b-gspn", (2, 2)), ("qwen2-1.5b", (2, 2)),
              ("qwen2-1.5b", (1, 4)), ("zamba2-2.7b", (2, 2)),
-             ("xlstm-1.3b", (2, 2)), ("xlstm-1.3b-2h", (1, 4)))}
+             ("xlstm-1.3b", (2, 2)), ("xlstm-1.3b-2h", (1, 4)),
+             ("whisper-base", (2, 2)), ("qwen2-vl-72b", (2, 2)),
+             ("whisper-base-2h", (1, 4)))}
 # Reduced twins of a registry arch: name -> (arch, config changes).  The
 # xlstm with 2 heads: at a model axis of 4 the rules still split its
-# in_proj, w_in and out_proj, and no rank holds a whole head.
-TWINS = {"xlstm-1.3b-2h": ("xlstm-1.3b", {"n_heads": 2, "n_kv_heads": 2})}
+# in_proj, w_in and out_proj, and no rank holds a whole head.  The
+# whisper with 2 heads of 32: at 4 each rank's 16 rows of wo (and 16
+# columns of enc_kv_proj) are half a head.
+TWINS = {"xlstm-1.3b-2h": ("xlstm-1.3b", {"n_heads": 2, "n_kv_heads": 2}),
+         "whisper-base-2h": ("whisper-base", {"n_heads": 2,
+                                              "n_kv_heads": 2}),
+         "whisper-base-v509": ("whisper-base", {"vocab": 509})}
 # The int8_ef steps: each global leaf's scale from a MAX over the axes
 # that slice it, the model axis's among them.
 INT8 = {2: (("qwen2-1.5b-gspn", (1, 2)), ("qwen2-1.5b", (1, 2))),
@@ -70,18 +84,28 @@ MOE = {2: (("grok2", "grok-1-314b", 2, {}),
 # changes): the GSPN mixer whole on each rank; qwen2-1.5b's 2 kv heads
 # split over the axis; one kv head, so the cache splits its positions;
 # grok's expert-parallel MoE at M = 2; zamba2's and xlstm's own heads a
-# rank (zamba2's shared attention block beside them); the 2-head xlstm
-# whole on each of 4 ranks.
+# rank (zamba2's shared attention block beside them); whisper from
+# lm_encode's enc_kv, its self- and cross-attention caches split by kv
+# heads; qwen2-vl with vision embeddings; at M = 4 the 2-head xlstm whole
+# on each rank, the 2-head whisper (half a head a rank, its caches split
+# by positions) and qwen2-vl, whose 2 kv heads leave the cache split by
+# positions.
 SERVE = {2: (("gspn", "qwen2-1.5b-gspn", {}), ("heads", "qwen2-1.5b", {}),
              ("seq", "qwen2-1.5b", {"n_kv_heads": 1}),
              ("moe", "grok-1-314b", {}), ("zamba2", "zamba2-2.7b", {}),
-             ("xlstm", "xlstm-1.3b", {})),
-         4: (("xlstm_whole", "xlstm-1.3b", TWINS["xlstm-1.3b-2h"][1]),)}
+             ("xlstm", "xlstm-1.3b", {}), ("whisper", "whisper-base", {}),
+             ("vl", "qwen2-vl-72b", {})),
+         4: (("xlstm_whole", "xlstm-1.3b", TWINS["xlstm-1.3b-2h"][1]),
+             ("whisper_2h", "whisper-base", TWINS["whisper-base-2h"][1]),
+             ("vl_seq", "qwen2-vl-72b", {}))}
 # The cache leaves that the model axis keeps whole on every rank: all
 # but the attention kinds' KV caches.
 SPLIT_LEAVES = ("k", "v")
-# Prompt tokens, the caches' max_len and the decode steps after them.
-PROMPT, MAX_LEN, DECODE_STEPS = 12, 16, 3
+# Prompt tokens, the caches' max_len and the decode steps after them;
+# the VL prompt's vision positions.
+PROMPT, MAX_LEN, DECODE_STEPS, VISION = 12, 16, 3, 4
+# The batch's leaves besides tokens and labels, by family.
+EXTRA = ("vision_embeds", "enc_frames")
 
 
 def config(arch, **changes):
@@ -147,8 +171,11 @@ def load_whole(setup, full: dict):
 
 
 def batch_of(inp, key, lo=None, hi=None):
+    """Rows [lo, hi) of the batch saved under ``key``: tokens, labels and
+    the family's vision embeddings or encoder frames."""
     return {k: torch.from_numpy(np.ascontiguousarray(
-        inp[f"{key}/{k}"][lo:hi])) for k in ("tokens", "labels")}
+        inp[f"{key}/{k}"][lo:hi])) for k in ("tokens", "labels") + EXTRA
+        if f"{key}/{k}" in inp}
 
 
 def _data_index(mesh):
@@ -210,7 +237,8 @@ def step_case(inp, out, arch, shape, comp="none"):
             out[f"{tag}/e/{n}"] = t.numpy()
     out[f"{tag}/meta"] = json.dumps({
         "bad": bad, "n_model_sharded": n_model,
-        "n_params": len(setup.state["params"])})
+        "n_params": len(setup.state["params"]),
+        "vocab_parallel": setup.model.tp is not None})
 
 
 def moe_case(inp, out, name, arch, m, changes):
@@ -258,15 +286,21 @@ def ce_case(inp, out, m):
     out[f"ce/{m}/embed_equal"] = bool(torch.equal(rows, table[tokens.long()]))
 
 
-def caches_agree(caches, axis) -> bool:
+def _bits_agree(t, axis) -> bool:
+    """Whether every rank of ``axis`` holds ``t``'s bits (and shape: the
+    gather needs one shape on every rank)."""
+    parts = [torch.empty_like(t) for _ in range(axis.size)]
+    dist.all_gather(parts, t.contiguous(), group=axis.group)
+    return all(torch.equal(p, t) for p in parts)
+
+
+def caches_agree(caches, axis, enc_kv=()) -> bool:
     """Whether every rank of ``axis`` holds each cache leaf at one shape,
-    and the bits of each leaf the axis keeps whole."""
-    ok = True
+    and the bits of each leaf the axis keeps whole and of ``enc_kv``."""
+    ok = all(_bits_agree(t, axis) for t in enc_kv)
     for sub in caches.values():
         for n, t in sub.items():
-            parts = [torch.empty_like(t) for _ in range(axis.size)]
-            dist.all_gather(parts, t.contiguous(), group=axis.group)
-            ok &= n in SPLIT_LEAVES or all(torch.equal(p, t) for p in parts)
+            ok &= _bits_agree(t, axis) or n in SPLIT_LEAVES
     return bool(ok)
 
 
@@ -278,8 +312,10 @@ def serve_case(inp, out, name, arch, changes):
     cache shapes, each KV cache gathered whole along its split dim, the
     recurrent kinds' cache leaves (whole on every rank), whether every
     rank holds the same whole leaves after the prefill and each decode
-    step, and whether ``lm_prefill_chunk`` and the engine refuse the
-    sharded model."""
+    step (and of whisper's ``enc_kv`` from ``lm_encode``, recorded), and
+    the exception with which ``lm_prefill_chunk`` and the engine refuse
+    the sharded model.  The VL prompt's first ``VISION`` positions are
+    vision embeddings."""
     from repro_torch.serve.engine import ServeEngine
 
     m = dist.get_world_size()
@@ -295,18 +331,27 @@ def serve_case(inp, out, name, arch, changes):
     tokens = torch.from_numpy(inp[f"serve/{name}/tokens"]).long()
     tag = f"serve/{name}"
     axis = model.model_axis
+    extra = {k: torch.from_numpy(inp[f"serve/{name}/{k}"]) for k in EXTRA
+             if f"serve/{name}/{k}" in inp}
     with torch.no_grad():
-        logits, caches = lm.lm_prefill(model, tokens[:, :PROMPT], MAX_LEN,
-                                       ctx=ctx)
-        agree = [caches_agree(caches, axis)]
+        enc_kv = None
+        if "enc_frames" in extra:
+            enc_kv = lm.lm_encode(model, extra["enc_frames"])
+            for n, t in zip("kv", enc_kv):
+                out[f"{tag}/enc_kv/{n}"] = t.numpy()
+        logits, caches = lm.lm_prefill(
+            model, tokens[:, :PROMPT], MAX_LEN, ctx=ctx, enc_kv=enc_kv,
+            vision_embeds=extra.get("vision_embeds"))
+        agree = [caches_agree(caches, axis, enc_kv or ())]
         out[f"{tag}/prefill"] = logits.numpy()
         out[f"{tag}/shapes"] = json.dumps({
             k: {n: list(v.shape) for n, v in sub.items()}
             for k, sub in caches.items()})
         for i in range(DECODE_STEPS):
             logits, caches = lm.lm_decode_step(
-                model, tokens[:, PROMPT + i:PROMPT + i + 1], caches, ctx=ctx)
-            agree.append(caches_agree(caches, axis))
+                model, tokens[:, PROMPT + i:PROMPT + i + 1], caches, ctx=ctx,
+                enc_kv=enc_kv)
+            agree.append(caches_agree(caches, axis, enc_kv or ()))
             out[f"{tag}/decode{i}"] = logits.numpy()
     out[f"{tag}/agree"] = json.dumps(agree)
     for key, sub in caches.items():
@@ -319,15 +364,15 @@ def serve_case(inp, out, name, arch, changes):
         if key.endswith(("_mamba", "_mlstm", "_slstm")):
             for n, t in sub.items():
                 out[f"{tag}/cache/{key}/{n}"] = t.numpy()
-    refused = []
+    refused = {}
     for what, call in (
             ("chunk", lambda: lm.lm_prefill_chunk(
                 model, tokens[:, :4], caches, 0, ctx=ctx)),
             ("engine", lambda: ServeEngine(model, max_len=MAX_LEN))):
         try:
             call()
-        except NotImplementedError:
-            refused.append(what)
+        except (NotImplementedError, ValueError) as exc:
+            refused[what] = type(exc).__name__
     out[f"{tag}/refused"] = json.dumps(refused)
 
 

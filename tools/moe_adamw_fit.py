@@ -9,11 +9,10 @@ generator, initialises AdamW's moments in ``--state-dtype``, and runs one
 step at 1 x ``--seq`` tokens under ``remat="unit"``.  It prints the
 card's name and power limit, the memory held after the state's
 initialisation, and either the step's ms and peak memory or, when the
-card runs out of memory, the peak reached before it did.  The parameters,
-their gradients, both moments and the clipped copy of
-``clip_by_global_norm`` hold 65.4 GB under bf16 moments before any
-temporary.  ``--smoke`` runs the reduced config on the CPU, to check the
-script.
+card runs out of memory, the peak reached before it did.  Besides the
+parameters, their gradients and both moments, AdamW holds one leaf's
+clipped gradient and temporaries at a time.  ``--smoke`` runs the
+reduced config on the CPU, to check the script.
 """
 
 from __future__ import annotations
